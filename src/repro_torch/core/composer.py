@@ -1,0 +1,235 @@
+"""The port's copy of ``repro.core.composer`` (framework-free).
+
+Developer programming model — tasklets, composer, Loop (§4.4, Fig. 6/9).
+
+A worker's task is a chain of small execution units (*tasklets*) combined with
+the overridden ``>>`` operator inside a ``Composer`` context. ``Loop`` wraps a
+sub-chain and repeats it until an exit condition holds. The composer exposes
+the surgical-edit API of Table 1 (``get_tasklet``/``insert_before``/
+``insert_after``/``replace_with``/``remove``), which is what lets a derived
+role (e.g. the CO-FL global aggregator) modify an inherited chain without
+re-chaining or touching the core library.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, List, Optional
+
+_current_composer = threading.local()
+
+
+class ComposerError(RuntimeError):
+    pass
+
+
+class Tasklet:
+    """A named execution unit. ``alias`` eases later chain modification."""
+
+    def __init__(self, alias: str, fn: Callable[[], object]) -> None:
+        self.alias = alias
+        self.fn = fn
+        self.composer: Optional["Composer"] = None
+        comp = getattr(_current_composer, "value", None)
+        if comp is not None:
+            comp._register(self)
+
+    # ------------------------------------------------------------------ #
+    # chaining:  a >> b >> c
+    # ------------------------------------------------------------------ #
+    def __rshift__(self, other: "Chainable") -> "Chain":
+        return Chain([self]) >> other
+
+    def run(self) -> object:
+        return self.fn()
+
+    # ------------------------------------------------------------------ #
+    # Table 1 surgical-edit API
+    # ------------------------------------------------------------------ #
+    def _require_composer(self) -> "Composer":
+        if self.composer is None or self.composer.chain is None:
+            raise ComposerError(f"tasklet {self.alias!r} is not part of a composed chain")
+        return self.composer
+
+    def insert_before(self, tasklet: "Tasklet") -> None:
+        comp = self._require_composer()
+        comp.chain._insert(self, tasklet, offset=0)
+        comp._register(tasklet)
+
+    def insert_after(self, tasklet: "Tasklet") -> None:
+        comp = self._require_composer()
+        comp.chain._insert(self, tasklet, offset=1)
+        comp._register(tasklet)
+
+    def replace_with(self, tasklet: "Tasklet") -> None:
+        comp = self._require_composer()
+        comp.chain._replace(self, tasklet)
+        comp._register(tasklet)
+
+    def remove(self) -> None:
+        comp = self._require_composer()
+        comp.chain._remove(self)
+
+    def __repr__(self) -> str:
+        return f"Tasklet({self.alias!r})"
+
+
+class Loop:
+    """Repeated execution of a chained sub-sequence until ``loop_check_fn``
+    returns True (checked *after* each pass — the paper's training loop exits
+    once ``_work_done`` is set by a terminal tasklet)."""
+
+    def __init__(self, loop_check_fn: Callable[[], bool], max_iters: int = 1_000_000):
+        self.loop_check_fn = loop_check_fn
+        self.max_iters = max_iters
+
+    def __call__(self, body: "Chainable") -> "LoopNode":
+        chain = body if isinstance(body, Chain) else Chain([body])
+        return LoopNode(self, chain)
+
+
+class LoopNode:
+    def __init__(self, loop: Loop, body: "Chain") -> None:
+        self.loop = loop
+        self.body = body
+
+    def __rshift__(self, other: "Chainable") -> "Chain":
+        return Chain([self]) >> other
+
+    def run(self) -> None:
+        for _ in range(self.loop.max_iters):
+            self.body.run()
+            if self.loop.loop_check_fn():
+                return
+        raise ComposerError("Loop exceeded max_iters without exit condition")
+
+
+Chainable = object  # Tasklet | LoopNode | Chain
+
+
+class Chain:
+    """An ordered sequence of tasklets / loop nodes, executed sequentially."""
+
+    def __init__(self, nodes: Optional[List[object]] = None) -> None:
+        self.nodes: List[object] = list(nodes or [])
+        # A chain built with >> inside a ``with Composer()`` block implicitly
+        # becomes that composer's workflow (paper Fig. 6 has no explicit
+        # "set chain" step).
+        comp = getattr(_current_composer, "value", None)
+        if comp is not None:
+            comp.chain = self
+
+    def __rshift__(self, other: Chainable) -> "Chain":
+        if isinstance(other, Chain):
+            self.nodes.extend(other.nodes)
+        else:
+            self.nodes.append(other)
+        # The outermost chain (last one extended) wins as the workflow.
+        comp = getattr(_current_composer, "value", None)
+        if comp is not None:
+            comp.chain = self
+        return self
+
+    def run(self) -> None:
+        for node in list(self.nodes):
+            node.run()  # type: ignore[attr-defined]
+
+    # -------------------------- edits ------------------------------- #
+    def _locate(self, target: Tasklet) -> Optional[tuple]:
+        for i, node in enumerate(self.nodes):
+            if node is target:
+                return (self, i)
+            if isinstance(node, LoopNode):
+                found = node.body._locate(target)
+                if found is not None:
+                    return found
+        return None
+
+    def _insert(self, anchor: Tasklet, new: Tasklet, offset: int) -> None:
+        found = self._locate(anchor)
+        if found is None:
+            raise ComposerError(f"tasklet {anchor.alias!r} not in chain")
+        chain, idx = found
+        chain.nodes.insert(idx + offset, new)
+
+    def _replace(self, anchor: Tasklet, new: Tasklet) -> None:
+        found = self._locate(anchor)
+        if found is None:
+            raise ComposerError(f"tasklet {anchor.alias!r} not in chain")
+        chain, idx = found
+        chain.nodes[idx] = new
+
+    def _remove(self, anchor: Tasklet) -> None:
+        found = self._locate(anchor)
+        if found is None:
+            raise ComposerError(f"tasklet {anchor.alias!r} not in chain")
+        chain, idx = found
+        del chain.nodes[idx]
+
+    def aliases(self) -> List[str]:
+        out: List[str] = []
+        for node in self.nodes:
+            if isinstance(node, Tasklet):
+                out.append(node.alias)
+            elif isinstance(node, LoopNode):
+                out.append(f"loop[{','.join(node.body.aliases())}]")
+        return out
+
+
+class Composer:
+    """Context manager collecting the tasklet chain a role composes.
+
+    The *last* chain assembled inside the context becomes the worker's
+    workflow. ``get_tasklet(alias)`` supports the Table 1 API.
+    """
+
+    def __init__(self) -> None:
+        self.chain: Optional[Chain] = None
+        self._tasklets: Dict[str, Tasklet] = {}
+
+    def __enter__(self) -> "Composer":
+        _current_composer.value = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _current_composer.value = None
+        # Adopt the chain assembled via >> among registered tasklets: find the
+        # chain object reachable from any registered tasklet's membership.
+        return None
+
+    def _register(self, t: Tasklet) -> None:
+        t.composer = self
+        self._tasklets[t.alias] = t
+
+    def set_chain(self, chain: Chainable) -> None:
+        self.chain = chain if isinstance(chain, Chain) else Chain([chain])
+
+    def get_tasklet(self, alias: str) -> Tasklet:
+        try:
+            return self._tasklets[alias]
+        except KeyError:
+            raise ComposerError(f"no tasklet with alias {alias!r}") from None
+
+    def has_tasklet(self, alias: str) -> bool:
+        """True iff ``alias`` is registered *and* still part of the chain
+        (a removed tasklet stays registered but is no longer runnable)."""
+        t = self._tasklets.get(alias)
+        if t is None or self.chain is None:
+            return False
+        return self.chain._locate(t) is not None
+
+    def run(self) -> None:
+        if self.chain is None:
+            raise ComposerError("composer has no chain (call set_chain)")
+        self.chain.run()
+
+
+class CloneComposer(Composer):
+    """Composer that inherits an existing composer's chain and tasklets, used
+    when a derived role surgically edits the parent's workflow (Fig. 9)."""
+
+    def __init__(self, parent: Composer) -> None:
+        super().__init__()
+        self.chain = parent.chain
+        self._tasklets = dict(parent._tasklets)
+        for t in self._tasklets.values():
+            t.composer = self
