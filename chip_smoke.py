@@ -6,10 +6,10 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the aggregation kernels from ``src/repro_torch/kernels/agg/csrc``
-(nvcc, at first use), then runs five phases, each printing one line:
+It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
+source, started together), then runs six phases, each printing one line:
 
-1. environment: torch/CUDA versions, the card, the kernel build;
+1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
    the same CUDA tensors (bytes equal for the exact entries; the fused
    weighted sum within 1e-6 of the summed magnitudes of its terms), and
@@ -21,9 +21,17 @@ It builds the aggregation kernels from ``src/repro_torch/kernels/agg/csrc``
    parameter tree of Qwen2.5-3B (published widths, depth cut from 36
    layers to 4), 8 trainers, 3 rounds, with the job's global weights held
    byte-equal to the plain fold of the same updates after every round;
-5. a ``kernels`` JSON line: launches on the main path (phase 4), time,
-   plain version's time, bound and a library call's time per kernel, at
-   the main path's shapes.
+5. codec: (a) the quant kernels against their plain versions on the card
+   (q and scales as bytes) over edge-case blocks; (b) the same job with the
+   param channel on the socket loopback (``backend="multiproc"``, codec
+   ``int8_blocks``): 4 trainers, 2 rounds, the job's weights byte-equal
+   every round to the plain fold of the plain-dequantized, plain-quantized
+   updates, byte counts and codec ratio equal to those worked out from the
+   shapes, kernel launches equal to the codec's encode/decode counts, and a
+   split of one round; (c) the quant kernels' times at full width;
+6. a ``kernels`` JSON line: launches on each path (phase 4 for the fold
+   kernels, phase 5's job for the quant kernels), time, plain version's
+   time, bound and a library call's time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -31,12 +39,15 @@ that line; so does a run without a CUDA device or outside a checkout.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import hashlib
 import json
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -52,7 +63,12 @@ from repro_torch.core.runtime import run_job  # noqa: E402
 from repro_torch.core.tag import DatasetSpec  # noqa: E402
 from repro_torch.core.topologies import classical_fl, hierarchical_fl  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core.channels import payload_bytes  # noqa: E402
 from repro_torch.kernels.agg import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.quant import kernel as qkernel  # noqa: E402
+from repro_torch.kernels.quant import ops as qops  # noqa: E402
+from repro_torch.kernels.quant import ref as qref  # noqa: E402
+from repro_torch.transport import wire  # noqa: E402
 from repro_torch.transport.conformance import SeededSGDTrainer  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
@@ -68,6 +84,10 @@ QWEN = dict(d_model=2048, heads=16, kv_heads=2, head_dim=128, d_ff=11008,
             vocab=151936, layers=4)
 QWEN_PARAMS = 619_474_944
 N_TRAINERS, ROUNDS = 8, 3
+# phase 5: the same tree over the socket loopback with the int8_blocks codec
+CODEC_TRAINERS, CODEC_ROUNDS = 4, 2
+QUANT_BLOCK = qkernel.BLOCK
+QWEN_BLOCKS = 151_239  # QWEN_PARAMS / 4096, exactly
 
 
 class PhaseFailed(RuntimeError):
@@ -79,10 +99,9 @@ def check(cond: bool, what: str) -> None:
         raise PhaseFailed(what)
 
 
-def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
-    )
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -106,17 +125,24 @@ def bound(nbytes: float, flops: float):
 # ---------------------------------------------------------------------- #
 # phase 1
 # ---------------------------------------------------------------------- #
+LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY)
+
+
 def phase_environment() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    kernel.build()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source
+        for fut in [pool.submit(lib.compile) for lib in LIBRARIES]:
+            fut.result()
+    for lib in LIBRARIES:
+        lib.load()
     build_s = time.perf_counter() - t0
-    log = kernel.library_path().with_name(kernel.library_path().name + ".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    ptxas = [ln.strip() for lib in LIBRARIES if lib.log_path().exists()
+             for ln in lib.log_path().read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
     print(f"phase environment: ok python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)!r} "
           f"build_s {build_s:.3f} ptxas {ptxas}", flush=True)
@@ -137,7 +163,7 @@ def phase_parity(dev: torch.device) -> None:
                 w = torch.rand(C, generator=gen, device=dev) * 30 + 1
                 den = torch.tensor([float(w.double().sum())], device=dev)
                 out = kernel.exact_fold(d, w, den)
-                check(same_bits(out, ref.exact_fold(d, w, den)),
+                check(same_bytes(out, ref.exact_fold(d, w, den)),
                       f"exact_fold C={C} N={N} {dtype}")
                 check(bool(torch.signbit(out[0])), f"exact_fold lost -0.0 C={C} N={N}")
                 fast = kernel.weighted_aggregate(d, w, den)
@@ -149,7 +175,7 @@ def phase_parity(dev: torch.device) -> None:
     d = torch.randn(7, 16_640, generator=gen, device=dev)
     w = torch.rand(7, generator=gen, device=dev) * 30 + 1
     den = torch.tensor([float(w.double().sum())], device=dev)
-    check(same_bits(kernel.exact_fold(d, w, den).cpu(),
+    check(same_bytes(kernel.exact_fold(d, w, den).cpu(),
                     ref.exact_fold(d.cpu(), w.cpu(), den.cpu())), "exact_fold card vs CPU")
     # streaming and divide entries, aligned and misaligned (scalar loop)
     for N in (1, 7, 130, 16_640, (1 << 20) + 3):
@@ -160,17 +186,17 @@ def phase_parity(dev: torch.device) -> None:
             acc = kernel.exact_fold_into(None, a, 3.0)
             acc = kernel.exact_fold_into(acc, b, 0.3)
             plain = ref.exact_fold_into(ref.exact_fold_into(None, a, 3.0), b, 0.3)
-            check(same_bits(acc, plain), f"exact_fold_into N={N} offset={offset}")
+            check(same_bytes(acc, plain), f"exact_fold_into N={N} offset={offset}")
             q = kernel.exact_divide(acc, 7.7)
-            check(same_bits(q, ref.exact_divide(acc, 7.7)), f"exact_divide N={N}")
+            check(same_bytes(q, ref.exact_divide(acc, 7.7)), f"exact_divide N={N}")
             inplace = acc.clone()
             kernel.exact_divide(inplace, 7.7, out=inplace)
-            check(same_bits(inplace, q), f"exact_divide in place N={N}")
+            check(same_bytes(inplace, q), f"exact_divide in place N={N}")
             cases += 3
         stacked = torch.randn(4 * N + 1, generator=gen, device=dev)[1:].view(4, N)
         w4 = torch.rand(4, generator=gen, device=dev) + 1
         den4 = torch.tensor([float(w4.double().sum())], device=dev)
-        check(same_bits(kernel.exact_fold(stacked, w4, den4), ref.exact_fold(stacked, w4, den4)),
+        check(same_bytes(kernel.exact_fold(stacked, w4, den4), ref.exact_fold(stacked, w4, den4)),
               f"exact_fold misaligned N={N}")
         cases += 1
     torch.cuda.synchronize()
@@ -178,7 +204,7 @@ def phase_parity(dev: torch.device) -> None:
     x = torch.randn(1 << 20, generator=gen, device=dev) * 1e3
     total = 7.7
     ieee = torch.from_numpy(x.cpu().numpy() / np.float32(total))
-    check(same_bits(ref.exact_divide(x, total).cpu(), ieee), "0-d tensor divide is not IEEE")
+    check(same_bytes(ref.exact_divide(x, total).cpu(), ieee), "0-d tensor divide is not IEEE")
     scalar = (x / total).cpu()
     differ = int((scalar.view(torch.int32) != ieee.view(torch.int32)).sum())
     print(f"phase parity: ok {cases} comparisons; cuda tensor/python_float is IEEE divide: "
@@ -369,7 +395,7 @@ def phase_full_width(dev: torch.device) -> dict:
         want = tree_leaves(mean)
         check(all(torch.isfinite(g).all() for g in got), f"round {rnd}: non-finite weights")
         for g, w in zip(got, want):
-            check(same_bits(g, w), f"round {rnd}: global weights differ from the plain fold")
+            check(same_bytes(g, w), f"round {rnd}: global weights differ from the plain fold")
             max_err = max(max_err, float((g - w).abs().max()))
         del acc, mean, got, want
 
@@ -434,7 +460,7 @@ def phase_full_width(dev: torch.device) -> dict:
     for d in stacked:
         exact = kernel.exact_fold(d, wts, den)
         plain = ref.exact_fold(d, wts, den)
-        check(same_bits(exact, plain), "exact_fold at full width")
+        check(same_bytes(exact, plain), "exact_fold at full width")
         fast = kernel.weighted_aggregate(d, wts, den)
         tol = WEIGHTED_RTOL * (wts[:, None] * d).abs().sum(0) / den
         diff = (fast - ref.weighted_aggregate(d, wts, den)).abs()
@@ -472,22 +498,369 @@ def _flat_shapes(tree):
 
 
 # ---------------------------------------------------------------------- #
-def kernels_line(full: dict) -> str:
-    src = "src/repro_torch/kernels/agg/csrc/agg.cu"
+# phase 5
+# ---------------------------------------------------------------------- #
+def edge_blocks(dev: torch.device, gen: torch.Generator) -> torch.Tensor:
+    """(9, 4096) f32 blocks: all zero, all -0.0, subnormals, +-3e38 among
+    small values, exact half-way ties at scale 1 and at scale 2, a NaN, +inf,
+    -inf. Rows 6-8 (NaN and infinities) are compared by scale only."""
+    x = torch.randn(9, QUANT_BLOCK, generator=gen, device=dev)
+    x[0] = 0.0
+    x[1] = -0.0
+    sign = torch.where(x[2] < 0, -1.0, 1.0)
+    x[2] = sign * torch.rand(QUANT_BLOCK, generator=gen, device=dev) * 1.1e-38
+    x[3] = x[3] * 1e-3
+    x[3, 0], x[3, 1] = 3e38, -3e38
+    k = torch.randint(-127, 127, (QUANT_BLOCK,), generator=gen, device=dev).float()
+    x[4] = k + 0.5            # absmax 126.5 or 127 -> ties of (k + 0.5) * scale
+    x[4, 0] = 127.0           # scale = 127 * f32(1/127) = 1.0 exactly
+    x[5] = 2.0 * k + 1.0      # (k + 0.5) * 2
+    x[5, 0] = 254.0           # scale 2.0
+    x[6, 17] = float("nan")
+    x[7, 5] = float("inf")
+    x[8, 9] = float("-inf")
+    return x
+
+
+def phase_codec_parity(dev: torch.device) -> dict:
+    """(a) each quant kernel against its plain version on the card, q and
+    scales compared as bytes."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = 0
+    errs = {"quantize_blocks": 0.0, "dequantize_blocks": 0.0}
+
+    def compare(x: torch.Tensor, finite_rows: slice = slice(None)) -> None:
+        nonlocal cases
+        q, s = qkernel.quantize_blocks(x)
+        pq, ps = qref.quantize_blocks(x)
+        check(torch.equal(torch.isnan(s), torch.isnan(ps)), "quantize: NaN scales differ")
+        keep = ~torch.isnan(ps)
+        check(same_bytes(s[keep], ps[keep]), f"quantize: scales differ (NB={x.shape[0]})")
+        check(same_bytes(q[finite_rows], pq[finite_rows]), f"quantize: q differs (NB={x.shape[0]})")
+        d = qkernel.dequantize_blocks(pq, ps)
+        pd = qref.dequantize_blocks(pq, ps)
+        check(torch.equal(torch.isnan(d), torch.isnan(pd)), "dequantize: NaNs differ")
+        fin = torch.isfinite(pd)
+        check(same_bytes(d[fin], pd[fin]) and torch.equal(d[~fin].isnan(), pd[~fin].isnan()),
+              f"dequantize differs (NB={x.shape[0]})")
+        qd = (q[finite_rows].float() - pq[finite_rows].float()).abs().max()
+        fin_s = torch.isfinite(ps)
+        errs["quantize_blocks"] = max(errs["quantize_blocks"], float(qd),
+                                      float((s[fin_s] - ps[fin_s]).abs().max()))
+        errs["dequantize_blocks"] = max(errs["dequantize_blocks"],
+                                        float((d[fin] - pd[fin]).abs().max()))
+        cases += 2
+
+    for nb in (1, 3, QWEN_BLOCKS):
+        scale = torch.exp(torch.randn(nb, 1, generator=gen, device=dev) * 4)
+        compare(torch.randn(nb, QUANT_BLOCK, generator=gen, device=dev) * scale)
+    edge = edge_blocks(dev, gen)
+    compare(edge, slice(0, 6))
+    q, s = qkernel.quantize_blocks(edge)
+    check(float(s[4]) == 1.0 and float(s[5]) == 2.0, "tie blocks: scale is not 1 and 2")
+    want = torch.round(edge[4:6] / s[4:6])  # half to even
+    check(torch.equal(q[4:6].float(), want), "ties did not round half to even")
+    check(bool((q[0:2] == 0).all()), "zero blocks: q is not 0")
+    check(same_bytes(s[0], torch.tensor([1e-30], device=dev) * torch.tensor(qref.INV_127, device=dev)),
+          "zero block: scale is not 1e-30 * f32(1/127)")
+    check(bool(torch.isnan(s[6])) and float(s[7]) == float("inf") and float(s[8]) == float("inf"),
+          "NaN/inf blocks: scale is not NaN / inf")
+    # n not a multiple of 4096, through the flat layer (zero padding)
+    n = 3 * QUANT_BLOCK + 1234
+    flat = torch.randn(n, generator=gen, device=dev)
+    q, s = qkernel.quantize_blocks(torch.cat([flat, flat.new_zeros(QUANT_BLOCK - 1234)]).view(-1, QUANT_BLOCK))
+    fq, fs = qops.quantize_flat(flat)
+    check(same_bytes(fq, q) and same_bytes(fs, s), "quantize_flat: padding differs")
+    back = qops.dequantize_flat(fq, fs, n)
+    check(back.shape == (n,) and same_bytes(back, qref.dequantize_blocks(q, s).view(-1)[:n]),
+          "dequantize_flat differs")
+    # the card's bits are the CPU's (the JAX package's CPU path gives those)
+    x = torch.randn(64, QUANT_BLOCK, generator=gen, device=dev) * 7
+    q, s = qkernel.quantize_blocks(x)
+    cq, cs = qref.quantize_blocks(x.cpu())
+    check(same_bytes(q.cpu(), cq) and same_bytes(s.cpu(), cs), "quantize: card differs from CPU")
+    torch.cuda.synchronize()
+    print(f"phase codec parity: ok {cases + 3} comparisons bit-equal (NB 1, 3, {QWEN_BLOCKS}; "
+          "zero, -0.0, subnormal, +-3e38, half-way ties at scales 1 and 2; NaN/inf by scale; "
+          f"n % 4096 = 1234; card vs CPU)", flush=True)
+    return errs
+
+
+def codec_tag():
+    """classical_fl with the param channel on the socket loopback, coded."""
+    tag = classical_fl()
+    return dataclasses.replace(tag, channels=tuple(
+        dataclasses.replace(c, backend="multiproc", codec="int8_blocks")
+        if c.name == "param-channel" else c for c in tag.channels))
+
+
+def _walk(tree, out):
+    """Leaves in the order the codec walks them: dicts in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _walk(v, out)
+    elif isinstance(tree, list):
+        for v in tree:
+            _walk(v, out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rebuild(v, it) for v in tree]
+    return next(it)
+
+
+def _plain_roundtrip(tree):
+    """The plain chain of one coded message: concatenate the leaves in the
+    codec's order, plain quantize, plain dequantize, split into leaves of
+    the same shapes and structure."""
+    leaves = _walk(tree, [])
+    n = sum(x.numel() for x in leaves)
+    flat = torch.cat([x.reshape(-1) for x in leaves] + [leaves[0].new_zeros((-n) % QUANT_BLOCK)])
+    q, s = qref.quantize_blocks(flat.view(-1, QUANT_BLOCK))
+    del flat
+    out = qref.dequantize_blocks(q, s).view(-1)
+    del q
+    parts, off = [], 0
+    for x in leaves:
+        parts.append(out[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+    return _rebuild(tree, iter(parts))
+
+
+def _expected_wire(shapes, n_leaves: int, n: int) -> dict:
+    """Bytes of one coded message and of its raw payload, worked out from
+    the shapes: the payloads are rebuilt with meta tensors (no data) and
+    counted by the wire format's rules."""
+    meta = _map_shapes(lambda s: torch.empty(s, device="meta"), shapes)
+    specs = [(tuple(s), "<f4") for s in _flat_shapes(shapes)]
+    it = iter(range(n_leaves))
+    marks = _map_shapes(lambda s: {"__qb__": next(it)}, shapes)
+    nb = -(-n // QUANT_BLOCK)
+
+    def coded(extra):
+        return {"__wire_codec__": "int8_blocks", "payload": {
+            "tree": {"weights": marks, **extra}, "q": torch.empty(n, dtype=torch.int8, device="meta"),
+            "scale": torch.empty(nb, 1, device="meta"), "specs": specs, "n": n}}
+
+    bcast, up = {"done": False}, {"num_samples": 1}
+    return {
+        "hub_bytes": payload_bytes(coded(bcast)),  # the same for an update
+        "raw_bcast": wire.encoded_size({"weights": meta, **bcast}),
+        "raw_up": wire.encoded_size({"weights": meta, **up}),
+        "coded_bcast": wire.encoded_size(coded(bcast)),
+        "coded_up": wire.encoded_size(coded(up)),
+    }
+
+
+class _Clock:
+    """Host-clock spans of one replayed piece, synchronized on the card."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def span(self, name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def _socket_crossing_ms(frame) -> float:
+    """One wire crossing of ``frame`` over a local socket pair: encode and
+    send on one thread, receive and decode on this one."""
+    import socket
+    a, b = socket.socketpair()
+    try:
+        t = threading.Thread(target=wire.send_obj, args=(a, frame))
+        t0 = time.perf_counter()
+        t.start()
+        wire.recv_obj(b)
+        t.join(timeout=600)
+        check(not t.is_alive(), "socket replay: sender did not finish")
+        return (time.perf_counter() - t0) * 1e3
+    finally:
+        a.close()
+        b.close()
+
+
+def phase_codec_job(dev: torch.device, errs: dict) -> dict:
+    """(b) the full-width job over the socket loopback with int8_blocks, and
+    (c) the quant kernels' times at its shapes."""
+    shapes = qwen_shapes()
+    n_params = sum(int(np.prod(s)) for s in _flat_shapes(shapes))
+    n_leaves = len(_flat_shapes(shapes))
+    check(n_params == QWEN_BLOCKS * QUANT_BLOCK, "tree is not a whole number of blocks")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), shapes)
+    job = JobSpec(
+        tag=codec_tag(),
+        datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(CODEC_TRAINERS)),
+        hyperparams={"rounds": CODEC_ROUNDS, "init_weights": init},
+    )
+    del init
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    t0 = time.perf_counter()
+    res = run_job(job, device=dev, timeout=900, program_overrides={
+        "trainer": NoiseTrainer, "global-aggregator": RecordingAggregator})
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in qkernel.KERNELS + kernel.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(not res.errors, f"codec job errors: {res.errors}")
+    stats = dict(res.channel_stats["param-channel"])
+    channel_bytes = res.channel_bytes["param-channel"]
+    root = next(p for p in res.programs.values() if isinstance(p, RecordingAggregator))
+    history, round_s = root.history, root.round_s
+    check(len(history) == CODEC_ROUNDS + 1, f"{len(history) - 1} rounds recorded")
+    datasets = sorted((w.worker_id, w.dataset) for w in res.workers if w.role == "trainer")
+    del res, root, job
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # launches and codec counts: a broadcast per round plus the closing one
+    # (one send_many encode each, a decode per trainer), an upload per
+    # trainer per round (an encode and a server decode each)
+    T, R = CODEC_TRAINERS, CODEC_ROUNDS
+    encodes, decodes = (R + 1) + R * T, (R + 1) * T + R * T
+    check(stats.get("payload_encodes") == encodes, f"encodes {stats.get('payload_encodes')} != {encodes}")
+    check(stats.get("payload_decodes") == decodes, f"decodes {stats.get('payload_decodes')} != {decodes}")
+    check(launches["quantize_blocks"] == encodes,
+          f"quantize launches {launches['quantize_blocks']} != encodes {encodes}")
+    check(launches["dequantize_blocks"] == decodes,
+          f"dequantize launches {launches['dequantize_blocks']} != decodes {decodes}")
+    check(launches["exact_fold_into"] > 0, "the codec job never ran the fold kernel")
+    # bytes: every delivered message counted by the hub; raw and coded sizes
+    # of every send (a broadcast counts once per trainer) by the client
+    exp = _expected_wire(shapes, n_leaves, n_params)
+    msgs = (R + 1) * T + R * T
+    check(channel_bytes == msgs * exp["hub_bytes"], f"channel_bytes {channel_bytes} != {msgs} x {exp['hub_bytes']}")
+    raw = (R + 1) * T * exp["raw_bcast"] + R * T * exp["raw_up"]
+    coded = (R + 1) * T * exp["coded_bcast"] + R * T * exp["coded_up"]
+    check(stats.get("raw_bytes") == raw, f"raw_bytes {stats.get('raw_bytes')} != {raw}")
+    check(stats.get("codec_ratio") == coded / raw, f"codec_ratio {stats.get('codec_ratio')} != {coded / raw}")
+
+    # every round: the plain chain from the previous global weights
+    for rnd in range(1, R + 1):
+        received = _plain_roundtrip(history[rnd - 1])
+        acc, total = None, 0.0
+        for _, dataset in datasets:
+            update = _plain_roundtrip(noisy(received, dataset, rnd))
+            m = float(samples_of(dataset))
+            total += m
+            acc = tree_map(lambda x: ref.exact_fold_into(None, x, m), update) if acc is None \
+                else tree_map(lambda a, x: ref.exact_fold_into(a, x, m), acc, update)
+            del update
+        mean = tree_map(lambda x: ref.exact_divide(x, total), acc)
+        got, want = tree_leaves(history[rnd]), tree_leaves(mean)
+        check(all(torch.isfinite(g).all() for g in got), f"codec round {rnd}: non-finite weights")
+        check(len(got) == len(want) and all(same_bytes(g, w) for g, w in zip(got, want)),
+              f"codec round {rnd}: global weights differ from the plain chain")
+        del received, acc, mean, got, want
+
+    # a split of one round, each piece replayed alone on the last round's data
+    clock = _Clock()
+    base = history[R - 1]
+    del history
+    leaves = tree_leaves(base)
+    codec = wire.Int8BlocksCodec()
+    payload = {"weights": base, "num_samples": samples_of(datasets[0][1])}
+    flat = clock.span("cat", lambda: torch.cat([x.reshape(-1) for x in leaves]))
+    q, s = clock.span("quantize", lambda: qkernel.quantize_blocks(flat.view(-1, QUANT_BLOCK)))
+    clock.span("d2h", lambda: (q.view(-1).cpu(), s.cpu()))
+    del flat
+    frame = clock.span("encode", lambda: wire.encode_payload(payload, codec))
+    socket_ms = _socket_crossing_ms(frame)
+    on_wire = wire.decode(wire.encode(frame))
+    clock.span("h2d", lambda: (torch.from_numpy(on_wire["payload"]["q"]).to(dev),
+                               torch.from_numpy(on_wire["payload"]["scale"]).to(dev)))
+    clock.span("dequantize", lambda: qkernel.dequantize_blocks(q, s))
+    decoded = clock.span("decode", lambda: wire.decode_payload(on_wire, dev))
+    updates = [decoded["weights"]] * T
+
+    def fold_round():
+        acc = None
+        for u in updates:
+            acc = ops.fold_into(acc, u, 100.0)
+        return ops.divide(acc, 100.0 * T)
+
+    clock.span("fold", fold_round)
+    del decoded, updates, on_wire, frame, payload
+    ms = clock.ms
+
+    # (c) kernel times at full width, CUDA events
+    x = torch.cat([x_.reshape(-1) for x_ in leaves]).view(-1, QUANT_BLOCK)
+    nb = x.shape[0]
+    q, s = qkernel.quantize_blocks(x)
+    nbytes = (5 * QUANT_BLOCK + 4) * nb
+    timings = {
+        "quantize_blocks": dict(
+            ms=cuda_ms(lambda: qkernel.quantize_blocks(x)),
+            plain_ms=cuda_ms(lambda: qref.quantize_blocks(x), reps=2),
+            library_ms=None,
+            bound=bound(nbytes, 6 * QUANT_BLOCK * nb), max_abs_err=errs["quantize_blocks"],
+        ),
+        "dequantize_blocks": dict(
+            ms=cuda_ms(lambda: qkernel.dequantize_blocks(q, s)),
+            plain_ms=cuda_ms(lambda: qref.dequantize_blocks(q, s), reps=2),
+            library_ms=cuda_ms(lambda: torch.mul(q, s)),
+            bound=bound(nbytes, 2 * QUANT_BLOCK * nb), max_abs_err=errs["dequantize_blocks"],
+        ),
+    }
+    check(same_bytes(torch.mul(q, s), qkernel.dequantize_blocks(q, s)), "torch.mul(q, s) differs")
+    del x, q, s, base, leaves
+    torch.cuda.empty_cache()
+    per_round = {
+        "encode_ms": ms["encode"] * (1 + T), "socket_ms": socket_ms * (1 + T + 2 * T),
+        "decode_ms": ms["decode"] * 2 * T, "fold_ms": ms["fold"],
+    }
+    tq, td = timings["quantize_blocks"], timings["dequantize_blocks"]
+    print(f"phase codec job: ok Qwen2.5-3B tree ({n_params} f32 params, {nb} blocks, layers 36->4) "
+          f"over the socket loopback with int8_blocks, {T} trainers, {R} rounds byte-equal to the "
+          f"plain chain; job_s {job_s:.3f} round_wall_s {[round(t, 4) for t in round_s]} "
+          f"peak_device_gb {peak_gb:.2f} channel_bytes {channel_bytes} raw_bytes {raw} "
+          f"codec_ratio {coded / raw:.6f} encodes {encodes} decodes {decodes}; "
+          f"one message: encode_ms {ms['encode']:.3f} (cat {ms['cat']:.3f} quantize {ms['quantize']:.3f} "
+          f"d2h {ms['d2h']:.3f}) socket_crossing_ms {socket_ms:.3f} decode_ms {ms['decode']:.3f} "
+          f"(h2d {ms['h2d']:.3f} dequantize {ms['dequantize']:.3f}) fold_{T}_updates_ms {ms['fold']:.3f}; "
+          f"serial sum per round {json.dumps({k: round(v, 3) for k, v in per_round.items()})}; "
+          f"quantize ms {tq['ms']:.3f} dequantize ms {td['ms']:.3f} bound_ms {tq['bound'][0]:.3f}",
+          flush=True)
+    return {"launches": launches, "timings": timings}
+
+
+# ---------------------------------------------------------------------- #
+def kernels_line(full: dict, codec: dict) -> str:
+    agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
+    quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
     rows = [
-        ("exact_fold_into", fold, True, "torch.add(acc, d, alpha=w, out=acc)"),
-        ("exact_divide", fold, True, "torch.div(x, den)"),
-        ("exact_fold", fold, False, "torch.mv(d.t(), w / den)"),
-        ("weighted_aggregate", "src/repro/kernels/agg/kernel.py:74", False,
-         "torch.mv(d.t(), w / den)"),
+        ("exact_fold_into", agg_src, fold, True, "torch.add(acc, d, alpha=w, out=acc)", full),
+        ("exact_divide", agg_src, fold, True, "torch.div(x, den)", full),
+        ("exact_fold", agg_src, fold, False, "torch.mv(d.t(), w / den)", full),
+        ("weighted_aggregate", agg_src, "src/repro/kernels/agg/kernel.py:74", False,
+         "torch.mv(d.t(), w / den)", full),
+        ("quantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:31", True,
+         "none: no one PyTorch call computes blockwise scales and codes", codec),
+        ("dequantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:50", True,
+         "torch.mul(q, scale)", codec),
     ]
     out = []
-    for name, replaces, on_path, library in rows:
-        t = full["timings"][name]
+    for name, src, replaces, on_path, library, run in rows:
+        t = run["timings"][name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": full["launches"][name], "on_main_path": on_path,
+            "launches": run["launches"][name], "on_main_path": on_path,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library_call": library,
@@ -506,7 +879,11 @@ def main() -> int:
     phase_parity(dev)
     phase_small_jobs(dev)
     full = phase_full_width(dev)
-    print(kernels_line(full), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = phase_codec_parity(dev)
+    codec = phase_codec_job(dev, errs)
+    print(kernels_line(full, codec), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,13 +13,20 @@ backend behind it. Backends registered here, all in-process:
 * ``p2p-emu``  — inproc with per-link bandwidth (direct peering);
 * ``collective`` — membership only during emulation.
 
-Payloads are trees whose leaves are ``torch.Tensor``s; they move by
-reference, never through the host. Wire cost is computed from leaf sizes
-under the channel's ``wire_dtype`` (``payload_bytes``), counting exactly the
-leaves and item sizes the JAX package counts.
+A socket-loopback transport, ``multiproc``, registers on import of
+``repro_torch.transport``: its channel's payloads cross a real socket in the
+wire format, coded by the channel's codec, while the rest of the job stays
+in-process.
 
-Not ported yet: the hub reduce plane and wire codecs, which need
-``transport/wire.py``; a channel with a codec raises ``NotImplementedError``.
+Payloads are trees whose leaves are ``torch.Tensor``s; on the in-process
+backends they move by reference, never through the host. Wire cost is
+computed from leaf sizes under the channel's ``wire_dtype``
+(``payload_bytes``), counting exactly the leaves and item sizes the JAX
+package counts; on a coded channel the in-process backends count the
+post-codec bytes without running the codec.
+
+Not ported yet: the hub reduce plane (``install_reduce`` raises
+``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -48,9 +55,8 @@ from repro_torch.core.tree import tree_leaves
 
 _WIRE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "int8": 1}
 
-_NOT_PORTED_WIRE = (
-    "needs the wire format (transport/wire.py), which the port does not have "
-    "yet (ROADMAP Queue 5/6)"
+_NOT_PORTED_REDUCE = (
+    "the hub reduce plane is not ported yet (ROADMAP Queue 1 item 6)"
 )
 
 
@@ -101,6 +107,24 @@ class WorkerDropped(RuntimeError):
         super().__init__(f"worker {worker!r} dropped out at t={at:.3f}s (virtual)")
         self.worker = worker
         self.at = at
+
+
+# Every operation a transport must provide; the conformance suite
+# (``repro_torch.transport.conformance``) checks their presence and semantics.
+TRANSPORT_OPS: Tuple[str, ...] = (
+    # membership
+    "join", "leave", "peers",
+    # messaging
+    "send", "send_many", "recv", "recv_any", "recv_fifo", "peek", "earliest",
+    # failure emulation / cancellation
+    "set_drop", "clear_drop", "drop_time", "poison", "check_poison",
+    # link / wire configuration
+    "set_link", "set_wire_dtype", "link",
+    # clocks
+    "now", "advance", "set_clock",
+    # reduce plane (not ported: raises NotImplementedError)
+    "install_reduce",
+)
 
 
 class TransportBackend(Protocol):
@@ -173,6 +197,16 @@ class TransportBackend(Protocol):
     def advance(self, worker: str, seconds: float) -> None: ...
     def set_clock(self, worker: str, at: float) -> None: ...
 
+    # --------------------------- reduce plane -------------------------- #
+    def install_reduce(
+        self,
+        channel: str,
+        group: str,
+        dst: str,
+        srcs: Sequence[str],
+        shards: int = 1,
+        fused: Optional[bool] = None,
+    ) -> None: ...
 
 
 class ChannelEnd:
@@ -309,6 +343,10 @@ class InprocBackend:
         self._boxes: Dict[Tuple[str, str, str, str], "queue.Queue[Message]"] = {}
         self._links: Dict[Tuple[str, str], LinkModel] = {}
         self._wire_dtype: Dict[str, str] = {}
+        # channel -> codec object used for *accounting only*: emulated
+        # payloads never leave the process, but a coded channel's transfer
+        # time and byte stats must reflect post-codec wire bytes
+        self._codec_acct: Dict[str, Any] = {}
         # broker contention is per *topic* — one receiver's subscription on a
         # (channel, group): transfers to the same receiver serialize on the
         # broker uplink, distinct topics proceed in parallel (§6.2)
@@ -327,8 +365,33 @@ class InprocBackend:
     def set_wire_dtype(self, channel: str, dtype: str) -> None:
         self._wire_dtype[channel] = dtype
 
+    def set_codec(self, channel: str, codec: str) -> None:
+        """Account ``channel``'s emulated wire bytes post-codec.
+
+        The codec is never run here (payloads stay in the process), but a
+        coded channel's ``transfer_time`` and ``stats["bytes:..."]`` follow
+        the codec's wire bytes; the raw size is kept in
+        ``raw_bytes:<channel>``. Unknown codec names raise ``WireError``."""
+        from repro_torch.transport.wire import make_codec
+
+        if codec:
+            self._codec_acct[channel] = make_codec(codec)
+        else:
+            self._codec_acct.pop(channel, None)
+
     def link(self, channel: str, worker: str) -> LinkModel:
         return self._links.get((channel, worker), LinkModel())
+
+    def install_reduce(
+        self,
+        channel: str,
+        group: str,
+        dst: str,
+        srcs: Sequence[str],
+        shards: int = 1,
+        fused: Optional[bool] = None,
+    ) -> None:
+        raise NotImplementedError(_NOT_PORTED_REDUCE)
 
     # --------------------------- dropout ------------------------------ #
     def set_drop(self, worker: str, at: float) -> None:
@@ -400,7 +463,7 @@ class InprocBackend:
 
     def _deliver_locked(
         self, channel: str, group: str, src: str, dst: str, payload: Any,
-        nbytes: int, dur: float,
+        nbytes: int, dur: float, raw_bytes: Optional[int],
     ) -> None:
         """One transfer's clock/broker/dropout arithmetic and delivery.
         Caller holds the lock."""
@@ -425,6 +488,8 @@ class InprocBackend:
         self._clock[src] = arrival
         self.stats[f"bytes:{channel}"] += nbytes
         self.stats[f"msgs:{channel}"] += 1
+        if raw_bytes is not None:
+            self.stats[f"raw_bytes:{channel}"] += raw_bytes
         self._box(channel, group, dst, src).put(Message(src, payload, nbytes, arrival))
 
     def send(self, channel: str, group: str, src: str, dst: str, payload: Any) -> None:
@@ -436,15 +501,23 @@ class InprocBackend:
         """Deliver one payload to every dst: the payload is sized once, and
         the per-destination arithmetic runs under one lock hold, so arrivals,
         stats and dropout behavior equal the ``for dst: send(dst)`` loop.
-        The same payload object is delivered by reference to each mailbox."""
+        The same payload object is delivered by reference to each mailbox.
+        On a coded channel the bytes counted (and timed) are the codec's
+        wire bytes, and the raw ones go to ``raw_bytes:<channel>``."""
         if not dsts:
             return
-        nbytes = payload_bytes(payload, self._wire_dtype.get(channel, "f32"))
+        wire = self._wire_dtype.get(channel, "f32")
+        codec = self._codec_acct.get(channel)
+        raw_bytes = payload_bytes(payload, wire)
+        nbytes = raw_bytes if codec is None else codec.wire_bytes(payload, wire)
         dur = self.link(channel, src).transfer_time(nbytes)
+        raw = None if codec is None else raw_bytes
         with self._lock:
             try:
                 for dst in dsts:
-                    self._deliver_locked(channel, group, src, dst, payload, nbytes, dur)
+                    self._deliver_locked(
+                        channel, group, src, dst, payload, nbytes, dur, raw
+                    )
             finally:
                 # wake receivers even when a mid-fan-out dropout aborts the
                 # loop — earlier destinations' messages are already delivered
@@ -594,6 +667,14 @@ def registered_backends() -> List[str]:
     return sorted(_BACKEND_FACTORIES)
 
 
+def backend_factory(name: str) -> Callable[[], TransportBackend]:
+    if name not in _BACKEND_FACTORIES:
+        raise KeyError(
+            f"unknown backend {name!r}; registered: {sorted(_BACKEND_FACTORIES)}"
+        )
+    return _BACKEND_FACTORIES[name]
+
+
 register_backend("inproc", lambda: InprocBackend("inproc"))
 register_backend("p2p-emu", lambda: InprocBackend("p2p-emu"))
 register_backend("mqtt-emu", lambda: InprocBackend("mqtt-emu", shared_broker=True))
@@ -605,22 +686,67 @@ register_backend("collective", lambda: InprocBackend("collective"))
 class ChannelManager:
     """Per-job channel fabric: instantiates one registered backend per
     channel spec and hands out ``ChannelEnd`` s to workers (the SDK's
-    channel manager)."""
+    channel manager).
 
-    def __init__(self, channel_specs: Sequence[ChannelSpec]):
+    ``backend_factory`` overrides the registry lookup with a per-spec
+    factory. ``device`` is the job's device: a backend that moves payloads
+    onto a device (the ``multiproc`` loopback's client ends) receives it
+    through its ``set_device`` op; without one such a backend places
+    received tensors on the card, and raises where there is none.
+    """
+
+    def __init__(
+        self,
+        channel_specs: Sequence[ChannelSpec],
+        backend_factory: Optional[Callable[[ChannelSpec], TransportBackend]] = None,
+        device: Any = None,
+    ):
         self._specs = {c.name: c for c in channel_specs}
         self._backends: Dict[str, TransportBackend] = {}
-        for c in channel_specs:
+        try:
+            for c in channel_specs:
+                self._backends[c.name] = self._make_backend(c, backend_factory, device)
+        except BaseException:
+            self.close()  # a loopback hub made before the failure
+            raise
+
+    def _make_backend(
+        self,
+        c: ChannelSpec,
+        backend_factory: Optional[Callable[[ChannelSpec], TransportBackend]],
+        device: Any,
+    ) -> TransportBackend:
+        if backend_factory is not None:
+            backend = backend_factory(c)
+        else:
+            if c.backend not in _BACKEND_FACTORIES:
+                # the socket-backed flavor registers on import of the
+                # transport package
+                import repro_torch.transport  # noqa: F401
             if c.backend not in _BACKEND_FACTORIES:
                 raise KeyError(
                     f"unknown backend {c.backend!r} for channel {c.name!r}; "
                     f"registered: {sorted(_BACKEND_FACTORIES)}"
                 )
             backend = _BACKEND_FACTORIES[c.backend]()
+        try:
             backend.set_wire_dtype(c.name, c.wire_dtype)
-            if getattr(c, "codec", ""):
-                raise NotImplementedError(f"wire codec {c.codec!r} {_NOT_PORTED_WIRE}")
-            self._backends[c.name] = backend
+            # opt-in wire codec: the socket transport runs it on the send
+            # path; the in-process backends account post-codec bytes only.
+            # Like set_device, the op is outside the TransportBackend protocol.
+            codec = getattr(c, "codec", "")
+            set_codec = getattr(backend, "set_codec", None)
+            if codec and set_codec is not None:
+                set_codec(c.name, codec)
+            set_device = getattr(backend, "set_device", None)
+            if device is not None and set_device is not None:
+                set_device(device)
+        except BaseException:
+            close = getattr(backend, "close", None)
+            if close is not None:
+                close()
+            raise
+        return backend
 
     def spec(self, channel: str) -> ChannelSpec:
         return self._specs[channel]
@@ -652,9 +778,42 @@ class ChannelManager:
         return int(self._backends[channel].stats.get(f"msgs:{channel}", 0))
 
     def channel_stats(self, channel: str) -> Dict[str, float]:
-        """Per-channel wire accounting: moved bytes and messages."""
+        """Per-channel wire accounting: moved bytes and messages plus, on
+        coded channels, the raw (pre-codec) bytes and the achieved ratio.
+        In-process backends report emulated post-codec bytes; the multiproc
+        client reports the measured sizes of the real coded frames and its
+        encode/decode counts."""
         stats = self._backends[channel].stats
-        return {
+        out: Dict[str, float] = {
             "bytes": float(stats.get(f"bytes:{channel}", 0.0)),
             "msgs": float(stats.get(f"msgs:{channel}", 0.0)),
         }
+        raw = stats.get(f"raw_bytes:{channel}")
+        if raw:
+            coded = stats.get(f"coded_bytes:{channel}", out["bytes"])
+            out["raw_bytes"] = float(raw)
+            out["codec_ratio"] = float(coded) / float(raw)
+        for key in ("payload_encodes", "payload_decodes"):
+            val = stats.get(f"{key}:{channel}")
+            if val is not None:
+                out[key] = float(val)
+        # session layer: recovery counters are transport-wide, surfaced here
+        # so a test reads "recovery happened" off the same dict
+        for key in ("resumes:", "replays:", "dedup_hits:"):
+            val = stats.get(key)
+            if val:
+                out[key.rstrip(":")] = float(val)
+        return out
+
+    def codec_ratio(self, channel: str) -> Optional[float]:
+        """Achieved wire-compression ratio on ``channel`` (coded / raw
+        bytes), or ``None`` when no coded traffic has been observed."""
+        return self.channel_stats(channel).get("codec_ratio")
+
+    def close(self) -> None:
+        """Release transports that hold OS resources (the multiproc loopback
+        owns a listening hub and sockets); idempotent."""
+        for backend in self._backends.values():
+            close = getattr(backend, "close", None)
+            if close is not None:
+                close()

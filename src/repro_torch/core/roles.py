@@ -120,9 +120,9 @@ def weighted_mean(updates: Sequence[Tuple[Any, float]]) -> Tuple[Optional[Any], 
     Returns ``(mean_tree, total_samples)``; ``(None, 0.0)`` when no update
     carries positive weight. Uniform float32 tensor trees go through one
     stacked exact fold per leaf (``aggregate_tree(exact=True)``); any other
-    trees through the streaming fold, whose errors surface as the JAX
-    package's sequential path raises them. Both are bit-identical to the
-    JAX package's ``weighted_mean``. Unlike the JAX package there is no
+    trees through the streaming fold (numpy's promotion for leaves that are
+    not float32 tensors). Both give the JAX package's ``weighted_mean``
+    bit for bit, in its dtypes. Unlike the JAX package there is no
     size threshold and no ``fused`` switch: a CUDA tree always goes through
     the kernels, a CPU tree through their plain versions.
     """
@@ -156,9 +156,11 @@ class StreamingMean:
     Bit-identity: each fold is the IEEE ``scale then add`` of the JAX
     package (``fmul`` by float32(n), ``fadd`` into the accumulator, which
     starts from the first scaled update), and ``finalize`` one IEEE divide
-    by float32(total). Leaves must be float32 tensors; a numpy leaf raises
-    ``TypeError``. With ``device`` set (the job's device), a leaf on another
-    device raises ``TypeError`` too, so a CUDA job never folds on the host.
+    by float32(total), on the kernels for float32 tensor leaves. Any other
+    leaf folds with numpy's promotion, as in the JAX package: ``{"w":
+    int32[4]}`` gives a float64 mean, a Python scalar a numpy float64.
+    With ``device`` set (the job's device), a tensor leaf on another device
+    raises ``TypeError``, so a CUDA job never folds its tensors on the host.
     """
 
     def __init__(self, device: Any = None) -> None:
@@ -172,9 +174,8 @@ class StreamingMean:
         if self.device is None:
             return
         for leaf in tree_leaves(tree):
-            where = getattr(leaf, "device", type(leaf).__name__)
-            if not isinstance(leaf, torch.Tensor) or where != self.device:
-                raise TypeError(f"update leaf on {where}; the job runs on {self.device}")
+            if isinstance(leaf, torch.Tensor) and leaf.device != self.device:
+                raise TypeError(f"update leaf on {leaf.device}; the job runs on {self.device}")
 
     def fold(self, weights: Any, n: float) -> None:
         self._check_device(weights)

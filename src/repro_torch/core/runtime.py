@@ -18,8 +18,7 @@ import importlib
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import torch
-
+from repro_torch.convert import resolve_device
 from repro_torch.core.channels import ChannelManager, LinkModel, WorkerDropped
 from repro_torch.core.events import (
     ChannelManagerTransport,
@@ -51,23 +50,6 @@ def resolve_program(path: str) -> type:
         return getattr(mod, name)
     except AttributeError:
         raise ImportError(f"program {name!r} not found in {module}") from None
-
-
-def resolve_device(device: Any = None) -> torch.device:
-    """The job's device: CUDA when ``device`` is None. Raises when CUDA is
-    asked for (or defaulted to) and absent, instead of running on the CPU."""
-    if device is None:
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: run_job runs on the card by default; pass "
-                "device='cpu' to run on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def static_membership(
@@ -280,6 +262,9 @@ class JobResult:
     programs: Dict[str, Role]
     channel_bytes: Dict[str, float]
     errors: Dict[str, BaseException]
+    # per channel: ChannelManager.channel_stats, read before the transports
+    # close (coded channels add raw_bytes, codec_ratio and codec counts)
+    channel_stats: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
     # event-driven extras (empty under the classic sync path)
     dropped: Dict[str, float] = dataclasses.field(default_factory=dict)
     events: List[Tuple[float, str, str]] = dataclasses.field(default_factory=list)
@@ -320,7 +305,7 @@ class JobRuntime:
         self.device = resolve_device(device)
         self.job = job
         self.workers = expand(job, registry)
-        self.channels = ChannelManager(job.tag.channels)
+        self.channels = ChannelManager(job.tag.channels, device=self.device)
         self.link_models = dict(link_models or {})
         self.per_worker_hyperparams = dict(per_worker_hyperparams or {})
         self.program_overrides = dict(program_overrides or {})
@@ -350,13 +335,22 @@ class JobRuntime:
     # execution
     # ------------------------------------------------------------------ #
     def run(self, timeout: float = 120.0) -> JobResult:
-        if self.policy.is_event_driven:
-            return self._run_events(timeout)
-        return self._run_sync(timeout)
+        try:
+            if self.policy.is_event_driven:
+                return self._run_events(timeout)
+            return self._run_sync(timeout)
+        finally:
+            # release socket-backed channel transports (no-op for emu ones)
+            self.channels.close()
 
     def _channel_bytes(self) -> Dict[str, float]:
         return {
             c.name: self.channels.total_bytes(c.name) for c in self.job.tag.channels
+        }
+
+    def _channel_stats(self) -> Dict[str, Dict[str, float]]:
+        return {
+            c.name: self.channels.channel_stats(c.name) for c in self.job.tag.channels
         }
 
     def _run_sync(self, timeout: float) -> JobResult:
@@ -393,6 +387,7 @@ class JobRuntime:
             workers=self.workers,
             programs=programs,
             channel_bytes=self._channel_bytes(),
+            channel_stats=self._channel_stats(),
             errors=errors,
         )
 
@@ -428,6 +423,7 @@ class JobRuntime:
             workers=self.workers,
             programs=programs,
             channel_bytes=self._channel_bytes(),
+            channel_stats=self._channel_stats(),
             errors=errors,
             dropped=engine.dropped,
             events=engine.events,

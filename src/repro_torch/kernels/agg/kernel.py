@@ -7,85 +7,38 @@ are allocated here with ``torch.empty``; the kernels allocate nothing and
 launch on the current stream. ``launches`` on each wrapper counts its kernel
 launches (CPU calls do not count).
 
-The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/repro_torch_kernels/`` at the root of the checkout (``build()``),
-under a name that hashes the source and flags, and loaded with ``ctypes``.
+The library is built and loaded at first use by ``repro_torch.kernels.build``
+(``build()``, ``library_path()``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.agg import ref
+from repro_torch.kernels.build import CudaLibrary, check_on_card, count_launch, stream_of
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "agg.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
-
-_lib: Optional[ctypes.CDLL] = None
-_lib_lock = threading.Lock()
-_count_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the aggregation kernels are built with it")
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    for name in ("agg_exact_fold", "agg_weighted_sum"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i64, ptr]
+        fn.restype = i32
+    lib.agg_exact_fold_into.argtypes = [ptr, ptr, f32, i32, i64, ptr]
+    lib.agg_exact_fold_into.restype = i32
+    lib.agg_exact_divide.argtypes = [ptr, ptr, f32, i64, ptr]
+    lib.agg_exact_divide.restype = i32
 
 
-def library_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libagg-{tag.hexdigest()[:12]}.so"
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source and flags) and load the kernel library.
-
-    nvcc's output, with ptxas's register and spill report, is kept beside
-    the library as ``<library>.log``."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        so = library_path()
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            so.with_name(so.name + ".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        for name in ("agg_exact_fold", "agg_weighted_sum"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i64, ptr]
-            fn.restype = i32
-        lib.agg_exact_fold_into.argtypes = [ptr, ptr, f32, i32, i64, ptr]
-        lib.agg_exact_fold_into.restype = i32
-        lib.agg_exact_divide.argtypes = [ptr, ptr, f32, i64, ptr]
-        lib.agg_exact_divide.restype = i32
-        _lib = lib
-        return lib
+LIBRARY = CudaLibrary("agg", SOURCE, _bind)
+build = LIBRARY.load
+library_path = LIBRARY.path
 
 
 def reset_launches() -> None:
@@ -93,36 +46,8 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def _launched(fn, err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
-    with _count_lock:
-        fn.launches += 1
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _check_on_card(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on anything else,
-    on mixed devices and on non-contiguous tensors."""
-    for t in tensors:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("tensors must be contiguous")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
 def _check_stacked(d: torch.Tensor, w: torch.Tensor, den: torch.Tensor) -> bool:
-    on_card = _check_on_card(d, w, den)
+    on_card = check_on_card(d, w, den)
     if d.dim() != 2:
         raise ValueError(f"rows must be (C, N), got shape {tuple(d.shape)}")
     if d.dtype not in (torch.float32, torch.bfloat16):
@@ -143,9 +68,9 @@ def _stacked(fn, name: str, d, w, den) -> torch.Tensor:
     with torch.cuda.device(d.device):
         err = getattr(lib, name)(
             d.data_ptr(), int(d.dtype == torch.bfloat16), w.data_ptr(),
-            den.data_ptr(), out.data_ptr(), C, N, _stream(d.device),
+            den.data_ptr(), out.data_ptr(), C, N, stream_of(d.device),
         )
-    _launched(fn, err, name)
+    count_launch(fn, err, name)
     return out
 
 
@@ -177,7 +102,7 @@ def exact_fold_into(
     (rounded once to float32): a new ``fmul(d, w)`` when ``acc`` is None,
     else ``acc = fadd(acc, fmul(d, w))`` in place. Returns the accumulator."""
     tensors = (d,) if acc is None else (acc, d)
-    on_card = _check_on_card(*tensors)
+    on_card = check_on_card(*tensors)
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the streaming fold takes float32 leaves, got {t.dtype}")
@@ -197,9 +122,9 @@ def exact_fold_into(
     with torch.cuda.device(d.device):
         err = lib.agg_exact_fold_into(
             acc.data_ptr(), d.data_ptr(), float(w), int(first), d.numel(),
-            _stream(d.device),
+            stream_of(d.device),
         )
-    _launched(exact_fold_into, err, "agg_exact_fold_into")
+    count_launch(exact_fold_into, err, "agg_exact_fold_into")
     return acc
 
 
@@ -209,7 +134,7 @@ def exact_divide(
     """IEEE ``x / den`` of a float32 tensor, ``den`` rounded once to float32;
     ``out`` may be ``x`` (in place) or None (new tensor)."""
     tensors = (x,) if out is None else (x, out)
-    on_card = _check_on_card(*tensors)
+    on_card = check_on_card(*tensors)
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"the divide takes float32 tensors, got {t.dtype}")
@@ -224,9 +149,9 @@ def exact_divide(
     lib = build()
     with torch.cuda.device(x.device):
         err = lib.agg_exact_divide(
-            x.data_ptr(), out.data_ptr(), float(den), x.numel(), _stream(x.device)
+            x.data_ptr(), out.data_ptr(), float(den), x.numel(), stream_of(x.device)
         )
-    _launched(exact_divide, err, "agg_exact_divide")
+    count_launch(exact_divide, err, "agg_exact_divide")
     return out
 
 

@@ -6,7 +6,11 @@
   run, bit-identical to the sequential per-client accumulation;
   ``exact=False`` the fused ``(w @ d) / denom`` that may use FMAs.
 * ``fold_into`` / ``divide`` — the streaming entries behind
-  ``StreamingMean``: one update at a time, then one divide.
+  ``StreamingMean``: one update at a time, then one divide. Float32 tensor
+  leaves go through the kernels; any other leaf (an int, float64 or float16
+  tensor, a numpy array, a Python or numpy scalar) through a plain path with
+  numpy's promotion, as the JAX package folds it: ``x * n`` (ints become
+  float64), an add, ``x / total``. Tensors stay on their device there.
 
 Dispatch is by device, never by size: every call goes through the wrappers
 of ``kernel.py``, which launch the kernel for CUDA tensors and run the plain
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
@@ -84,14 +89,51 @@ def aggregate_tree(
     return tree_map(one, client_trees)
 
 
+def _is_f32_tensor(x: Any) -> bool:
+    return isinstance(x, torch.Tensor) and x.dtype == torch.float32
+
+
+def _scalar_like(x: torch.Tensor, value: float, dtype: torch.dtype) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=x.device)
+
+
+def _plain_scale(x: Any, w: float) -> Any:
+    """``x * w`` with numpy's promotion of a Python float: a float tensor
+    keeps its dtype (``w`` rounded to it first), an int or bool one becomes
+    float64; numpy leaves and scalars go through numpy itself."""
+    if isinstance(x, torch.Tensor):
+        dtype = x.dtype if x.is_floating_point() else torch.float64
+        return x.to(dtype) * _scalar_like(x, w, dtype)
+    return np.asarray(x) * w
+
+
+def _plain_divide(x: Any, total: float) -> Any:
+    if isinstance(x, torch.Tensor):
+        return x / _scalar_like(x, total, x.dtype)
+    return x / total
+
+
+def _fold_leaf(acc: Any, x: Any, w: float) -> Any:
+    if _is_f32_tensor(x) and (acc is None or _is_f32_tensor(acc)):
+        return kernel.exact_fold_into(acc, x, w)
+    scaled = _plain_scale(x, w)
+    if acc is None:
+        return scaled
+    return acc + scaled if isinstance(acc, torch.Tensor) else np.add(acc, scaled)
+
+
 def fold_into(acc: Optional[Any], tree: Any, w: float) -> Any:
     """Fold one update tree with weight ``w`` into ``acc`` (None: start a new
-    accumulator). Accumulator leaves are updated in place."""
+    accumulator). Float32 accumulator leaves are updated in place."""
     if acc is None:
-        return tree_map(lambda x: kernel.exact_fold_into(None, x, w), tree)
-    return tree_map(lambda a, x: kernel.exact_fold_into(a, x, w), acc, tree)
+        return tree_map(lambda x: _fold_leaf(None, x, w), tree)
+    return tree_map(lambda a, x: _fold_leaf(a, x, w), acc, tree)
 
 
 def divide(tree: Any, total: float) -> Any:
-    """A new tree of ``leaf / total``, each an IEEE divide."""
-    return tree_map(lambda x: kernel.exact_divide(x, total), tree)
+    """A new tree of ``leaf / total``, each an IEEE divide (in the leaf's
+    dtype)."""
+    return tree_map(
+        lambda x: kernel.exact_divide(x, total) if _is_f32_tensor(x) else _plain_divide(x, total),
+        tree,
+    )

@@ -1,0 +1,1042 @@
+"""Socket transport behind the ``TransportBackend`` protocol (the port of
+``repro.transport.multiproc``, for what the per-channel loopback runs).
+
+A ``TransportHub`` (broker) owns the authoritative channel state —
+membership, mailboxes, per-worker clocks, dropout/poison schedules, byte
+accounting — in one ``InprocBackend``; every ``MultiprocBackend`` client
+turns each operation into an RPC to the hub over a local TCP socket, with
+payloads in the deterministic ``repro_torch.transport.wire`` format (no
+pickle on the wire). Centralizing the shared-state semantics in one backend
+means the conformance guarantees of ``InprocBackend`` carry over, as in the
+paper's MQTT-broker deployment (§6.2). The hub runs on virtual clocks.
+
+Devices: the hub keeps the coded frames it receives on the host, as numpy
+trees. Only client ends move leaves to a device: a receive decodes the
+payload onto the client's device (``set_device``; the job's device through
+``ChannelManager``), where the ``int8_blocks`` codec dequantizes with the
+CUDA kernel. Without a device set, a client places received tensors on the
+card and raises where there is none.
+
+Each client thread keeps one persistent connection (the hub serves each
+connection on its own thread), so a receive blocked in the hub never stalls
+other operations. Exactly-once sessions (sequence numbers, the hub's replay
+window, reconnect-resume-retransmit) are ported; the sharded hub fabric,
+the fault-injection hooks and process launch are not yet (ROADMAP Queue 1
+item 6) and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import collections
+import itertools
+import os
+import queue
+import socket
+import threading
+import time
+import zlib
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.convert import resolve_device
+from repro_torch.core.channels import (
+    TRANSPORT_OPS,
+    InprocBackend,
+    LinkModel,
+    WorkerDropped,
+    register_backend,
+)
+from repro_torch.transport.wire import (
+    WireCodec,
+    WireError,
+    decode_payload,
+    encode_payload,
+    encoded_size,
+    make_codec,
+    recv_obj,
+    send_obj,
+    to_device,
+)
+
+__all__ = [
+    "DeferredAckError",
+    "LoopbackMultiprocBackend",
+    "MultiprocBackend",
+    "ShardRouter",
+    "ShardedTransportHub",
+    "TransportHub",
+    "hub_backend_factory",
+    "sharded_backend_factory",
+]
+
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 6)"
+
+# Process-unique suffix for client session ids: a session is one (client
+# process, thread) stream of RPCs, so the id only has to be unique within
+# the job — the pid guards against forked counters colliding.
+_SESSION_IDS = itertools.count()
+
+
+class DeferredAckError(ConnectionError):
+    """Reconnect attempts exhausted with un-acked frames outstanding.
+
+    With exactly-once sessions every connection fault is first handled by
+    reconnect-resume-retransmit; this error surfaces only when that gives
+    up (hub permanently gone), at which point the outcome of the frames
+    still awaiting acks is unknowable. The first outstanding frame is
+    attributed on the exception — ``op``/``channel``/``group``/``seq`` —
+    so a lost fire-and-forget send names itself in test failures.
+    """
+
+    def __init__(
+        self,
+        message: str,
+        op: Optional[str] = None,
+        channel: Optional[str] = None,
+        group: Optional[str] = None,
+        seq: Optional[int] = None,
+    ) -> None:
+        super().__init__(message)
+        self.op = op
+        self.channel = channel
+        self.group = group
+        self.seq = seq
+
+
+# ------------------------------------------------------------------ #
+# error marshalling: exceptions cross the wire as (kind, args) tuples
+# ------------------------------------------------------------------ #
+def _encode_error(exc: BaseException) -> Tuple[str, list]:
+    if isinstance(exc, WorkerDropped):
+        return "worker_dropped", [exc.worker, float(exc.at)]
+    if isinstance(exc, queue.Empty):
+        return "empty", []
+    if isinstance(exc, KeyError):
+        return "key_error", [str(exc)]
+    return "error", [f"{type(exc).__name__}: {exc}"]
+
+
+def _raise_error(kind: str, args: Sequence[Any]) -> None:
+    if kind == "worker_dropped":
+        raise WorkerDropped(str(args[0]), float(args[1]))
+    if kind == "empty":
+        raise queue.Empty
+    if kind == "key_error":
+        raise KeyError(args[0])
+    raise RuntimeError(f"transport hub error: {args[0]}")
+
+
+class _HubSession:
+    """Per-session exactly-once state: cached replies keyed by sequence
+    number (the dedup/replay window) plus in-flight markers so a reconnected
+    client can re-attach to an op still executing on a zombie serve thread.
+    """
+
+    __slots__ = ("lock", "replies", "inflight", "evicted_below")
+
+    def __init__(self) -> None:
+        self.lock = threading.Lock()
+        self.replies: Dict[int, Tuple[str, Any]] = {}
+        self.inflight: Dict[int, threading.Event] = {}
+        self.evicted_below = 0
+
+
+class TransportHub:
+    """Socket-facing broker wrapping one shared backend for a whole job.
+
+    All channels it serves route through the single inner backend (mailbox
+    keys carry the channel name), like a broker hosting one topic tree. The
+    owner reaches the inner backend directly via ``.backend`` for
+    configuration (link models, dropout schedules) and byte-accounting
+    reads. Bind port 0 (the default) to take any free port.
+    """
+
+    # hard cap on cached replies per session: normally the client's floor
+    # evicts acked replies promptly, so the window only fills if a client
+    # stops consuming acks — comfortably above MAX_PENDING_ACKS so a full
+    # pipeline can always be replayed after a reconnect
+    REPLAY_WINDOW = 1024
+
+    def __init__(
+        self,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        backend: Optional[InprocBackend] = None,
+        backlog: int = 1024,
+    ) -> None:
+        self.backend = backend or InprocBackend("multiproc-hub")
+        self._backlog = max(1, int(backlog))
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        # a pool of 1k workers connects in one burst; an undersized backlog
+        # turns that into connection-refused storms (the kernel may clamp to
+        # net.core.somaxconn, and MultiprocBackend reconnects with backoff)
+        self._sock.listen(self._backlog)
+        self._closed = threading.Event()
+        # exactly-once session state survives any individual connection:
+        # sessions are keyed by the client-minted id, not by the socket that
+        # carried them
+        self._sessions: Dict[str, _HubSession] = {}
+        self._sessions_lock = threading.Lock()
+        self._counters = {"resumes:": 0.0, "replays:": 0.0, "dedup_hits:": 0.0}
+        self._counters_lock = threading.Lock()
+        # live client connections, shut down by close()
+        self._conns: List[socket.socket] = []
+        self._conns_lock = threading.Lock()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="transport-hub-accept", daemon=True
+        )
+        self._accept_thread.start()
+
+    # ------------------------------------------------------------------ #
+    @property
+    def address(self) -> Tuple[str, int]:
+        host, port = self._sock.getsockname()[:2]
+        return str(host), int(port)
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        return self._merged_stats()
+
+    def _merged_stats(self) -> Dict[str, float]:
+        """Backend accounting plus the session-layer recovery counters
+        (``resumes:`` / ``replays:`` / ``dedup_hits:``). Zero counters are
+        omitted so fault-free runs keep byte-identical stats dicts across
+        deployments."""
+        out = dict(self.backend.stats)
+        with self._counters_lock:
+            for key, val in self._counters.items():
+                if val:
+                    out[key] = out.get(key, 0.0) + val
+        return out
+
+    def _bump(self, key: str, n: float = 1.0) -> None:
+        with self._counters_lock:
+            self._counters[key] = self._counters.get(key, 0.0) + n
+
+    def set_wire_dtype(self, channel: str, dtype: str) -> None:
+        self.backend.set_wire_dtype(channel, dtype)
+
+    def set_link(self, channel: str, worker: str, model: LinkModel) -> None:
+        self.backend.set_link(channel, worker, model)
+
+    def close(self) -> None:
+        """Stop accepting and shut down every live connection (their serve
+        threads wake and exit). Idempotent."""
+        self._closed.set()
+        # shutdown BEFORE close: a blocked accept() holds a kernel reference
+        # to the listening socket, so close() alone leaves the port accepting
+        # one more connection and frees the fd under the blocked thread
+        # (fd-reuse races against unrelated sockets). shutdown() wakes the
+        # accept thread deterministically first.
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        self._accept_thread.join(timeout=2.0)
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            # shutdown, not close: the owning serve thread wakes on the read
+            # fault and closes its own fd
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def __enter__(self) -> "TransportHub":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
+
+    # ------------------------------------------------------------------ #
+    def _accept_loop(self) -> None:
+        while not self._closed.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # listener closed
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            threading.Thread(
+                target=self._serve_conn, args=(conn,),
+                name="transport-hub-conn", daemon=True,
+            ).start()
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        with self._conns_lock:
+            self._conns.append(conn)
+        try:
+            while True:
+                try:
+                    frame = recv_obj(conn)
+                except (ConnectionError, OSError):
+                    return  # client gone, or the hub is closing
+                if len(frame) == 2:
+                    # sessionless frame: the resume handshake itself, plus
+                    # legacy 2-tuple callers (raw ping probes)
+                    op, args = frame
+                    if not self._serve_sessionless(conn, str(op), list(args)):
+                        return
+                    continue
+                op, args, sid, seq, floor = frame
+                if not self._serve_sessionful(
+                    conn, str(op), list(args), str(sid), int(seq), int(floor)
+                ):
+                    return
+        finally:
+            with self._conns_lock:
+                try:
+                    self._conns.remove(conn)
+                except ValueError:
+                    pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _serve_sessionless(
+        self, conn: socket.socket, op: str, args: List[Any]
+    ) -> bool:
+        if op == "session_resume":
+            # re-attach: make sure the session exists (its replay cache and
+            # in-flight markers survive connection churn by construction)
+            self._session(str(args[0]))
+            self._bump("resumes:")
+            reply: Tuple[str, Any] = ("ok", None)
+        else:
+            try:
+                reply = ("ok", self._dispatch(op, args))
+            except BaseException as exc:  # noqa: BLE001 - marshalled over
+                reply = ("err", _encode_error(exc))
+        return self._send_reply(conn, reply)
+
+    def _serve_sessionful(
+        self,
+        conn: socket.socket,
+        op: str,
+        args: List[Any],
+        sid: str,
+        seq: int,
+        floor: int,
+    ) -> bool:
+        sess = self._session(sid)
+        cached: Optional[Tuple[str, Any]] = None
+        wait_ev: Optional[threading.Event] = None
+        with sess.lock:
+            # the client's floor is the lowest seq still awaiting its ack:
+            # every cached reply below it has been consumed and can go
+            if floor > sess.evicted_below:
+                for s in [s for s in sess.replies if s < floor]:
+                    del sess.replies[s]
+                sess.evicted_below = floor
+            if seq in sess.replies:
+                # duplicate of a completed op: replay the cached reply, do
+                # NOT re-dispatch (the exactly-once guarantee)
+                cached = sess.replies[seq]
+            elif seq in sess.inflight:
+                # duplicate of an op still executing (a blocked recv whose
+                # original connection died): re-attach to its completion
+                wait_ev = sess.inflight[seq]
+            elif seq < sess.evicted_below:
+                cached = ("err", ("error", [
+                    f"seq {seq} outside the replay window (evicted below "
+                    f"{sess.evicted_below}): duplicate arrived after its "
+                    f"ack was already consumed"
+                ]))
+            else:
+                sess.inflight[seq] = threading.Event()
+        if wait_ev is not None:
+            self._bump("dedup_hits:")
+            wait_ev.wait()
+            with sess.lock:
+                cached = sess.replies.get(seq)
+            if cached is None:  # pragma: no cover - executor always caches
+                cached = ("err", ("error", [f"in-flight seq {seq} lost"]))
+        if cached is not None:
+            self._bump("dedup_hits:")
+            self._bump("replays:")
+            return self._send_reply(conn, cached)
+        try:
+            reply = ("ok", self._dispatch(op, args))
+        except BaseException as exc:  # noqa: BLE001 - marshalled over
+            reply = ("err", _encode_error(exc))
+        # cache BEFORE the socket write: if the connection dies mid-reply,
+        # the retransmitted frame replays this reply instead of re-running
+        # the (possibly state-mutating) op
+        with sess.lock:
+            sess.replies[seq] = reply
+            ev = sess.inflight.pop(seq, None)
+            if len(sess.replies) > self.REPLAY_WINDOW:
+                for s in sorted(sess.replies)[: -self.REPLAY_WINDOW]:
+                    del sess.replies[s]
+                    sess.evicted_below = max(sess.evicted_below, s + 1)
+        if ev is not None:
+            ev.set()
+        return self._send_reply(conn, reply)
+
+    def _send_reply(self, conn: socket.socket, reply: Tuple[str, Any]) -> bool:
+        try:
+            send_obj(conn, reply)
+            return True
+        except WireError as exc:
+            # an unencodable dispatch result: send_obj encodes fully before
+            # writing, so the stream is still clean — report the marshalling
+            # failure instead of killing the handler
+            try:
+                send_obj(conn, ("err", _encode_error(exc)))
+                return True
+            except (ConnectionError, OSError):
+                return False
+        except (ConnectionError, OSError):
+            return False
+
+    def _session(self, sid: str) -> _HubSession:
+        with self._sessions_lock:
+            sess = self._sessions.get(sid)
+            if sess is None:
+                sess = self._sessions[sid] = _HubSession()
+            return sess
+
+    # --------------------- deterministic chaos plane -------------------- #
+    def arm_faults(self, plan: Any) -> None:
+        raise NotImplementedError(f"the hub's fault plane {_NOT_PORTED}")
+
+    def simulate_crash(self) -> None:
+        raise NotImplementedError(f"the hub's fault plane {_NOT_PORTED}")
+
+    def _dispatch(self, op: str, args: List[Any]) -> Any:
+        """Special-case the ops whose arguments/results need wire coercion;
+        every other protocol op is a plain passthrough gated on
+        ``TRANSPORT_OPS`` (new ops added to the protocol work over multiproc
+        without touching this method)."""
+        be = self.backend
+        if op == "ping":
+            return "pong"
+        if op == "stats":
+            return self._merged_stats()
+        if op == "recv_any":
+            channel, group, me, ends, timeout, advance = args
+            end, payload, arrival = be.recv_any(
+                channel, group, me, list(ends), timeout, advance=bool(advance)
+            )
+            return (end, payload, float(arrival))
+        if op == "recv_fifo":
+            channel, group, me, ends, timeout = args
+            # materialize: the generator's clock advance and dropout check
+            # run here; the client re-raises per-iteration (same surface)
+            return list(be.recv_fifo(channel, group, me, list(ends), timeout))
+        if op == "earliest":
+            channel, group, me, ends = args
+            got = be.earliest(channel, group, me, list(ends))
+            return None if got is None else (float(got[0]), got[1])
+        if op == "set_link":
+            channel, worker, bandwidth, latency = args
+            return be.set_link(
+                channel, worker, LinkModel(float(bandwidth), float(latency))
+            )
+        if op == "link":
+            model = be.link(*args)
+            return (float(model.bandwidth), float(model.latency))
+        if op == "now":
+            return float(be.now(*args))
+        if op in TRANSPORT_OPS:
+            return getattr(be, op)(*args)
+        raise RuntimeError(f"unknown transport op {op!r}")
+
+
+class MultiprocBackend:
+    """``TransportBackend`` client: every operation is an RPC to the hub.
+
+    Stateless apart from per-thread sockets and per-channel codecs. Received
+    payloads are decoded onto ``device`` (``set_device``); a send codes its
+    float leaves on the device they lie on and ships numpy bodies.
+    """
+
+    # base delay of the capped exponential connect backoff (doubles per
+    # attempt up to MAX_BACKOFF, scaled by deterministic per-client jitter)
+    RETRY_BACKOFF = 0.05
+    MAX_BACKOFF = 1.0
+    # connect attempts after the first failure
+    CONNECT_RETRIES = 5
+    # full reconnect-resume-retransmit cycles per op before giving up
+    MAX_RECOVERIES = 3
+    # max in-flight fire-and-forget sends per connection before the client
+    # drains acks inline: bounds the hub's reply backlog (an ack frame is
+    # ~tens of bytes, so the cap keeps worst-case buffered replies far under
+    # any socket buffer — client writes and hub replies can never deadlock
+    # on mutually full buffers)
+    MAX_PENDING_ACKS = 256
+
+    def __init__(
+        self,
+        address: Tuple[str, int],
+        name: str = "multiproc",
+        client_key: str = "",
+        device: Any = None,
+    ) -> None:
+        self.name = name
+        self.address = (str(address[0]), int(address[1]))
+        self._device_: Optional[torch.device] = None
+        if device is not None:
+            self.set_device(device)
+        # stable identity prefix for session ids and backoff jitter: the
+        # launcher passes the worker id, so reconnect storms de-correlate
+        # per worker deterministically (seed-derived, no wall-clock entropy)
+        self.client_key = str(client_key)
+        self._local = threading.local()
+        # channel -> opt-in payload codec object (client-local: the hub
+        # stores the coded payload opaquely; peers decode via the envelope
+        # marker). Stateful codecs keep per-link error-feedback state inside
+        # the instance, keyed by (channel, group, src, dst).
+        self._codecs: Dict[str, WireCodec] = {}
+        # client-side achieved-compression accounting per coded channel
+        # (the hub only ever sees coded payloads, so the raw size — and the
+        # achieved ratio — can only be measured here)
+        self._codec_stats: Dict[str, float] = {}
+        self._codec_stats_lock = threading.Lock()
+        # every socket ever opened, across threads — close() must reach the
+        # connections of worker threads that already finished, not just the
+        # closing thread's own
+        self._all_socks: List[socket.socket] = []
+        self._socks_lock = threading.Lock()
+
+    # ------------------------------------------------------------------ #
+    def _state(self) -> Any:
+        """Per-thread session state. A session is one thread's monotonic
+        RPC stream: its id is minted once and survives every reconnect —
+        the hub's dedup/replay window is keyed by it."""
+        local = self._local
+        if getattr(local, "session", None) is None:
+            local.session = (
+                f"{self.client_key or 'client'}|{os.getpid()}.{next(_SESSION_IDS)}"
+            )
+            local.seq = 0
+            # frames written whose replies have not been consumed yet, in
+            # order: replies arrive in frame order on a connection, so the
+            # oldest entry always matches the next reply — and after a
+            # fault this deque IS the retransmission queue
+            local.unacked = collections.deque()
+            # last two completed frames (chaos probes replay them)
+            local.last_frames = collections.deque(maxlen=2)
+            if getattr(local, "sock", None) is None:
+                local.sock = None
+        return local
+
+    def _connect(self) -> socket.socket:
+        """Dial the hub with capped exponential backoff and deterministic
+        (seed-derived) jitter: each worker's schedule is a pure function of
+        its client key, so a reconnect storm spreads out instead of
+        thundering in lockstep. Attempts are bounded by ``CONNECT_RETRIES``."""
+        st = self._state()
+        retries = self.CONNECT_RETRIES
+        for attempt in range(retries + 1):
+            try:
+                sock = socket.create_connection(self.address, timeout=30.0)
+            except OSError:
+                if attempt >= retries:
+                    raise
+                base = min(self.RETRY_BACKOFF * (2.0 ** attempt), self.MAX_BACKOFF)
+                seed = f"{self.client_key}:{st.session}:{attempt}".encode()
+                frac = zlib.crc32(seed) / 2.0 ** 32
+                time.sleep(base * (0.5 + 0.5 * frac))
+                continue
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            # blocking after connect: receive waits are governed by the
+            # hub's op timeout, not the socket's
+            sock.settimeout(None)
+            st.sock = sock
+            with self._socks_lock:
+                self._all_socks.append(sock)
+            return sock
+        raise ConnectionError("unreachable")  # pragma: no cover
+
+    def _drop_sock(self) -> None:
+        st = self._state()
+        sock, st.sock = st.sock, None
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _recover(self) -> socket.socket:
+        """Reconnect-resume-retransmit: dial a fresh connection, re-attach
+        the session hub-side, then replay every frame whose reply was never
+        consumed. The hub's replay window answers already-executed frames
+        from cache and executes the rest exactly once — so recovery is
+        legal for ANY op, not just idempotent ones."""
+        st = self._state()
+        self._drop_sock()
+        sock = self._connect()
+        send_obj(sock, ("session_resume", [st.session]))
+        status, value = recv_obj(sock)
+        if status != "ok":  # pragma: no cover - resume never errors today
+            kind, eargs = value
+            _raise_error(str(kind), list(eargs))
+        for frame in st.unacked:
+            send_obj(sock, frame)
+        return sock
+
+    def _ensure_sock(self) -> socket.socket:
+        st = self._state()
+        if st.sock is not None:
+            return st.sock
+        if st.seq > 0 or st.unacked:
+            return self._recover_or_fault()
+        return self._connect()
+
+    def _recover_or_fault(self) -> socket.socket:
+        """Bounded recovery loop: on repeated failure, surface
+        ``DeferredAckError`` (attributed to the first outstanding frame)
+        when un-acked frames are at stake, else the connect error."""
+        last: Optional[BaseException] = None
+        for _ in range(self.MAX_RECOVERIES):
+            try:
+                return self._recover()
+            except (ConnectionError, OSError) as exc:
+                last = exc
+                self._drop_sock()
+        self._ack_fault(last)
+        raise last  # pragma: no cover - _ack_fault always raises
+
+    def _ack_fault(self, exc: Optional[BaseException]) -> None:
+        """Give up on this thread's outstanding frames: reconnects are
+        exhausted, so their outcome is ambiguous. Attribution (op, channel,
+        group, seq) rides on the exception and in the drained-ack stats."""
+        st = self._state()
+        self._drop_sock()
+        if not st.unacked:
+            if exc is not None:
+                raise exc
+            raise ConnectionError("transport hub unreachable")
+        op, args, _sid, seq, _floor = st.unacked[0]
+        channel = str(args[0]) if args else None
+        group = str(args[1]) if len(args) > 1 else None
+        n = len(st.unacked)
+        st.unacked.clear()
+        with self._codec_stats_lock:
+            key = f"ack_faults:{channel}"
+            self._codec_stats[key] = self._codec_stats.get(key, 0.0) + 1.0
+        raise DeferredAckError(
+            f"reconnect attempts exhausted with {n} un-acked frame(s) "
+            f"outstanding (first: op={op} channel={channel} group={group} "
+            f"seq={seq})",
+            op=str(op), channel=channel, group=group, seq=int(seq),
+        ) from exc
+
+    def _send_frame(self, op: str, args: List[Any]) -> None:
+        """Write one sessionful frame ``(op, args, session, seq, floor)``.
+        The frame enters the un-acked queue BEFORE the write, so a fault at
+        any point is recovered by retransmission; the floor (oldest
+        un-acked seq) tells the hub which cached replies are safe to
+        evict."""
+        st = self._state()
+        seq = st.seq
+        st.seq += 1
+        floor = int(st.unacked[0][3]) if st.unacked else seq
+        frame = [str(op), list(args), st.session, seq, floor]
+        st.unacked.append(frame)
+        for _ in range(self.MAX_RECOVERIES + 1):
+            sock = st.sock
+            if sock is None:
+                # _recover retransmits the whole un-acked queue — including
+                # this frame — so there is nothing left to write
+                self._recover_or_fault()
+                return
+            try:
+                send_obj(sock, frame)
+                return
+            except (ConnectionError, OSError):
+                self._drop_sock()
+        self._ack_fault(None)  # pragma: no cover - recover path raises first
+
+    def _consume_reply(self) -> Tuple[str, Any]:
+        """Read the reply for the oldest un-acked frame, recovering the
+        connection (and re-attaching to a blocked op) on any fault."""
+        st = self._state()
+        recoveries = 0
+        while True:
+            sock = st.sock
+            if sock is None:
+                sock = self._recover_or_fault()
+            try:
+                status, value = recv_obj(sock)
+            except (ConnectionError, OSError) as exc:
+                recoveries += 1
+                if recoveries > self.MAX_RECOVERIES:
+                    self._ack_fault(exc)
+                self._drop_sock()
+                continue
+            frame = st.unacked.popleft()
+            st.last_frames.append(frame)
+            return str(status), value
+
+    def _drain_acks(self) -> None:
+        """Collect the hub's replies for every fire-and-forget send still
+        in flight on this thread. The first deferred error (e.g. a
+        ``WorkerDropped`` from a send) is re-raised only after the stream
+        is realigned — every pending reply consumed — so the connection
+        stays usable. Connection faults mid-drain recover transparently;
+        only exhausted reconnects surface (as ``DeferredAckError``)."""
+        st = self._state()
+        first_err: Optional[Tuple[str, List[Any]]] = None
+        while st.unacked:
+            status, value = self._consume_reply()
+            if status != "ok" and first_err is None:
+                first_err = (str(value[0]), list(value[1]))
+        if first_err is not None:
+            _raise_error(first_err[0], first_err[1])
+
+    def _send_nowait(self, op: str, *args: Any) -> None:
+        """Issue a send-family op fire-and-forget (pipelined): write the
+        frame, defer collecting the hub's ack to the next synchronous op on
+        this connection. A deferred fault therefore surfaces before the
+        next op returns — after the session layer has already recovered
+        everything recoverable."""
+        st = self._state()
+        self._ensure_sock()
+        if len(st.unacked) >= self.MAX_PENDING_ACKS:
+            self._drain_acks()
+        self._send_frame(op, list(args))
+
+    def _call(self, op: str, *args: Any) -> Any:
+        """One synchronous RPC. Synchronous ops are the pipeline's ack
+        barrier: deferred send faults surface here, before this op is
+        dispatched. Any connection fault — before, during or after the
+        hub's dispatch — is recovered by reconnect-resume-retransmit; the
+        hub's per-session dedup window makes the retry exactly-once for
+        every op (send, advance, recv*, ...), which is what licenses
+        retrying non-idempotent ops at all."""
+        st = self._state()
+        self._ensure_sock()
+        self._drain_acks()
+        self._send_frame(op, list(args))
+        status, value = self._consume_reply()
+        if status == "ok":
+            return value
+        kind, eargs = value
+        _raise_error(str(kind), list(eargs))
+
+    # --------------------- deterministic chaos hooks -------------------- #
+    def _chaos_break_conn(self) -> None:
+        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+
+    def _chaos_duplicate(self, op: str, *args: Any) -> Tuple[Any, str, Any]:
+        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+
+    def _chaos_probe_evicted(self) -> Tuple[str, Any]:
+        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+
+    def close(self) -> None:
+        """Close every connection this client ever opened (all threads).
+        Teardown-only: an in-flight call on another thread surfaces as a
+        ConnectionError there."""
+        # Drain this thread's deferred acks before closing: closing a socket
+        # with unread replies in the kernel receive buffer resets (RST) the
+        # stream, which may discard frames written but not yet read by the
+        # hub — a worker whose *last* op was a fire-and-forget send (e.g. an
+        # aggregator's final done-broadcast) would silently lose it. Once the
+        # acks are in, the hub has processed every frame. Other threads'
+        # pipelines are unreachable from here (un-acked queues are
+        # thread-local); their owners drain at their own sync ops.
+        if getattr(self._local, "sock", None) is not None and getattr(
+            self._local, "unacked", None
+        ):
+            try:
+                self._drain_acks()
+            except Exception:
+                pass
+        with self._socks_lock:
+            socks, self._all_socks = self._all_socks, []
+        for sock in socks:
+            try:
+                sock.close()
+            except OSError:
+                pass
+        self._local.sock = None
+        if getattr(self._local, "unacked", None) is not None:
+            self._local.unacked.clear()
+
+    # --------------------------- membership --------------------------- #
+    def join(self, channel: str, group: str, worker: str) -> None:
+        self._call("join", channel, group, worker)
+
+    def leave(self, channel: str, group: str, worker: str) -> None:
+        self._call("leave", channel, group, worker)
+
+    def peers(self, channel: str, group: str, me: str) -> List[str]:
+        return list(self._call("peers", channel, group, me))
+
+    # ---------------------------- messaging --------------------------- #
+    def _bump_codec_stats(
+        self, channel: str, raw: float, coded: float, encodes: float
+    ) -> None:
+        """Update the client-side accounting counters. The O(structure)
+        counting walks run in the caller, outside the lock — the lock guards
+        only the dict updates, so concurrent sender threads no longer
+        serialize on payload-sized work."""
+        with self._codec_stats_lock:
+            stats = self._codec_stats
+            if raw or coded:
+                stats[f"raw_bytes:{channel}"] = (
+                    stats.get(f"raw_bytes:{channel}", 0.0) + raw
+                )
+                stats[f"coded_bytes:{channel}"] = (
+                    stats.get(f"coded_bytes:{channel}", 0.0) + coded
+                )
+            stats[f"payload_encodes:{channel}"] = (
+                stats.get(f"payload_encodes:{channel}", 0.0) + encodes
+            )
+
+    def send(self, channel: str, group: str, src: str, dst: str, payload: Any) -> None:
+        codec = self._codecs.get(channel)
+        if codec is not None:
+            coded = encode_payload(
+                payload, codec, link=(channel, group, src, dst)
+            )
+            # O(structure) counting walks — the achieved ratio lands in
+            # stats without re-serializing either payload
+            raw = float(encoded_size(payload))
+            enc = float(encoded_size(coded))
+            self._bump_codec_stats(channel, raw, enc, 1.0)
+            payload = coded
+        else:
+            payload = encode_payload(payload, "")
+            self._bump_codec_stats(channel, 0.0, 0.0, 1.0)
+        self._send_nowait("send", channel, group, src, dst, payload)
+
+    def send_many(
+        self, channel: str, group: str, src: str, dsts: Sequence[str], payload: Any
+    ) -> None:
+        """O(1)-encode fan-out: encode the payload once and ship ONE framed
+        RPC; the hub delivers to every dst broker-side. Falls back to the
+        per-dst ``send`` loop when the channel's codec is link-stateful
+        (per-dst error-feedback residuals make per-dst payloads legitimately
+        differ). Byte accounting equals the per-dst loop exactly: stateless
+        encodes are deterministic, so N× one walk == sum of N walks."""
+        dsts = list(dsts)
+        if not dsts:
+            return
+        codec = self._codecs.get(channel)
+        if codec is not None and codec.link_stateful:
+            for dst in dsts:
+                self.send(channel, group, src, dst, payload)
+            return
+        if codec is not None:
+            coded = encode_payload(payload, codec, link=(channel, group, src))
+            raw = float(encoded_size(payload)) * len(dsts)
+            enc = float(encoded_size(coded)) * len(dsts)
+            self._bump_codec_stats(channel, raw, enc, 1.0)
+            payload = coded
+        else:
+            payload = encode_payload(payload, "")
+            self._bump_codec_stats(channel, 0.0, 0.0, 1.0)
+        self._send_nowait("send_many", channel, group, src, dsts, payload)
+
+    def set_device(self, device: Any) -> None:
+        """The device received payloads land on (the job's device)."""
+        self._device_ = torch.device(device)
+
+    def _device(self) -> torch.device:
+        if self._device_ is None:
+            self._device_ = resolve_device(None)
+        return self._device_
+
+    def _decode_in(self, channel: str, payload: Any) -> Any:
+        """Decode one received frame onto this client's device: coded float
+        leaves through their codec (dequantized on the card for
+        ``int8_blocks``), every other array copied there. Every frame bumps
+        ``payload_decodes:<channel>``, the receive-side twin of the encode
+        counter."""
+        with self._codec_stats_lock:
+            self._codec_stats[f"payload_decodes:{channel}"] = (
+                self._codec_stats.get(f"payload_decodes:{channel}", 0.0) + 1.0
+            )
+        device = self._device()
+        return to_device(decode_payload(payload, device), device)
+
+    def recv(
+        self, channel: str, group: str, me: str, end: str, timeout: Optional[float]
+    ) -> Any:
+        return self._decode_in(
+            channel, self._call("recv", channel, group, me, end, timeout)
+        )
+
+    def recv_any(
+        self,
+        channel: str,
+        group: str,
+        me: str,
+        ends: Sequence[str],
+        timeout: Optional[float],
+        advance: bool = True,
+    ) -> Tuple[str, Any, float]:
+        end, payload, arrival = self._call(
+            "recv_any", channel, group, me, list(ends), timeout, bool(advance)
+        )
+        return str(end), self._decode_in(channel, payload), float(arrival)
+
+    def recv_fifo(
+        self,
+        channel: str,
+        group: str,
+        me: str,
+        ends: Sequence[str],
+        timeout: Optional[float],
+    ) -> Iterable[Tuple[str, Any]]:
+        def _gen() -> Iterable[Tuple[str, Any]]:
+            # the RPC raises (queue.Empty / WorkerDropped) on first next(),
+            # matching the inproc generator's consume-time semantics
+            for end, payload in self._call(
+                "recv_fifo", channel, group, me, list(ends), timeout
+            ):
+                yield str(end), self._decode_in(channel, payload)
+
+        return _gen()
+
+    def peek(self, channel: str, group: str, me: str, end: str) -> Optional[Any]:
+        payload = self._call("peek", channel, group, me, end)
+        if payload is None:
+            return None
+        return self._decode_in(channel, payload)
+
+    def earliest(
+        self, channel: str, group: str, me: str, ends: Sequence[str]
+    ) -> Optional[Tuple[float, str]]:
+        got = self._call("earliest", channel, group, me, list(ends))
+        return None if got is None else (float(got[0]), str(got[1]))
+
+    # ------------------- failure emulation / cancel -------------------- #
+    def set_drop(self, worker: str, at: float) -> None:
+        self._call("set_drop", worker, float(at))
+
+    def clear_drop(self, worker: str) -> None:
+        self._call("clear_drop", worker)
+
+    def drop_time(self, worker: str) -> Optional[float]:
+        got = self._call("drop_time", worker)
+        return None if got is None else float(got)
+
+    def poison(self, worker: str, at: float) -> None:
+        self._call("poison", worker, float(at))
+
+    def check_poison(self, worker: str) -> None:
+        self._call("check_poison", worker)
+
+    # ------------------------- configuration -------------------------- #
+    def set_link(self, channel: str, worker: str, model: LinkModel) -> None:
+        self._call(
+            "set_link", channel, worker, float(model.bandwidth), float(model.latency)
+        )
+
+    def set_wire_dtype(self, channel: str, dtype: str) -> None:
+        self._call("set_wire_dtype", channel, dtype)
+
+    def set_codec(self, channel: str, codec: str) -> None:
+        """Opt this channel into a wire payload codec (``repro_torch.transport
+        .wire.WIRE_CODECS`` or a parametric name like ``"topk0.05"``): this
+        client codes float leaves before they cross the socket, and any
+        receiver decodes through the self-describing envelope. The codec is
+        instantiated here, so a stateful codec's per-link state lives with
+        the sender. The hub stores coded payloads opaquely; its byte
+        accounting sees the coded arrays' element sizes. Unknown names
+        raise ``WireError``."""
+        if codec:
+            self._codecs[channel] = make_codec(codec)
+        else:
+            self._codecs.pop(channel, None)
+
+    def link(self, channel: str, worker: str) -> LinkModel:
+        bandwidth, latency = self._call("link", channel, worker)
+        return LinkModel(float(bandwidth), float(latency))
+
+    # --------------------------- reduce plane -------------------------- #
+    def install_reduce(
+        self,
+        channel: str,
+        group: str,
+        dst: str,
+        srcs: Sequence[str],
+        shards: int = 1,
+        fused: Optional[bool] = None,
+    ) -> None:
+        raise NotImplementedError(f"the hub reduce plane {_NOT_PORTED}")
+
+    # ----------------------------- clocks ------------------------------ #
+    def now(self, worker: str) -> float:
+        return float(self._call("now", worker))
+
+    def advance(self, worker: str, seconds: float) -> None:
+        self._call("advance", worker, float(seconds))
+
+    def set_clock(self, worker: str, at: float) -> None:
+        self._call("set_clock", worker, float(at))
+
+    # ------------------------------ stats ------------------------------ #
+    @property
+    def stats(self) -> Dict[str, float]:
+        out = {str(k): float(v) for k, v in self._call("stats").items()}
+        with self._codec_stats_lock:
+            out.update(self._codec_stats)
+        return out
+
+
+def hub_backend_factory(
+    address: Tuple[str, int], client_key: str = "", device: Any = None
+) -> Callable[[Any], MultiprocBackend]:
+    """A ``ChannelManager`` backend factory routing every channel spec through
+    one shared hub client."""
+    client = MultiprocBackend(address, client_key=client_key, device=device)
+    return lambda spec: client
+
+
+class ShardedTransportHub:
+    """The subtree-sharded broker fabric (one hub per groupBy label plus a
+    root) — not ported yet."""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        raise NotImplementedError(f"ShardedTransportHub {_NOT_PORTED}")
+
+
+class ShardRouter:
+    """The client of a sharded hub fabric — not ported yet."""
+
+    def __init__(self, *args: Any, **kwargs: Any) -> None:
+        raise NotImplementedError(f"ShardRouter {_NOT_PORTED}")
+
+
+def sharded_backend_factory(
+    addresses: Dict[str, Tuple[str, int]], client_key: str = ""
+) -> Callable[[Any], Any]:
+    raise NotImplementedError(f"sharded_backend_factory {_NOT_PORTED}")
+
+
+class LoopbackMultiprocBackend(MultiprocBackend):
+    """Self-contained socket-loopback transport for per-channel selection.
+
+    Spins up a private hub and connects to it, so a TAG can flip a single
+    channel's ``backend`` to ``"multiproc"`` and have that channel's traffic
+    cross a real socket and the wire format (and its codec) while the rest
+    of the job stays in-process — the §6.2 per-channel backend experiment
+    with an actual transport.
+    """
+
+    def __init__(self, device: Any = None) -> None:
+        self._own_hub = TransportHub()
+        super().__init__(self._own_hub.address, name="multiproc", device=device)
+
+    def close(self) -> None:
+        try:
+            super().close()
+        finally:
+            self._own_hub.close()
+
+
+# flipping a ChannelSpec to backend="multiproc" picks the loopback flavor
+register_backend("multiproc", LoopbackMultiprocBackend)

@@ -283,24 +283,51 @@ def test_streaming_mean_empty_and_zero_weight():
     assert acc.finalize() == (None, 0.0)
 
 
+def _leaf_bytes(x):
+    x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return x.dtype, x.tobytes()
+
+
 @pytest.mark.parametrize("dtype", [np.int32, np.float64])
 def test_non_float32_leaves_differ_from_reference(dtype):
-    """A known difference (ROADMAP Queue 3): the JAX package folds any numpy
-    leaf with numpy's promotion (int32 -> float64); the port folds float32
-    tensors only and raises instead of folding on another path."""
-    tree = {"w": np.arange(4).astype(dtype)}
+    """Once a known difference (ROADMAP Queue 3), now repaired: leaves that
+    are not float32 tensors fold with numpy's promotion in both packages
+    (int32 -> float64), in the same dtype and to the same bytes, whether
+    they arrive as tensors, numpy arrays or Python and numpy scalars, in
+    ``StreamingMean`` and in ``weighted_mean``."""
+    rng = np.random.default_rng(11)
+    updates = [
+        ({"w": (rng.normal(size=4) * 50).astype(dtype), "h": (rng.normal(size=3) * 9).astype(np.float16),
+          "s": int(rng.integers(0, 9)), "f": float(rng.normal()), "g": np.float32(rng.normal()),
+          "i": np.int64(rng.integers(0, 9)), "f32": rng.normal(size=5).astype(np.float32)},
+         n)
+        for n in (2.0, 3.7, 1.3)
+    ]
     ref_acc = jroles.StreamingMean(fused=False)
-    ref_acc.fold(tree, 2.0)
-    assert ref_acc.finalize()[0]["w"].dtype == np.float64
-    with pytest.raises(TypeError):
-        troles.StreamingMean().fold(tree_from_numpy(tree, "cpu"), 2.0)
+    for tree, n in updates:
+        ref_acc.fold(tree, n)
+    ref_mean, ref_total = ref_acc.finalize()
+    ref_wm, _ = jroles.weighted_mean(updates, fused=False)
+    assert np.asarray(ref_mean["w"]).dtype == np.float64
+    for convert in (lambda t: t, lambda t: tree_from_numpy(t, "cpu")):
+        acc = troles.StreamingMean(device="cpu")
+        for tree, n in updates:
+            acc.fold(convert(tree), n)
+        mean, total = acc.finalize()
+        wm, _ = troles.weighted_mean([(convert(t), n) for t, n in updates])
+        assert total == ref_total
+        for key in ref_mean:
+            assert _leaf_bytes(mean[key]) == _leaf_bytes(ref_mean[key]), key
+            assert _leaf_bytes(wm[key]) == _leaf_bytes(ref_wm[key]), key
 
 
 def test_streaming_mean_rejects_leaves_off_the_job_device():
-    """Nothing crosses to the host inside a round: numpy leaves raise, and
-    so do tensors on another device than the job's."""
-    with pytest.raises(TypeError):
-        troles.StreamingMean().fold({"w": np.ones(3, np.float32)}, 1.0)
+    """Nothing crosses to the host inside a round: tensors on another device
+    than the job's raise. Numpy leaves fold on the host with numpy, as the
+    JAX package folds them."""
+    host = troles.StreamingMean()
+    host.fold({"w": np.ones(3, np.float32)}, 1.0)
+    assert _leaf_bytes(host.finalize()[0]["w"]) == _leaf_bytes(np.ones(3, np.float32))
     on_card = troles.StreamingMean(device="cuda:0")
     with pytest.raises(TypeError, match="cuda:0"):
         on_card.fold({"w": torch.ones(3)}, 1.0)

@@ -180,8 +180,20 @@ def test_channel_end_surface():
 
 
 def test_codec_channel_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="Queue 5/6"):
-        tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="int8")])
+    """Codecs are ported: a coded in-process channel builds and accounts the
+    codec's wire bytes, and an unknown codec is refused when the manager is
+    built. What is still not ported, the hub reduce plane, raises."""
+    from repro_torch.transport.wire import WireError
+
+    mgr = tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="int8")])
+    ea = mgr.end("ch", "default", "a-0")
+    mgr.end("ch", "default", "b-0")
+    ea.send("b-0", {"w": torch.zeros(1000)})
+    assert mgr.channel_stats("ch")["raw_bytes"] == 4000.0
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        mgr.backend("ch").install_reduce("ch", "default", "b-0", ["a-0"])
+    with pytest.raises(WireError):
+        tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="zip9")])
     with pytest.raises(KeyError):
         tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), backend="nope")])
 
