@@ -7,7 +7,7 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs six phases, each printing one line:
+source, started together), then runs seven phases, each printing one line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -29,9 +29,21 @@ source, started together), then runs six phases, each printing one line:
    updates, byte counts and codec ratio equal to those worked out from the
    shapes, kernel launches equal to the codec's encode/decode counts, and a
    split of one round; (c) the quant kernels' times at full width;
-6. a ``kernels`` JSON line: launches on each path (phase 4 for the fold
-   kernels, phase 5's job for the quant kernels), time, plain version's
-   time, bound and a library call's time per kernel, at the path's shapes.
+6. serve: (a) the flash kernel against its plain version on the same CUDA
+   tensors (the five shapes of the JAX package's kernel test and its bf16
+   case, head dims 128 and 256, a ragged S 2049, the serving shape);
+   (b) ``serve.generate`` on Qwen2.5-3B at full width and depth (36 layers,
+   bf16, random weights from a seeded generator), 8 prompts of 2048 tokens
+   and 64 greedy tokens, with the flash kernel: logits finite, 36 flash
+   launches per prefill and none per decode step, the prefill's logits
+   against the plain attention's, and teacher forcing (a decode step after
+   a prefill of S tokens against a prefill of S + 1); (c) prefill and
+   decode times, a kernel-time breakdown of each from ``torch.profiler``,
+   and the flash kernel's time at the serving shape;
+7. a ``kernels`` JSON line: launches on each path (phase 4 for the fold
+   kernels, phase 5's job for the quant kernels, phase 6's serving run for
+   the flash kernel), time, plain version's time, bound and a library
+   call's time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -70,10 +82,18 @@ from repro_torch.kernels.quant import ops as qops  # noqa: E402
 from repro_torch.kernels.quant import ref as qref  # noqa: E402
 from repro_torch.transport import wire  # noqa: E402
 from repro_torch.transport.conformance import SeededSGDTrainer  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 # the CPU tests' tolerance for the seeded SGD job (tests/test_torch_jobs.py):
 # float32 products rounded by another BLAS
 SGD_RTOL, SGD_ATOL = 1e-5, 1e-6
@@ -88,6 +108,22 @@ N_TRAINERS, ROUNDS = 8, 3
 CODEC_TRAINERS, CODEC_ROUNDS = 4, 2
 QUANT_BLOCK = qkernel.BLOCK
 QWEN_BLOCKS = 151_239  # QWEN_PARAMS / 4096, exactly
+# phase 6: serving the full Qwen2.5-3B (36 layers, bf16, vocab padded to 152 064)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
+QWEN_FULL_PARAMS = 3_086_200_832
+# the flash kernel against its plain version: the JAX package's tolerances
+# (tests/test_kernels.py); the kernel sums in another order
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# ... and a limit scaled to the output, for the long rows whose values are
+# far below FLASH_ATOL (|out| ~ 0.04 at S 2048): relative L2 within a few
+# times the rounding of the output (bf16: 2^-9 at most per value), which a
+# plain version with one 64-key tile dropped must exceed
+FLASH_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+FAULT_KEYS = 64  # keys a planted fault drops: one KV tile of the kernel
+# prefill logits, flash against plain attention and decode against a longer
+# prefill: bf16 rounds at every product through 36 layers, in other orders;
+# prefills with a fault planted in the attention must read above it
+SERVE_REL_L2 = 5e-2
 
 
 class PhaseFailed(RuntimeError):
@@ -117,15 +153,15 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------- #
 # phase 1
 # ---------------------------------------------------------------------- #
-LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY)
+LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY)
 
 
 def phase_environment() -> str:
@@ -840,7 +876,283 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-def kernels_line(full: dict, codec: dict) -> str:
+# phase 6
+# ---------------------------------------------------------------------- #
+# (B, S, H, Hkv, D, causal, window, dtype): the five shapes and the bf16
+# case of tests/test_kernels.py, head dims 128 and 256, a ragged S, and the
+# serving prefill's shape
+FLASH_CASES = (
+    (2, 128, 4, 2, 64, True, 0, torch.float32),
+    (1, 256, 4, 4, 32, True, 0, torch.float32),
+    (2, 192, 8, 1, 64, True, 64, torch.float32),
+    (1, 128, 4, 2, 64, False, 0, torch.float32),
+    (1, 200, 2, 2, 32, True, 0, torch.float32),
+    (1, 128, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 512, 8, 2, 128, True, 0, torch.float32),
+    (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
+    (1, 2049, 16, 2, 128, True, 0, torch.bfloat16),
+    (SERVE_BATCH, SERVE_PROMPT, 16, 2, 128, True, 0, torch.bfloat16),
+)
+
+
+def _qkv(dev, gen, B, S, H, Hkv, D, dtype):
+    return (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype),
+            torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dtype))
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _attention_without_tile(q, k, v, *, causal=True, window=0):
+    """Causal plain attention with a planted fault: the FAULT_KEYS keys from
+    S/2 on are masked for every row, as a kernel that skips one KV tile
+    would compute. (B, S, H, D) layout, the flash op's signature."""
+    check(causal and not window, "the planted tile fault is causal without a window")
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    lo = S // 2 - S // 2 % FAULT_KEYS
+    pos = torch.arange(S, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & ~((pos >= lo) & (pos < lo + FAULT_KEYS))[None, :]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, S, Hkv, H // Hkv, D), k.float())
+    s = (s * D**-0.5).masked_fill(~keep, fref.NEG_INF)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _attention_wrong_heads(q, k, v, *, causal=True, window=0):
+    """Plain attention with a planted fault: q head h reads kv head
+    h % Hkv instead of h // (H / Hkv)."""
+    heads = torch.arange(q.shape[2], device=q.device) % k.shape[2]
+    return fref.reference_attention(q, k[:, :, heads], v[:, :, heads], causal=causal, window=window)
+
+
+def _attention_not_causal(q, k, v, *, causal=True, window=0):
+    """Plain attention with a planted fault: no causal mask."""
+    return fref.reference_attention(q, k, v, causal=False, window=window)
+
+
+PLANTED_FAULTS = {"tile_dropped": _attention_without_tile, "wrong_kv_head": _attention_wrong_heads,
+                  "not_causal": _attention_not_causal}
+
+
+def phase_flash_parity(dev: torch.device) -> float:
+    """(a) the flash kernel against its plain version on the same tensors,
+    by max abs error and by relative L2, and the plain version with one KV
+    tile dropped against it at the serving shape (a control that the
+    relative limit must see); returns the max abs error at the serving
+    shape."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs, rels = [], []
+    for B, S, H, Hkv, D, causal, window, dtype in FLASH_CASES:
+        q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, dtype)
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        plain = fref.reference_attention(q, k, v, causal=causal, window=window)
+        check(out.dtype == dtype and out.shape == q.shape, f"flash output {out.dtype} {tuple(out.shape)}")
+        err = float((out.float() - plain.float()).abs().max())
+        rel = _rel_l2(out, plain)
+        case = f"flash (B {B}, S {S}, H {H}/{Hkv}, D {D}, causal {causal}, window {window}, {dtype})"
+        check(err <= FLASH_ATOL[dtype], f"{case}: max abs err {err} > {FLASH_ATOL[dtype]}")
+        check(rel <= FLASH_REL_L2[dtype], f"{case}: rel L2 {rel} > {FLASH_REL_L2[dtype]}")
+        errs.append(err)
+        rels.append(rel)
+        del out
+    # the last case is the serving shape: a dropped tile must show
+    control = _attention_without_tile(q, k, v)
+    control_rel = _rel_l2(control, plain)
+    control_err = float((control.float() - plain.float()).abs().max())
+    check(control_rel > FLASH_REL_L2[dtype],
+          f"one dropped KV tile reads rel L2 {control_rel}, within the limit {FLASH_REL_L2[dtype]}")
+    del q, k, v, plain, control
+    torch.cuda.synchronize()
+    print(f"phase serve parity: ok flash kernel within atol 2e-5 / 3e-2 and rel L2 1e-5 / 5e-3 "
+          f"(f32 / bf16) of its plain version in {len(FLASH_CASES)} cases; max_abs_err "
+          f"{[f'{e:.3g}' for e in errs]} rel_l2 {[f'{r:.3g}' for r in rels]}; control (plain with "
+          f"{FAULT_KEYS} keys dropped, serving shape) rel_l2 {control_rel:.3g} max_abs_err "
+          f"{control_err:.3g}", flush=True)
+    return errs[-1]
+
+
+def _rounded(d: dict) -> dict:
+    return {k: round(v, 3) if isinstance(v, float) else v for k, v in d.items()}
+
+
+def _kernel_classes(fn) -> dict:
+    """Wall ms of ``fn`` (synchronized) and its device kernel ms by class,
+    from a ``torch.profiler`` trace of the card alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    other = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        cls = ("flash" if "flash_kernel" in name else
+               "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet", "cublas")) else
+               "other")
+        t = e.time_range.elapsed_us() / 1e3
+        ms[cls] += t
+        if cls == "other":
+            other[e.name[:60]] = other.get(e.name[:60], 0.0) + t
+        n += 1
+    check(n > 0, "the profiler recorded no device kernels")
+    busy = sum(ms.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
+    return {"wall_ms": wall_ms, "kernels": n, "busy_share": busy / wall_ms,
+            **{f"{k}_ms": v for k, v in ms.items()},
+            "top_other_ms": [[k, round(v, 3)] for k, v in top]}
+
+
+def phase_serve(dev: torch.device, flash_err: float) -> dict:
+    """(b) serving the full Qwen2.5-3B through ``serve.generate`` with the
+    flash kernel, checked; (c) its times and the kernel's."""
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"), attn_impl="flash")
+    check(cfg.num_layers == 36 and cfg.scan_layers and cfg.param_dtype == "bfloat16",
+          "qwen2_5_3b is not the full bf16 36-layer config")
+    bundle = build_model(cfg, dev)
+    plain_bundle = build_model(dataclasses.replace(cfg, attn_impl="xla"), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init(gen)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == QWEN_FULL_PARAMS, f"{n_params} parameters, not {QWEN_FULL_PARAMS}")
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: one generate call, launches counted from 0
+    fkernel.reset_launches()
+    out = generate(bundle, params, prompts, T)
+    launches = fkernel.flash_attention_bhsd.launches
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(out.all_finite, "non-finite logits while serving")
+    check(out.tokens.shape == (B, T), f"tokens {tuple(out.tokens.shape)}")
+    check(launches == cfg.num_layers, f"{launches} flash launches in a prefill and {T - 1} "
+          f"decode steps, not {cfg.num_layers}")
+
+    # per call: 36 launches per prefill, none per decode step
+    fkernel.reset_launches()
+    logits_f, cache = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
+    per_prefill = fkernel.flash_attention_bhsd.launches
+    nxt = torch.argmax(logits_f[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    fkernel.reset_launches()
+    logits_d, _ = bundle.serve_step(params, cache, {"token": nxt})
+    per_step = fkernel.flash_attention_bhsd.launches
+    check(per_prefill == cfg.num_layers and per_step == 0,
+          f"flash launches per prefill {per_prefill}, per decode step {per_step}")
+    del cache
+    # teacher forcing: the decode step against a prefill of S + 1 tokens
+    logits_s1, _ = bundle.prefill(params, {"tokens": torch.cat([prompts, nxt], dim=1)},
+                                  bundle.init_cache(B, S + 1))
+    tf_rel = _rel_l2(logits_d, logits_s1)
+    tf_err = float((logits_d - logits_s1).abs().max())
+    # the flash prefill against the plain attention's
+    logits_x, _ = plain_bundle.prefill(params, {"tokens": prompts}, plain_bundle.init_cache(B, S + 1))
+    fx_rel = _rel_l2(logits_f, logits_x)
+    fx_err = float((logits_f - logits_x).abs().max())
+    check(all(bool(torch.isfinite(x).all()) for x in (logits_f, logits_d, logits_s1, logits_x)),
+          "non-finite logits")
+    check(fx_rel <= SERVE_REL_L2, f"flash vs plain prefill logits: rel L2 {fx_rel} > {SERVE_REL_L2}")
+    check(tf_rel <= SERVE_REL_L2, f"teacher forcing: rel L2 {tf_rel} > {SERVE_REL_L2}")
+    # controls: prefills with a fault planted in the attention, against the
+    # plain prefill; each must read above the bound
+    controls = {}
+    try:
+        for name, fault in PLANTED_FAULTS.items():
+            blocks.flash_attention = fault
+            logits_c, _ = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
+            controls[name] = _rel_l2(logits_c, logits_x)
+            del logits_c
+    finally:
+        blocks.flash_attention = flash_attention
+    check(min(controls.values()) > SERVE_REL_L2,
+          f"a planted attention fault reads within the bound {SERVE_REL_L2}: rel L2 {controls}")
+    del logits_s1, logits_x, logits_d
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) prefill time: median of 3 after a warm-up, CUDA events
+    def prefill(which=bundle):
+        return which.prefill(params, {"tokens": prompts}, which.init_cache(B, S + T))
+
+    def median_ms(fn, runs=3):
+        fn()
+        times = []
+        for _ in range(runs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    prefill_ms = median_ms(prefill)
+    plain_prefill_ms = median_ms(lambda: prefill(plain_bundle), runs=1)
+    # bf16 products that may reduce split-K sums in bf16 (PyTorch's default)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    reduced_ms = median_ms(prefill)
+    logits_r, _ = prefill()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    reduced_rel = _rel_l2(logits_r, logits_f)
+    del logits_r
+    # where a prefill's and a decode step's device time goes
+    prof_prefill = _kernel_classes(prefill)
+    _, cache = prefill()
+    prof_step = _kernel_classes(lambda: bundle.serve_step(params, cache, {"token": nxt}))
+    del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the flash kernel alone at the serving shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = _qkv(dev, gen, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)  # q, k, v read, out written
+    flops = 4 * D * B * H * (S * (S + 1) // 2)  # two products over the causal pairs
+    timing = dict(
+        ms=cuda_ms(lambda: flash_attention(q, k, v)),
+        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        bound=bound(nbytes, flops, BF16_TENSOR_FLOPS), max_abs_err=flash_err,
+    )
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    decode_ms = out.decode_s / (T - 1) * 1e3
+    print(f"phase serve: ok Qwen2.5-3B ({n_params} bf16 params, 36 layers) B {B} prompt {S} "
+          f"gen {T} with the flash kernel; flash launches {launches} (per prefill {per_prefill}, "
+          f"per decode step {per_step}); flash vs plain prefill rel_l2 {fx_rel:.3g} max_abs_err "
+          f"{fx_err:.3g}; teacher forcing rel_l2 {tf_rel:.3g} max_abs_err {tf_err:.3g}; "
+          f"controls (planted attention faults) rel_l2 "
+          f"{json.dumps({k: float(f'{v:.4g}') for k, v in controls.items()})}; "
+          f"prefill_ms {prefill_ms:.3f} (in generate {out.prefill_s * 1e3:.3f}) plain_prefill_ms "
+          f"{plain_prefill_ms:.3f} bf16_reduced_reduction prefill_ms {reduced_ms:.3f} rel_l2 "
+          f"{reduced_rel:.3g}; decode_ms_per_step {decode_ms:.3f} decode_tokens_per_s "
+          f"{B * (T - 1) / out.decode_s:.1f} generated_tokens_per_s "
+          f"{B * T / (out.prefill_s + out.decode_s):.1f} peak_device_gb {peak_gb:.2f}; "
+          f"prefill profile {json.dumps(_rounded(prof_prefill))} "
+          f"decode step profile {json.dumps(_rounded(prof_step))}; "
+          f"flash ms {timing['ms']:.3f} plain_ms {timing['plain_ms']:.3f} sdpa_ms "
+          f"{timing['library_ms']:.3f} bound_ms {timing['bound'][0]:.4f} ({timing['bound'][1]})",
+          flush=True)
+    return {"launches": {"flash_attention_bhsd": launches}, "timings": {"flash_attention_bhsd": timing}}
+
+
+# ---------------------------------------------------------------------- #
+def kernels_line(full: dict, codec: dict, serve: dict) -> str:
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -854,6 +1166,10 @@ def kernels_line(full: dict, codec: dict) -> str:
          "none: no one PyTorch call computes blockwise scales and codes", codec),
         ("dequantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:50", True,
          "torch.mul(q, scale)", codec),
+        ("flash_attention_bhsd", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "src/repro/kernels/flash_attention/kernel.py:76", True,
+         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)",
+         serve),
     ]
     out = []
     for name, src, replaces, on_path, library, run in rows:
@@ -874,6 +1190,10 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce split-K partial sums in float32, as the JAX
+    # package accumulates (phase 6 also times a prefill with it allowed)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = phase_environment()
     phase_parity(dev)
@@ -883,7 +1203,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     errs = phase_codec_parity(dev)
     codec = phase_codec_job(dev, errs)
-    print(kernels_line(full, codec), flush=True)
+    # the earlier phases peak at about 46 GB: free them before serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve = phase_serve(dev, phase_flash_parity(dev))
+    print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
+    print(kernels_line(full, codec, serve), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 port's rule for the device a job runs on.
 
 The JAX package's parameter trees hold numpy arrays (as
-``hyperparams["init_weights"]`` carries them); the port's hold
-``torch.Tensor``s on the job's device. Both functions keep structure and
-dtypes; Python scalars and ``None`` pass through unchanged.
+``hyperparams["init_weights"]`` carries them, or as ``jax.device_get`` gives
+a model's parameters, bfloat16 ones as ``ml_dtypes`` arrays); the port's
+hold ``torch.Tensor``s on the job's device. The functions keep structure
+and dtypes; Python scalars and ``None`` pass through unchanged.
 """
 from __future__ import annotations
 
@@ -21,7 +22,12 @@ def _to_tensor(leaf: Any, device: torch.device) -> Any:
     if isinstance(leaf, torch.Tensor):
         return leaf.to(device)
     if isinstance(leaf, (np.ndarray, np.generic)):
-        return torch.from_numpy(np.array(leaf, copy=True)).to(device)
+        arr = np.array(leaf, copy=True)
+        if arr.dtype.name == "bfloat16":
+            # ml_dtypes' bfloat16 (JAX's), which torch.from_numpy refuses:
+            # carried as its 16-bit patterns, without importing ml_dtypes
+            return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+        return torch.from_numpy(arr).to(device)
     return leaf
 
 
@@ -51,6 +57,14 @@ def tree_from_numpy(tree: Any, device: Any) -> Any:
     return walk(tree)
 
 
+def params_from_jax(tree: Any, device: Any) -> Any:
+    """A JAX parameter or cache tree, given as numpy arrays, as the port's
+    tree on ``device``: tuples, dict key order and dtypes kept, bfloat16
+    leaves included. (``jax.device_get`` gives such arrays, with its dicts
+    rebuilt in sorted key order, as a jitted JAX function returns them.)"""
+    return tree_from_numpy(tree, device)
+
+
 def tree_to_numpy(tree: Any) -> Any:
     """A tree of tensors as a tree of numpy arrays on the host."""
     return tree_map(
@@ -68,8 +82,8 @@ def resolve_device(device: Any = None) -> torch.device:
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device: run_job runs on the card by default; pass "
-                "device='cpu' to run on the CPU"
+                "no CUDA device: the port runs on the card by default (run_job, "
+                "build_model, serve); pass device='cpu' to run on the CPU"
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,153 @@
+"""Core layers: norms, rotary embeddings (RoPE / M-RoPE), gated MLPs (the
+port of ``repro.models.layers``).
+
+Parameters are plain dicts of tensors; init functions draw from the
+caller's ``torch.Generator`` on its device (``normal * d_in**-0.5`` in
+float32, cast to the parameter dtype, as the JAX package draws; the values
+differ from JAX's, so parity tests carry the JAX weights across).
+
+Products keep the JAX package's float32 accumulation
+(``preferred_element_type``): ``dot`` rounds once to the input dtype and
+``unembed_apply`` returns float32. On the card a bfloat16 product is one
+cuBLAS call in bfloat16 with a float32 compute type; whether cuBLAS may
+reduce split-K partial sums in bfloat16 is the process's
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+which this module leaves as the caller set it (the entry points turn it
+off). On the CPU a bfloat16 product is computed in float32 and rounded once.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tree = Dict[str, torch.Tensor]
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, d_out), accumulated in float32, in x's dtype."""
+    if x.dtype == torch.float32 or x.is_cuda:
+        return torch.matmul(x, w)
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# init
+# --------------------------------------------------------------------- #
+def _normal(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+               bias: bool = False) -> Tree:
+    p = {"w": (_normal(gen, (d_in, d_out)) * (d_in**-0.5)).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def dense_apply(p: Tree, x: torch.Tensor) -> torch.Tensor:
+    y = dot(x, p["w"])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> Tree:
+    return {"emb": _normal(gen, (vocab, d)).to(dtype) * 0.02}
+
+
+def embed_apply(p: Tree, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p["emb"])
+
+
+def unembed_apply(p: Tree, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits through the (tied or separate) unembedding matrix."""
+    emb = p["emb"]
+    if x.dtype == torch.float32 and emb.dtype == torch.float32:
+        return torch.matmul(x, emb.t())
+    if x.is_cuda:  # float32 out of the bf16 product: no float32 copy of emb
+        flat = torch.mm(x.reshape(-1, x.shape[-1]), emb.t(), out_dtype=torch.float32)
+        return flat.reshape(*x.shape[:-1], emb.shape[0])
+    return torch.matmul(x.float(), emb.float().t())
+
+
+# --------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------- #
+def rmsnorm_init(d: int, dtype: torch.dtype, device: torch.device) -> Tree:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm_apply(p: Tree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# rotary embeddings
+# --------------------------------------------------------------------- #
+def rope_freqs(head_dim: int, theta: float, device: torch.device = None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponents)
+
+
+def _rotate_half_pairs(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10_000.0) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (Dh/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
+    return _rotate_half_pairs(x, angles[..., None, :])  # broadcast over heads
+
+
+def apply_mrope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    sections: Tuple[int, int, int],
+    theta: float = 10_000.0,
+) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): rotary split into temporal/height/width sections.
+
+    x: (B, S, H, Dh); positions: (3, B, S), one position stream per section.
+    ``sections`` are sizes in *frequency* space (sum == Dh/2).
+    """
+    head_dim = x.shape[-1]
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} must sum to head_dim/2 = {head_dim // 2}")
+    freqs = rope_freqs(head_dim, theta, x.device)
+    # which position stream drives each frequency band
+    section_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device))
+    pos_per_band = positions.to(torch.float32)[section_id]  # (Dh/2, B, S)
+    angles = torch.movedim(pos_per_band, 0, -1) * freqs  # (B, S, Dh/2)
+    return _rotate_half_pairs(x, angles[..., None, :])
+
+
+# --------------------------------------------------------------------- #
+# gated MLPs
+# --------------------------------------------------------------------- #
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype) -> Tree:
+    return {
+        "gate": dense_init(gen, d, d_ff, dtype),
+        "up": dense_init(gen, d, d_ff, dtype),
+        "down": dense_init(gen, d_ff, d, dtype),
+    }
+
+
+def mlp_apply(p: Tree, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
+    g = dense_apply(p["gate"], x)
+    u = dense_apply(p["up"], x)
+    if activation == "geglu":  # jax.nn.gelu's default is the tanh form
+        h = F.gelu(g.to(torch.float32), approximate="tanh").to(x.dtype) * u
+    else:  # swiglu
+        h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    return dense_apply(p["down"], h)

@@ -35,8 +35,11 @@ the JAX package writes for the numpy array of the same dtype, shape and
 values: ``A``, the numpy dtype string, shape, C-order bytes. ``decode``
 returns numpy arrays, as the JAX package does; moving them onto a device is
 the receiving end's business (``to_device``, and the codecs' ``decode``
-which takes the device). ``bfloat16`` has no numpy dtype, so a bfloat16
-tensor does not cross the wire (``WireError``).
+which takes the device). ``bfloat16`` has no numpy dtype: a bfloat16 tensor
+frames as the JAX package frames an ``ml_dtypes`` bfloat16 array, dtype
+string ``<V2`` and the 16-bit patterns, and decodes, as there, to a numpy
+``V2`` array of raw bytes, which no codec codes and ``to_device`` refuses
+(the frame carries no tag that would make it bfloat16 again).
 """
 from __future__ import annotations
 
@@ -82,12 +85,22 @@ _TORCH_DTYPES: Dict[str, torch.dtype] = {n.str: t for t, n in _NP_DTYPES.items()
 _FLOAT_TENSOR_DTYPES = (torch.float16, torch.float32, torch.float64)
 
 
+# bfloat16 frames as the JAX package frames ml_dtypes' bfloat16: its dtype
+# string, then the raw 16-bit patterns
+_BF16_WIRE_DTYPE = "<V2"
+
+
 def numpy_dtype(t: torch.Tensor) -> np.dtype:
     """The numpy dtype a tensor frames as; ``WireError`` where none exists."""
     try:
         return _NP_DTYPES[t.dtype]
     except KeyError:
         raise WireError(f"cannot encode a {t.dtype} tensor on the wire: no numpy dtype") from None
+
+
+def _wire_dtype_str(t: torch.Tensor) -> str:
+    """The dtype string a tensor frames with."""
+    return _BF16_WIRE_DTYPE if t.dtype == torch.bfloat16 else numpy_dtype(t).str
 
 
 def torch_dtype(dt: Any) -> torch.dtype:
@@ -101,7 +114,10 @@ def torch_dtype(dt: Any) -> torch.dtype:
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
     """A tensor as a numpy array on the host (one device-to-host copy for a
-    CUDA tensor; a view of a CPU tensor)."""
+    CUDA tensor; a view of a CPU tensor). A bfloat16 tensor comes back as
+    its bit patterns, ``uint16``."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.uint16)
     numpy_dtype(t)
     return t.detach().cpu().resolve_conj().resolve_neg().numpy()
 
@@ -116,6 +132,10 @@ def to_device(tree: Any, device: Any) -> Any:
         if isinstance(node, torch.Tensor):
             return node.to(device)
         if isinstance(node, np.ndarray):
+            if node.dtype.kind == "V":
+                raise WireError(
+                    f"a {node.dtype.str} array (a bfloat16 leaf's raw bytes) has no "
+                    "torch dtype: the wire carries no bfloat16 tag")
             # not np.ascontiguousarray: it turns a 0-d array into shape (1,)
             if not node.flags.c_contiguous:
                 node = node.copy()
@@ -173,7 +193,7 @@ def _encode_into(obj: Any, out: bytearray) -> None:
         out += b"F"
     elif isinstance(obj, torch.Tensor):
         out += b"A"
-        _encode_array(_host_array(obj), out)
+        _encode_array(_host_array(obj), out, _wire_dtype_str(obj))
     elif isinstance(obj, np.generic):
         # before int/float: np.float64 subclasses float (and np.int_ may
         # subclass int) — they must round-trip as numpy scalars, not lose
@@ -231,10 +251,11 @@ def _encode_into(obj: Any, out: bytearray) -> None:
         )
 
 
-def _encode_array(arr: np.ndarray, out: bytearray) -> None:
+def _encode_array(arr: np.ndarray, out: bytearray, dtype_str: Optional[str] = None) -> None:
     if arr.dtype == object:
         raise WireError("cannot encode object-dtype arrays on the wire")
-    dt = arr.dtype.str.encode("ascii")  # e.g. b"<f4" — carries byte order
+    # e.g. b"<f4": carries byte order
+    dt = (dtype_str or arr.dtype.str).encode("ascii")
     out += _U32.pack(len(dt))
     out += dt
     out += _U32.pack(arr.ndim)
@@ -272,7 +293,7 @@ def encoded_size(obj: Any) -> int:
         return 1
     if isinstance(obj, torch.Tensor):
         # counted from numel and element size: no device-to-host copy
-        dt = numpy_dtype(obj).str
+        dt = _wire_dtype_str(obj)
         return 1 + 4 + len(dt) + 4 + 8 * obj.dim() + 8 + obj.numel() * obj.element_size()
     if isinstance(obj, np.generic):
         return 1 + _array_encoded_size(np.asarray(obj))
@@ -499,8 +520,8 @@ _FLOAT_KINDS = ("f",)
 
 def _is_float_array(node: Any) -> bool:
     """A float leaf a codec transforms: a float16/32/64 tensor, or a numpy
-    array or scalar of float kind (bfloat16 tensors are not: numpy has no
-    such kind)."""
+    array or scalar of float kind. bfloat16 tensors are not, as their
+    frames (kind ``V``) are not in the JAX package."""
     if isinstance(node, torch.Tensor):
         return node.dtype in _FLOAT_TENSOR_DTYPES
     return (

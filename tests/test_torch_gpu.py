@@ -8,7 +8,8 @@ the JAX package, so they run on a machine that has only torch:
 Each kernel is held against its plain version on the same CUDA tensors:
 bytes equal for the exact entries and the quant kernels, and for the fused
 weighted sum within 1e-6 of the summed magnitudes of its terms (it may
-contract into FMAs).
+contract into FMAs); the flash kernel within atol 2e-5 (float32) and 3e-2
+(bfloat16), the JAX package's tolerances, as it sums in another order.
 """
 import numpy as np
 import pytest
@@ -21,6 +22,9 @@ from repro_torch.core.runtime import run_job
 from repro_torch.core.tag import DatasetSpec
 from repro_torch.core.topologies import classical_fl
 from repro_torch.kernels.agg import kernel, ref
+from repro_torch.kernels.flash_attention import kernel as fkernel
+from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.quant import kernel as qkernel
 from repro_torch.kernels.quant import ops as qops
 from repro_torch.kernels.quant import ref as qref
@@ -170,3 +174,66 @@ def test_codec_job_on_card_equals_cpu(cuda_device):
     assert card_stats == host_stats
     stats = card_stats["param-channel"]
     assert (nq, nd) == (stats["payload_encodes"], stats["payload_decodes"]) and (hq, hd) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window,dtype", [
+    (2, 128, 4, 2, 64, True, 0, torch.float32),     # GQA
+    (1, 256, 4, 4, 32, True, 0, torch.float32),     # MHA
+    (2, 192, 8, 1, 64, True, 64, torch.float32),    # MQA + sliding window
+    (1, 128, 4, 2, 64, False, 0, torch.float32),    # bidirectional
+    (1, 200, 2, 2, 32, True, 0, torch.float32),     # ragged
+    (1, 128, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 300, 8, 2, 128, True, 0, torch.bfloat16),   # Qwen's head dim, ragged
+    (1, 257, 4, 2, 256, True, 0, torch.float32),    # Gemma's head dim
+    (1, 97, 2, 1, 32, False, 40, torch.float32),    # non-causal window
+])
+def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal, window, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
+    fkernel.reset_launches()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert fkernel.flash_attention_bhsd.launches == 1
+    assert out.dtype == dtype and out.shape == q.shape
+    plain = fref.reference_attention(q, k, v, causal=causal, window=window)
+    atol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=0)
+    # and a limit scaled to the output: relative L2 within a few times the
+    # output's rounding, which a wrong tile would exceed
+    rel_l2 = 1e-5 if dtype == torch.float32 else 5e-3
+    diff = (out.double() - plain.double()).norm() / plain.double().norm()
+    assert diff <= rel_l2, f"relative L2 {float(diff)} > {rel_l2}"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q = torch.randn(1, 16, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 2, 16, 64, device=cuda_device)
+    v = torch.randn(1, 2, 64, 16, device=cuda_device).transpose(2, 3)  # last stride 16
+    with pytest.raises(ValueError, match="contiguous"):
+        fkernel.flash_attention_bhsd(q, q, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fkernel.flash_attention_bhsd(q.half(), q.half(), q.half())
+
+
+@pytest.mark.gpu
+def test_serving_on_card_launches_flash_once_per_layer(cuda_device):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True), attn_impl="flash")
+    bundle = build_model(cfg, cuda_device)
+    params = bundle.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
+    fkernel.reset_launches()
+    out = generate(bundle, params, prompts, 4)
+    assert fkernel.flash_attention_bhsd.launches == cfg.num_layers
+    assert out.all_finite and out.tokens.shape == (2, 4)

@@ -1,8 +1,8 @@
 """The port stands alone: no jax, no JAX package, and no silent CPU runs.
 
 * No module under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
-  ``jax`` or ``repro`` (an AST walk, and a subprocess import with both
-  blocked in ``sys.modules``).
+  ``jax``, ``repro`` or ``ml_dtypes`` (an AST walk, and a subprocess import
+  with them blocked in ``sys.modules``); the card's machine has none.
 * ``run_job`` without ``device`` raises where there is no CUDA device.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card and
   outside a checkout.
@@ -25,7 +25,7 @@ from repro_torch.core.topologies import classical_fl
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-_BANNED = ("jax", "jaxlib", "repro")
+_BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _banned(module: str) -> bool:
@@ -54,7 +54,7 @@ def test_no_jax_or_reference_import(path):
 def test_port_imports_with_jax_and_reference_blocked():
     code = (
         "import importlib, importlib.util, pkgutil, sys\n"
-        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"

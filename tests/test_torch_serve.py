@@ -1,0 +1,91 @@
+"""The port's serve loop (``repro_torch.launch.serve``) on the CPU.
+
+``main`` runs the JAX CLI's loop with ``--device cpu``; ``generate`` on the
+JAX package's weights and prompts gives, at float32 and greedy, the token
+ids of the JAX package's own loop (``repro.launch.serve``: ``prefill``,
+argmax, ``serve_step``), under both attention implementations.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.models.api import build_model as jax_build_model
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_jax
+from repro_torch.launch import serve
+from repro_torch.models.api import build_model
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_host(v) for v in tree)
+    return np.asarray(tree)
+
+
+def _jax_greedy(bundle, params, prompts, gen):
+    """The JAX package's serve loop (``repro.launch.serve.main``), greedy."""
+    B, S = prompts.shape
+    cache = bundle.init_cache(B, S + gen)
+    logits, cache = bundle.prefill(params, {"tokens": jnp.asarray(prompts)}, cache)
+    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    out = [tok]
+    for _ in range(gen - 1):
+        logits, cache = bundle.serve_step(params, cache, {"token": tok})
+        tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, axis=1))
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_greedy_tokens_equal_the_jax_loop(attn_impl):
+    jcfg = dataclasses.replace(jax_get_config("qwen2_5_3b", reduced=True), attn_impl=attn_impl)
+    tcfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True), attn_impl=attn_impl)
+    jb, tb = jax_build_model(jcfg), build_model(tcfg, "cpu")
+    jparams = jb.init(jax.random.key(0))
+    prompts = np.random.default_rng(0).integers(0, jcfg.vocab_size, size=(3, 24)).astype(np.int32)
+    want = _jax_greedy(jb, jparams, prompts, gen=8)
+    out = serve.generate(tb, params_from_jax(_host(jparams), "cpu"), torch.from_numpy(prompts), 8)
+    assert out.tokens.shape == (3, 8) and out.tokens.dtype == torch.int32
+    np.testing.assert_array_equal(out.tokens.numpy(), want)
+    assert out.all_finite
+    assert out.prefill_s >= 0 and out.decode_s >= 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "12", "--gen", "4"],
+    ["--arch", "qwen2_vl_2b", "--reduced", "--device", "cpu", "--attn-impl", "flash",
+     "--batch", "2", "--prompt-len", "20", "--gen", "3", "--temperature", "0.8"],
+])
+def test_main_runs_on_the_cpu(argv, capsys):
+    assert serve.main(argv) == 0
+    printed = capsys.readouterr().out
+    assert "[serve] prefill" in printed and "[serve] sample token ids:" in printed
+
+
+def test_sampling_follows_the_generator():
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    bundle = build_model(cfg, "cpu")
+    params = bundle.init(torch.Generator().manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 10), generator=torch.Generator().manual_seed(1))
+
+    def sample(seed):
+        gen = torch.Generator().manual_seed(seed)
+        return serve.generate(bundle, params, prompts, 6, temperature=1.0, generator=gen).tokens
+
+    assert torch.equal(sample(5), sample(5))
+    assert not torch.equal(sample(5), sample(6))
+    with pytest.raises(ValueError, match="gen"):
+        serve.generate(bundle, params, prompts, 0)
+
+
+def test_main_needs_the_card_unless_the_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced"])

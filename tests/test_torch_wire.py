@@ -94,16 +94,58 @@ def test_decode_returns_numpy_and_to_device_makes_tensors():
 
 
 def test_unencodable_objects_and_bfloat16_are_refused():
+    """What cannot cross is refused; a bfloat16 leaf crosses as raw bytes
+    (``<V2``, as in the JAX package) but ``to_device`` refuses to make a
+    tensor of them, since the frame has no bfloat16 tag."""
     with pytest.raises(tw.WireError):
         tw.encode(object())
+    back = tw.decode(tw.encode({"w": torch.zeros(2, dtype=torch.bfloat16)}))
+    assert back["w"].dtype.kind == "V"
     with pytest.raises(tw.WireError, match="bfloat16"):
-        tw.encode({"w": torch.zeros(2, dtype=torch.bfloat16)})
-    with pytest.raises(tw.WireError, match="bfloat16"):
-        tw.encoded_size({"w": torch.zeros(2, dtype=torch.bfloat16)})
+        tw.to_device(back, "cpu")
     with pytest.raises(tw.WireError):
         tw.decode(tw.encode([1, 2])[:-3])
     with pytest.raises(tw.WireError):
         tw.decode(tw.encode(1) + b"Z")
+
+
+def test_bfloat16_tensor_frames_to_the_jax_packages_bytes():
+    """A bf16 tensor frames as the JAX package frames the ml_dtypes array of
+    the same bits (``<V2`` and the 16-bit patterns), ``encoded_size``
+    agrees, the frame decodes to what the JAX package decodes, and no codec
+    codes the leaf."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(11)
+    bits = rng.integers(0, 2**16, size=(3, 5), dtype=np.uint16)
+    bits[0, :4] = [0x0000, 0x8000, 0x7F80, 0x7FC1]  # +0, -0, +inf, a NaN
+    jax_leaf = bits.view(ml_dtypes.bfloat16)
+    port_leaf = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    tree = {"w": jax_leaf, "b": np.ones(2, np.float32), "n": 3}
+    ref = jw.encode(tree)
+    port = {"w": port_leaf, "b": torch.ones(2), "n": 3}
+    assert tw.encode(port) == ref
+    assert b"".join(bytes(s) for s in tw.encode_segments(port)) == ref
+    assert tw.encoded_size(port) == jw.encoded_size(tree) == len(ref)
+    assert b"<V2" in ref
+    assert _same(tw.decode(ref), jw.decode(ref))
+    assert tw.decode(ref)["w"].tobytes() == bits.tobytes()
+    for name in CODECS:
+        coded = tw.make_codec(name).encode(port, link=LINK)
+        leaf = _find_leaf(coded, port_leaf)
+        assert leaf is not None and torch.equal(leaf.view(torch.uint16), port_leaf.view(torch.uint16))
+
+
+def _find_leaf(tree, like):
+    """The leaf of ``tree`` that is a tensor of ``like``'s dtype and shape."""
+    if isinstance(tree, torch.Tensor):
+        return tree if tree.dtype == like.dtype and tree.shape == like.shape else None
+    items = tree.values() if isinstance(tree, dict) else tree if isinstance(tree, (list, tuple)) else ()
+    for v in items:
+        found = _find_leaf(v, like)
+        if found is not None:
+            return found
+    return None
 
 
 def test_message_envelope_matches_jax():
