@@ -29,20 +29,25 @@ source, started together), then runs seven phases, each printing one line:
    updates, byte counts and codec ratio equal to those worked out from the
    shapes, kernel launches equal to the codec's encode/decode counts, and a
    split of one round; (c) the quant kernels' times at full width;
-6. serve: (a) the flash kernel against its plain version on the same CUDA
-   tensors (the five shapes of the JAX package's kernel test and its bf16
-   case, head dims 128 and 256, a ragged S 2049, the serving shape);
-   (b) ``serve.generate`` on Qwen2.5-3B at full width and depth (36 layers,
-   bf16, random weights from a seeded generator), 8 prompts of 2048 tokens
-   and 64 greedy tokens, with the flash kernel: logits finite, 36 flash
-   launches per prefill and none per decode step, the prefill's logits
-   against the plain attention's, and teacher forcing (a decode step after
-   a prefill of S tokens against a prefill of S + 1); (c) prefill and
-   decode times, a kernel-time breakdown of each from ``torch.profiler``,
-   and the flash kernel's time at the serving shape;
+6. serve: (a) both flash kernels against their plain version on the same
+   CUDA tensors: every case through the wrapper, which picks the route by
+   dtype and head dim (bf16 at D 64 and 128: the tensor-core kernel of
+   ``flash_sm90.cu``; the rest: ``flash.cu``), with one launch on the
+   expected route, and each bf16 D 64 / 128 case also on ``flash.cu``
+   directly, which takes it too (the five shapes of the JAX package's
+   kernel test and its bf16 case, head dims 32 to 256, causal, not, sliding
+   windows, GQA 8:1, ragged S, the serving shape); (b) ``serve.generate``
+   on Qwen2.5-3B at full width and depth (36 layers, bf16, random weights
+   from a seeded generator), 8 prompts of 2048 tokens and 64 greedy tokens,
+   with the flash kernel: logits finite, 36 launches of the tensor-core
+   kernel per prefill, none of ``flash.cu`` and none per decode step, the
+   prefill's logits against the plain attention's, and teacher forcing (a
+   decode step after a prefill of S tokens against a prefill of S + 1);
+   (c) prefill and decode times, a kernel-time breakdown of each from
+   ``torch.profiler``, and both flash kernels' times at the serving shape;
 7. a ``kernels`` JSON line: launches on each path (phase 4 for the fold
    kernels, phase 5's job for the quant kernels, phase 6's serving run for
-   the flash kernel), time, plain version's time, bound and a library
+   the flash kernels), time, plain version's time, bound and a library
    call's time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
@@ -119,7 +124,9 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # times the rounding of the output (bf16: 2^-9 at most per value), which a
 # plain version with one 64-key tile dropped must exceed
 FLASH_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
-FAULT_KEYS = 64  # keys a planted fault drops: one KV tile of the kernel
+# keys a planted fault drops: one KV tile of flash.cu at D 64, half of the
+# tensor-core kernel's 128-key tile, so the stricter control for it
+FAULT_KEYS = 64
 # prefill logits, flash against plain attention and decode against a longer
 # prefill: bf16 rounds at every product through 36 layers, in other orders;
 # prefills with a fault planted in the attention must read above it
@@ -161,7 +168,7 @@ def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
 # ---------------------------------------------------------------------- #
 # phase 1
 # ---------------------------------------------------------------------- #
-LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY)
+LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY, fkernel.SM90_LIBRARY)
 
 
 def phase_environment() -> str:
@@ -879,8 +886,11 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
 # phase 6
 # ---------------------------------------------------------------------- #
 # (B, S, H, Hkv, D, causal, window, dtype): the five shapes and the bf16
-# case of tests/test_kernels.py, head dims 128 and 256, a ragged S, and the
-# serving prefill's shape
+# case of tests/test_kernels.py, the bf16 shapes the tensor-core kernel
+# takes (D 64 and 128: causal, not, a window whose rows' first visited
+# tiles are all masked, a non-causal window, GQA 8:1, ragged S), float32
+# at D 128 and bf16 at D 32 and 256 (flash.cu only), and the serving
+# prefill's shape last
 FLASH_CASES = (
     (2, 128, 4, 2, 64, True, 0, torch.float32),
     (1, 256, 4, 4, 32, True, 0, torch.float32),
@@ -888,11 +898,20 @@ FLASH_CASES = (
     (1, 128, 4, 2, 64, False, 0, torch.float32),
     (1, 200, 2, 2, 32, True, 0, torch.float32),
     (1, 128, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 192, 8, 1, 64, True, 64, torch.bfloat16),
+    (1, 97, 2, 1, 64, False, 40, torch.bfloat16),
+    (1, 256, 4, 4, 128, False, 0, torch.bfloat16),
+    (1, 400, 4, 1, 128, True, 100, torch.bfloat16),
+    (1, 512, 8, 1, 128, True, 0, torch.bfloat16),
     (2, 512, 8, 2, 128, True, 0, torch.float32),
+    (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
     (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
     (1, 2049, 16, 2, 128, True, 0, torch.bfloat16),
     (SERVE_BATCH, SERVE_PROMPT, 16, 2, 128, True, 0, torch.bfloat16),
 )
+# the routes' counters and the C entries they launch
+ROUTE_ENTRIES = {"flash_forward": "flash_attention_forward",
+                 "flash_forward_sm90": "flash_attention_forward_sm90"}
 
 
 def _qkv(dev, gen, B, S, H, Hkv, D, dtype):
@@ -938,27 +957,44 @@ PLANTED_FAULTS = {"tile_dropped": _attention_without_tile, "wrong_kv_head": _att
                   "not_causal": _attention_not_causal}
 
 
-def phase_flash_parity(dev: torch.device) -> float:
-    """(a) the flash kernel against its plain version on the same tensors,
-    by max abs error and by relative L2, and the plain version with one KV
-    tile dropped against it at the serving shape (a control that the
-    relative limit must see); returns the max abs error at the serving
-    shape."""
+def phase_flash_parity(dev: torch.device) -> dict:
+    """(a) both flash kernels against their plain version on the same
+    tensors, by max abs error and by relative L2: each case through the
+    wrapper (one launch, on the route its dtype and head dim pick), and the
+    cases of the tensor-core route also on flash.cu directly; then the
+    plain version with one KV tile dropped against it at the serving shape
+    (a control that the relative limit must see). Returns each route's max
+    abs error at the serving shape."""
     gen = torch.Generator(device=dev).manual_seed(13)
-    errs, rels = [], []
+    errs, rels, routes = [], [], []
+    serving_err = {}
     for B, S, H, Hkv, D, causal, window, dtype in FLASH_CASES:
         q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, dtype)
-        out = flash_attention(q, k, v, causal=causal, window=window)
         plain = fref.reference_attention(q, k, v, causal=causal, window=window)
-        check(out.dtype == dtype and out.shape == q.shape, f"flash output {out.dtype} {tuple(out.shape)}")
-        err = float((out.float() - plain.float()).abs().max())
-        rel = _rel_l2(out, plain)
         case = f"flash (B {B}, S {S}, H {H}/{Hkv}, D {D}, causal {causal}, window {window}, {dtype})"
-        check(err <= FLASH_ATOL[dtype], f"{case}: max abs err {err} > {FLASH_ATOL[dtype]}")
-        check(rel <= FLASH_REL_L2[dtype], f"{case}: rel L2 {rel} > {FLASH_REL_L2[dtype]}")
-        errs.append(err)
-        rels.append(rel)
-        del out
+        route = fkernel.route_of(dtype, D)
+        fkernel.reset_launches()
+        runs = [(route, flash_attention(q, k, v, causal=causal, window=window))]
+        counts = {name: fkernel.ROUTES[name].launches for name in ROUTE_ENTRIES}
+        check(counts == {name: int(name == route) for name in ROUTE_ENTRIES}
+              and fkernel.flash_attention_bhsd.launches == 1,
+              f"{case}: launches {counts}, expected one on {route}")
+        if route == "flash_forward_sm90":  # flash.cu takes these too
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            runs.append(("flash_forward", fkernel.flash_forward(
+                qt, kt, vt, causal=causal, window=window).transpose(1, 2)))
+        for name, out in runs:
+            check(out.dtype == dtype and out.shape == q.shape,
+                  f"{case} {name}: output {out.dtype} {tuple(out.shape)}")
+            err = float((out.float() - plain.float()).abs().max())
+            rel = _rel_l2(out, plain)
+            check(err <= FLASH_ATOL[dtype], f"{case} {name}: max abs err {err} > {FLASH_ATOL[dtype]}")
+            check(rel <= FLASH_REL_L2[dtype], f"{case} {name}: rel L2 {rel} > {FLASH_REL_L2[dtype]}")
+            errs.append(err)
+            rels.append(rel)
+            routes.append("sm90" if name == "flash_forward_sm90" else "simt")
+            serving_err[ROUTE_ENTRIES[name]] = err
+        del runs
     # the last case is the serving shape: a dropped tile must show
     control = _attention_without_tile(q, k, v)
     control_rel = _rel_l2(control, plain)
@@ -967,12 +1003,13 @@ def phase_flash_parity(dev: torch.device) -> float:
           f"one dropped KV tile reads rel L2 {control_rel}, within the limit {FLASH_REL_L2[dtype]}")
     del q, k, v, plain, control
     torch.cuda.synchronize()
-    print(f"phase serve parity: ok flash kernel within atol 2e-5 / 3e-2 and rel L2 1e-5 / 5e-3 "
-          f"(f32 / bf16) of its plain version in {len(FLASH_CASES)} cases; max_abs_err "
+    print(f"phase serve parity: ok both flash kernels within atol 2e-5 / 3e-2 and rel L2 1e-5 / "
+          f"5e-3 (f32 / bf16) of their plain version in {len(errs)} runs of {len(FLASH_CASES)} "
+          f"cases, one launch on the route of each; route {routes} max_abs_err "
           f"{[f'{e:.3g}' for e in errs]} rel_l2 {[f'{r:.3g}' for r in rels]}; control (plain with "
           f"{FAULT_KEYS} keys dropped, serving shape) rel_l2 {control_rel:.3g} max_abs_err "
           f"{control_err:.3g}", flush=True)
-    return errs[-1]
+    return serving_err
 
 
 def _rounded(d: dict) -> dict:
@@ -1013,9 +1050,13 @@ def _kernel_classes(fn) -> dict:
             "top_other_ms": [[k, round(v, 3)] for k, v in top]}
 
 
-def phase_serve(dev: torch.device, flash_err: float) -> dict:
+def _route_launches() -> dict:
+    return {entry: fkernel.ROUTES[name].launches for name, entry in ROUTE_ENTRIES.items()}
+
+
+def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
     """(b) serving the full Qwen2.5-3B through ``serve.generate`` with the
-    flash kernel, checked; (c) its times and the kernel's."""
+    flash kernel, checked; (c) its times and both flash kernels'."""
     B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     cfg = dataclasses.replace(get_config("qwen2_5_3b"), attn_impl="flash")
     check(cfg.num_layers == 36 and cfg.scan_layers and cfg.param_dtype == "bfloat16",
@@ -1035,22 +1076,27 @@ def phase_serve(dev: torch.device, flash_err: float) -> dict:
     fkernel.reset_launches()
     out = generate(bundle, params, prompts, T)
     launches = fkernel.flash_attention_bhsd.launches
+    routes = _route_launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     check(out.all_finite, "non-finite logits while serving")
     check(out.tokens.shape == (B, T), f"tokens {tuple(out.tokens.shape)}")
-    check(launches == cfg.num_layers, f"{launches} flash launches in a prefill and {T - 1} "
-          f"decode steps, not {cfg.num_layers}")
+    on_path = {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0}
+    check(launches == cfg.num_layers and routes == on_path,
+          f"{launches} flash launches ({routes}) in a prefill and {T - 1} decode steps, "
+          f"not {on_path}")
 
-    # per call: 36 launches per prefill, none per decode step
+    # per call: 36 launches per prefill, all on the tensor-core kernel, none per decode step
     fkernel.reset_launches()
     logits_f, cache = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
     per_prefill = fkernel.flash_attention_bhsd.launches
+    per_prefill_routes = _route_launches()
     nxt = torch.argmax(logits_f[:, -1], dim=-1, keepdim=True).to(torch.int32)
     fkernel.reset_launches()
     logits_d, _ = bundle.serve_step(params, cache, {"token": nxt})
     per_step = fkernel.flash_attention_bhsd.launches
-    check(per_prefill == cfg.num_layers and per_step == 0,
-          f"flash launches per prefill {per_prefill}, per decode step {per_step}")
+    check(per_prefill == cfg.num_layers and per_prefill_routes == on_path and per_step == 0,
+          f"flash launches per prefill {per_prefill} ({per_prefill_routes}), per decode step "
+          f"{per_step}")
     del cache
     # teacher forcing: the decode step against a prefill of S + 1 tokens
     logits_s1, _ = bundle.prefill(params, {"tokens": torch.cat([prompts, nxt], dim=1)},
@@ -1115,26 +1161,34 @@ def phase_serve(dev: torch.device, flash_err: float) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the flash kernel alone at the serving shape
+    # both flash kernels alone at the serving shape (flash.cu called directly)
     gen = torch.Generator(device=dev).manual_seed(1)
     q, k, v = _qkv(dev, gen, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)  # q, k, v read, out written
     flops = 4 * D * B * H * (S * (S + 1) // 2)  # two products over the causal pairs
-    timing = dict(
-        ms=cuda_ms(lambda: flash_attention(q, k, v)),
+    shared = dict(
         plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        bound=bound(nbytes, flops, BF16_TENSOR_FLOPS), max_abs_err=flash_err,
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+        bound=bound(nbytes, flops, BF16_TENSOR_FLOPS),
     )
+    timings = {
+        "flash_attention_forward_sm90": dict(
+            shared, ms=cuda_ms(lambda: flash_attention(q, k, v), reps=20),
+            max_abs_err=flash_errs["flash_attention_forward_sm90"]),
+        "flash_attention_forward": dict(
+            shared, ms=cuda_ms(lambda: fkernel.flash_forward(qt, kt, vt), reps=3),
+            max_abs_err=flash_errs["flash_attention_forward"]),
+    }
+    timing = timings["flash_attention_forward_sm90"]
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     decode_ms = out.decode_s / (T - 1) * 1e3
     print(f"phase serve: ok Qwen2.5-3B ({n_params} bf16 params, 36 layers) B {B} prompt {S} "
-          f"gen {T} with the flash kernel; flash launches {launches} (per prefill {per_prefill}, "
-          f"per decode step {per_step}); flash vs plain prefill rel_l2 {fx_rel:.3g} max_abs_err "
+          f"gen {T} with the flash kernel; flash launches {launches} {json.dumps(routes)} (per "
+          f"prefill {per_prefill}, per decode step {per_step}); flash vs plain prefill rel_l2 {fx_rel:.3g} max_abs_err "
           f"{fx_err:.3g}; teacher forcing rel_l2 {tf_rel:.3g} max_abs_err {tf_err:.3g}; "
           f"controls (planted attention faults) rel_l2 "
           f"{json.dumps({k: float(f'{v:.4g}') for k, v in controls.items()})}; "
@@ -1145,10 +1199,10 @@ def phase_serve(dev: torch.device, flash_err: float) -> dict:
           f"{B * T / (out.prefill_s + out.decode_s):.1f} peak_device_gb {peak_gb:.2f}; "
           f"prefill profile {json.dumps(_rounded(prof_prefill))} "
           f"decode step profile {json.dumps(_rounded(prof_step))}; "
-          f"flash ms {timing['ms']:.3f} plain_ms {timing['plain_ms']:.3f} sdpa_ms "
-          f"{timing['library_ms']:.3f} bound_ms {timing['bound'][0]:.4f} ({timing['bound'][1]})",
-          flush=True)
-    return {"launches": {"flash_attention_bhsd": launches}, "timings": {"flash_attention_bhsd": timing}}
+          f"flash ms {timing['ms']:.3f} (flash.cu {timings['flash_attention_forward']['ms']:.3f}) "
+          f"plain_ms {timing['plain_ms']:.3f} sdpa_ms {timing['library_ms']:.3f} bound_ms "
+          f"{timing['bound'][0]:.4f} ({timing['bound'][1]})", flush=True)
+    return {"launches": routes, "timings": timings}
 
 
 # ---------------------------------------------------------------------- #
@@ -1156,6 +1210,7 @@ def kernels_line(full: dict, codec: dict, serve: dict) -> str:
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
+    sdpa = "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)"
     rows = [
         ("exact_fold_into", agg_src, fold, True, "torch.add(acc, d, alpha=w, out=acc)", full),
         ("exact_divide", agg_src, fold, True, "torch.div(x, den)", full),
@@ -1166,10 +1221,10 @@ def kernels_line(full: dict, codec: dict, serve: dict) -> str:
          "none: no one PyTorch call computes blockwise scales and codes", codec),
         ("dequantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:50", True,
          "torch.mul(q, scale)", codec),
-        ("flash_attention_bhsd", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
-         "src/repro/kernels/flash_attention/kernel.py:76", True,
-         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)",
-         serve),
+        ("flash_attention_forward_sm90", "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu",
+         "src/repro/kernels/flash_attention/kernel.py:76", True, sdpa, serve),
+        ("flash_attention_forward", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "src/repro/kernels/flash_attention/kernel.py:76", False, sdpa, serve),
     ]
     out = []
     for name, src, replaces, on_path, library, run in rows:

@@ -1,15 +1,31 @@
-"""Wrapper of the flash-attention kernel in ``csrc/flash.cu``.
+"""Wrappers of the two flash-attention kernels, and the table that picks one.
 
 ``flash_attention_bhsd`` has the JAX kernel's (B, H, S, D) indexing, but
 takes any strides with a contiguous last dimension, so the model's
-(B, S, H, D) tensors come in as transposed views, without a copy. It checks
-device, dtypes, shapes, ``D`` and the grid limits and raises on what the
-kernel does not take. A tensor on the CPU goes to the plain version in
-``ref.py``; a CUDA tensor goes to the kernel, or the wrapper raises. The
-output is allocated here, (B, Sq, H, D) contiguous, and returned as its
-(B, H, Sq, D) view; the kernel allocates nothing and launches on the current
-stream. ``flash_attention_bhsd.launches`` counts kernel launches (CPU calls
-do not count). The library is built at first use by
+(B, S, H, D) tensors come in as transposed views, without a copy. A tensor
+on the CPU goes to the plain version in ``ref.py``. A CUDA tensor goes to
+one of two kernels, chosen by dtype and head dim alone (never by the mask):
+
+=========  ==========  ======================================================
+dtype      head dim    kernel (route)
+=========  ==========  ======================================================
+bfloat16   64, 128     ``csrc/flash_sm90.cu``: TMA loads and ``wgmma`` on the
+                       tensor cores (``flash_forward_sm90``)
+bfloat16   32, 256     ``csrc/flash.cu``: float32 CUDA cores (``flash_forward``)
+float32    32 to 256   ``csrc/flash.cu`` (``flash_forward``)
+=========  ==========  ======================================================
+
+Each route checks device, dtypes, shapes, ``D`` and the grid limits and
+raises on what its kernel does not take. The tensor-core route also needs
+what TMA needs: q, k and v at 16-byte-aligned addresses with strides that
+are multiples of 16 bytes; it raises for a tensor that is not, and nothing
+sends such a tensor to the other kernel. A failed build or launch raises
+too: no route falls back to the other or to the plain version. The output
+is allocated here, (B, Sq, H, D) contiguous, and returned as its
+(B, H, Sq, D) view; the kernels allocate nothing and launch on the current
+stream. ``flash_attention_bhsd.launches`` counts every kernel launch, and
+``flash_forward.launches`` and ``flash_forward_sm90.launches`` count each
+route's (CPU calls count nowhere). The libraries are built at first use by
 ``repro_torch.kernels.build``.
 """
 from __future__ import annotations
@@ -22,11 +38,14 @@ import torch
 from repro_torch.kernels.build import CudaLibrary, count_launch, stream_of
 from repro_torch.kernels.flash_attention import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 HEAD_DIMS = (32, 64, 128, 256)
+SM90_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65_535  # gridDim.y (heads) and gridDim.z (batch)
+_MAX_GRID_YZ = 65_535  # gridDim.y (heads) and gridDim.z (batch) of flash.cu
 _MAX_INT = 2**31 - 1
+_TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
+_SM90_TILE = 128  # q rows per block of flash_sm90.cu
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -38,9 +57,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_forward.restype = i32
 
 
-LIBRARY = CudaLibrary("flash", SOURCE, _bind)
-build = LIBRARY.load
-library_path = LIBRARY.path
+def _bind_sm90(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_forward_sm90.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_float, ptr,
+    ]
+    lib.flash_attention_forward_sm90.restype = i32
+
+
+LIBRARY = CudaLibrary("flash", CSRC / "flash.cu", _bind)
+SM90_LIBRARY = CudaLibrary("flash_sm90", CSRC / "flash_sm90.cu", _bind_sm90)
 
 
 def reset_launches() -> None:
@@ -49,8 +76,8 @@ def reset_launches() -> None:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> bool:
-    """Raise on what neither the kernel nor its plain version takes; True
-    for CUDA tensors (then also the kernel's own limits), False for CPU."""
+    """Raise on what neither a kernel nor the plain version takes; True for
+    CUDA tensors (then also the limits both kernels share), False for CPU."""
     for t in (q, k, v):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"expected a torch.Tensor, got {type(t).__name__}")
@@ -79,14 +106,105 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> bo
         return False
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {D}")
-    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
-        raise ValueError(f"batch {B} and heads {H} must each be <= {_MAX_GRID_YZ} (grid y, z)")
     if max(Sq, Skv, window) > _MAX_INT:
         raise ValueError("sequence lengths and the window must fit in a 32-bit int")
     for t in (q, k, v):
         if t.stride(3) != 1:
             raise ValueError("the last dimension of q, k and v must be contiguous")
     return True
+
+
+def route_of(dtype: torch.dtype, head_dim: int) -> str:
+    """The route table of the module docstring: the name of the function
+    that launches the kernel for CUDA tensors of this dtype and head dim."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "flash_forward_sm90"
+    return "flash_forward"
+
+
+def tma_strides(t: torch.Tensor) -> tuple:
+    """(batch, head, sequence) strides of a (B, H, S, D) tensor for a TMA
+    map; raises unless TMA can read it (16-byte-aligned base, strides that
+    are multiples of 16 bytes). A dimension of one element is never stepped,
+    so its stride is rounded up to the granule instead of refused."""
+    unit = _TMA_ALIGN // t.element_size()
+    if t.data_ptr() % _TMA_ALIGN:
+        raise ValueError(f"TMA needs a {_TMA_ALIGN}-byte-aligned tensor; this one starts at "
+                         f"byte {t.data_ptr() % _TMA_ALIGN} of a granule")
+    out = []
+    for size, stride in zip(t.shape[:3], t.stride()[:3]):
+        if stride % unit:
+            if size > 1:
+                raise ValueError(f"TMA needs strides that are multiples of {_TMA_ALIGN} bytes; "
+                                 f"got strides {t.stride()} of {t.element_size()}-byte elements")
+            stride += unit - stride % unit
+        out.append(max(stride, unit))
+    return tuple(out)
+
+
+def _output(q: torch.Tensor) -> torch.Tensor:
+    B, H, Sq, D = q.shape
+    return torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``csrc/flash.cu`` on CUDA tensors, (B, H, S, D) -> (B, H, Sq, D):
+    float32 or bfloat16 at any of ``HEAD_DIMS``."""
+    if not _check(q, k, v, window):
+        raise ValueError("flash_forward launches a CUDA kernel: got CPU tensors")
+    B, H, Sq, D = q.shape
+    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
+        raise ValueError(f"batch {B} and heads {H} must each be <= {_MAX_GRID_YZ} (grid y, z)")
+    o = _output(q)
+    if Sq == 0:
+        return o.transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        o.stride(0), o.stride(2), o.stride(1),
+    )
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+            _DTYPES[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D, k.shape[2],
+            int(causal), window, D**-0.5, stream_of(q.device),
+        )
+    count_launch(flash_forward, err, "flash_attention_forward")
+    return o.transpose(1, 2)
+
+
+def flash_forward_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``csrc/flash_sm90.cu`` on CUDA tensors, (B, H, S, D) -> (B, H, Sq, D):
+    bfloat16 at head dims 64 and 128, q, k and v readable by TMA."""
+    if not _check(q, k, v, window):
+        raise ValueError("flash_forward_sm90 launches a CUDA kernel: got CPU tensors")
+    B, H, Sq, D = q.shape
+    if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
+        raise ValueError(f"the tensor-core kernel takes bfloat16 at head dims {SM90_HEAD_DIMS}, "
+                         f"got {q.dtype} at {D}")
+    if B * H * -(-Sq // _SM90_TILE) > _MAX_INT:
+        raise ValueError(f"batch {B} x heads {H} x q tiles must fit in a 32-bit grid")
+    qs, ks, vs = tma_strides(q), tma_strides(k), tma_strides(v)
+    o = _output(q)
+    if Sq == 0:
+        return o.transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*qs, *ks, *vs, o.stride(0), o.stride(2), o.stride(1))
+    lib = SM90_LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_forward_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+            B, H, k.shape[1], Sq, k.shape[2], D, k.shape[2],
+            int(causal), window, D**-0.5, stream_of(q.device),
+        )
+    count_launch(flash_forward_sm90, err, "flash_attention_forward_sm90")
+    return o.transpose(1, 2)
+
+
+ROUTES = {"flash_forward": flash_forward, "flash_forward_sm90": flash_forward_sm90}
 
 
 def flash_attention_bhsd(
@@ -104,28 +222,13 @@ def flash_attention_bhsd(
         out = ref.reference_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                       causal=causal, window=window)
         return out.transpose(1, 2)
-    B, H, Sq, D = q.shape
-    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    if Sq == 0:
-        return o.transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(2), o.stride(1),
-    )
-    lib = build()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
-            _DTYPES[q.dtype], B, H, k.shape[1], Sq, k.shape[2], D, k.shape[2],
-            int(causal), window, D**-0.5, stream_of(q.device),
-        )
-    count_launch(flash_attention_bhsd, err, "flash_attention_forward")
-    return o.transpose(1, 2)
+    out = ROUTES[route_of(q.dtype, q.shape[3])](q, k, v, causal=causal, window=window)
+    if q.shape[2]:  # an empty q launches nothing
+        count_launch(flash_attention_bhsd, 0, "flash_attention_bhsd")
+    return out
 
 
-KERNELS = (flash_attention_bhsd,)
+KERNELS = (flash_attention_bhsd, flash_forward, flash_forward_sm90)
 for _fn in KERNELS:
     _fn.launches = 0
 del _fn

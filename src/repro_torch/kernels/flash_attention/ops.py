@@ -3,9 +3,10 @@
 
 The JAX wrapper moves the head axis forward and pads both sequences to tile
 multiples on the host before its kernel. Here the wrapper of ``kernel.py``
-reads the (B, S, H, D) tensors through their strides and masks the ragged
-edges itself, so no copy is made: CPU tensors go to the plain version, CUDA
-tensors to the kernel, or the call raises.
+reads the (B, S, H, D) tensors through their strides and the kernels mask
+the ragged edges themselves, so no copy is made: CPU tensors go to the plain
+version, CUDA tensors to one of the two kernels (by dtype and head dim), or
+the call raises.
 """
 from __future__ import annotations
 
@@ -25,9 +26,9 @@ def flash_attention(
     block_k: int = 128,
 ) -> torch.Tensor:
     """(B, Sq, H, D) in q's dtype. ``block_q`` and ``block_k`` are accepted
-    for parity with the JAX package's signature only: the CUDA kernel takes
-    its tiles from ``D`` and the plain version has none, so they change
-    nothing and are only checked to be positive."""
+    for parity with the JAX package's signature only: the CUDA kernels fix
+    their own tiles and the plain version has none, so they change nothing
+    and are only checked to be positive."""
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive, got {block_q} and {block_k}")
     out = flash_attention_bhsd(

@@ -5,12 +5,17 @@ On the CPU the port's wrapper runs the plain version (``ref.py``); it is
 held against the JAX package's Pallas kernel in interpret mode and its
 ``reference_attention``, on the same numpy inputs, at the JAX package's own
 tolerances (``tests/test_kernels.py``): atol 2e-5 in float32, 3e-2 in
-bfloat16. The CUDA kernel's tiling cannot run here; its schedule (which KV
-tiles a q tile visits, and the online softmax over them) is replayed in
-numpy by ``_tiled_online_softmax`` and held to the same tolerance, so the
-tile-skipping argument in ``csrc/flash.cu`` is tested on the CPU too. The
-kernel itself is held against the plain version on the card by
-``test_torch_gpu.py`` and ``chip_smoke.py``.
+bfloat16. The CUDA kernels' tiling cannot run here. The schedule of
+``csrc/flash.cu`` (which KV tiles a q tile visits, and the online softmax
+over them) is replayed in numpy by ``_tiled_online_softmax`` and held to the
+same tolerance, so its tile-skipping argument is tested on the CPU too; the
+schedule and numerics of the tensor-core kernel ``csrc/flash_sm90.cu``
+(two 64-row warpgroups per 128-row q tile, exp2, P rounded to bf16) by
+``_sm90_replay``, held to the bf16 limits its output meets on the card
+(atol 3e-2, relative L2 5e-3). The wrapper's route table is tested here
+with the launches replaced by recorders. The kernels themselves are held
+against the plain version on the card by ``test_torch_gpu.py`` and
+``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -153,8 +158,184 @@ def test_kernel_schedule_matches_jax(B, S, H, Hkv, D, causal, window):
 
 
 # ------------------------------------------------------------------ #
+# the tensor-core kernel's schedule and numerics, replayed in numpy
+# ------------------------------------------------------------------ #
+SM90_BQ, SM90_BK, SM90_HALF = 128, 128, 64  # csrc/flash_sm90.cu: kBQ, kBK, a warpgroup's rows
+BF16_REL_L2 = 5e-3  # chip_smoke.py's FLASH_REL_L2 for bfloat16
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float().numpy()
+
+
+def _sm90_replay(q, k, v, *, causal, window):
+    """(B, S, H, D) float32 holding bf16 values -> (B, S, H, D) float32
+    holding bf16 values: what csrc/flash_sm90.cu computes. 128-row q tiles
+    split into two 64-row warpgroups that visit the same 128-key tiles; the
+    mask applied only on a tile that crosses the diagonal, the window's edge
+    or kv_len for some row of the warpgroup; scores in log2 units (the scale
+    times log2 e, rounded to float32, as the host computes it) and exp2;
+    P rounded to bf16 before P V; l kept as four partial sums per row, one
+    per lane of the quad (the columns 2 (l % 4) + {0, 1} of each 8), summed
+    over the quad at the end as the two shuffles do."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    c = np.float32(float(np.float32(D**-0.5)) * np.log2(np.e))
+    neg = np.float32(-1e30)
+    lane_of_col = (np.arange(SM90_BK) % 8) // 2
+    out = np.zeros_like(q)
+    for q0 in range(0, Sq, SM90_BQ):
+        k_end = min(Skv, q0 + SM90_BQ) if causal else Skv
+        k_begin = max(0, q0 - window + 1) if window > 0 else 0
+        k_begin -= k_begin % SM90_BK
+        for lo in (q0, q0 + SM90_HALF):
+            rows = np.arange(lo, min(lo + SM90_HALF, Sq))
+            if rows.size == 0:
+                continue
+            hi = lo + SM90_HALF - 1
+            for h in range(H):
+                qt = q[:, rows, h]
+                m = np.full((B, rows.size), neg, np.float32)
+                l4 = np.zeros((B, rows.size, 4), np.float32)
+                acc = np.zeros((B, rows.size, D), np.float32)
+                for k0 in range(k_begin, k_end, SM90_BK):
+                    keys = np.arange(k0, k0 + SM90_BK)
+                    kt = np.zeros((B, SM90_BK, D), np.float32)  # TMA fills past Skv with zeros
+                    vt = np.zeros((B, SM90_BK, D), np.float32)
+                    live = keys < Skv
+                    kt[:, live] = k[:, keys[live], h // G]
+                    vt[:, live] = v[:, keys[live], h // G]
+                    s = np.einsum("brd,bkd->brk", qt, kt).astype(np.float32) * c
+                    if (k0 + SM90_BK > Skv or (causal and k0 + SM90_BK - 1 > lo)
+                            or (window > 0 and k0 <= hi - window)):
+                        ok = keys[None, :] < Skv
+                        if causal:
+                            ok = ok & (keys[None, :] <= rows[:, None])
+                        if window:
+                            ok = ok & (keys[None, :] > rows[:, None] - window)
+                        s = np.where(ok[None], s, neg)
+                    m_new = np.maximum(m, s.max(-1))
+                    alpha = np.exp2(m - m_new)
+                    p = np.exp2(s - m_new[..., None]).astype(np.float32)
+                    part = np.stack([p[..., lane_of_col == j].sum(-1) for j in range(4)], -1)
+                    l4 = alpha[..., None] * l4 + part
+                    acc = acc * alpha[..., None] + np.einsum("brk,bkd->brd", _bf16(p), vt)
+                    m = m_new
+                l = (l4[..., 0] + l4[..., 1]) + (l4[..., 2] + l4[..., 3])
+                out[:, rows, h] = _bf16(acc / np.maximum(l, np.float32(1e-30))[..., None])
+    return out
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,causal,window", [
+    (2, 256, 4, 2, 64, True, 0),     # D 64, causal, GQA
+    (1, 384, 4, 2, 128, True, 0),    # D 128, causal
+    (1, 256, 4, 4, 128, False, 0),   # non-causal
+    (1, 400, 4, 1, 128, True, 100),  # window rows whose first visited tiles are all masked
+    (2, 300, 4, 2, 64, True, 0),     # ragged S: the last q tile and KV tile run past it
+    (1, 97, 2, 1, 64, False, 40),    # non-causal window, one ragged tile
+    (1, 512, 8, 1, 128, True, 0),    # S 512, GQA 8:1
+])
+def test_sm90_kernel_replay_matches_jax(B, S, H, Hkv, D, causal, window):
+    """The tensor-core kernel's schedule and numerics against the JAX
+    package's reference and its Pallas kernel (interpret mode) on the same
+    bf16 inputs: bf16 atol 3e-2 and relative L2 5e-3, the limits its
+    output is held to on the card."""
+    q, k, v = (_bf16(x) for x in _inputs(11 * S + D + window, B, S, H, Hkv, D))
+    replay = _sm90_replay(q, k, v, causal=causal, window=window)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    oracle = np.asarray(jax_reference(jq, jk, jv, causal=causal, window=window), np.float32)
+    pallas = np.asarray(jax_flash(jq, jk, jv, causal=causal, window=window), np.float32)
+    for want in (oracle, pallas):
+        np.testing.assert_allclose(replay, want, atol=BF16_ATOL)
+        assert _rel_l2(replay, want) <= BF16_REL_L2
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
+def test_sm90_replay_with_other_key_lengths(Sq, Skv, causal):
+    """Queries and keys of different lengths (the wrapper passes kv_len =
+    Skv): the replay against the JAX package's reference, bf16 limits."""
+    rng = np.random.default_rng(Sq + Skv)
+    q = _bf16(rng.normal(size=(1, Sq, 4, 128)))
+    k, v = (_bf16(rng.normal(size=(1, Skv, 2, 128))) for _ in range(2))
+    replay = _sm90_replay(q, k, v, causal=causal, window=0)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    oracle = np.asarray(jax_reference(jq, jk, jv, causal=causal), np.float32)
+    np.testing.assert_allclose(replay, oracle, atol=BF16_ATOL)
+    assert _rel_l2(replay, oracle) <= BF16_REL_L2
+
+
+def test_sm90_replay_sees_a_dropped_tile():
+    """The replay's limits can see a fault of the kernel's size: with the
+    causal diagonal's mask skipped on the tiles that need it (the tile keys
+    above the diagonal leak in), relative L2 reads far above 5e-3."""
+    q, k, v = (_bf16(x) for x in _inputs(5, 1, 256, 2, 2, 64))
+    good = _sm90_replay(q, k, v, causal=True, window=0)
+    leaky = _sm90_replay(q, k, v, causal=False, window=0)
+    oracle = np.asarray(jax_reference(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))), np.float32)
+    assert _rel_l2(good, oracle) <= BF16_REL_L2 < _rel_l2(leaky, oracle)
+
+
+# ------------------------------------------------------------------ #
 # the wrapper
 # ------------------------------------------------------------------ #
+@pytest.mark.parametrize("dtype,D,route", [
+    (torch.bfloat16, 64, "flash_forward_sm90"),
+    (torch.bfloat16, 128, "flash_forward_sm90"),
+    (torch.bfloat16, 32, "flash_forward"),
+    (torch.bfloat16, 256, "flash_forward"),
+    (torch.float32, 64, "flash_forward"),
+    (torch.float32, 128, "flash_forward"),
+])
+def test_route_table(monkeypatch, dtype, D, route):
+    """dtype and head dim alone pick the kernel (the table of kernel.py's
+    docstring); the mask does not. Run on CPU tensors with the CUDA checks
+    and the launches replaced by recorders."""
+    called = []
+    monkeypatch.setattr(kernel, "_check", lambda *a: True)
+    monkeypatch.setattr(kernel, "ROUTES", {
+        name: (lambda q, k, v, name=name, **kw: called.append(name) or q) for name in kernel.ROUTES})
+    assert kernel.route_of(dtype, D) == route
+    q, k, v = (torch.from_numpy(x).to(dtype).transpose(1, 2) for x in _inputs(0, 1, 16, 2, 1, D))
+    for causal, window in [(True, 0), (False, 0), (True, 8)]:
+        kernel.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    assert called == [route] * 3
+
+
+def test_tma_refuses_misaligned_bf16_and_does_not_reroute(monkeypatch):
+    """A bf16 D-128 tensor that TMA cannot read raises on the tensor-core
+    route; it is not sent to flash.cu."""
+    B, S, H, D = 1, 16, 2, 128
+    monkeypatch.setattr(kernel, "_check", lambda *a: True)
+    monkeypatch.setattr(kernel, "flash_forward", lambda *a, **kw: pytest.fail("rerouted"))
+    monkeypatch.setitem(kernel.ROUTES, "flash_forward", kernel.flash_forward)
+    flat = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(B, S, H, D).transpose(1, 2)  # starts 2 bytes into a granule
+    padded = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16)[..., :D].transpose(1, 2)  # 264-byte rows
+    good = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    assert kernel.tma_strides(good) == (S * H * D, D, H * D)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        kernel.flash_attention_bhsd(shifted, good, good)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        kernel.flash_attention_bhsd(good, padded, good)
+    # a dimension of one element is never stepped: its stride is rounded up, not refused
+    single = torch.zeros(S * D, dtype=torch.bfloat16).as_strided((1, 1, S, D), (3, 5, D, 1))
+    assert kernel.tma_strides(single) == (8, 8, D)
+
+
+def test_routes_refuse_cpu_tensors_and_count_nothing():
+    q, k, v = (torch.from_numpy(x).bfloat16().transpose(1, 2) for x in _inputs(3, 1, 16, 2, 1, 64))
+    kernel.reset_launches()
+    for fn in (kernel.flash_forward, kernel.flash_forward_sm90):
+        with pytest.raises(ValueError, match="launches a CUDA kernel"):
+            fn(q, k, v)
+    kernel.flash_attention_bhsd(q, k, v)
+    assert [fn.launches for fn in kernel.KERNELS] == [0, 0, 0]
 def test_wrapper_on_cpu_is_the_plain_version_and_does_not_count():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 40, 4, 2, 32))
     kernel.reset_launches()

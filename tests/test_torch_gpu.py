@@ -8,7 +8,7 @@ the JAX package, so they run on a machine that has only torch:
 Each kernel is held against its plain version on the same CUDA tensors:
 bytes equal for the exact entries and the quant kernels, and for the fused
 weighted sum within 1e-6 of the summed magnitudes of its terms (it may
-contract into FMAs); the flash kernel within atol 2e-5 (float32) and 3e-2
+contract into FMAs); both flash kernels within atol 2e-5 (float32) and 3e-2
 (bfloat16), the JAX package's tolerances, as it sums in another order.
 """
 import numpy as np
@@ -187,24 +187,66 @@ def test_codec_job_on_card_equals_cpu(cuda_device):
     (2, 300, 8, 2, 128, True, 0, torch.bfloat16),   # Qwen's head dim, ragged
     (1, 257, 4, 2, 256, True, 0, torch.float32),    # Gemma's head dim
     (1, 97, 2, 1, 32, False, 40, torch.float32),    # non-causal window
+    # the tensor-core kernel's shapes (bf16, D 64 and 128); flash.cu takes them too
+    (2, 192, 8, 1, 64, True, 64, torch.bfloat16),   # MQA + sliding window
+    (1, 97, 2, 1, 64, False, 40, torch.bfloat16),   # non-causal window, ragged
+    (1, 256, 4, 4, 128, False, 0, torch.bfloat16),  # bidirectional
+    (1, 400, 4, 1, 128, True, 100, torch.bfloat16),  # window rows with wholly masked first tiles
+    (1, 512, 8, 1, 128, True, 0, torch.bfloat16),   # GQA 8:1
+    # flash.cu only: bf16 at the head dims the tensor-core kernel does not take
+    (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
+    (1, 257, 4, 2, 256, True, 0, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal, window, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + D)
     q = torch.randn(B, S, H, D, generator=gen, device=cuda_device).to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
+    route = fkernel.route_of(dtype, D)
+    assert route == ("flash_forward_sm90" if dtype == torch.bfloat16 and D in (64, 128)
+                     else "flash_forward")
     fkernel.reset_launches()
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    outs = {route: flash_attention(q, k, v, causal=causal, window=window)}
     assert fkernel.flash_attention_bhsd.launches == 1
-    assert out.dtype == dtype and out.shape == q.shape
+    assert {name: fn.launches for name, fn in fkernel.ROUTES.items()} == {
+        name: int(name == route) for name in fkernel.ROUTES}
+    if route == "flash_forward_sm90":
+        outs["flash_forward"] = fkernel.flash_forward(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
     plain = fref.reference_attention(q, k, v, causal=causal, window=window)
     atol = 2e-5 if dtype == torch.float32 else 3e-2
-    torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=0)
     # and a limit scaled to the output: relative L2 within a few times the
     # output's rounding, which a wrong tile would exceed
     rel_l2 = 1e-5 if dtype == torch.float32 else 5e-3
-    diff = (out.double() - plain.double()).norm() / plain.double().norm()
-    assert diff <= rel_l2, f"relative L2 {float(diff)} > {rel_l2}"
+    for name, out in outs.items():
+        assert out.dtype == dtype and out.shape == q.shape, name
+        torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=0, msg=name)
+        diff = (out.double() - plain.double()).norm() / plain.double().norm()
+        assert diff <= rel_l2, f"{name}: relative L2 {float(diff)} > {rel_l2}"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.bfloat16, 64),
+                                     (torch.float32, 128)])
+def test_flash_kernels_with_other_key_lengths(cuda_device, Sq, Skv, causal, dtype, D):
+    """Queries and keys of different lengths, on the route the wrapper
+    picks and, for the tensor-core kernel's inputs, on flash.cu too."""
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq + Skv)
+    q = torch.randn(1, Sq, 4, D, generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn(1, Skv, 2, D, generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn(1, Skv, 2, D, generator=gen, device=cuda_device).to(dtype)
+    plain = fref.reference_attention(q, k, v, causal=causal)
+    outs = [flash_attention(q, k, v, causal=causal)]
+    if fkernel.route_of(dtype, D) == "flash_forward_sm90":
+        outs.append(fkernel.flash_forward(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          causal=causal).transpose(1, 2))
+    atol, rel_l2 = (2e-5, 1e-5) if dtype == torch.float32 else (3e-2, 5e-3)
+    for out in outs:
+        torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=0)
+        assert (out.double() - plain.double()).norm() / plain.double().norm() <= rel_l2
     torch.cuda.synchronize()
 
 
@@ -219,21 +261,39 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fkernel.flash_attention_bhsd(q, q, v)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fkernel.flash_attention_bhsd(q.half(), q.half(), q.half())
+    # a bf16 D-128 tensor that TMA cannot read raises; nothing reroutes it
+    fkernel.reset_launches()
+    good = torch.randn(1, 16, 2, 128, device=cuda_device).bfloat16().transpose(1, 2)
+    shifted = torch.randn(1 + 16 * 2 * 128, device=cuda_device).bfloat16()[1:].view(
+        1, 16, 2, 128).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fkernel.flash_attention_bhsd(shifted, good, good)
+    with pytest.raises(ValueError, match="tensor-core kernel takes bfloat16"):
+        fkernel.flash_forward_sm90(good.float(), good.float(), good.float())
+    assert [fn.launches for fn in fkernel.KERNELS] == [0, 0, 0]
 
 
 @pytest.mark.gpu
-def test_serving_on_card_launches_flash_once_per_layer(cuda_device):
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    ("float32", None, "flash_forward"),              # the reduced config: f32, D 32
+    ("bfloat16", 128, "flash_forward_sm90"),         # the full model's dtype and head dim
+])
+def test_serving_on_card_launches_flash_once_per_layer(cuda_device, dtype, head_dim, route):
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate
     from repro_torch.models.api import build_model
 
-    cfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True), attn_impl="flash")
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    cfg = dataclasses.replace(cfg, attn_impl="flash", param_dtype=dtype,
+                              head_dim=head_dim or cfg.head_dim)
     bundle = build_model(cfg, cuda_device)
     params = bundle.init(torch.Generator(device=cuda_device).manual_seed(0))
     prompts = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
     fkernel.reset_launches()
     out = generate(bundle, params, prompts, 4)
     assert fkernel.flash_attention_bhsd.launches == cfg.num_layers
+    assert {name: fn.launches for name, fn in fkernel.ROUTES.items()} == {
+        name: cfg.num_layers * (name == route) for name in fkernel.ROUTES}
     assert out.all_finite and out.tokens.shape == (2, 4)
