@@ -12,23 +12,32 @@ source, started together), then runs seven phases, each printing one line:
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
    the same CUDA tensors (bytes equal for the exact entries; the fused
-   weighted sum within 1e-6 of the summed magnitudes of its terms), and
-   whether ``tensor / python_float`` on CUDA is an IEEE divide;
+   weighted sum within 1e-6 of the summed magnitudes of its terms; the
+   streaming fold's tree entry on trees of odd sizes, of leaves at 16-byte
+   and at 4-byte offsets and of more than one table of leaves, first update
+   and later, with one launch per table), and whether
+   ``tensor / python_float`` on CUDA is an IEEE divide;
 3. the slice, small: ``classical_fl`` with the seeded SGD trainer and
    ``hierarchical_fl`` with an "add one" trainer, on the card and on the
-   CPU;
+   CPU, folding through the tree entry only;
 4. the slice at full width: a ``classical_fl`` job whose weight tree is the
    parameter tree of Qwen2.5-3B (published widths, depth cut from 36
    layers to 4), 8 trainers, 3 rounds, with the job's global weights held
-   byte-equal to the plain fold of the same updates after every round;
+   byte-equal to the plain fold of the same updates after every round and
+   exactly one launch of the fold's tree entry per update (none per leaf);
+   then the fold's times, in turns: the tree entry, the per-leaf entry, 50
+   per-leaf ``torch.add`` calls, one ``torch._foreach_add_`` and the plain
+   version, beside the bound, and the host ms of a ``StreamingMean.fold``
+   call through the tree entry and through 50 per-leaf calls;
 5. codec: (a) the quant kernels against their plain versions on the card
    (q and scales as bytes) over edge-case blocks; (b) the same job with the
    param channel on the socket loopback (``backend="multiproc"``, codec
    ``int8_blocks``): 4 trainers, 2 rounds, the job's weights byte-equal
    every round to the plain fold of the plain-dequantized, plain-quantized
    updates, byte counts and codec ratio equal to those worked out from the
-   shapes, kernel launches equal to the codec's encode/decode counts, and a
-   split of one round; (c) the quant kernels' times at full width;
+   shapes, kernel launches equal to the codec's encode/decode counts and
+   one fold launch per update, and a split of one round; (c) the quant
+   kernels' times at full width;
 6. serve: (a) both flash kernels against their plain version on the same
    CUDA tensors: every case through the wrapper, which picks the route by
    dtype and head dim (bf16 at D 64 and 128: the tensor-core kernel of
@@ -44,7 +53,9 @@ source, started together), then runs seven phases, each printing one line:
    prefill's logits against the plain attention's, and teacher forcing (a
    decode step after a prefill of S tokens against a prefill of S + 1);
    (c) prefill and decode times, a kernel-time breakdown of each from
-   ``torch.profiler``, and both flash kernels' times at the serving shape;
+   ``torch.profiler``, and both flash kernels' times at the serving shape:
+   the tensor-core kernel at bf16, ``flash.cu`` on its own route, float32
+   (checked against the plain version there too);
 7. a ``kernels`` JSON line: launches on each path (phase 4 for the fold
    kernels, phase 5's job for the quant kernels, phase 6's serving run for
    the flash kernels), time, plain version's time, bound and a library
@@ -75,6 +86,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.convert import tree_to_numpy  # noqa: E402
 from repro_torch.core.expansion import JobSpec  # noqa: E402
+from repro_torch.core import roles as troles  # noqa: E402
 from repro_torch.core.roles import GlobalAggregator, Trainer  # noqa: E402
 from repro_torch.core.runtime import run_job  # noqa: E402
 from repro_torch.core.tag import DatasetSpec  # noqa: E402
@@ -242,6 +254,7 @@ def phase_parity(dev: torch.device) -> None:
         check(same_bytes(kernel.exact_fold(stacked, w4, den4), ref.exact_fold(stacked, w4, den4)),
               f"exact_fold misaligned N={N}")
         cases += 1
+    cases += phase_tree_parity(dev, gen)
     torch.cuda.synchronize()
     # the division trap: tensor / python_float against an IEEE divide
     x = torch.randn(1 << 20, generator=gen, device=dev) * 1e3
@@ -252,6 +265,55 @@ def phase_parity(dev: torch.device) -> None:
     differ = int((scalar.view(torch.int32) != ieee.view(torch.int32)).sum())
     print(f"phase parity: ok {cases} comparisons; cuda tensor/python_float is IEEE divide: "
           f"{differ == 0} ({differ} of {x.numel()} values differ at total={total})", flush=True)
+
+
+def _leaves_at(sizes, gen, dev, offset_every):
+    """Leaves of ``sizes`` in one buffer; every ``offset_every``-th starts
+    one float past a 16-byte boundary."""
+    pos, spans = 0, []
+    for i, n in enumerate(sizes):
+        pos += -pos % 4 + (i % offset_every == 1)
+        spans.append((pos, n))
+        pos += n
+    buf = torch.randn(pos + 4, generator=gen, device=dev)
+    return [buf[o:o + n] for o, n in spans]
+
+
+# leaf sizes of the tree entry's parity trees: odd, empty, multiples of 4,
+# a chunk and more, a leaf of 2^20 + 3
+TREE_SIZES = (1, 3, 4, 5, 7, 0, 130, 4099, kernel.CHUNK, kernel.CHUNK + 3, 16_640, (1 << 20) + 3)
+
+
+def phase_tree_parity(dev: torch.device, gen: torch.Generator) -> int:
+    """The fold's tree entry against its plain version, bytes equal: a first
+    update, then later ones into accumulators at both alignments, on the
+    odd-size tree and on one of 2 * TREE_LEAVES + 7 leaves (three launches
+    a fold); launches counted per call."""
+    sizes_rng = np.random.default_rng(9)
+    many = [int(n) for n in sizes_rng.integers(1, 5000, size=2 * kernel.TREE_LEAVES + 7)]
+    cases = 0
+    for name, sizes in (("odd sizes", TREE_SIZES), ("more than a table", many)):
+        per_fold = -(-sum(1 for n in sizes if n) // kernel.TREE_LEAVES)
+        ds, ds2 = _leaves_at(sizes, gen, dev, 2), _leaves_at(sizes, gen, dev, 3)
+        ds[0][0] = -0.0
+        kernel.reset_launches()
+        acc = kernel.exact_fold_into_tree(None, ds, 3.0)
+        plain = ref.exact_fold_into_tree(None, ds, 3.0)
+        check(all(same_bytes(a, b) for a, b in zip(acc, plain)), f"exact_fold_into_tree first, {name}")
+        check(bool(torch.signbit(acc[0][0])), "exact_fold_into_tree lost -0.0")
+        for accs in (acc, _leaves_at(sizes, gen, dev, 2)):  # fresh, then offset accumulators
+            for a, b in zip(accs, plain):
+                a.copy_(b)
+            want = ref.exact_fold_into_tree([a.clone() for a in accs], ds2, 0.3)
+            out = kernel.exact_fold_into_tree(accs, ds2, 0.3)
+            check(all(o is a for o, a in zip(out, accs)), "exact_fold_into_tree is not in place")
+            check(all(same_bytes(a, b) for a, b in zip(out, want)),
+                  f"exact_fold_into_tree later, {name}")
+        check(kernel.exact_fold_into_tree.launches == 3 * per_fold,
+              f"exact_fold_into_tree {name}: {kernel.exact_fold_into_tree.launches} launches, "
+              f"not {3 * per_fold}")
+        cases += 3
+    return cases
 
 
 # ---------------------------------------------------------------------- #
@@ -283,8 +345,9 @@ def phase_small_jobs(dev: torch.device) -> None:
               "b": np.zeros((10,), np.float32)}
     kernel.reset_launches()
     card = _run(_small_job(classical_fl(), sgd_w0), dev, SeededSGDTrainer)
-    folds = kernel.exact_fold_into.launches
+    folds = kernel.exact_fold_into_tree.launches
     check(folds > 0 and kernel.exact_divide.launches > 0, "classical job never ran the fold kernel")
+    check(kernel.exact_fold_into.launches == 0, "classical job folded leaf by leaf")
     host = _run(_small_job(classical_fl(), sgd_w0), "cpu", SeededSGDTrainer)
     a, b = tree_to_numpy(card.global_weights()), tree_to_numpy(host.global_weights())
     err = max(float(np.abs(a[k] - b[k]).max()) for k in a)
@@ -295,13 +358,18 @@ def phase_small_jobs(dev: torch.device) -> None:
     groups = {"west": ("d0", "d1"), "east": ("d2", "d3")}
     w0 = {"w": np.full((8,), 2.0, np.float32), "b": np.zeros((2, 2), np.float32)}
     tag = hierarchical_fl(groups=("west", "east"), dataset_groups=groups)
+    kernel.reset_launches()
     hcard = _run(_small_job(tag, w0), dev, AddOneTrainer)
+    hfolds = kernel.exact_fold_into_tree.launches
+    check(hfolds > 0 and kernel.exact_fold_into.launches == 0,
+          f"hierarchical job: {hfolds} tree launches, {kernel.exact_fold_into.launches} per leaf")
     hhost = _run(_small_job(tag, w0), "cpu", AddOneTrainer)
     ha, hb = tree_to_numpy(hcard.global_weights()), tree_to_numpy(hhost.global_weights())
     check(all(ha[k].tobytes() == hb[k].tobytes() for k in ha), "hierarchical weights differ")
     check(hcard.channel_bytes == hhost.channel_bytes, "hierarchical channel_bytes differ")
     print(f"phase small jobs: ok classical SGD card-vs-cpu max_abs_err {err:.3g} "
-          f"(fold launches {folds}); hierarchical add-one byte-equal; "
+          f"(tree fold launches {folds}); hierarchical add-one byte-equal (tree fold launches "
+          f"{hfolds}); "
           f"channel_bytes {hcard.channel_bytes}", flush=True)
 
 
@@ -407,8 +475,10 @@ def phase_full_width(dev: torch.device) -> dict:
     launches = {fn.__name__: fn.launches for fn in kernel.KERNELS}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     check(not res.errors, f"full-width job errors: {res.errors}")
-    for name in ("exact_fold_into", "exact_divide"):
-        check(launches[name] > 0, f"main path never launched {name}")
+    check(launches["exact_fold_into_tree"] == N_TRAINERS * ROUNDS and launches["exact_fold_into"] == 0,
+          f"fold launches {launches}: not one tree launch per update ({N_TRAINERS * ROUNDS}) "
+          "and none per leaf")
+    check(launches["exact_divide"] > 0, "main path never launched exact_divide")
     root = next(p for p in res.programs.values() if isinstance(p, RecordingAggregator))
     history, round_s = root.history, root.round_s
     check(len(history) == ROUNDS + 1, f"{len(history) - 1} rounds recorded, not {ROUNDS}")
@@ -463,18 +533,50 @@ def phase_full_width(dev: torch.device) -> dict:
             acc = ops.fold_into(acc, u, n)
         return ops.divide(acc, total)
 
+    # the caching allocator's cudaMalloc calls and retries (frees of cached
+    # blocks under pressure) over the replay: each can stall the stream
+    before = torch.cuda.memory_stats(dev)
     round_fold_ms = cuda_ms(fold_round, reps=2)
+    after = torch.cuda.memory_stats(dev)
+    allocator = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
+
+    def folds_of_round():
+        acc = None
+        for u, n in updates:
+            acc = ops.fold_into(acc, u, n)
+        return acc
+
+    folds_ms = cuda_ms(folds_of_round, reps=2)
+    host_ms = fold_host_ms(dev, updates)
     w = updates[0][1]
     acc = ops.fold_into(None, updates[1][0], updates[1][1])
     u_leaves, acc_leaves = tree_leaves(updates[0][0]), tree_leaves(acc)
     n = sum(x.numel() for x in u_leaves)
+    # the per-leaf entry (off the main path) at full width, against the plain fold
+    per_leaf = [kernel.exact_fold_into(a.clone(), x, w) for a, x in zip(acc_leaves, u_leaves)]
+    plain = ref.exact_fold_into_tree([a.clone() for a in acc_leaves], u_leaves, w)
+    check(all(same_bytes(a, b) for a, b in zip(per_leaf, plain)), "exact_fold_into at full width")
+    per_leaf_err = max(float((a - b).abs().max()) for a, b in zip(per_leaf, plain))
+    del per_leaf, plain
     den0 = torch.tensor(total, dtype=torch.float32, device=dev)
+    fold_ms = in_turns({
+        "exact_fold_into_tree": lambda: kernel.exact_fold_into_tree(acc_leaves, u_leaves, w),
+        "exact_fold_into": lambda: [kernel.exact_fold_into(a, x, w) for a, x in zip(acc_leaves, u_leaves)],
+        "torch.add": lambda: [torch.add(a, x, alpha=w, out=a) for a, x in zip(acc_leaves, u_leaves)],
+        "torch._foreach_add_": lambda: torch._foreach_add_(acc_leaves, u_leaves, alpha=w),
+        "plain": lambda: ref.exact_fold_into_tree(acc_leaves, u_leaves, w),
+    })
+    fold_bound = bound(12 * n, 2 * n)
     timings = {
+        "exact_fold_into_tree": dict(
+            ms=fold_ms["exact_fold_into_tree"], plain_ms=fold_ms["plain"],
+            library_ms=fold_ms["torch._foreach_add_"], library_per_leaf_ms=fold_ms["torch.add"],
+            bound=fold_bound, max_abs_err=max_err,
+        ),
         "exact_fold_into": dict(
-            ms=cuda_ms(lambda: [kernel.exact_fold_into(a, x, w) for a, x in zip(acc_leaves, u_leaves)]),
-            plain_ms=cuda_ms(lambda: [ref.exact_fold_into(a, x, w) for a, x in zip(acc_leaves, u_leaves)]),
-            library_ms=cuda_ms(lambda: [torch.add(a, x, alpha=w, out=a) for a, x in zip(acc_leaves, u_leaves)]),
-            bound=bound(12 * n, 2 * n), max_abs_err=max_err,
+            ms=fold_ms["exact_fold_into"], plain_ms=fold_ms["plain"],
+            library_ms=fold_ms["torch.add"], bound=fold_bound, max_abs_err=per_leaf_err,
         ),
         "exact_divide": dict(
             ms=cuda_ms(lambda: [kernel.exact_divide(a, total) for a in acc_leaves]),
@@ -520,17 +622,65 @@ def phase_full_width(dev: torch.device) -> dict:
         )
     del stacked
     torch.cuda.empty_cache()
-    fi = timings["exact_fold_into"]
-    print(f"phase full width: ok Qwen2.5-3B tree ({n_params} f32 params, layers 36->4), "
-          f"{N_TRAINERS} trainers, {ROUNDS} rounds byte-equal to the plain fold; "
+    tree_host, leaf_host = host_ms["tree"], host_ms["per_leaf"]
+    print(f"phase full width: ok Qwen2.5-3B tree ({n_params} f32 params in {len(_flat_shapes(shapes))} "
+          f"leaves, layers 36->4), {N_TRAINERS} trainers, {ROUNDS} rounds byte-equal to the plain "
+          f"fold; fold launches {json.dumps(launches)} (one tree launch per update); "
           f"job_s {job_s:.3f} round_wall_s {[round(s, 4) for s in round_s]} "
           f"train_device_ms_per_round {train_ms:.3f} "
-          f"fold_device_ms_per_round {round_fold_ms:.3f} "
+          f"fold_device_ms_per_round {round_fold_ms:.3f} ({N_TRAINERS} folds {folds_ms:.3f}, divide "
+          f"{round_fold_ms - folds_ms:.3f}; allocator over it {json.dumps(allocator)}) "
           f"device_busy_share_est {(train_ms + round_fold_ms) / 1e3 / np.median(round_s):.3f} "
-          f"peak_device_gb {peak_gb:.2f} "
-          f"stream ms {fi['ms']:.3f} bound_ms {fi['bound'][0]:.3f} "
-          f"library_ms {fi['library_ms']:.3f} channel_bytes {channel_bytes}", flush=True)
+          f"peak_device_gb {peak_gb:.2f}; one later fold, in turns, ms "
+          f"{json.dumps({k: round(v, 4) for k, v in fold_ms.items()})} bound_ms "
+          f"{fold_bound[0]:.4f} (12 bytes an element); StreamingMean.fold host ms per call "
+          f"through the tree entry {json.dumps(tree_host)}, through {len(_flat_shapes(shapes))} "
+          f"per-leaf calls "
+          f"{json.dumps(leaf_host)}; channel_bytes {channel_bytes}", flush=True)
     return {"launches": launches, "timings": timings}
+
+
+def in_turns(fns: dict, rounds: int = 5) -> dict:
+    """Median device ms of each of ``fns`` over ``rounds`` rounds that take
+    them in turns (in order, then in reverse order), 10 runs a turn."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            times[name].append(cuda_ms(fns[name], reps=10))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def fold_host_ms(dev: torch.device, updates) -> dict:
+    """Host ms of ``StreamingMean.fold`` over a round's updates, the card
+    synchronized before each call and not inside it: through the tree entry
+    (``ops.fold_into``, as the job folds) and through one per-leaf wrapper
+    call per leaf (the fold before the tree entry), in turns, twice. Gives
+    the first call (it allocates the accumulator) and the median of the
+    later ones."""
+    def per_leaf(acc, tree, w):
+        if acc is None:
+            return tree_map(lambda x: kernel.exact_fold_into(None, x, w), tree)
+        return tree_map(lambda a, x: kernel.exact_fold_into(a, x, w), acc, tree)
+
+    calls = {"tree": [], "per_leaf": []}
+    firsts = {"tree": [], "per_leaf": []}
+    try:
+        for _ in range(2):
+            for name, fold in (("tree", ops.fold_into), ("per_leaf", per_leaf)):
+                troles.fold_into = fold
+                mean = troles.StreamingMean(device=dev)
+                for i, (u, n) in enumerate(updates):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    mean.fold(u, n)
+                    (firsts if i == 0 else calls)[name].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                del mean
+    finally:
+        troles.fold_into = ops.fold_into
+    return {name: {"first": [round(t, 4) for t in firsts[name]],
+                   "later_median": round(float(np.median(calls[name])), 4)} for name in calls}
 
 
 def _flat_shapes(tree):
@@ -782,7 +932,9 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
           f"quantize launches {launches['quantize_blocks']} != encodes {encodes}")
     check(launches["dequantize_blocks"] == decodes,
           f"dequantize launches {launches['dequantize_blocks']} != decodes {decodes}")
-    check(launches["exact_fold_into"] > 0, "the codec job never ran the fold kernel")
+    check(launches["exact_fold_into_tree"] == R * T and launches["exact_fold_into"] == 0,
+          f"codec job fold launches {launches['exact_fold_into_tree']} tree, "
+          f"{launches['exact_fold_into']} per leaf: not one tree launch per update ({R * T})")
     # bytes: every delivered message counted by the hub; raw and coded sizes
     # of every send (a broadcast counts once per trainer) by the client
     exp = _expected_wire(shapes, n_leaves, n_params)
@@ -1161,28 +1313,40 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # both flash kernels alone at the serving shape (flash.cu called directly)
+    # the tensor-core kernel alone at the serving shape
     gen = torch.Generator(device=dev).manual_seed(1)
     q, k, v = _qkv(dev, gen, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)  # q, k, v read, out written
     flops = 4 * D * B * H * (S * (S + 1) // 2)  # two products over the causal pairs
-    shared = dict(
+    timing = dict(
         plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
         bound=bound(nbytes, flops, BF16_TENSOR_FLOPS),
+        ms=cuda_ms(lambda: flash_attention(q, k, v), reps=20),
+        max_abs_err=flash_errs["flash_attention_forward_sm90"],
     )
-    timings = {
-        "flash_attention_forward_sm90": dict(
-            shared, ms=cuda_ms(lambda: flash_attention(q, k, v), reps=20),
-            max_abs_err=flash_errs["flash_attention_forward_sm90"]),
-        "flash_attention_forward": dict(
-            shared, ms=cuda_ms(lambda: fkernel.flash_forward(qt, kt, vt), reps=3),
-            max_abs_err=flash_errs["flash_attention_forward"]),
-    }
-    timing = timings["flash_attention_forward_sm90"]
+    del q, k, v, qt, kt, vt
+    # flash.cu on its own route: float32 at the serving shape, against the
+    # plain version, SDPA at float32 and the float32 bound (CUDA cores: TF32
+    # would miss the 2e-5 limit)
+    q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, torch.float32)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    plain32 = fref.reference_attention(q, k, v)
+    out32 = fkernel.flash_forward(qt, kt, vt).transpose(1, 2)
+    err32, rel32 = float((out32 - plain32).abs().max()), _rel_l2(out32, plain32)
+    check(err32 <= FLASH_ATOL[torch.float32] and rel32 <= FLASH_REL_L2[torch.float32],
+          f"flash.cu at float32, serving shape: max abs err {err32}, rel L2 {rel32}")
+    del plain32, out32
+    simt = dict(
+        ms=cuda_ms(lambda: fkernel.flash_forward(qt, kt, vt), reps=3),
+        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5),
+        bound=bound(2 * nbytes, flops), max_abs_err=err32)
+    timings = {"flash_attention_forward_sm90": timing, "flash_attention_forward": simt}
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     decode_ms = out.decode_s / (T - 1) * 1e3
@@ -1199,9 +1363,11 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
           f"{B * T / (out.prefill_s + out.decode_s):.1f} peak_device_gb {peak_gb:.2f}; "
           f"prefill profile {json.dumps(_rounded(prof_prefill))} "
           f"decode step profile {json.dumps(_rounded(prof_step))}; "
-          f"flash ms {timing['ms']:.3f} (flash.cu {timings['flash_attention_forward']['ms']:.3f}) "
-          f"plain_ms {timing['plain_ms']:.3f} sdpa_ms {timing['library_ms']:.3f} bound_ms "
-          f"{timing['bound'][0]:.4f} ({timing['bound'][1]})", flush=True)
+          f"flash ms {timing['ms']:.3f} plain_ms {timing['plain_ms']:.3f} sdpa_ms "
+          f"{timing['library_ms']:.3f} bound_ms {timing['bound'][0]:.4f} ({timing['bound'][1]}); "
+          f"flash.cu float32 ms {simt['ms']:.3f} max_abs_err {err32:.3g} rel_l2 {rel32:.3g} "
+          f"plain_ms {simt['plain_ms']:.3f} sdpa_f32_ms {simt['library_ms']:.3f} bound_ms "
+          f"{simt['bound'][0]:.4f} ({simt['bound'][1]})", flush=True)
     return {"launches": routes, "timings": timings}
 
 
@@ -1212,7 +1378,8 @@ def kernels_line(full: dict, codec: dict, serve: dict) -> str:
     fold = "src/repro/kernels/agg/kernel.py:96"
     sdpa = "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)"
     rows = [
-        ("exact_fold_into", agg_src, fold, True, "torch.add(acc, d, alpha=w, out=acc)", full),
+        ("exact_fold_into_tree", agg_src, fold, True, "torch._foreach_add_(accs, ds, alpha=w)", full),
+        ("exact_fold_into", agg_src, fold, False, "torch.add(acc, d, alpha=w, out=acc)", full),
         ("exact_divide", agg_src, fold, True, "torch.div(x, den)", full),
         ("exact_fold", agg_src, fold, False, "torch.mv(d.t(), w / den)", full),
         ("weighted_aggregate", agg_src, "src/repro/kernels/agg/kernel.py:74", False,
@@ -1235,6 +1402,9 @@ def kernels_line(full: dict, codec: dict, serve: dict) -> str:
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library_call": library,
+            **({"library_per_leaf_ms": t["library_per_leaf_ms"],
+                "library_per_leaf_call": "torch.add(acc, d, alpha=w, out=acc) per leaf"}
+               if "library_per_leaf_ms" in t else {}),
         })
     return json.dumps({"kernels": out})
 

@@ -8,8 +8,9 @@
 //     (fl/strategies.py::_scale_delta/_add_scaled, :205-215). Three exact
 //     entries:
 //       agg_exact_fold       stacked:  out[n] = fdiv(fold_c fmul(d[c,n], w[c]), den)
-//       agg_exact_fold_into  streaming, in place: acc = fmul(d, w) on the first
-//                            update, then acc = fadd(acc, fmul(d, w))
+//       agg_exact_fold_tree  streaming, in place, over every leaf of an update
+//                            tree: acc_i = fmul(d_i, w) on the first update,
+//                            then acc_i = fadd(acc_i, fmul(d_i, w))
 //       agg_exact_divide     x = fdiv(x, den), in place or out of place
 //   * weighted_aggregate (kernel.py:74, body _agg_kernel at :34-38):
 //       agg_weighted_sum     out[n] = (sum_c w[c] * d[c,n]) / den, FMAs allowed
@@ -27,11 +28,29 @@
 //   stacked, f32 rows:   (4*C + 4) * N bytes   (bf16 rows: (2*C + 4) * N)
 //   streaming fold:      12 * N bytes          (read acc, read d, write acc)
 //   divide:              8 * N bytes
-// Design against that bound: one pass over memory, 16-byte vector loads and
-// stores on neighbouring addresses, a grid-stride loop over a grid sized to the
-// SMs, no shared memory and nothing carried between blocks. Rows whose stride
-// or base is not 16-byte aligned take the scalar loop. One launch per leaf;
-// batching leaves into one launch and cp.async/TMA pipelines are later work.
+// Design of the stacked entries and the divide against that bound: one pass
+// over memory, 16-byte vector loads and stores on neighbouring addresses, a
+// grid-stride loop over a grid sized to the SMs, no shared memory and nothing
+// carried between blocks. Rows whose stride or base is not 16-byte aligned
+// take the scalar loop.
+//
+// The streaming fold runs once per client update, over a tree whose leaves
+// range from 256 floats to a 311M-float embedding. Its design:
+//   * one launch per tree (per kTreeLeaves leaves): the leaf table (pointers,
+//     lengths, alignment, chunk prefix) is a __grid_constant__ kernel
+//     parameter, built on the host per call and copied by the launch itself,
+//     so no buffer outlives the call or is shared between threads folding
+//     onto one stream;
+//   * every leaf is cut into chunks of kChunkPacks 16-byte packs; a grid of
+//     kFoldBlocksPerSm blocks per SM walks all chunks of all leaves with a
+//     grid stride, finding each chunk's leaf by walking the prefix forward,
+//     so small leaves and the embedding's tail share one launch;
+//   * each thread loads kFoldUnroll float4 of d and of acc before using any,
+//     with evict-first hints (__ldcs/__stcs): every byte is touched once,
+//     gigabytes against a 50 MB L2;
+//   * the first update is a template parameter (no acc read, no branch);
+//   * a leaf whose acc or d is not 16-byte aligned, and the last n % 4
+//     elements of one that is, take a scalar loop in the same launch.
 //
 // Every entry launches on the stream it is given, allocates nothing and
 // returns cudaGetLastError() as an int.
@@ -111,29 +130,6 @@ __global__ void stacked_kernel(const T* __restrict__ d, const float* __restrict_
   }
 }
 
-__global__ void fold_into_kernel(float* __restrict__ acc, const float* __restrict__ d,
-                                 float w, int first, long long N, long long packs) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  float4* acc4 = reinterpret_cast<float4*>(acc);
-  const float4* d4 = reinterpret_cast<const float4*>(d);
-  for (long long i = tid; i < packs; i += stride) {
-    const float4 x = d4[i];
-    float4 r = make_float4(__fmul_rn(x.x, w), __fmul_rn(x.y, w), __fmul_rn(x.z, w),
-                           __fmul_rn(x.w, w));
-    if (!first) {
-      const float4 a = acc4[i];
-      r = make_float4(__fadd_rn(a.x, r.x), __fadd_rn(a.y, r.y), __fadd_rn(a.z, r.z),
-                      __fadd_rn(a.w, r.w));
-    }
-    acc4[i] = r;
-  }
-  for (long long n = packs * 4 + tid; n < N; n += stride) {
-    const float s = __fmul_rn(d[n], w);
-    acc[n] = first ? s : __fadd_rn(acc[n], s);
-  }
-}
-
 // x and out may be the same buffer (in place), so no __restrict__ here
 __global__ void divide_kernel(const float* x, float* out, float den, long long N,
                               long long packs) {
@@ -172,6 +168,99 @@ int stacked(const void* d, int bf16, const float* w, const float* den, float* ou
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------- //
+// the streaming fold over an update tree
+// ---------------------------------------------------------------------- //
+constexpr int kTreeLeaves = 120;      // leaves per launch: the table stays under 4 KB
+constexpr int kChunkPacks = 2048;     // 16-byte packs per chunk (32 KB of each stream)
+constexpr int kFoldThreads = 256;
+constexpr int kFoldUnroll = 4;        // packs of each stream in flight per thread
+constexpr int kFoldBlocksPerSm = 4;
+
+struct FoldLeaf {
+  float* acc;
+  const float* d;
+  long long n;  // elements, > 0
+  int chunk0;   // the leaf's first chunk; its last is the next leaf's chunk0 - 1
+  int aligned;  // acc and d both 16-byte aligned: the leaf's whole packs go as float4
+};
+
+struct FoldTable {
+  int leaves;
+  int chunks;  // of all leaves
+  float w;
+  int pad;
+  FoldLeaf leaf[kTreeLeaves];
+};
+static_assert(sizeof(FoldLeaf) == 32, "the Python table mirrors this layout");
+static_assert(sizeof(FoldTable) <= 4096, "the table is a kernel parameter of at most 4 KB");
+
+template <bool kFirst>
+__device__ __forceinline__ float4 fold4(const float4& a, const float4& x, float w) {
+  const float4 s = make_float4(__fmul_rn(x.x, w), __fmul_rn(x.y, w), __fmul_rn(x.z, w),
+                               __fmul_rn(x.w, w));
+  if (kFirst) return s;
+  return make_float4(__fadd_rn(a.x, s.x), __fadd_rn(a.y, s.y), __fadd_rn(a.z, s.z),
+                     __fadd_rn(a.w, s.w));
+}
+
+template <bool kFirst>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_tree_kernel(const __grid_constant__ FoldTable t) {
+  constexpr long long kChunk = 4LL * kChunkPacks;  // elements
+  constexpr int kStep = kFoldThreads * kFoldUnroll;
+  const float w = t.w;
+  int i = 0;  // this block's leaf; its chunks only grow
+  for (int c = blockIdx.x; c < t.chunks; c += gridDim.x) {
+    while (i + 1 < t.leaves && c >= t.leaf[i + 1].chunk0) ++i;
+    float* acc = t.leaf[i].acc;
+    const float* d = t.leaf[i].d;
+    const long long e0 = (c - t.leaf[i].chunk0) * kChunk;
+    const long long e1 = min(e0 + kChunk, t.leaf[i].n);
+    long long scalar0 = e0;
+    if (t.leaf[i].aligned) {
+      const long long p1 = e1 / 4;  // packs wholly inside [e0, e1)
+      float4* acc4 = reinterpret_cast<float4*>(acc);
+      const float4* d4 = reinterpret_cast<const float4*>(d);
+      for (long long p = e0 / 4 + threadIdx.x; p < p1; p += kStep) {
+        float4 x[kFoldUnroll], a[kFoldUnroll];
+#pragma unroll
+        for (int k = 0; k < kFoldUnroll; ++k) {
+          const long long q = p + k * kFoldThreads;
+          if (q < p1) {
+            x[k] = __ldcs(d4 + q);
+            if (!kFirst) a[k] = __ldcs(acc4 + q);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kFoldUnroll; ++k) {
+          const long long q = p + k * kFoldThreads;
+          if (q < p1) __stcs(acc4 + q, fold4<kFirst>(a[k], x[k], w));
+        }
+      }
+      scalar0 = p1 * 4;
+    }
+    for (long long e = scalar0 + threadIdx.x; e < e1; e += kFoldThreads) {
+      const float s = __fmul_rn(__ldcs(d + e), w);
+      __stcs(acc + e, kFirst ? s : __fadd_rn(__ldcs(acc + e), s));
+    }
+  }
+}
+
+int fold_tree(const FoldTable* table, int first, cudaStream_t s) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = table->chunks < kFoldBlocksPerSm * sms ? table->chunks
+                                                            : kFoldBlocksPerSm * sms;
+  if (first) {
+    fold_tree_kernel<true><<<blocks, kFoldThreads, 0, s>>>(*table);
+  } else {
+    fold_tree_kernel<false><<<blocks, kFoldThreads, 0, s>>>(*table);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -186,13 +275,20 @@ int agg_weighted_sum(const void* d, int bf16, const float* w, const float* den, 
   return stacked<false>(d, bf16, w, den, out, C, N, stream);
 }
 
-int agg_exact_fold_into(float* acc, const float* d, float w, int first, long long N,
-                        void* stream) {
-  const long long packs = (aligned16(acc) && aligned16(d)) ? N / 4 : 0;
-  const long long work = packs ? packs + N % 4 : N;
-  fold_into_kernel<<<blocks_for(work), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      acc, d, w, first, N, packs);
-  return static_cast<int>(cudaGetLastError());
+// one launch folds the table's leaves (chunks > 0): the launch copies the
+// table, so the caller may free or reuse it as soon as this returns
+int agg_exact_fold_tree(const void* table, int first, void* stream) {
+  return fold_tree(static_cast<const FoldTable*>(table), first,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// leaves per table, packs per chunk and the table's bytes, for the wrapper's
+// mirror of FoldTable
+int agg_fold_tree_layout(int* out) {
+  out[0] = kTreeLeaves;
+  out[1] = kChunkPacks;
+  out[2] = static_cast<int>(sizeof(FoldTable));
+  return 0;
 }
 
 int agg_exact_divide(const float* x, float* out, float den, long long N, void* stream) {

@@ -6,11 +6,13 @@
   run, bit-identical to the sequential per-client accumulation;
   ``exact=False`` the fused ``(w @ d) / denom`` that may use FMAs.
 * ``fold_into`` / ``divide`` — the streaming entries behind
-  ``StreamingMean``: one update at a time, then one divide. Float32 tensor
-  leaves go through the kernels; any other leaf (an int, float64 or float16
-  tensor, a numpy array, a Python or numpy scalar) through a plain path with
-  numpy's promotion, as the JAX package folds it: ``x * n`` (ints become
-  float64), an add, ``x / total``. Tensors stay on their device there.
+  ``StreamingMean``: one update at a time, then one divide. The float32
+  tensor leaves of an update go through the tree entry of the fold kernel
+  in one call (one launch per ``kernel.TREE_LEAVES`` leaves), the divide
+  leaf by leaf; any other leaf (an int, float64 or float16 tensor, a numpy
+  array, a Python or numpy scalar) through a plain path with numpy's
+  promotion, as the JAX package folds it: ``x * n`` (ints become float64),
+  an add, ``x / total``. Tensors stay on their device there.
 
 Dispatch is by device, never by size: every call goes through the wrappers
 of ``kernel.py``, which launch the kernel for CUDA tensors and run the plain
@@ -113,9 +115,7 @@ def _plain_divide(x: Any, total: float) -> Any:
     return x / total
 
 
-def _fold_leaf(acc: Any, x: Any, w: float) -> Any:
-    if _is_f32_tensor(x) and (acc is None or _is_f32_tensor(acc)):
-        return kernel.exact_fold_into(acc, x, w)
+def _plain_fold(acc: Any, x: Any, w: float) -> Any:
     scaled = _plain_scale(x, w)
     if acc is None:
         return scaled
@@ -124,10 +124,28 @@ def _fold_leaf(acc: Any, x: Any, w: float) -> Any:
 
 def fold_into(acc: Optional[Any], tree: Any, w: float) -> Any:
     """Fold one update tree with weight ``w`` into ``acc`` (None: start a new
-    accumulator). Float32 accumulator leaves are updated in place."""
+    accumulator). Float32 accumulator leaves are updated in place, all in one
+    call of the kernel's tree entry, which raises on any it does not take
+    (leaves on two devices among them)."""
+    leaves, treedef = tree_flatten(tree)
     if acc is None:
-        return tree_map(lambda x: _fold_leaf(None, x, w), tree)
-    return tree_map(lambda a, x: _fold_leaf(a, x, w), acc, tree)
+        accs = [None] * len(leaves)
+    else:
+        accs, acc_def = tree_flatten(acc)
+        if acc_def != treedef:
+            raise ValueError(f"tree structures differ: {acc_def!r} vs {treedef!r}")
+    out = list(accs)
+    idx = []
+    for i, (a, x) in enumerate(zip(accs, leaves)):
+        if _is_f32_tensor(x) and (a is None or _is_f32_tensor(a)):
+            idx.append(i)
+        else:
+            out[i] = _plain_fold(a, x, w)
+    folded = kernel.exact_fold_into_tree(
+        None if acc is None else [accs[i] for i in idx], [leaves[i] for i in idx], w)
+    for i, leaf in zip(idx, folded):
+        out[i] = leaf
+    return tree_unflatten(treedef, out)
 
 
 def divide(tree: Any, total: float) -> Any:

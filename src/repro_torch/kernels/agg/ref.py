@@ -11,7 +11,7 @@ Python float is a plain float32 multiply on both devices.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -37,6 +37,16 @@ def exact_fold_into(
     if acc is None:
         return scaled
     return acc.add_(scaled)
+
+
+def exact_fold_into_tree(
+    accs: Optional[Sequence[torch.Tensor]], ds: Sequence[torch.Tensor], w: float
+) -> List[torch.Tensor]:
+    """The streaming fold of one update tree's leaves: ``exact_fold_into``
+    leaf by leaf, in leaf order."""
+    if accs is None:
+        return [exact_fold_into(None, d, w) for d in ds]
+    return [exact_fold_into(a, d, w) for a, d in zip(accs, ds)]
 
 
 def exact_divide(

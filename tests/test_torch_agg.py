@@ -22,6 +22,7 @@ import repro_torch.core.roles as troles
 from repro.kernels.agg.kernel import fold_scaled
 from repro.kernels.agg.ops import aggregate_flat as jax_aggregate_flat
 from repro.kernels.agg.ops import aggregate_tree as jax_aggregate_tree
+from repro.fl.strategies import _add_scaled, _scale_delta
 from repro.kernels.agg.ref import reference_aggregate
 from repro_torch.convert import tree_from_numpy, tree_to_numpy
 from repro_torch.core import tree as ttree
@@ -390,8 +391,11 @@ def test_cpu_calls_launch_nothing():
     kernel.reset_launches()
     ops.aggregate_flat(torch.ones(2, 4), torch.ones(2), denom=2.0, exact=True)
     ops.aggregate_flat(torch.ones(2, 4), torch.ones(2))
-    ops.divide(ops.fold_into(None, {"w": torch.ones(3)}, 2.0), 2.0)
-    assert [fn.launches for fn in kernel.KERNELS] == [0, 0, 0, 0]
+    acc = ops.fold_into(None, {"w": torch.ones(3), "b": torch.ones(2)}, 2.0)
+    ops.divide(ops.fold_into(acc, {"w": torch.ones(3), "b": torch.ones(2)}, 2.0), 2.0)
+    kernel.exact_fold_into_tree(None, [torch.ones(4)] * (kernel.TREE_LEAVES + 1), 1.5)
+    assert len(kernel.KERNELS) == 5
+    assert [fn.launches for fn in kernel.KERNELS] == [0] * len(kernel.KERNELS)
 
 
 def test_plain_versions_are_the_cpu_path():
@@ -401,3 +405,294 @@ def test_plain_versions_are_the_cpu_path():
     den = torch.tensor([11.0])
     assert torch.equal(kernel.exact_fold(d, w, den), ref.exact_fold(d, w, den))
     assert torch.equal(kernel.weighted_aggregate(d, w, den), ref.weighted_aggregate(d, w, den))
+
+
+# ------------------------------------------------------------------ #
+# the tree entry of the streaming fold
+# ------------------------------------------------------------------ #
+# float32 leaf sizes of the mixed trees: empty, odd, a multiple of 4, more
+# than a chunk and ragged
+TREE_SIZES = (0, 1, 3, 4, 5, 4099, kernel.CHUNK + 3)
+# csrc/agg.cu: kFoldThreads, kFoldUnroll
+KERNEL_THREADS, KERNEL_UNROLL = 256, 4
+
+
+def _offset_view(x: np.ndarray) -> torch.Tensor:
+    """``x`` as a contiguous tensor whose data starts 4 bytes into its
+    buffer, so it is not 16-byte aligned."""
+    buf = torch.empty(x.size + 1, dtype=torch.float32)
+    buf[1:] = _t(x.reshape(-1))
+    return buf[1:].view(x.shape)
+
+
+def _mixed_update(rng, scale=1.0):
+    """A numpy tree of float32 leaves of every size in TREE_SIZES, an int32
+    and a float64 leaf, a Python scalar and a float32 leaf that the torch
+    twin holds at a 1-float offset ("view")."""
+    tree = {f"f{n}": (scale * rng.normal(size=n)).astype(np.float32) for n in TREE_SIZES}
+    tree["view"] = (scale * rng.normal(size=(7, 9))).astype(np.float32)
+    tree["i"] = rng.integers(-50, 50, size=6).astype(np.int32)
+    tree["d"] = (scale * rng.normal(size=5)).astype(np.float64)
+    tree["s"] = float(rng.normal())
+    return tree
+
+
+def _torch_update(tree):
+    out = tree_from_numpy(tree, "cpu")
+    out["view"] = _offset_view(tree["view"])
+    assert out["view"].data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("n_updates", [1, 2, 5])
+def test_tree_fold_of_mixed_leaves_bytes_equal_jax(n_updates):
+    rng = np.random.default_rng(100 + n_updates)
+    updates = [(_mixed_update(rng), float(rng.integers(1, 60)) + 0.3) for _ in range(n_updates)]
+    ours, ref_acc = troles.StreamingMean(device="cpu"), jroles.StreamingMean(fused=False)
+    for tree, n in updates:
+        ours.fold(_torch_update(tree), n)
+        ref_acc.fold(tree, n)
+    part, total = ours.partial()
+    ref_part, ref_total = ref_acc.partial()
+    assert total == ref_total
+    for key in ref_part:
+        assert _leaf_bytes(part[key]) == _leaf_bytes(ref_part[key]), key
+    mean, _ = ours.finalize()
+    ref_mean, _ = ref_acc.finalize()
+    for key in ref_mean:
+        assert _leaf_bytes(mean[key]) == _leaf_bytes(ref_mean[key]), key
+
+
+@pytest.mark.parametrize("n_updates", [1, 3])
+def test_tree_entry_bytes_equal_jax_scale_and_add(n_updates):
+    """The tree entry (its plain version here) against the JAX package's
+    jitted ``_scale_delta`` / ``_add_scaled`` chain, the fused
+    ``StreamingMean.fold``, leaf for leaf."""
+    rng = np.random.default_rng(7 * n_updates)
+    leaves = [[(rng.normal(size=n) * 3).astype(np.float32) for n in TREE_SIZES]
+              for _ in range(n_updates)]
+    ws = [float(rng.uniform(1, 90)) for _ in range(n_updates)]
+    accs, want = None, None
+    for ds, w in zip(leaves, ws):
+        tds = [_offset_view(d) if i % 2 else _t(d) for i, d in enumerate(ds)]
+        out = kernel.exact_fold_into_tree(accs, tds, w)
+        if accs is not None:
+            assert all(a is b for a, b in zip(out, accs))  # in place
+        accs = out
+        scaled = [np.asarray(_scale_delta(d, np.float32(w))) for d in ds]
+        want = scaled if want is None else [np.asarray(_add_scaled(a, x)) for a, x in zip(want, scaled)]
+    assert [a.numpy().tobytes() for a in accs] == [x.tobytes() for x in want]
+    fused = jroles.StreamingMean(fused=True)
+    for ds, w in zip(leaves, ws):
+        fused.fold({f"l{i}": d for i, d in enumerate(ds)}, w)
+    assert [a.numpy().tobytes() for a in accs] == \
+        [np.asarray(fused.partial()[0][f"l{i}"]).tobytes() for i in range(len(TREE_SIZES))]
+
+
+def test_tree_fold_partial_of_mixed_leaves_bytes_equal_jax():
+    rng = np.random.default_rng(31)
+    partials = [(_mixed_update(rng, 4.0), float(rng.integers(2, 30)), 2) for _ in range(3)]
+    ours, ref_acc = troles.StreamingMean(device="cpu"), jroles.StreamingMean(fused=False)
+    for tree, total, count in partials:
+        ours.fold_partial(_torch_update(tree), total, count)
+        ref_acc.fold_partial(tree, total, count)
+    assert ours.count == ref_acc.count == 6
+    mean, total = ours.finalize()
+    ref_mean, ref_total = ref_acc.finalize()
+    assert total == ref_total
+    for key in ref_mean:
+        assert _leaf_bytes(mean[key]) == _leaf_bytes(ref_mean[key]), key
+
+
+def test_fold_into_keeps_structure_and_folds_in_place():
+    rng = np.random.default_rng(3)
+    tree = _torch_update(_mixed_update(rng))
+    acc = ops.fold_into(None, tree, 2.0)
+    assert ttree.tree_flatten(acc)[1] == ttree.tree_flatten(tree)[1]
+    before = {k: v for k, v in acc.items() if isinstance(v, torch.Tensor) and v.dtype == torch.float32}
+    again = ops.fold_into(acc, tree, 3.0)
+    assert all(again[k] is v for k, v in before.items())
+    with pytest.raises(ValueError):
+        ops.fold_into(acc, {"other": torch.ones(2)}, 1.0)
+
+
+# the table builder ------------------------------------------------- #
+def _chunk_spans(rows, chunks):
+    """(leaf, first element, end) of every chunk of one launch, found as the
+    kernel finds them: the leaf whose chunk0 is the last at or below it."""
+    spans = []
+    for c in range(chunks):
+        i = max(j for j, row in enumerate(rows) if row[3] <= c)
+        _, _, n, chunk0, _ = rows[i]
+        e0 = (c - chunk0) * kernel.CHUNK
+        assert e0 < n, "a chunk past its leaf's end"
+        spans.append((i, e0, min(e0 + kernel.CHUNK, n)))
+    return spans
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fold_tables_cover_every_element_once(seed):
+    rng = np.random.default_rng(seed)
+    count = int(rng.integers(1, 3 * kernel.TREE_LEAVES))
+    sizes = [int(rng.choice([1, 3, 4, 256, kernel.CHUNK - 1, kernel.CHUNK, kernel.CHUNK + 5,
+                             int(rng.integers(1, 5 * kernel.CHUNK))])) for _ in range(count)]
+    leaves = [(1 << 20) * i for i in range(count)]
+    tables = kernel.fold_tables([(a, a + (1 << 19), n) for a, n in zip(leaves, sizes)])
+    assert len(tables) == -(-count // kernel.TREE_LEAVES)
+    seen = 0
+    for rows, chunks in tables:
+        assert 1 <= len(rows) <= kernel.TREE_LEAVES and rows[0][3] == 0
+        assert chunks == sum(-(-row[2] // kernel.CHUNK) for row in rows)
+        covered = collections.defaultdict(list)
+        for i, e0, e1 in _chunk_spans(rows, chunks):
+            covered[i].append((e0, e1))
+        for i, row in enumerate(rows):
+            spans = sorted(covered[i])
+            assert spans[0][0] == 0 and spans[-1][1] == row[2]
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # no gap, no overlap
+        assert [row[2] for row in rows] == sizes[seen:seen + len(rows)]
+        seen += len(rows)
+    assert seen == count
+
+
+def test_fold_tables_split_more_than_a_table_and_flag_alignment():
+    K = kernel.TREE_LEAVES
+    leaves = [(4096 * i + 4 * (i % 4 == 1), 4096 * i + 8 * (i % 4 == 2), 7) for i in range(2 * K + 5)]
+    tables = kernel.fold_tables(leaves)
+    assert [len(rows) for rows, _ in tables] == [K, K, 5]
+    flags = [row[4] for rows, _ in tables for row in rows]
+    assert flags == [int(i % 4 in (0, 3)) for i in range(2 * K + 5)]
+    assert kernel.fold_tables([]) == []
+
+
+# a replay of the kernel's walk ------------------------------------- #
+def _fold_replay(arena: np.ndarray, tables, w: float, first: bool, blocks: int):
+    """numpy replay of ``fold_tree_kernel`` (csrc/agg.cu) on a float32
+    ``arena``, whose byte offsets are the tables' addresses: each launch's
+    grid of ``min(chunks, blocks)`` blocks walks the chunks with a grid
+    stride, each block moving its leaf forward; in a chunk of an aligned
+    leaf, KERNEL_THREADS threads take KERNEL_UNROLL packs of d and of acc
+    each, all loaded before any is stored, then the elements after the last
+    whole pack go one per thread (the whole chunk, for an unaligned leaf).
+    Returns how often each element of the arena was written."""
+    w32 = np.float32(w)
+    writes = np.zeros(arena.size, np.int64)
+    lanes = np.arange(KERNEL_THREADS)
+
+    def fold(idx_acc, idx_d):
+        s = arena[idx_d] * w32
+        arena[idx_acc] = s if first else arena[idx_acc] + s
+        np.add.at(writes, idx_acc, 1)
+
+    for rows, chunks in tables:
+        grid = min(chunks, blocks)
+        for b in range(grid):
+            i = 0
+            for c in range(b, chunks, grid):
+                while i + 1 < len(rows) and c >= rows[i + 1][3]:
+                    i += 1
+                acc, d, n, chunk0, aligned = rows[i]
+                assert acc % 4 == 0 and d % 4 == 0
+                a0, d0 = acc // 4, d // 4
+                e0 = (c - chunk0) * kernel.CHUNK
+                e1 = min(e0 + kernel.CHUNK, n)
+                scalar0 = e0
+                if aligned:
+                    p1 = e1 // 4
+                    for p in range(e0 // 4, p1, KERNEL_THREADS * KERNEL_UNROLL):
+                        q = (p + np.arange(KERNEL_UNROLL)[:, None] * KERNEL_THREADS + lanes).ravel()
+                        q = q[q < p1]
+                        elems = (4 * q[:, None] + np.arange(4)).ravel()
+                        fold(a0 + elems, d0 + elems)
+                    scalar0 = p1 * 4
+                for e in range(scalar0, e1, KERNEL_THREADS):
+                    elems = e + lanes[lanes < e1 - e]
+                    fold(a0 + elems, d0 + elems)
+    return writes
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 528])
+@pytest.mark.parametrize("many", [False, True])
+def test_fold_replay_bytes_equal_plain_fold(blocks, many):
+    """Leaves of TREE_SIZES (or 2 * TREE_LEAVES + 7 small ones) laid in one
+    arena at 16-byte and at 4-byte offsets, folded twice (first, then
+    later) by the replay and by the plain version: the same bytes, every
+    accumulator element written once per fold and nothing else written."""
+    rng = np.random.default_rng(blocks + 10 * many)
+    sizes = [int(n) for n in rng.integers(1, 40, size=2 * kernel.TREE_LEAVES + 7)] if many \
+        else [n for n in TREE_SIZES if n] * 2
+    offsets, pos = [], 0
+    for i, n in enumerate(sizes * 2):  # the update leaves, then the accumulator leaves
+        pos += 4 - pos % 4 + (i % 3 == 1)  # aligned, or one float past
+        offsets.append(pos)
+        pos += n
+    arena = torch.from_numpy(rng.normal(size=pos + 4).astype(np.float32))
+    L = len(sizes)
+    ds = [arena[o:o + n] for o, n in zip(offsets[:L], sizes)]
+    accs = [arena[o:o + n] for o, n in zip(offsets[L:], sizes)]
+    base = arena.data_ptr()
+    assert base % 16 == 0
+    tables = kernel.fold_tables(
+        [(a.data_ptr() - base, d.data_ptr() - base, d.numel()) for a, d in zip(accs, ds)])
+    assert len(tables) == (3 if many else 1)
+    assert any(row[4] == 0 for rows, _ in tables for row in rows)
+    assert any(row[4] == 1 for rows, _ in tables for row in rows)
+    replay = arena.numpy().copy()
+    for first, w in ((True, 3.7), (False, 0.61)):
+        writes = _fold_replay(replay, tables, w, first, blocks)
+        plain = ref.exact_fold_into_tree(None if first else plain, ds, w)
+        for o, n, leaf in zip(offsets[L:], sizes, plain):
+            assert replay[o:o + n].tobytes() == leaf.numpy().tobytes()
+        acc_elems = np.concatenate([np.arange(o, o + n) for o, n in zip(offsets[L:], sizes)])
+        assert (writes[acc_elems] == 1).all() and writes.sum() == acc_elems.size
+    # the update leaves were only read
+    for o, n, d in zip(offsets[:L], sizes, ds):
+        assert replay[o:o + n].tobytes() == d.numpy().tobytes()
+
+
+def test_fold_replay_sees_a_dropped_chunk():
+    """A control: the replay with one chunk skipped is not byte-equal."""
+    rng = np.random.default_rng(2)
+    n = 3 * kernel.CHUNK + 1
+    arena = rng.normal(size=2 * n + 4).astype(np.float32)
+    tables = kernel.fold_tables([(4 * (n + 3), 0, n)])
+    rows, chunks = tables[0]
+    full = arena.copy()
+    _fold_replay(full, tables, 2.5, True, 4)
+    short = arena.copy()
+    _fold_replay(short, [(rows, chunks - 1)], 2.5, True, 4)
+    assert full.tobytes() != short.tobytes()
+
+
+# overlap ----------------------------------------------------------- #
+def test_tree_entry_refuses_overlap_across_leaves():
+    buf = torch.zeros(64)
+    a, b, c = buf[0:8], buf[8:16], buf[16:24]
+    with pytest.raises(ValueError, match="overlaps"):  # acc 0 is update leaf 1
+        kernel.exact_fold_into_tree([a, c], [buf[24:32], a], 1.0)
+    with pytest.raises(ValueError, match="overlaps"):  # acc 1 inside update 0's span,
+        # with update 1 between them in address order and clear of acc 1
+        kernel.exact_fold_into_tree([buf[48:64], buf[34:36]], [buf[30:46], buf[31:33]], 1.0)
+    with pytest.raises(ValueError, match="overlaps"):  # two accumulators share bytes
+        kernel.exact_fold_into_tree([buf[0:8], buf[4:12]], [c, buf[24:32]], 1.0)
+    with pytest.raises(ValueError, match="overlaps"):  # the same accumulator twice
+        kernel.exact_fold_into_tree([a, a], [b, c], 1.0)
+    with pytest.raises(ValueError, match="overlaps"):  # update spans an accumulator
+        kernel.exact_fold_into_tree([b], [buf[4:12]], 1.0)
+    # update leaves may share; neighbours that only touch do not overlap
+    out = kernel.exact_fold_into_tree([a, b], [c, c], 2.0)
+    assert out[0] is a and torch.equal(b, torch.zeros(8))
+
+
+def test_tree_entry_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(TypeError):
+        kernel.exact_fold_into_tree(None, [torch.ones(3), torch.ones(3, dtype=torch.float64)], 1.0)
+    with pytest.raises(ValueError):
+        kernel.exact_fold_into_tree([torch.ones(3)], [torch.ones(4)], 1.0)
+    with pytest.raises(ValueError):
+        kernel.exact_fold_into_tree([torch.ones(3)], [torch.ones(3), torch.ones(3)], 1.0)
+    with pytest.raises(ValueError):
+        kernel.exact_fold_into_tree(None, [torch.ones(4, 3).t()], 1.0)
+    with pytest.raises(ValueError):
+        kernel.exact_fold_into_tree(None, [torch.ones(3, device="meta")], 1.0)
+    assert kernel.exact_fold_into_tree(None, [], 1.0) == []

@@ -72,6 +72,49 @@ def test_streaming_entries_match_plain_versions(cuda_device):
     torch.cuda.synchronize()
 
 
+def _leaves_at(sizes, gen, dev, offset_every=2):
+    """Leaves of ``sizes`` in one buffer on ``dev``; every ``offset_every``-th
+    starts one float past a 16-byte boundary."""
+    pos, spans = 0, []
+    for i, n in enumerate(sizes):
+        pos += -pos % 4 + (i % offset_every == 1)
+        spans.append((pos, n))
+        pos += n
+    buf = torch.randn(pos + 4, generator=gen, device=dev)
+    return [buf[o:o + n] for o, n in spans]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("many", [False, True])
+def test_tree_fold_matches_plain_version(cuda_device, many):
+    """The tree entry against its plain version, first and later updates,
+    update and accumulator leaves at 16-byte and 4-byte offsets, on a tree
+    of odd sizes and on one of more than TREE_LEAVES leaves."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    K = kernel.TREE_LEAVES
+    sizes = [int(n) for n in torch.randint(1, 3000, (2 * K + 7,), generator=torch.Generator().manual_seed(4))] \
+        if many else [0, 1, 3, 4, 5, 4099, kernel.CHUNK + 3, (1 << 20) + 3]
+    ds, ds2 = _leaves_at(sizes, gen, cuda_device), _leaves_at(sizes, gen, cuda_device, 3)
+    kernel.reset_launches()
+    acc = kernel.exact_fold_into_tree(None, ds, 3.0)
+    plain = ref.exact_fold_into_tree(None, ds, 3.0)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(acc, plain))
+    # later updates into accumulators of both alignments
+    for accs in (acc, _leaves_at(sizes, gen, cuda_device, 2)):
+        for a, b in zip(accs, plain):
+            a.copy_(b)
+        want = ref.exact_fold_into_tree([a.clone() for a in accs], ds2, 0.3)
+        out = kernel.exact_fold_into_tree(accs, ds2, 0.3)
+        assert all(o is a for o, a in zip(out, accs))
+        assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out, want))
+    nonempty = sum(1 for n in sizes if n)
+    assert kernel.exact_fold_into_tree.launches == 3 * -(-nonempty // K)
+    assert kernel.exact_fold_into.launches == 0
+    with pytest.raises(ValueError, match="overlaps"):
+        kernel.exact_fold_into_tree([acc[1], acc[3]], [ds[1], acc[3]], 1.0)
+    torch.cuda.synchronize()
+
+
 class AddOneTrainer(Trainer):
     def train(self):
         if self.weights is not None:
@@ -93,11 +136,12 @@ def test_classical_job_on_card_equals_cpu(cuda_device):
                       program_overrides={"trainer": AddOneTrainer})
         assert not res.errors, res.errors
         out[str(dev)] = (tree_to_numpy(res.global_weights()), res.channel_bytes,
-                         kernel.exact_fold_into.launches)
-    (card, card_bytes, launches), (host, host_bytes, host_launches) = out.values()
+                         kernel.exact_fold_into_tree.launches, kernel.exact_fold_into.launches)
+    (card, card_bytes, launches, per_leaf), (host, host_bytes, host_launches, _) = out.values()
     assert all(card[k].tobytes() == host[k].tobytes() for k in card)
     assert card_bytes == host_bytes
-    assert launches > 0 and host_launches == 0
+    # one tree launch per update (4 trainers, 2 rounds), none per leaf
+    assert launches == 8 and per_leaf == 0 and host_launches == 0
 
 
 def _same_bytes(a, b):

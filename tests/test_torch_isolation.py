@@ -1,7 +1,7 @@
 """The port stands alone: no jax, no JAX package, and no silent CPU runs.
 
-* No module under ``src/repro_torch/``, nor ``chip_smoke.py`` or
-  ``tools/flash_sm90_variants.py``, imports
+* No module under ``src/repro_torch/``, nor ``chip_smoke.py``,
+  ``tools/flash_sm90_variants.py`` or ``tools/agg_fold_variants.py``, imports
   ``jax``, ``repro`` or ``ml_dtypes`` (an AST walk, and a subprocess import
   with them blocked in ``sys.modules``); the card's machine has none.
 * ``run_job`` without ``device`` raises where there is no CUDA device.
@@ -25,9 +25,10 @@ from repro_torch.core.tag import DatasetSpec
 from repro_torch.core.topologies import classical_fl
 
 ROOT = Path(__file__).resolve().parents[1]
-# what runs on the card's machine: the package, chip_smoke.py and the flash variant tool
+# what runs on the card's machine: the package, chip_smoke.py and the variant tools
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_variants.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "flash_sm90_variants.py",
+    ROOT / "tools" / "agg_fold_variants.py"]
 _BANNED = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
