@@ -19,7 +19,11 @@ source, started together), then runs seven phases, each printing one line:
    ``tensor / python_float`` on CUDA is an IEEE divide;
 3. the slice, small: ``classical_fl`` with the seeded SGD trainer and
    ``hierarchical_fl`` with an "add one" trainer, on the card and on the
-   CPU, folding through the tree entry only;
+   CPU, folding through the tree entry only; then ``distributed_fl``,
+   ``hybrid_fl``, ``coordinated_fl`` and ``gossip_fl`` with trainers that
+   add noise drawn on the host (every weight byte-equal card vs CPU, the
+   coordinated job on the stacked exact fold) and ``vertical_fl`` (losses
+   and weights within the SGD tolerance);
 4. the slice at full width: a ``classical_fl`` job whose weight tree is the
    parameter tree of Qwen2.5-3B (published widths, depth cut from 36
    layers to 4), 8 trainers, 3 rounds, with the job's global weights held
@@ -29,6 +33,15 @@ source, started together), then runs seven phases, each printing one line:
    per-leaf ``torch.add`` calls, one ``torch._foreach_add_`` and the plain
    version, beside the bound, and the host ms of a ``StreamingMean.fold``
    call through the tree entry and through 50 per-leaf calls;
+   4b. the other topologies on the same tree: ``coordinated_fl`` with 8
+   trainers and 2 aggregator replicas, 3 rounds, every round's global
+   weights byte-equal to a replay of the same updates, in the order each
+   aggregator folded them, through the plain stacked fold, with exactly
+   (aggregators + global) x leaves x rounds launches of ``agg_exact_fold``
+   and none of the streaming fold, the stacked folds of a round timed
+   beside ``torch.mv``; and ``distributed_fl`` with 4 trainers, 2 rounds,
+   the consensus byte-equal across trainers and to a float64 numpy fold of
+   the same updates on the host, leaf by leaf; each job's peak memory;
 5. codec: (a) the quant kernels against their plain versions on the card
    (q and scales as bytes) over edge-case blocks; (b) the same job with the
    param channel on the socket loopback (``backend="multiproc"``, codec
@@ -56,8 +69,9 @@ source, started together), then runs seven phases, each printing one line:
    ``torch.profiler``, and both flash kernels' times at the serving shape:
    the tensor-core kernel at bf16, ``flash.cu`` on its own route, float32
    (checked against the plain version there too);
-7. a ``kernels`` JSON line: launches on each path (phase 4 for the fold
-   kernels, phase 5's job for the quant kernels, phase 6's serving run for
+7. a ``kernels`` JSON line: launches on each path (phase 4 for the
+   streaming fold kernels, phase 4b's coordinated job for the stacked exact
+   fold, phase 5's job for the quant kernels, phase 6's serving run for
    the flash kernels), time, plain version's time, bound and a library
    call's time per kernel, at the path's shapes.
 
@@ -90,7 +104,11 @@ from repro_torch.core import roles as troles  # noqa: E402
 from repro_torch.core.roles import GlobalAggregator, Trainer  # noqa: E402
 from repro_torch.core.runtime import run_job  # noqa: E402
 from repro_torch.core.tag import DatasetSpec  # noqa: E402
-from repro_torch.core.topologies import classical_fl, hierarchical_fl  # noqa: E402
+from repro_torch.core.roles_coord import (  # noqa: E402
+    CoordAggregator, CoordGlobalAggregator, CoordTrainer)
+from repro_torch.core.topologies import (  # noqa: E402
+    classical_fl, coordinated_fl, distributed_fl, gossip_fl, hierarchical_fl, hybrid_fl,
+    vertical_fl)
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.channels import payload_bytes  # noqa: E402
 from repro_torch.kernels.agg import kernel, ops, ref  # noqa: E402
@@ -121,6 +139,10 @@ QWEN = dict(d_model=2048, heads=16, kv_heads=2, head_dim=128, d_ff=11008,
             vocab=151936, layers=4)
 QWEN_PARAMS = 619_474_944
 N_TRAINERS, ROUNDS = 8, 3
+# phase 4b: coordinated FL (8 trainers, 2 aggregator replicas) and the
+# distributed ring (4 trainers) on the same tree
+COORD_TRAINERS, COORD_AGGS, COORD_ROUNDS = 8, 2, 3
+DIST_TRAINERS, DIST_ROUNDS = 4, 2
 # phase 5: the same tree over the socket loopback with the int8_blocks codec
 CODEC_TRAINERS, CODEC_ROUNDS = 4, 2
 QUANT_BLOCK = qkernel.BLOCK
@@ -326,10 +348,11 @@ class AddOneTrainer(Trainer):
 
 
 def _small_job(tag, init, n=4, rounds=3):
+    hp = {"rounds": rounds} if init is None else {"rounds": rounds, "init_weights": init}
     return JobSpec(
         tag=tag,
         datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(n)),
-        hyperparams={"rounds": rounds, "init_weights": init},
+        hyperparams=hp,
     )
 
 
@@ -371,6 +394,95 @@ def phase_small_jobs(dev: torch.device) -> None:
           f"(tree fold launches {folds}); hierarchical add-one byte-equal (tree fold launches "
           f"{hfolds}); "
           f"channel_bytes {hcard.channel_bytes}", flush=True)
+
+
+class HostNoise:
+    """Trainer mixin: adds noise drawn on the host from (dataset, step), the
+    same on every device, and reports ``3 + dataset index`` samples; an add
+    is exact, so a job of such trainers folds to the same bytes anywhere."""
+
+    def train(self):
+        if self.weights is None or self._work_done:
+            return
+        self._noise_step = getattr(self, "_noise_step", 0) + 1
+        ds = self.ctx.worker.dataset
+        self.num_samples = 3 + int(ds[1:])
+        rng = np.random.default_rng(_seed(ds, self._noise_step) % (1 << 63))
+        self.weights = {
+            k: v + torch.from_numpy(
+                (0.01 * rng.standard_normal(tuple(v.shape))).astype(np.float32)).to(v.device)
+            for k, v in self.weights.items()}
+
+
+def _host_weights(res) -> dict:
+    return {wid: tree_to_numpy(p.weights) for wid, p in res.programs.items()
+            if getattr(p, "weights", None) is not None}
+
+
+def _small_topology(dev: torch.device, tag, n: int, rounds: int, trainer=None):
+    """One job on the card and on the CPU: (card result, CPU result, the
+    card run's launches per kernel)."""
+    overrides = {} if trainer is None else {"trainer": trainer}
+    out = []
+    for device in (dev, "cpu"):
+        kernel.reset_launches()
+        res = run_job(_small_job(tag, HOST_W0 if trainer else None, n, rounds), device=device,
+                      timeout=120, program_overrides=overrides)
+        check(not res.errors, f"{tag.name} job errors on {device}: {res.errors}")
+        out.append(res)
+        if device == dev:
+            launches = {fn.__name__: fn.launches for fn in kernel.KERNELS}
+    return out[0], out[1], launches
+
+
+HOST_W0 = {"w": np.full((64, 33), 0.5, np.float32), "b": np.zeros((33,), np.float32)}
+
+
+def phase_small_topologies(dev: torch.device) -> None:
+    """The five templates beyond classical and hierarchical at the sizes of
+    tests/test_jobs_e2e.py, on the card and on the CPU: every weight byte-
+    equal where the job only folds (host-noise trainers), the vertical job's
+    losses and weights within the SGD tolerance (its products round as
+    cuBLAS and the CPU's BLAS do)."""
+    c4 = {"c0": ("d0", "d1"), "c1": ("d2", "d3")}
+    jobs = {
+        "distributed": (distributed_fl(), 3, 2, troles.DistributedTrainer),
+        "hybrid": (hybrid_fl(groups=("c0", "c1"), dataset_groups=c4), 4, 2, troles.HybridTrainer),
+        "coordinated": (coordinated_fl(dataset_groups={"default": ("d0", "d1", "d2", "d3")}), 4, 3,
+                        CoordTrainer),
+        "gossip": (gossip_fl(backend="inproc"), 4, 3, Trainer),
+    }
+    report = {}
+    for name, (tag, n, rounds, base) in jobs.items():
+        trainer = type(f"HostNoise{base.__name__}", (HostNoise, base), {})
+        card, host, launches = _small_topology(dev, tag, n, rounds, trainer)
+        a, b = _host_weights(card), _host_weights(host)
+        check(a.keys() == b.keys() and all(
+            a[w][k].tobytes() == b[w][k].tobytes() for w in a for k in a[w]),
+            f"{name}: weights on the card differ from the CPU's")
+        check(any(not np.array_equal(a[w]["w"], HOST_W0["w"]) for w in a),
+              f"{name}: the trainers never moved the weights")
+        check(card.channel_bytes == host.channel_bytes, f"{name}: channel_bytes differ")
+        report[name] = {k: v for k, v in launches.items() if v}
+    check(report["coordinated"].get("exact_fold", 0) > 0,
+          "the coordinated job never launched the stacked exact fold")
+    check(report["hybrid"].get("exact_fold_into_tree", 0) > 0,
+          "the hybrid job's aggregator never launched the tree fold")
+    card, host, launches = _small_topology(dev, vertical_fl(), 3, 3)
+    losses = [[m["vertical_loss"] for m in r.program("head-0").metrics if "vertical_loss" in m]
+              for r in (card, host)]
+    check(len(losses[0]) == 3 and losses[0][-1] < losses[0][0], f"vertical losses {losses[0]}")
+    check(np.allclose(losses[0], losses[1], rtol=SGD_RTOL, atol=SGD_ATOL),
+          f"vertical losses card {losses[0]} vs CPU {losses[1]}")
+    a, b = _host_weights(card), _host_weights(host)
+    verr = max(float(np.abs(a[w][k] - b[w][k]).max()) for w in a for k in a[w])
+    check(all(np.allclose(a[w][k], b[w][k], rtol=SGD_RTOL, atol=SGD_ATOL) for w in a for k in a[w]),
+          f"vertical weights card vs CPU differ by {verr}")
+    check(card.channel_bytes == host.channel_bytes, "vertical: channel_bytes differ")
+    print(f"phase small topologies: ok distributed, hybrid, coordinated, gossip byte-equal card "
+          f"vs cpu (kernel launches {json.dumps(report)}); vertical losses "
+          f"{[round(x, 6) for x in losses[0]]} max_abs_err {verr:.3g} within rtol {SGD_RTOL} "
+          f"atol {SGD_ATOL}", flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -638,6 +750,301 @@ def phase_full_width(dev: torch.device) -> dict:
           f"per-leaf calls "
           f"{json.dumps(leaf_host)}; channel_bytes {channel_bytes}", flush=True)
     return {"launches": launches, "timings": timings}
+
+
+# ---------------------------------------------------------------------- #
+# phase 4b: coordinated and distributed FL on the same tree
+# ---------------------------------------------------------------------- #
+class _FullNoise:
+    """Trainer mixin: ``noisy`` on the card (phase 4's update) once per
+    round; nothing after the last round."""
+
+    def train(self):
+        if self.weights is None or self._work_done:
+            return
+        self._step = getattr(self, "_step", 0) + 1
+        self.weights = noisy(self.weights, self.ctx.worker.dataset, self._step)
+        self.num_samples = samples_of(self.ctx.worker.dataset)
+
+
+class CoordNoiseTrainer(_FullNoise, CoordTrainer):
+    pass
+
+
+def _recording_fifo(role, order: list):
+    """Wrap ``role``'s down-channel ``recv_fifo`` so each drain records its
+    (source, samples) list in fold order; the role's own ``aggregate`` runs."""
+    end = role.ctx.end(role.down_channel)
+    real = end.recv_fifo
+
+    def recv_fifo(ends, *args, **kwargs):
+        msgs = list(real(ends, *args, **kwargs))
+        order.append([(src, float(m.get("num_samples", 1))) for src, m in msgs])
+        return msgs
+
+    end.recv_fifo = recv_fifo
+
+
+class _RecordsFolds:
+    """Aggregator mixin: ``order`` lists, per fold, its (source, samples)."""
+
+    def aggregate(self):
+        if not hasattr(self, "order"):
+            self.order = []
+            _recording_fifo(self, self.order)
+        super().aggregate()
+
+
+class RecordingCoordAggregator(_RecordsFolds, CoordAggregator):
+    pass
+
+
+class RecordingCoordGlobal(_RecordsFolds, CoordGlobalAggregator):
+    """Also keeps every round's global weights."""
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.history = [self.weights]
+
+    def aggregate(self):
+        super().aggregate()
+        if not self._work_done:
+            self.history.append(self.weights)
+
+
+class DistNoiseTrainer(_FullNoise, troles.DistributedTrainer):
+    """Keeps trainer-0's consensus weights of every round, and for every
+    trainer a digest of its leaves' bits per round."""
+
+    def allreduce(self):
+        super().allreduce()
+        self.digests = getattr(self, "digests", [])
+        self.digests.append([int(x.view(torch.int32).sum(dtype=torch.int64))
+                             for x in tree_leaves(self.weights)])
+        if self.ctx.worker.worker_id == "trainer-0":
+            self.history = getattr(self, "history", []) + [self.weights]
+
+
+def _stack_rows(trees):
+    """One (C, N) stack per leaf of ``trees``; each tree's leaf is dropped as
+    soon as it is stacked."""
+    rows = [tree_leaves(t) for t in trees]
+    stacked = []
+    for j in range(len(rows[0])):
+        stacked.append(torch.stack([r[j] for r in rows]).reshape(len(rows), -1))
+        for r in rows:
+            r[j] = None
+    return stacked
+
+
+def _stacked_fold(stacked, samples, dev, fn):
+    """``weighted_mean``'s fold of the stacks with ``fn`` (``ref.exact_fold``
+    or the kernel): weights float32, denominator the float sum."""
+    total = 0.0
+    for n in samples:
+        total += n
+    w = torch.tensor(samples, dtype=torch.float32, device=dev)
+    den = torch.tensor([total], dtype=torch.float32, device=dev)
+    return [fn(d, w, den) for d in stacked], w, den
+
+
+HOST_THREADS = 8
+HOST_CHUNK = 1 << 22
+
+
+def host_fold_equal(pool, rows, samples, got) -> bool:
+    """Whether ``got`` (float32) is the JAX package's ``_fold_allreduce`` of
+    ``rows`` in numpy: ``np.asarray(x, float64) * n`` per row in order, each
+    added, then ``(acc / total).astype(float32)``. Elementwise, so it runs in
+    chunks on ``pool``'s threads (numpy releases the GIL) with the same
+    operations on every element."""
+    total = 0.0
+    for nn in samples:
+        total += nn
+
+    def chunk(lo):
+        hi = min(lo + HOST_CHUNK, got.size)
+        acc = rows[0][lo:hi].astype(np.float64)
+        acc *= samples[0]
+        for x, nn in zip(rows[1:], samples[1:]):
+            scaled = x[lo:hi].astype(np.float64)
+            scaled *= nn
+            acc += scaled
+        acc /= total
+        return np.array_equal(acc.astype(np.float32).view(np.uint32), got[lo:hi].view(np.uint32))
+
+    return all(pool.map(chunk, range(0, got.size, HOST_CHUNK)))
+
+
+def phase_full_width_topologies(dev: torch.device) -> dict:
+    shapes = qwen_shapes()
+    n_leaves = len(_flat_shapes(shapes))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), shapes)
+    n = sum(x.numel() for x in tree_leaves(init))
+    check(n == QWEN_PARAMS, f"tree has {n} parameters, not {QWEN_PARAMS}")
+
+    # ---- coordinated: 2 aggregator replicas, stacked exact folds ---- #
+    datasets = tuple(f"d{i}" for i in range(COORD_TRAINERS))
+    job = JobSpec(
+        tag=coordinated_fl(aggregator_replicas=COORD_AGGS, dataset_groups={"default": datasets}),
+        datasets=tuple(DatasetSpec(name=d) for d in datasets),
+        hyperparams={"rounds": COORD_ROUNDS, "init_weights": init},
+    )
+    del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    res = run_job(job, device=dev, timeout=900, program_overrides={
+        "trainer": CoordNoiseTrainer, "aggregator": RecordingCoordAggregator,
+        "global-aggregator": RecordingCoordGlobal})
+    torch.cuda.synchronize()
+    coord_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernel.KERNELS}
+    coord_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(not res.errors, f"coordinated job errors: {res.errors}")
+    root = res.program("global-aggregator-0")
+    aggs = {wid: p for wid, p in res.programs.items() if isinstance(p, RecordingCoordAggregator)}
+    ds_of = {w.worker_id: w.dataset for w in res.workers}
+    decisions = res.program("coordinator-0").decisions
+    history, g_order = root.history, root.order
+    a_order = {wid: list(getattr(p, "order", [])) for wid, p in aggs.items()}
+    check(len(history) == COORD_ROUNDS + 1 and len(g_order) == COORD_ROUNDS,
+          f"{len(history) - 1} coordinated rounds recorded, not {COORD_ROUNDS}")
+    # one stacked fold per leaf for each aggregator that folded in a round,
+    # and for the global aggregator every round
+    folds_per_round = [len(d["active"]) + 1 for d in decisions]
+    want = sum(folds_per_round) * n_leaves
+    check(sum(len(o) for o in a_order.values()) + len(g_order) == sum(folds_per_round),
+          f"recorded folds {a_order} {g_order} vs active aggregators {folds_per_round}")
+    check(launches["exact_fold"] == want,
+          f"exact_fold launches {launches['exact_fold']}, not (aggregators + global) x leaves x "
+          f"rounds = {folds_per_round} x {n_leaves} = {want}")
+    check(launches["exact_fold_into_tree"] == 0, "the coordinated job ran the streaming fold")
+    del res, root, aggs, job
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every round: regenerate each aggregator's updates in the order it
+    # folded them, fold with the plain stacked fold, then the aggregators'
+    # means in the global's order; the job's weights must be those bytes
+    replay_s = time.perf_counter()
+    max_err, fold_ms, mv_ms, plain_ms, stack_c = 0.0, [], [], [], []
+    for rnd in range(1, COORD_ROUNDS + 1):
+        base, means = history[rnd - 1], {}
+        for wid, order in a_order.items():
+            if len(order) < rnd:
+                continue
+            srcs = order[rnd - 1]
+            stacked = _stack_rows([noisy(base, ds_of[src], rnd) for src, _ in srcs])
+            samples = [nn for _, nn in srcs]
+            plain, w, den = _stacked_fold(stacked, samples, dev, ref.exact_fold)
+            means[wid] = (plain, float(sum(samples)))
+            if rnd == COORD_ROUNDS:  # the kernel against its plain version, and timed
+                got, _, _ = _stacked_fold(stacked, samples, dev, kernel.exact_fold)
+                check(all(same_bytes(g, p) for g, p in zip(got, plain)), "exact_fold at C = 4")
+                del got
+                w_over_den = w / den
+                fold_ms.append(cuda_ms(lambda: [kernel.exact_fold(d, w, den) for d in stacked]))
+                mv_ms.append(cuda_ms(lambda: [torch.mv(d.t(), w_over_den) for d in stacked]))
+                plain_ms.append(cuda_ms(lambda: [ref.exact_fold(d, w, den) for d in stacked], reps=2))
+                stack_c.append(len(srcs))
+            del stacked
+        srcs = g_order[rnd - 1]
+        check(sorted(s for s, _ in srcs) == sorted(means),
+              f"round {rnd}: global folded {srcs}, aggregators {sorted(means)}")
+        check(all(nn == float(int(means[s][1])) for s, nn in srcs), f"round {rnd}: samples")
+        stacked = _stack_rows([means.pop(s)[0] for s, _ in srcs])
+        glob, w, den = _stacked_fold(stacked, [nn for _, nn in srcs], dev, ref.exact_fold)
+        if rnd == COORD_ROUNDS:
+            fold_ms.append(cuda_ms(lambda: [kernel.exact_fold(d, w, den) for d in stacked]))
+            w_over_den = w / den
+            mv_ms.append(cuda_ms(lambda: [torch.mv(d.t(), w_over_den) for d in stacked]))
+            plain_ms.append(cuda_ms(lambda: [ref.exact_fold(d, w, den) for d in stacked], reps=2))
+            stack_c.append(len(srcs))
+        del stacked
+        for g, want_leaf in zip(tree_leaves(history[rnd]), glob):
+            check(bool(torch.isfinite(g).all()), f"coordinated round {rnd}: non-finite weights")
+            check(same_bytes(g.reshape(-1), want_leaf),
+                  f"coordinated round {rnd}: global weights differ from the plain stacked fold")
+            max_err = max(max_err, float((g.reshape(-1) - want_leaf).abs().max()))
+        del glob
+    del history
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay_s = time.perf_counter() - replay_s
+    # each stack read once and the mean written: (4 C + 4) bytes an element
+    bounds = [bound((4 * c + 4) * n, 2 * c * n) for c in stack_c]
+    agg_bound = bounds[0]
+    timings = {"exact_fold": dict(
+        ms=fold_ms[0], plain_ms=plain_ms[0], library_ms=mv_ms[0], bound=agg_bound,
+        max_abs_err=max_err)}
+
+    # ---- distributed: the float64 ring fold ---- #
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), shapes)
+    job = JobSpec(
+        tag=distributed_fl(),
+        datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(DIST_TRAINERS)),
+        hyperparams={"rounds": DIST_ROUNDS, "init_weights": init},
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    res = run_job(job, device=dev, timeout=900, program_overrides={"trainer": DistNoiseTrainer})
+    torch.cuda.synchronize()
+    dist_s = time.perf_counter() - t0
+    dist_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(not res.errors, f"distributed job errors: {res.errors}")
+    dist_launches = {k: v for k, v in ((fn.__name__, fn.launches) for fn in kernel.KERNELS) if v}
+    check(not dist_launches, f"the float64 ring fold launched {dist_launches}")
+    progs = sorted(res.programs.items())
+    ds_of = {w.worker_id: w.dataset for w in res.workers}
+    first = tree_leaves(progs[0][1].weights)
+    for wid, p in progs[1:]:
+        check(p.digests == progs[0][1].digests, f"{wid}: per-round digests differ from trainer-0's")
+        check(all(same_bytes(a, b) for a, b in zip(tree_leaves(p.weights), first)),
+              f"{wid}: consensus weights differ from trainer-0's")
+    d_history = [init] + progs[0][1].history
+    ids = [wid for wid, _ in progs]
+    del res, progs, first, job, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the host's float64 fold of the same updates, leaf by leaf
+    host_s = time.perf_counter()
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        for rnd in range(1, DIST_ROUNDS + 1):
+            updates = [tree_leaves(noisy(d_history[rnd - 1], ds_of[wid], rnd)) for wid in ids]
+            samples = [float(samples_of(ds_of[wid])) for wid in ids]
+            for j, got in enumerate(tree_leaves(d_history[rnd])):
+                rows = [leaves[j].cpu().numpy().reshape(-1) for leaves in updates]
+                check(host_fold_equal(pool, rows, samples, got.cpu().numpy().reshape(-1)),
+                      f"distributed round {rnd}, leaf {j}: differs from the host's float64 fold")
+                del rows
+            del updates
+    host_s = time.perf_counter() - host_s
+    del d_history
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase full-width topologies: ok Qwen2.5-3B tree ({n} f32 params in {n_leaves} "
+          f"leaves); coordinated_fl {COORD_TRAINERS} trainers, {COORD_AGGS} aggregators, "
+          f"{COORD_ROUNDS} rounds byte-equal to the plain stacked fold every round; exact_fold "
+          f"launches {launches['exact_fold']} = (active aggregators + global) {folds_per_round} x "
+          f"{n_leaves} leaves, exact_fold_into_tree {launches['exact_fold_into_tree']}; job_s "
+          f"{coord_s:.3f} peak_device_gb {coord_peak_gb:.2f} (replay and timing {replay_s:.1f} s); "
+          f"stacked folds of one round, ms "
+          f"(C = {stack_c}) {[round(t, 4) for t in fold_ms]} sum {sum(fold_ms):.4f}, bound_ms "
+          f"{[round(b[0], 4) for b in bounds]} ({bounds[0][1]} at 3.35 TB/s), torch.mv ms "
+          f"{[round(t, 4) for t in mv_ms]}, plain ms "
+          f"{[round(t, 4) for t in plain_ms]}; distributed_fl {DIST_TRAINERS} trainers, "
+          f"{DIST_ROUNDS} rounds: consensus byte-equal across trainers and to the host's float64 "
+          f"fold (host check {host_s:.1f} s); job_s {dist_s:.3f} peak_device_gb "
+          f"{dist_peak_gb:.2f}", flush=True)
+    return {"launches": {"exact_fold": launches["exact_fold"]}, "timings": timings}
 
 
 def in_turns(fns: dict, rounds: int = 5) -> dict:
@@ -1372,7 +1779,7 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-def kernels_line(full: dict, codec: dict, serve: dict) -> str:
+def kernels_line(full: dict, topo: dict, codec: dict, serve: dict) -> str:
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -1381,7 +1788,7 @@ def kernels_line(full: dict, codec: dict, serve: dict) -> str:
         ("exact_fold_into_tree", agg_src, fold, True, "torch._foreach_add_(accs, ds, alpha=w)", full),
         ("exact_fold_into", agg_src, fold, False, "torch.add(acc, d, alpha=w, out=acc)", full),
         ("exact_divide", agg_src, fold, True, "torch.div(x, den)", full),
-        ("exact_fold", agg_src, fold, False, "torch.mv(d.t(), w / den)", full),
+        ("exact_fold", agg_src, fold, True, "torch.mv(d.t(), w / den)", topo),
         ("weighted_aggregate", agg_src, "src/repro/kernels/agg/kernel.py:74", False,
          "torch.mv(d.t(), w / den)", full),
         ("quantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:31", True,
@@ -1423,9 +1830,11 @@ def main() -> int:
     smi = phase_environment()
     phase_parity(dev)
     phase_small_jobs(dev)
+    phase_small_topologies(dev)
     full = phase_full_width(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    topo = phase_full_width_topologies(dev)
     errs = phase_codec_parity(dev)
     codec = phase_codec_job(dev, errs)
     # the earlier phases peak at about 46 GB: free them before serving
@@ -1433,7 +1842,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = phase_serve(dev, phase_flash_parity(dev))
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
-    print(kernels_line(full, codec, serve), flush=True)
+    print(kernels_line(full, topo, codec, serve), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

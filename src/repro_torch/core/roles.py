@@ -4,24 +4,27 @@ port of ``repro.core.roles``.
 Base classes implement the full tasklet workflow for each standard role
 (trainer, aggregator, global aggregator); a user subclass only fills in
 ``initialize / load_data / train / evaluate``. Weight trees hold
-``torch.Tensor``s on the job's device (``RoleContext.device``).
-
-Not ported yet: the distributed and hybrid roles and ``_fold_allreduce``.
+``torch.Tensor``s on the job's device (``RoleContext.device``). Derived
+topologies extend these by chain surgery (Table 1): ``DistributedTrainer``
+and ``HybridTrainer`` below, the coordinated roles in
+``repro_torch.core.roles_coord``.
 """
 from __future__ import annotations
 
 import abc
+import queue
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.convert import tree_from_numpy
 from repro_torch.core.channels import ChannelEnd, ChannelManager
-from repro_torch.core.composer import Composer, Loop, Tasklet
+from repro_torch.core.composer import CloneComposer, Composer, Loop, Tasklet
 from repro_torch.core.expansion import WorkerConfig
 from repro_torch.core.tag import TAG
-from repro_torch.core.tree import tree_leaves
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.kernels.agg.ops import (
     aggregate_tree,
     divide,
@@ -154,13 +157,17 @@ class StreamingMean:
     is updated in place.
 
     Bit-identity: each fold is the IEEE ``scale then add`` of the JAX
-    package (``fmul`` by float32(n), ``fadd`` into the accumulator, which
-    starts from the first scaled update), and ``finalize`` one IEEE divide
-    by float32(total), on the kernels for float32 tensor leaves. Any other
-    leaf folds with numpy's promotion, as in the JAX package: ``{"w":
-    int32[4]}`` gives a float64 mean, a Python scalar a numpy float64.
-    With ``device`` set (the job's device), a tensor leaf on another device
-    raises ``TypeError``, so a CUDA job never folds its tensors on the host.
+    package's sequential path (``fmul`` by float32(n), ``fadd`` into the
+    accumulator, which starts from the first scaled update), and
+    ``finalize`` one IEEE divide by float32(total), on the kernels for
+    float32 tensor leaves. Any other leaf folds with numpy's promotion, as
+    that path does: ``{"w": int32[4]}`` gives a float64 mean, a bfloat16
+    leaf a float32 one, a Python scalar a numpy float64. The parity is with
+    the JAX package's sequential (CPU) fold: its fused path, which it takes
+    on an accelerator for trees of 16 384 elements or more, gives other
+    dtypes on leaves that are not float32. With ``device`` set (the job's
+    device), a tensor leaf on another device raises ``TypeError``, so a CUDA
+    job never folds its tensors on the host.
     """
 
     def __init__(self, device: Any = None) -> None:
@@ -210,6 +217,64 @@ class StreamingMean:
         if self._acc is None or self._total <= 0:
             return None, 0.0
         return divide(self._acc, self._total), self._total
+
+
+def _float64_copy(x: Any, device: torch.device) -> torch.Tensor:
+    """A new float64 tensor of ``x`` (a tensor, numpy array or scalar) on
+    ``device``, as ``np.asarray(x, dtype=np.float64)``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float64, copy=True)
+    return torch.from_numpy(np.array(x, dtype=np.float64)).to(device)
+
+
+def _fold_allreduce(
+    me: str,
+    own_weights: Any,
+    own_samples: float,
+    received: Sequence[Tuple[str, Any]],
+    device: Any,
+) -> Tuple[Any, int]:
+    """Sample-weighted mean of own + received models, folded in sorted
+    worker-id order so every ring member, whatever the arrival order, lands
+    on byte-identical consensus weights.
+
+    The JAX package folds in float64 numpy: ``x.astype(float64) * n``, an
+    add, then ``(acc / total).astype(float32)``. Here the same operations
+    run on ``device``, leaf by leaf, into one float64 accumulator updated in
+    place, so the only temporary is one leaf's scaled copy. The divide is by
+    a 0-d float64 tensor: a CUDA ``tensor / python_float`` is a reciprocal
+    multiply, not an IEEE divide."""
+    contributions = sorted(
+        [(me, {"weights": own_weights, "num_samples": own_samples})] + list(received),
+        key=lambda t: t[0],
+    )
+    device = torch.device(device)
+    samples = [float(msg.get("num_samples", 1)) for _, msg in contributions]
+    total = 0.0
+    for n in samples:
+        total += n
+    flats = []
+    treedef = None
+    for _, msg in contributions:
+        leaves, td = tree_flatten(msg["weights"])
+        if treedef is not None and td != treedef:
+            raise ValueError(f"tree structures differ: {treedef!r} vs {td!r}")
+        treedef = td
+        flats.append(leaves)
+    total_t = torch.tensor(total, dtype=torch.float64, device=device)
+    out = []
+    for i in range(len(flats[0])):
+        acc = None
+        for leaves, n in zip(flats, samples):
+            scaled = _float64_copy(leaves[i], device)
+            scaled.mul_(n)
+            if acc is None:
+                acc = scaled
+            else:
+                acc.add_(scaled)
+            del scaled  # not alive beside the accumulator during the divide
+        out.append(acc.div_(total_t).to(torch.float32))
+    return tree_unflatten(treedef, out), int(total)
 
 
 class Role(abc.ABC):
@@ -473,3 +538,242 @@ GlobalAggregatorBase = GlobalAggregator
 
 # Make GlobalAggregator channel-aware by default.
 GlobalAggregator = _AutoChannelGlobalAggregator  # type: ignore[misc]
+
+
+# ====================================================================== #
+# Distributed / Hybrid roles
+# ====================================================================== #
+class DistributedTrainer(Trainer):
+    """Distributed learning (Fig 2b): ring all-reduce among trainers, no
+    aggregator. Reuses the Trainer chain; fetch/upload are replaced by an
+    allreduce tasklet via the Table 1 API."""
+
+    ring_channel = "ring-channel"
+
+    def __init__(self, ctx: RoleContext) -> None:
+        super().__init__(ctx)
+        # no aggregator to fetch initial weights from: start from the job's
+        # init_weights (every trainer starts identically)
+        if self.weights is None:
+            self.weights = tree_from_numpy(self.config.get("init_weights"), ctx.device)
+
+    def allreduce(self) -> None:
+        end = self.ctx.end(self.ring_channel)
+        # send in sorted-peer order and drain one mailbox per peer in the
+        # same order, then fold in sorted worker-id order: ring results are
+        # run-to-run reproducible on every backend
+        peers = sorted(end.ends())
+        update = {"weights": self.weights, "num_samples": self.num_samples}
+        for peer in peers:
+            end.send(peer, update)
+        received = [(src, end.recv(src)) for src in peers]
+        self.weights, _ = _fold_allreduce(
+            end.me, self.weights, float(self.num_samples), received, self.ctx.device
+        )
+        self._round += 1
+        if self._round >= self.rounds:
+            self._work_done = True
+
+    def compose(self) -> None:
+        super().compose()
+        assert self.composer is not None
+        with CloneComposer(self.composer) as composer:
+            self.composer = composer
+            tl_ar = Tasklet("allreduce", self.allreduce)
+            composer.get_tasklet("fetch").remove()
+            composer.get_tasklet("upload").replace_with(tl_ar)
+
+
+class HybridTrainer(Trainer):
+    """Hybrid FL (Fig 2e): intra-cluster all-reduce on the fast P2P channel;
+    only the cluster leader uploads to / fetches from the global aggregator.
+
+    Leadership is elected: the leader is the lowest-ranked live member of
+    the cluster (static expansion order filtered by ring membership), so a
+    cluster survives its leader dropping mid-round. Each round the leader's
+    in-cluster re-broadcast pins the round cohort and a monotonically
+    increasing ``cluster_round`` stamp; the all-reduce exchanges only within
+    the pinned cohort and discards stale stamps, so a worker re-joining
+    mid-round syncs up at the next round broadcast.
+
+    Known limitation (as in the JAX package): a leader that drops after the
+    aggregator sent it the round weights but before its in-cluster
+    re-broadcast loses that broadcast; under a sync aggregator the cluster
+    then only recovers at the next round's distribute.
+    """
+
+    ring_channel = "ring-channel"
+
+    def __init__(self, ctx: RoleContext) -> None:
+        super().__init__(ctx)
+        self._cluster_round = 0
+        self._cohort: List[str] = []
+        self._said_hello = False
+
+    def _live_members(self) -> List[str]:
+        """Static cluster members filtered to the ones currently on the ring
+        (in static order: rank survives dropouts and re-joins)."""
+        me = self.ctx.worker.worker_id
+        end = self.ctx.end(self.ring_channel)
+        live = set(end.ends()) | {me}
+        static = self.ctx.static_members.get(self.ring_channel)
+        if static:
+            return [m for m in static if m in live]
+        return sorted(live)
+
+    def _cluster_rank(self) -> Tuple[int, List[str]]:
+        members = self._live_members()
+        return members.index(self.ctx.worker.worker_id), members
+
+    def pre_run(self) -> None:
+        """Non-leaders never join the uplink channel, so the aggregator's
+        ``ends()`` sees exactly one leader per cluster."""
+        self.ctx.end(self.ring_channel)
+        rank, _ = self._cluster_rank()
+        if rank == 0:
+            self.ctx.end(self.param_channel)
+
+    def cluster_allreduce(self) -> None:
+        if self._work_done:
+            return
+        end = self.ctx.end(self.ring_channel)
+        me = end.me
+        cohort = [m for m in (self._cohort or self._live_members()) if m != me]
+        if not cohort:
+            self._cluster_samples = self.num_samples
+            self._cluster_round += 1
+            return
+        update = {
+            "weights": self.weights,
+            "num_samples": self.num_samples,
+            "cluster_round": self._cluster_round,
+        }
+        live = set(end.ends())
+        for peer in sorted(cohort):
+            if peer in live:  # skip cohort members that already dropped
+                end.send(peer, update)
+        received = []
+        for src in sorted(cohort):  # sorted per-src drain: deterministic
+            msg = self._recv_cluster(end, src)
+            if msg is not None:
+                received.append((src, msg))
+        self.weights, self._cluster_samples = _fold_allreduce(
+            me, self.weights, float(self.num_samples), received, self.ctx.device
+        )
+        self._cluster_round += 1
+
+    def _recv_cluster(self, end: ChannelEnd, src: str) -> Optional[Dict[str, Any]]:
+        """One cohort member's round-stamped all-reduce contribution.
+
+        Tolerates mid-round dropout (``None``: fold without the dead member)
+        and skips stale messages: leftover round broadcasts share the
+        leader's mailbox, and a re-joined worker's mailbox can hold
+        contributions from rounds it missed."""
+        deadline = time.monotonic() + float(self.config.get("grace", 30.0))
+        while True:
+            try:
+                msg = end.recv(src, timeout=0.25)
+            except queue.Empty:
+                end.check_poison()
+                if src not in end.ends():
+                    return None  # dropped mid-round
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"{end.me}: cluster member {src!r} sent no round-"
+                        f"{self._cluster_round} all-reduce contribution"
+                    )
+                continue
+            if "members" in msg:
+                continue  # a round broadcast this worker already moved past
+            if "hello" in msg:
+                if int(msg["hello"]) < self._cluster_round:
+                    # a fresh incarnation of ``src`` (re-joined mid-job): no
+                    # contribution is coming this round
+                    return None
+                continue  # cold-start hello; src will still contribute
+            if int(msg.get("cluster_round", self._cluster_round)) != self._cluster_round:
+                continue  # stale contribution from a missed round
+            return msg
+
+    def fetch(self) -> None:
+        """The elected leader fetches from the aggregator and re-broadcasts
+        in-cluster with the round cohort pinned; everyone else waits for the
+        broadcast, re-electing whenever the current leader drops."""
+        ring = self.ctx.end(self.ring_channel)
+        if not self._said_hello:
+            # first fetch of this incarnation: announce it, so a peer
+            # mid-all-reduce stops waiting for a contribution this
+            # incarnation never saw the round broadcast for
+            hello = {"hello": self._cluster_round}
+            for m in self._live_members():
+                if m != ring.me:
+                    ring.send(m, hello)
+            self._said_hello = True
+        deadline = time.monotonic() + float(self.config.get("grace", 30.0))
+        while True:
+            rank, members = self._cluster_rank()
+            if rank == 0:
+                super().fetch()  # joins the uplink on first election
+                self._cohort = members
+                bcast = {
+                    "weights": self.weights,
+                    "done": self._work_done,
+                    "cluster_round": self._cluster_round,
+                    "members": members,
+                }
+                # relay the server version so a member promoted to leader
+                # mid-job echoes it on its first upload
+                if self._server_version is not None:
+                    bcast["version"] = self._server_version
+                ring.broadcast(bcast)
+                return
+            try:
+                msg = ring.recv(members[0], timeout=0.25)
+            except queue.Empty:
+                ring.check_poison()
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"{ring.me}: no round broadcast from cluster leader "
+                        f"{members[0]!r}"
+                    )
+                continue  # leader may have dropped: re-elect and retry
+            if "members" not in msg:
+                continue  # an all-reduce leftover from a round this worker missed
+            if int(msg.get("cluster_round", 0)) < self._cluster_round:
+                continue  # stale round broadcast
+            self.weights = msg["weights"]
+            self._work_done = bool(msg.get("done", False))
+            self._server_version = msg.get("version", self._server_version)
+            self._cluster_round = int(msg.get("cluster_round", self._cluster_round))
+            self._cohort = list(msg.get("members", members))
+            return
+
+    def upload(self) -> None:
+        """Only the cluster leader uploads one cluster-level model. The
+        leader is re-resolved against the round cohort's live members, so a
+        mid-round leader dropout promotes the next cohort member."""
+        if self._work_done:
+            return
+        me = self.ctx.worker.worker_id
+        ring = self.ctx.end(self.ring_channel)
+        live = set(ring.ends()) | {me}
+        leaders = [m for m in (self._cohort or [me]) if m in live]
+        if not leaders or leaders[0] != me:
+            return
+        end = self.ctx.end(self.param_channel)  # a promoted leader joins here
+        end.send(
+            await_peer(self.ctx, end),
+            self.protocol.pack_update(
+                self.weights,
+                getattr(self, "_cluster_samples", self.num_samples),
+                self._server_version,
+            ),
+        )
+
+    def compose(self) -> None:
+        super().compose()
+        assert self.composer is not None
+        with CloneComposer(self.composer) as composer:
+            self.composer = composer
+            tl_ar = Tasklet("cluster_allreduce", self.cluster_allreduce)
+            composer.get_tasklet("upload").insert_before(tl_ar)

@@ -99,19 +99,29 @@ def _scalar_like(x: torch.Tensor, value: float, dtype: torch.dtype) -> torch.Ten
     return torch.tensor(value, dtype=dtype, device=x.device)
 
 
+def _plain_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype numpy gives ``x * python_float`` and ``x / python_float``:
+    float32 for bfloat16 (ml_dtypes' bfloat16 has no arithmetic of its own),
+    float64 for ints and bools, else the tensor's own."""
+    if x.dtype == torch.bfloat16:
+        return torch.float32
+    return x.dtype if x.is_floating_point() else torch.float64
+
+
 def _plain_scale(x: Any, w: float) -> Any:
-    """``x * w`` with numpy's promotion of a Python float: a float tensor
-    keeps its dtype (``w`` rounded to it first), an int or bool one becomes
-    float64; numpy leaves and scalars go through numpy itself."""
+    """``x * w`` with numpy's promotion of a Python float (``w`` rounded to
+    the result's dtype first, ``_plain_dtype``); numpy leaves and scalars go
+    through numpy itself."""
     if isinstance(x, torch.Tensor):
-        dtype = x.dtype if x.is_floating_point() else torch.float64
+        dtype = _plain_dtype(x)
         return x.to(dtype) * _scalar_like(x, w, dtype)
     return np.asarray(x) * w
 
 
 def _plain_divide(x: Any, total: float) -> Any:
     if isinstance(x, torch.Tensor):
-        return x / _scalar_like(x, total, x.dtype)
+        dtype = _plain_dtype(x)
+        return x.to(dtype) / _scalar_like(x, total, dtype)
     return x / total
 
 
@@ -141,8 +151,11 @@ def fold_into(acc: Optional[Any], tree: Any, w: float) -> Any:
             idx.append(i)
         else:
             out[i] = _plain_fold(a, x, w)
+    # the kernel takes contiguous leaves only: a strided update (``a.T``) is
+    # copied, and the first update's accumulator is allocated contiguous
     folded = kernel.exact_fold_into_tree(
-        None if acc is None else [accs[i] for i in idx], [leaves[i] for i in idx], w)
+        None if acc is None else [accs[i] for i in idx],
+        [leaves[i].contiguous() for i in idx], w)
     for i, leaf in zip(idx, folded):
         out[i] = leaf
     return tree_unflatten(treedef, out)

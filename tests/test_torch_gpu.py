@@ -144,6 +144,83 @@ def test_classical_job_on_card_equals_cpu(cuda_device):
     assert launches == 8 and per_leaf == 0 and host_launches == 0
 
 
+class NoiseTrainerMixin:
+    """Adds seeded noise drawn on the host (the same on every device) and
+    reports ``3 + dataset index`` samples."""
+
+    def train(self):
+        if self.weights is None:
+            return
+        self._step = getattr(self, "_step", 0) + 1
+        ds = self.ctx.worker.dataset
+        self.num_samples = 3 + int(ds[1:])
+        rng = np.random.default_rng(1000 * int(ds[1:]) + self._step)
+        self.weights = {
+            k: v + torch.from_numpy(
+                (0.01 * rng.standard_normal(tuple(v.shape))).astype(np.float32)).to(v.device)
+            for k, v in self.weights.items()}
+
+
+def _topology_on_card_and_cpu(cuda_device, tag, trainer, n, rounds):
+    rng = np.random.default_rng(1)
+    w0 = {"w": rng.normal(size=(64, 33)).astype(np.float32),
+          "b": rng.normal(size=(33,)).astype(np.float32)}
+    out = []
+    for dev in (cuda_device, "cpu"):
+        job = JobSpec(tag=tag, datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(n)),
+                      hyperparams={"rounds": rounds, "init_weights": w0})
+        kernel.reset_launches()
+        res = run_job(job, device=dev, timeout=60, program_overrides={"trainer": trainer})
+        assert not res.errors, res.errors
+        weights = {wid: tree_to_numpy(p.weights) for wid, p in res.programs.items()
+                   if getattr(p, "weights", None) is not None}
+        out.append((weights, res.channel_bytes,
+                    {fn.__name__: fn.launches for fn in kernel.KERNELS}))
+    (card, card_bytes, launches), (host, host_bytes, host_launches) = out
+    assert card.keys() == host.keys()
+    for wid in card:
+        assert all(card[wid][k].tobytes() == host[wid][k].tobytes() for k in card[wid]), wid
+    assert card_bytes == host_bytes
+    assert not any(host_launches.values())
+    return launches
+
+
+@pytest.mark.gpu
+def test_coordinated_job_on_card_equals_cpu(cuda_device):
+    """2 aggregators and the global one each fold their sources with one
+    stacked exact fold per leaf per round: 3 x 2 leaves x 3 rounds."""
+    from repro_torch.core.roles_coord import CoordTrainer
+    from repro_torch.core.topologies import coordinated_fl
+
+    tag = coordinated_fl(dataset_groups={"default": tuple(f"d{i}" for i in range(6))})
+    trainer = type("NoiseCoordTrainer", (NoiseTrainerMixin, CoordTrainer), {})
+    launches = _topology_on_card_and_cpu(cuda_device, tag, trainer, 6, 3)
+    assert launches["exact_fold"] == 3 * 2 * 3
+    assert launches["exact_fold_into_tree"] == 0 and launches["weighted_aggregate"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("template", ["distributed", "hybrid", "gossip"])
+def test_allreduce_topologies_on_card_equal_cpu(cuda_device, template):
+    from repro_torch.core import roles
+    from repro_torch.core.topologies import get_template
+
+    if template == "hybrid":
+        from repro_torch.core.topologies import hybrid_fl
+
+        tag = hybrid_fl(groups=("c0", "c1"),
+                        dataset_groups={"c0": ("d0", "d1"), "c1": ("d2", "d3")})
+        base = roles.HybridTrainer
+    else:
+        tag = get_template(template)()
+        base = roles.DistributedTrainer if template == "distributed" else Trainer
+    trainer = type("NoiseTrainer", (NoiseTrainerMixin, base), {})
+    launches = _topology_on_card_and_cpu(cuda_device, tag, trainer, 4, 2)
+    # only hybrid's global aggregator folds on the kernels (one tree launch
+    # per cluster leader's update); the all-reduces fold in float64 torch
+    assert launches["exact_fold_into_tree"] == (4 if template == "hybrid" else 0)
+
+
 def _same_bytes(a, b):
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))

@@ -201,7 +201,7 @@ def test_reduce_plan_not_ported_raises():
     root = next(w for w in runtime.workers if w.role == "global-aggregator")
     prog = runtime._build_program(root)
     prog.pre_run()
-    with pytest.raises(NotImplementedError, match="Queue 5/6"):
+    with pytest.raises(NotImplementedError, match="hub reduce plane .* Queue 1 item 6"):
         prog.distribute()
 
 
