@@ -23,7 +23,10 @@ source, started together), then runs seven phases, each printing one line:
    ``hybrid_fl``, ``coordinated_fl`` and ``gossip_fl`` with trainers that
    add noise drawn on the host (every weight byte-equal card vs CPU, the
    coordinated job on the stacked exact fold) and ``vertical_fl`` (losses
-   and weights within the SGD tolerance);
+   and weights within the SGD tolerance); and the runtime policies: a
+   deadline job with a straggler, and a one-trainer FedBuff job restarted
+   from its checkpoint by a second ``run_job`` (weights, logs and the
+   restored step byte-equal card vs CPU);
 4. the slice at full width: a ``classical_fl`` job whose weight tree is the
    parameter tree of Qwen2.5-3B (published widths, depth cut from 36
    layers to 4), 8 trainers, 3 rounds, with the job's global weights held
@@ -42,6 +45,17 @@ source, started together), then runs seven phases, each printing one line:
    beside ``torch.mv``; and ``distributed_fl`` with 4 trainers, 2 rounds,
    the consensus byte-equal across trainers and to a float64 numpy fold of
    the same updates on the host, leaf by leaf; each job's peak memory;
+   4c. the runtime policies on the same tree: (a) a deadline job, 8
+   trainers, 3 rounds, one straggler past the deadline excluded every
+   round, every round byte-equal to the plain streaming fold of the
+   included updates in sorted-source order (7 tree folds and 50 divides a
+   round); (b) a FedBuff job, 8 trainers at staggered compute times,
+   buffer 4, 3 versions, byte-equal to a replay of its staleness log
+   through the plain versions (base snapshot, delta, host weight, zeros-
+   start accumulator, ``p + lr * acc / count``), one tree fold per absorbed
+   update; (c) ``accumulate_batch`` (stacked fold, C = 8, one launch a
+   leaf) against ``accumulate_stream`` and the plain chain; (d) a
+   checkpoint round trip of the global weights onto the card;
 5. codec: (a) the quant kernels against their plain versions on the card
    (q and scales as bytes) over edge-case blocks; (b) the same job with the
    param channel on the socket loopback (``backend="multiproc"``, codec
@@ -71,9 +85,10 @@ source, started together), then runs seven phases, each printing one line:
    (checked against the plain version there too);
 7. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
-   fold, phase 5's job for the quant kernels, phase 6's serving run for
-   the flash kernels), time, plain version's time, bound and a library
-   call's time per kernel, at the path's shapes.
+   fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
+   the quant kernels, phase 6's serving run for the flash kernels), time,
+   plain version's time, bound and a library call's time per kernel, at
+   the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -85,8 +100,11 @@ import dataclasses
 import gc
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -98,11 +116,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import checkpoint  # noqa: E402
 from repro_torch.convert import tree_to_numpy  # noqa: E402
 from repro_torch.core.expansion import JobSpec  # noqa: E402
 from repro_torch.core import roles as troles  # noqa: E402
+from repro_torch.core import roles_async  # noqa: E402
 from repro_torch.core.roles import GlobalAggregator, Trainer  # noqa: E402
-from repro_torch.core.runtime import run_job  # noqa: E402
+from repro_torch.core.runtime import RuntimePolicy, run_job  # noqa: E402
 from repro_torch.core.tag import DatasetSpec  # noqa: E402
 from repro_torch.core.roles_coord import (  # noqa: E402
     CoordAggregator, CoordGlobalAggregator, CoordTrainer)
@@ -111,6 +131,7 @@ from repro_torch.core.topologies import (  # noqa: E402
     vertical_fl)
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.core.channels import payload_bytes  # noqa: E402
+from repro_torch.fl.strategies import get_strategy  # noqa: E402
 from repro_torch.kernels.agg import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.quant import kernel as qkernel  # noqa: E402
 from repro_torch.kernels.quant import ops as qops  # noqa: E402
@@ -143,6 +164,14 @@ N_TRAINERS, ROUNDS = 8, 3
 # distributed ring (4 trainers) on the same tree
 COORD_TRAINERS, COORD_AGGS, COORD_ROUNDS = 8, 2, 3
 DIST_TRAINERS, DIST_ROUNDS = 4, 2
+# phase 4c: the deadline and async policies on the same tree: 8 trainers,
+# 3 rounds (versions); one straggler past the deadline; FedBuff's buffer; a
+# wall-clock grace no on-time update of 2.48 GB comes near (the rounds print
+# what they waited)
+POLICY_TRAINERS, POLICY_ROUNDS = 8, 3
+DEADLINE_S, STRAGGLER, STRAGGLER_S = 2.0, "trainer-1", 5.0
+ASYNC_BUFFER, POLICY_GRACE_S = 4, 60.0
+BATCH_STALENESS = (0, 1, 2, 3, 0, 1, 2, 3)
 # phase 5: the same tree over the socket loopback with the int8_blocks codec
 CODEC_TRAINERS, CODEC_ROUNDS = 4, 2
 QUANT_BLOCK = qkernel.BLOCK
@@ -483,6 +512,72 @@ def phase_small_topologies(dev: torch.device) -> None:
           f"vs cpu (kernel launches {json.dumps(report)}); vertical losses "
           f"{[round(x, 6) for x in losses[0]]} max_abs_err {verr:.3g} within rtol {SGD_RTOL} "
           f"atol {SGD_ATOL}", flush=True)
+
+
+class ScaleAddTrainer(Trainer):
+    """``0.75 w + 1``, a multiply and an add: rounds at every step, the
+    same on every device."""
+
+    def train(self):
+        if self.weights is not None and not self._work_done:
+            self.weights = {k: v * 0.75 + 1.0 for k, v in self.weights.items()}
+
+
+def _policy_small(device, mode: str, d: str = "", rounds: int = 3):
+    """The small policy jobs of phase 3 on ``device``: a deadline round with
+    a straggler (4 trainers), or a one-trainer FedBuff server with
+    ``buffer_size`` 1 checkpointing every version into ``d``."""
+    if mode == "deadline":
+        job = _small_job(classical_fl(), HOST_W0, 4, rounds)
+        policy = RuntimePolicy(mode="deadline", deadline=DEADLINE_S, grace=POLICY_GRACE_S)
+        extra = {"per_worker_hyperparams": {STRAGGLER: {"compute_time": STRAGGLER_S}}}
+    else:
+        job = JobSpec(tag=classical_fl(), datasets=(DatasetSpec(name="d0"),), hyperparams={
+            "rounds": rounds, "init_weights": HOST_W0, "checkpoint_every": 1,
+            "checkpoint_dir": d})
+        policy, extra = RuntimePolicy(mode="async", buffer_size=1, grace=POLICY_GRACE_S), {}
+    res = run_job(job, device=device, timeout=300, policy=policy,
+                  program_overrides={"trainer": ScaleAddTrainer}, **extra)
+    check(not res.errors, f"{mode} job errors on {device}: {res.errors}")
+    glob = res.program("global-aggregator-0")
+    log = glob.participation_log if mode == "deadline" else glob.staleness_log
+    restored = [m for m in glob.metrics if "restored_step" in m]
+    return tree_to_numpy(res.global_weights()), log, restored, res.channel_bytes
+
+
+def phase_small_policies(dev: torch.device) -> None:
+    """The deadline and async lowerings at small size, card against CPU: a
+    deadline job with a straggler, and a one-trainer async job restarted
+    from its checkpoint by a second ``run_job`` (deterministic with one
+    trainer and ``buffer_size`` 1): weights, logs and the restored step
+    equal, the card's weights byte for byte."""
+    out, launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        for name, device in (("card", dev), ("host", "cpu")):
+            kernel.reset_launches()
+            d = os.path.join(tmp, name)
+            out[name] = [_policy_small(device, "deadline"),
+                         _policy_small(device, "async", d, 2), _policy_small(device, "async", d, 4)]
+            if name == "card":
+                launches = {fn.__name__: fn.launches for fn in kernel.KERNELS if fn.launches}
+            files = sorted(os.listdir(os.path.join(d, "global-aggregator-0")))
+            check(files == [f"ckpt_{v:08d}.npz" for v in range(5)], f"{name} checkpoints {files}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for card, host in zip(out["card"], out["host"]):
+        check(card[0].keys() == host[0].keys() and all(
+            card[0][k].tobytes() == host[0][k].tobytes() for k in card[0]),
+            "policy job: the card's weights differ from the CPU's")
+        check(card[1:] == host[1:], "policy job: logs, restored step or bytes differ")
+    deadline_log = out["card"][0][1]
+    check(all(e["excluded"] == [STRAGGLER] for e in deadline_log), f"deadline log {deadline_log}")
+    check(out["card"][2][2] == [{"restored_step": 2}], f"restart {out['card'][2][2]}")
+    check(launches.get("exact_fold_into_tree", 0) > 0 and launches.get("exact_divide", 0) > 0,
+          f"small policy jobs launched {launches}")
+    print(f"phase small policies: ok deadline (straggler excluded every round) and async "
+          f"restart (restored_step 2, {len(out['card'][2][1])} absorbed updates) byte-equal card "
+          f"vs cpu (kernel launches {json.dumps(launches)})", flush=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -1045,6 +1140,295 @@ def phase_full_width_topologies(dev: torch.device) -> dict:
           f"fold (host check {host_s:.1f} s); job_s {dist_s:.3f} peak_device_gb "
           f"{dist_peak_gb:.2f}", flush=True)
     return {"launches": {"exact_fold": launches["exact_fold"]}, "timings": timings}
+
+
+# ---------------------------------------------------------------------- #
+# phase 4c: the deadline and async policies on the same tree
+# ---------------------------------------------------------------------- #
+class PolicyNoiseTrainer(_FullNoise, Trainer):
+    """``noisy`` of its step (1, 2, ...) on the card; records the server
+    version each step trained from, so a replay regenerates each update."""
+
+    def train(self):
+        if self.weights is not None and not self._work_done:
+            self.trained_from = getattr(self, "trained_from", []) + [self._server_version]
+        super().train()
+
+
+class RecordingPolicyRoot(GlobalAggregator):
+    """Lowered to the deadline or async root by the runtime; ``evaluate``
+    runs after every round (deadline) or new version (async) and keeps the
+    weights."""
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.history = [self.weights]
+
+    def evaluate(self):
+        self.history.append(self.weights)
+
+
+def _policy_job(dev, init, policy, per_worker):
+    datasets = tuple(DatasetSpec(name=f"d{i}") for i in range(POLICY_TRAINERS))
+    job = JobSpec(tag=classical_fl(), datasets=datasets,
+                  hyperparams={"rounds": POLICY_ROUNDS, "init_weights": init})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    res = run_job(job, device=dev, timeout=900, policy=policy, per_worker_hyperparams=per_worker,
+                  program_overrides={"trainer": PolicyNoiseTrainer,
+                                     "global-aggregator": RecordingPolicyRoot})
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernel.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(not res.errors, f"{policy.mode} job errors: {res.errors}")
+    return res, launches, job_s, peak_gb
+
+
+def _host_weight(staleness: int) -> float:
+    """FedBuff's staleness weight, float32 ``1 / pow(1 + s, 0.5)`` on the
+    host with torch's CPU ops (as the JAX package's XLA gives it)."""
+    s = torch.tensor(float(staleness), dtype=torch.float32)
+    return float(torch.ones((), dtype=torch.float32) / torch.pow(1.0 + s, 0.5))
+
+
+def phase_full_width_policies(dev: torch.device) -> dict:
+    """(a) a deadline job, (b) a FedBuff job, (c) ``accumulate_batch``
+    against ``accumulate_stream`` and (d) a checkpoint round trip, all on
+    phase 4's tree; each held byte for byte to its plain version."""
+    shapes = qwen_shapes()
+    n_leaves = len(_flat_shapes(shapes))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), shapes)
+    n = sum(x.numel() for x in tree_leaves(init))
+    check(n == QWEN_PARAMS, f"tree has {n} parameters, not {QWEN_PARAMS}")
+    report, launches = {}, {}
+
+    # ---- (a) deadline: the straggler cut every round ---- #
+    waits = []
+    real_collect = roles_async._PolicyBase._collect_deadline
+
+    def timed_collect(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real_collect(self, *args, **kwargs)
+        waits.append(time.perf_counter() - t0)
+        return out
+
+    roles_async._PolicyBase._collect_deadline = timed_collect
+    try:
+        res, got, job_s, peak_gb = _policy_job(
+            dev, init, RuntimePolicy(mode="deadline", deadline=DEADLINE_S, grace=POLICY_GRACE_S),
+            {STRAGGLER: {"compute_time": STRAGGLER_S}})
+    finally:
+        roles_async._PolicyBase._collect_deadline = real_collect
+    root = res.program("global-aggregator-0")
+    log, history = root.participation_log, root.history
+    ds_of = {w.worker_id: w.dataset for w in res.workers}
+    on_time = POLICY_TRAINERS - 1
+    check(len(log) == POLICY_ROUNDS and len(history) == POLICY_ROUNDS + 1,
+          f"{len(log)} deadline rounds logged, {len(history) - 1} recorded")
+    for e in log:
+        check(e["excluded"] == [STRAGGLER] and not e["missing"] and len(e["included"]) == on_time
+              and STRAGGLER not in e["included"], f"deadline round {e}")
+    check(max(waits) < POLICY_GRACE_S / 2, f"a round's collection waited {max(waits):.1f} s")
+    want = {"exact_fold_into_tree": on_time * POLICY_ROUNDS,
+            "exact_divide": n_leaves * POLICY_ROUNDS}
+    check(all(got[k] == v for k, v in want.items()) and got["exact_fold_into"] == 0
+          and got["exact_fold"] == 0,
+          f"deadline launches {got}, not {on_time} tree folds and {n_leaves} divides a round")
+    launches["deadline"] = {k: v for k, v in got.items() if v}
+    del res, root
+    gc.collect()
+    max_err = 0.0
+    for rnd in range(1, POLICY_ROUNDS + 1):
+        acc, total = None, 0.0
+        for wid in log[rnd - 1]["included"]:  # sorted: the fold's order
+            update = noisy(history[rnd - 1], ds_of[wid], rnd)
+            nn = float(samples_of(ds_of[wid]))
+            total += nn
+            acc = tree_map(lambda x: ref.exact_fold_into(None, x, nn), update) if acc is None \
+                else tree_map(lambda a, x: ref.exact_fold_into(a, x, nn), acc, update)
+            del update
+        mean = tree_leaves(tree_map(lambda x: ref.exact_divide(x, total), acc))
+        for g, w in zip(tree_leaves(history[rnd]), mean):
+            check(bool(torch.isfinite(g).all()), f"deadline round {rnd}: non-finite weights")
+            check(same_bytes(g, w), f"deadline round {rnd}: weights differ from the plain fold")
+            max_err = max(max_err, float((g - w).abs().max()))
+        del acc, mean
+    # a round's fold on the card alone: StreamingMean over the 7 on-time
+    # updates (one regenerated update stands for each), then its divide;
+    # and an async absorb: the delta against its base, then one tree fold
+    update = noisy(history[-2], ds_of[log[-1]["included"][0]], POLICY_ROUNDS)
+    nn = float(samples_of(ds_of[log[-1]["included"][0]]))
+
+    def deadline_fold():
+        mean = troles.StreamingMean(device=dev)
+        for _ in range(on_time):
+            mean.fold(update, nn)
+        return mean.finalize()
+
+    fedbuff = get_strategy("fedbuff", buffer_size=ASYNC_BUFFER)
+    state = fedbuff.init(update)
+
+    def absorb():
+        fedbuff.accumulate_stream(state, tree_map(torch.sub, update, history[-2]), 1)
+
+    fold_ms, absorb_ms = cuda_ms(deadline_fold, reps=2), cuda_ms(absorb, reps=3)
+    report["deadline"] = dict(job_s=job_s, peak_gb=peak_gb, waits=waits, fold_ms=fold_ms,
+                              absorb_ms=absorb_ms, round_times=[e["round_time"] for e in log])
+    del history, update, state
+    gc.collect()
+
+    # ---- (b) async FedBuff: the replay of the staleness log ---- #
+    stagger = {f"trainer-{i}": {"compute_time": 0.5 + 0.25 * i} for i in range(POLICY_TRAINERS)}
+    res, got, job_s, peak_gb = _policy_job(
+        dev, init, RuntimePolicy(mode="async", buffer_size=ASYNC_BUFFER, grace=POLICY_GRACE_S),
+        stagger)
+    root = res.program("global-aggregator-0")
+    slog, history = list(root.staleness_log), root.history
+    snaps = len(root._snapshots)
+    snap_gb = snaps * 4 * n / 1e9
+    trained = {wid: list(getattr(p, "trained_from", [])) for wid, p in res.programs.items()
+               if wid.startswith("trainer")}
+    ds_of = {w.worker_id: w.dataset for w in res.workers}
+    check(root._version == POLICY_ROUNDS and len(history) == POLICY_ROUNDS + 1,
+          f"async server at version {root._version}, {len(history) - 1} versions recorded")
+    check(len(slog) == ASYNC_BUFFER * POLICY_ROUNDS, f"{len(slog)} updates absorbed")
+    check(got["exact_fold_into_tree"] == len(slog) and got["exact_fold"] == 0
+          and got["exact_fold_into"] == 0,
+          f"async launches {got}: not one tree fold per absorbed update ({len(slog)})")
+    launches["async"] = {k: v for k, v in got.items() if v}
+    del res, root
+    gc.collect()
+    steps = {wid: 0 for wid in trained}
+    acc, count, version, stale = None, 0, 0, []
+    for e in slog:
+        src = e["src"]
+        step = steps[src]
+        steps[src] += 1
+        trained_from = trained[src][step]
+        check(e["version"] == version and not e.get("clamped")
+              and e["version"] - e["staleness"] == trained_from, f"staleness entry {e}")
+        stale.append(e["staleness"])
+        update = noisy(history[trained_from], ds_of[src], step + 1)
+        delta = tree_map(torch.sub, update, history[trained_from])
+        del update
+        w = _host_weight(e["staleness"])
+        if acc is None:
+            acc = tree_map(torch.zeros_like, delta)
+        acc = tree_map(lambda a, x: ref.exact_fold_into(a, x, w), acc, delta)
+        del delta
+        count += 1
+        if count == ASYNC_BUFFER:
+            den = torch.tensor(float(count), dtype=torch.float32, device=dev)
+            new = tree_map(lambda p, a: p + 1.0 * a / den, history[version], acc)
+            version += 1
+            for g, w_ in zip(tree_leaves(history[version]), tree_leaves(new)):
+                check(bool(torch.isfinite(g).all()), f"async version {version}: non-finite")
+                check(same_bytes(g, w_), f"async version {version}: weights differ from the replay")
+                max_err = max(max_err, float((g - w_).abs().max()))
+            acc, count = None, 0
+            del new
+    check(version == POLICY_ROUNDS, f"replay reached version {version}")
+    report["async"] = dict(job_s=job_s, peak_gb=peak_gb, snapshots=snaps, snapshot_gb=snap_gb,
+                           staleness=stale)
+    final = history[-1]
+    del history, init
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) accumulate_batch against accumulate_stream, C = 8 ---- #
+    strategy = get_strategy("fedbuff", buffer_size=len(BATCH_STALENESS))
+    deltas = [_map_shapes(lambda s: 0.01 * torch.randn(s, generator=gen, device=dev), shapes)
+              for _ in BATCH_STALENESS]
+    for d in deltas:  # a -0.0 column: the zeros-start accumulator makes it +0.0
+        tree_leaves(d)[0].view(-1)[:8] = -0.0
+    kernel.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    stream = strategy.init(final)
+    for d, st in zip(deltas, BATCH_STALENESS):
+        stream = strategy.accumulate_stream(stream, d, st)
+    end.record()
+    torch.cuda.synchronize()
+    stream_ms = start.elapsed_time(end)
+    stream_launches = kernel.exact_fold_into_tree.launches
+    start.record()
+    batch = strategy.accumulate_batch(strategy.init(final), deltas, list(BATCH_STALENESS))
+    end.record()
+    torch.cuda.synchronize()
+    batch_ms = start.elapsed_time(end)
+    got = {fn.__name__: fn.launches for fn in kernel.KERNELS}
+    check(stream_launches == len(BATCH_STALENESS) and got["exact_fold"] == n_leaves
+          and got["exact_fold_into_tree"] == len(BATCH_STALENESS),
+          f"batch/stream launches {got}: not {len(BATCH_STALENESS)} tree folds and "
+          f"{n_leaves} stacked folds")
+    launches["batch"] = {k: v for k, v in got.items() if v}
+    check(int(stream["count"]) == int(batch["count"]) == len(BATCH_STALENESS), "counts")
+    for a, b in zip(tree_leaves(stream["acc"]), tree_leaves(batch["acc"])):
+        check(same_bytes(a, b), "accumulate_batch differs from accumulate_stream")
+    check(not bool(torch.signbit(tree_leaves(batch["acc"])[0].view(-1)[:8]).any()),
+          "accumulate_batch kept -0.0")
+    del batch
+    plain = tree_map(torch.zeros_like, final)
+    for d, st in zip(deltas, BATCH_STALENESS):
+        w = _host_weight(st)
+        plain = tree_map(lambda a, x: ref.exact_fold_into(a, x, w), plain, d)
+    for a, b in zip(tree_leaves(stream["acc"]), tree_leaves(plain)):
+        check(same_bytes(a, b), "accumulate_stream differs from the plain chain")
+    report["batch"] = dict(stream_ms=stream_ms, batch_ms=batch_ms)
+    del deltas, stream, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) checkpoint round trip of the global weights ---- #
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save(tmp, POLICY_ROUNDS, final)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        file_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = checkpoint.restore(tmp, POLICY_ROUNDS, final, strict=True, device=dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for a, b in zip(tree_leaves(back), tree_leaves(final)):
+        check(a.device == dev and same_bytes(a, b), "checkpoint round trip differs")
+    report["checkpoint"] = dict(save_ms=save_ms, restore_ms=restore_ms, file_bytes=file_bytes)
+    del back, final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dl, asy, bt, ck = report["deadline"], report["async"], report["batch"], report["checkpoint"]
+    print(f"phase full-width policies: ok Qwen2.5-3B tree ({n} f32 params in {n_leaves} leaves); "
+          f"(a) deadline {POLICY_TRAINERS} trainers, {POLICY_ROUNDS} rounds, {STRAGGLER} past the "
+          f"{DEADLINE_S} s deadline and excluded every round, byte-equal to the plain fold; "
+          f"launches {json.dumps(launches['deadline'])}; job_s {dl['job_s']:.3f} collection wait s "
+          f"{[round(t, 3) for t in dl['waits']]} (grace {POLICY_GRACE_S} s) virtual round_time "
+          f"{dl['round_times']} peak_device_gb {dl['peak_gb']:.2f} round fold device ms "
+          f"{dl['fold_ms']:.3f} ({on_time} tree folds and the divide); (b) FedBuff buffer "
+          f"{ASYNC_BUFFER}, {POLICY_ROUNDS} versions, {len(slog)} updates at staleness "
+          f"{asy['staleness']} byte-equal to the replay; launches {json.dumps(launches['async'])}; "
+          f"job_s {asy['job_s']:.3f} absorb device ms {dl['absorb_ms']:.3f} (delta and tree "
+          f"fold) snapshots {asy['snapshots']} ({asy['snapshot_gb']:.2f} GB) "
+          f"peak_device_gb {asy['peak_gb']:.2f}; (c) accumulate_batch == accumulate_stream == "
+          f"plain, C = {len(BATCH_STALENESS)} at staleness {list(BATCH_STALENESS)}; launches "
+          f"{json.dumps(launches['batch'])}; stream ms {bt['stream_ms']:.3f} batch ms (stack "
+          f"included) {bt['batch_ms']:.3f}; (d) checkpoint save ms {ck['save_ms']:.1f} restore "
+          f"ms {ck['restore_ms']:.1f} file bytes {ck['file_bytes']}, byte-equal on the card",
+          flush=True)
+    total = {}
+    for path_launches in launches.values():
+        for k, v in path_launches.items():
+            total[k] = total.get(k, 0) + v
+    return {"launches": total, "by_job": launches, "max_abs_err": max_err}
 
 
 def in_turns(fns: dict, rounds: int = 5) -> dict:
@@ -1779,33 +2163,44 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-def kernels_line(full: dict, topo: dict, codec: dict, serve: dict) -> str:
+def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict) -> str:
+    """One row per kernel. ``launches`` sums the paths that run it, each
+    counted from 0 over its own run (``launches_by_path``): phase 4's job
+    for the streaming fold entries, phase 4b's coordinated job for the
+    stacked fold, phase 4c's policy jobs and its batch for all agg entries,
+    phase 5's job for the quant kernels, phase 6's serving for flash."""
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
     sdpa = "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)"
     rows = [
-        ("exact_fold_into_tree", agg_src, fold, True, "torch._foreach_add_(accs, ds, alpha=w)", full),
-        ("exact_fold_into", agg_src, fold, False, "torch.add(acc, d, alpha=w, out=acc)", full),
-        ("exact_divide", agg_src, fold, True, "torch.div(x, den)", full),
-        ("exact_fold", agg_src, fold, True, "torch.mv(d.t(), w / den)", topo),
+        ("exact_fold_into_tree", agg_src, fold, True, "torch._foreach_add_(accs, ds, alpha=w)",
+         full, "4"),
+        ("exact_fold_into", agg_src, fold, False, "torch.add(acc, d, alpha=w, out=acc)", full, "4"),
+        ("exact_divide", agg_src, fold, True, "torch.div(x, den)", full, "4"),
+        ("exact_fold", agg_src, fold, True, "torch.mv(d.t(), w / den)", topo, "4b"),
         ("weighted_aggregate", agg_src, "src/repro/kernels/agg/kernel.py:74", False,
-         "torch.mv(d.t(), w / den)", full),
+         "torch.mv(d.t(), w / den)", full, "4"),
         ("quantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:31", True,
-         "none: no one PyTorch call computes blockwise scales and codes", codec),
+         "none: no one PyTorch call computes blockwise scales and codes", codec, "5"),
         ("dequantize_blocks", quant_src, "src/repro/kernels/quant/kernel.py:50", True,
-         "torch.mul(q, scale)", codec),
+         "torch.mul(q, scale)", codec, "5"),
         ("flash_attention_forward_sm90", "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu",
-         "src/repro/kernels/flash_attention/kernel.py:76", True, sdpa, serve),
+         "src/repro/kernels/flash_attention/kernel.py:76", True, sdpa, serve, "6"),
         ("flash_attention_forward", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
-         "src/repro/kernels/flash_attention/kernel.py:76", False, sdpa, serve),
+         "src/repro/kernels/flash_attention/kernel.py:76", False, sdpa, serve, "6"),
     ]
     out = []
-    for name, src, replaces, on_path, library, run in rows:
+    for name, src, replaces, on_path, library, run, phase in rows:
         t = run["timings"][name]
+        by_path = {phase: run["launches"][name]}
+        if src == agg_src:
+            by_path["4c"] = policies["launches"].get(name, 0)
+        launches = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": run["launches"][name], "on_main_path": on_path,
+            "launches": launches, "launches_by_path": by_path,
+            "on_main_path": on_path or launches > 0,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library_call": library,
@@ -1831,10 +2226,14 @@ def main() -> int:
     phase_parity(dev)
     phase_small_jobs(dev)
     phase_small_topologies(dev)
+    phase_small_policies(dev)
     full = phase_full_width(dev)
     gc.collect()
     torch.cuda.empty_cache()
     topo = phase_full_width_topologies(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    policies = phase_full_width_policies(dev)
     errs = phase_codec_parity(dev)
     codec = phase_codec_job(dev, errs)
     # the earlier phases peak at about 46 GB: free them before serving
@@ -1842,7 +2241,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = phase_serve(dev, phase_flash_parity(dev))
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
-    print(kernels_line(full, topo, codec, serve), flush=True)
+    print(kernels_line(full, topo, policies, codec, serve), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

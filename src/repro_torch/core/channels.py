@@ -655,6 +655,55 @@ class InprocBackend:
             self._clock[worker] = max(self._clock[worker], float(at))
 
 
+def recv_any_multi(
+    sources: Sequence[Tuple[ChannelEnd, Sequence[str]]],
+    timeout: Optional[float] = None,
+    poll: float = 0.005,
+) -> Tuple[ChannelEnd, str, Any, float]:
+    """Earliest available message across several channels.
+
+    ``sources`` is ``[(channel_end, candidate_peers), ...]``: typically an
+    intermediate aggregator's down channel (trainer updates) and up channel
+    (root broadcasts), which live on different backends and so cannot share
+    one condition variable. Returns ``(end, src, payload, arrival)`` for the
+    globally earliest message, advancing the receiver's clock on the winning
+    backend only (callers bridge clocks across backends themselves).
+
+    Raises ``queue.Empty`` on timeout and ``WorkerDropped`` if the receiver
+    is poisoned or dropped on any involved backend.
+    """
+
+    def _scan() -> Optional[Tuple[float, ChannelEnd, str]]:
+        best: Optional[Tuple[float, ChannelEnd, str]] = None
+        for end, peers in sources:
+            if not peers:
+                continue
+            cand = end.earliest(peers)
+            if cand is not None and (best is None or cand[0] < best[0]):
+                best = (cand[0], end, cand[1])
+        return best
+
+    deadline = None if timeout is None else time.monotonic() + timeout
+    while True:
+        best = _scan()
+        if best is not None:
+            # settle: near-simultaneous wall-clock senders may not all have
+            # enqueued yet; one short extra poll keeps virtual-arrival order
+            # from being decided by thread scheduling
+            time.sleep(min(poll, 0.002))
+            best = _scan() or best
+            _, end, src = best
+            # single-consumer mailboxes: the message seen by earliest() can
+            # only be taken by us, so a short timeout is a safety net
+            s, payload, arrival = end.recv_any([src], timeout=1.0)
+            return end, s, payload, arrival
+        for end, _ in sources:
+            end.check_poison()
+        if deadline is not None and time.monotonic() >= deadline:
+            raise queue.Empty
+        time.sleep(poll)
+
+
 _BACKEND_FACTORIES: Dict[str, Callable[[], TransportBackend]] = {}
 
 

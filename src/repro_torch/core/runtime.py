@@ -1,11 +1,12 @@
 """In-process job runtime — the Flame-in-a-box (fiab) analogue (§5.3), the
 port of ``repro.core.runtime``.
 
-Executes an expanded job under a ``RuntimePolicy`` in ``sync`` mode: every
+Executes an expanded job under a ``RuntimePolicy``: in ``sync`` mode every
 worker joins, barriers, and runs its tasklet chain to completion on its own
-thread. Arrival/dropout/re-join schedules run through the same
-``EventEngine`` as the JAX package. The ``deadline`` and ``async`` lowerings
-are not ported yet and raise ``NotImplementedError``.
+thread; in ``deadline`` and ``async`` mode the aggregators are lowered to
+the policy programs of ``repro_torch.core.roles_async`` tier by tier.
+Arrival/dropout/re-join schedules run through the same ``EventEngine`` as
+the JAX package.
 
 Device: ``run_job`` runs on CUDA by default and raises when no CUDA device
 is present, unless the caller passes ``device="cpu"``; it never falls back
@@ -27,7 +28,7 @@ from repro_torch.core.events import (
 )
 from repro_torch.core.expansion import JobSpec, WorkerConfig, expand
 from repro_torch.core.registry import ResourceRegistry
-from repro_torch.core.roles import GlobalAggregatorBase, Role, RoleContext
+from repro_torch.core.roles import Aggregator, GlobalAggregatorBase, Role, RoleContext
 from repro_torch.core.tag import TAG
 
 # TAG program paths name the JAX package's classes (``repro.core.roles.
@@ -240,20 +241,38 @@ def resolve_policy_class(
     policy: RuntimePolicy,
     program_overrides: Optional[Dict[str, type]] = None,
 ) -> type:
-    """The program class for ``w`` under ``policy``: the user's class in a
-    sync tier. Deadline and async tiers are not ported yet."""
+    """The program class for ``w`` under ``policy``: the user's class, or
+    its policy-lowered graft for a deadline/async tier."""
     overrides = program_overrides or {}
     if w.role in overrides:
         cls = overrides[w.role]
     else:
         cls = resolve_program(w.program)
     mode = policy_tier_mode(w, cls, policy)
-    if mode != "sync":
-        raise NotImplementedError(
-            f"RuntimePolicy mode {mode!r} for role {w.role!r}: the deadline and "
-            "async lowerings are not ported yet (ROADMAP Queue 1 item 3)"
+    if mode == "sync":
+        return cls
+    is_root = issubclass(cls, GlobalAggregatorBase)
+    if not is_root and not issubclass(cls, Aggregator):
+        # only reachable through an explicit tiers entry naming a
+        # non-aggregator role (a trainer tier)
+        raise ValueError(
+            f"RuntimePolicy.tiers lowers role {w.role!r} to {mode!r}, "
+            f"but its program {cls.__name__} is neither a GlobalAggregator "
+            "nor an Aggregator subclass"
         )
-    return cls
+    # lowering replaces the whole tasklet chain, so it is only sound for
+    # the standard aggregator workflows: a subclass with its own compose()
+    # (the coordinated aggregators' handshake) would be silently broken
+    base_compose = GlobalAggregatorBase.compose if is_root else Aggregator.compose
+    if cls.compose is not base_compose:
+        raise ValueError(
+            f"cannot lower {cls.__name__} to {mode!r} mode: it overrides "
+            "compose(); policy modes support the standard aggregator "
+            "round workflows only"
+        )
+    from repro_torch.core.roles_async import make_policy_program
+
+    return make_policy_program(cls, mode)
 
 
 @dataclasses.dataclass
@@ -322,6 +341,8 @@ class JobRuntime:
         cls = resolve_policy_class(w, self.policy, self.program_overrides)
         hp = dict(self.job.hyperparams)
         hp.update(self.per_worker_hyperparams.get(w.worker_id, {}))
+        if self.policy.is_lowering:
+            hp.setdefault("runtime_policy", self.policy)
         static = {
             ch: self._membership[(ch, group)] for ch, group in w.groups.items()
         }

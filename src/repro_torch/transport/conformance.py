@@ -9,9 +9,8 @@ and a shared hub. Each check takes a zero-argument ``factory`` producing a
 are tensor trees, as the port's roles send them; received tensors are
 compared on the host.
 
-Not ported with the checks: those of the hub reduce plane, of
-``recv_any_multi`` and of the session fault hooks (ROADMAP Queue 1 items 3
-and 6).
+Not ported with the checks: those of the hub reduce plane and of the
+session fault hooks (ROADMAP Queue 1 item 6).
 
 ``check_codec_roundtrip`` holds one codec to the JAX package's fixture set.
 ``SeededSGDTrainer`` is the reference workload for cross-deployment
@@ -33,6 +32,7 @@ from repro_torch.core.channels import (
     LinkModel,
     TransportBackend,
     WorkerDropped,
+    recv_any_multi,
 )
 from repro_torch.core.roles import Trainer
 from repro_torch.core.tree import tree_leaves
@@ -217,6 +217,36 @@ def check_poison_wakes_blocked_recv(factory: Factory) -> None:
     assert not t.is_alive(), "poison did not wake the blocked recv"
     assert len(caught) == 1 and isinstance(caught[0], WorkerDropped)
     assert caught[0].worker == "b-0" and caught[0].at == 1.25
+
+
+def check_poison_wakes_recv_any_multi(factory: Factory) -> None:
+    """poison() unblocks a cross-channel recv_any_multi promptly."""
+    be = factory()
+    be.join(CH, G, "b-0")
+    be.join("conf-ch2", G, "b-0")
+    end1 = ChannelEnd(be, CH, G, "b-0")
+    end2 = ChannelEnd(be, "conf-ch2", G, "b-0")
+    caught: List[BaseException] = []
+    started = threading.Event()
+
+    def _blocked() -> None:
+        started.set()
+        try:
+            recv_any_multi([(end1, ["a-0"]), (end2, ["c-0"])], timeout=30.0)
+        except BaseException as exc:  # noqa: BLE001
+            caught.append(exc)
+
+    t = threading.Thread(target=_blocked, daemon=True)
+    t.start()
+    started.wait(5.0)
+    time.sleep(0.2)
+    t0 = time.monotonic()
+    be.poison("b-0", at=2.5)
+    t.join(timeout=5.0)
+    assert not t.is_alive(), "poison did not wake recv_any_multi"
+    assert time.monotonic() - t0 < 3.0, "recv_any_multi woke too slowly"
+    assert len(caught) == 1 and isinstance(caught[0], WorkerDropped)
+    assert caught[0].at == 2.5
 
 
 def check_dropout_mid_recv_fifo(factory: Factory) -> None:
@@ -608,6 +638,7 @@ CONFORMANCE_CHECKS: Dict[str, Callable[[Factory], None]] = {
     "recv_timeout_empty": check_recv_timeout_empty,
     "recv_any_picks_earliest": check_recv_any_picks_earliest,
     "poison_wakes_blocked_recv": check_poison_wakes_blocked_recv,
+    "poison_wakes_recv_any_multi": check_poison_wakes_recv_any_multi,
     "dropout_mid_recv_fifo": check_dropout_mid_recv_fifo,
     "dropout_on_send": check_dropout_on_send,
     "supervisor_rejoin_reset": check_supervisor_rejoin_reset,

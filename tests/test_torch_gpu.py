@@ -418,3 +418,141 @@ def test_serving_on_card_launches_flash_once_per_layer(cuda_device, dtype, head_
     assert {name: fn.launches for name, fn in fkernel.ROUTES.items()} == {
         name: cfg.num_layers * (name == route) for name in fkernel.ROUTES}
     assert out.all_finite and out.tokens.shape == (2, 4)
+
+
+# ---------------------------------------------------------------------- #
+# strategies, policies and checkpoints on the card
+# ---------------------------------------------------------------------- #
+def _delta_tree(gen, dev, scale=1.0):
+    return {"w": scale * torch.randn(33, 70, generator=gen, device=dev),
+            "b": scale * torch.randn(4099, generator=gen, device=dev),
+            "blocks": [scale * torch.randn(5, 2, 2, generator=gen, device=dev)]}
+
+
+def _tree_bits(tree):
+    from repro_torch.core.tree import tree_leaves
+
+    return [x.contiguous().cpu().numpy().tobytes() for x in tree_leaves(tree)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fedbuff", "fedasync"])
+def test_async_absorb_and_batch_on_card_match_plain_versions(cuda_device, name):
+    """``accumulate_stream`` (one tree fold launch per update, on the zeros
+    accumulator) and ``accumulate_batch`` (one stacked fold launch per leaf)
+    on the card give the plain chain's bits: host weight, ``0 + w*d`` folds,
+    ``p + lr * acc / count``."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.fl.strategies import get_strategy
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    kw = {"buffer_size": 4, "server_lr": 0.7} if name == "fedbuff" else {}
+    s = get_strategy(name, **kw)
+    params = _delta_tree(gen, cuda_device)
+    deltas = [_delta_tree(gen, cuda_device, 0.1) for _ in range(4)]
+    deltas[0]["w"][0] = -0.0
+    stals = [0, 3, 1, 2]
+    kernel.reset_launches()
+    stream = s.init(params)
+    for d, st in zip(deltas, stals):
+        stream = s.accumulate_stream(stream, d, st)
+    assert kernel.exact_fold_into_tree.launches == 4
+    batch = s.accumulate_batch(s.init(params), deltas, stals)
+    assert kernel.exact_fold.launches == 3  # one per leaf
+    plain = tree_map(torch.zeros_like, params)
+    for d, st in zip(deltas, stals):
+        w = float(s._update_weight(st))
+        plain = tree_map(lambda a, x: ref.exact_fold_into(a, x, w), plain, d)
+    want = _tree_bits(plain)
+    assert _tree_bits(stream["acc"]) == want and _tree_bits(batch["acc"]) == want
+    new, _ = s.apply(params, None, stream)
+    host = s.apply(tree_map(lambda x: x.cpu(), params), None,
+                   {"acc": tree_map(lambda x: x.cpu(), plain), "count": stream["count"]})[0]
+    assert _tree_bits(new) == _tree_bits(host)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fedbuff", "fedasync"])
+def test_batch_on_part_filled_state_launches_tree_folds(cuda_device, name):
+    """``accumulate_batch`` on a state that already holds an update folds
+    the rest one ``exact_fold_into_tree`` launch each (no stacked fold) and
+    gives the plain chain's bits."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.fl.strategies import get_strategy
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    s = get_strategy(name, **({"buffer_size": 4} if name == "fedbuff" else {}))
+    params = _delta_tree(gen, cuda_device)
+    deltas = [_delta_tree(gen, cuda_device, 0.1) for _ in range(4)]
+    stals = [2, 0, 1, 3]
+    plain = tree_map(torch.zeros_like, params)
+    for d, st in zip(deltas, stals):
+        w = float(s._update_weight(st))
+        plain = tree_map(lambda a, x: ref.exact_fold_into(a, x, w), plain, d)
+    state = s.accumulate_stream(s.init(params), deltas[0], stals[0])
+    kernel.reset_launches()
+    state = s.accumulate_batch(state, deltas[1:], stals[1:])
+    assert kernel.exact_fold_into_tree.launches == 3
+    assert kernel.exact_fold.launches == 0
+    assert int(state["count"]) == 4
+    assert _tree_bits(state["acc"]) == _tree_bits(plain)
+
+
+@pytest.mark.gpu
+def test_policy_jobs_on_card_equal_cpu(cuda_device, tmp_path):
+    """A deadline job with a straggler, and a one-trainer async job restarted
+    from its checkpoint: the card's weights, logs and restored step are the
+    CPU's."""
+    w0 = {"w": np.full((64, 33), 0.5, np.float32), "b": np.zeros((33,), np.float32)}
+
+    class ScaleAdd(Trainer):
+        def train(self):
+            if self.weights is not None:
+                self.weights = {k: v * 0.75 + 1.0 for k, v in self.weights.items()}
+
+    from repro_torch.core.runtime import RuntimePolicy
+
+    out = {}
+    for name, device in (("card", cuda_device), ("host", "cpu")):
+        job = JobSpec(tag=classical_fl(), datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(4)),
+                      hyperparams={"rounds": 3, "init_weights": w0})
+        res = run_job(job, device=device, timeout=120, program_overrides={"trainer": ScaleAdd},
+                      policy=RuntimePolicy(mode="deadline", deadline=2.0, grace=10.0),
+                      per_worker_hyperparams={"trainer-1": {"compute_time": 5.0}})
+        assert not res.errors, res.errors
+        runs = [tree_to_numpy(res.global_weights()),
+                res.program("global-aggregator-0").participation_log]
+        for rounds in (2, 4):
+            job = JobSpec(tag=classical_fl(), datasets=(DatasetSpec(name="d0"),),
+                          hyperparams={"rounds": rounds, "init_weights": w0,
+                                       "checkpoint_every": 1, "checkpoint_dir": str(tmp_path / name)})
+            res = run_job(job, device=device, timeout=120, program_overrides={"trainer": ScaleAdd},
+                          policy=RuntimePolicy(mode="async", buffer_size=1, grace=10.0))
+            assert not res.errors, res.errors
+            glob = res.program("global-aggregator-0")
+            runs += [tree_to_numpy(res.global_weights()),
+                     [m for m in glob.metrics if "restored_step" in m], glob.staleness_log]
+        out[name] = runs
+    card, cpu = out["card"], out["host"]
+    for a, b in zip(card, cpu):
+        if isinstance(a, dict):
+            assert {k: v.tobytes() for k, v in a.items()} == {k: v.tobytes() for k, v in b.items()}
+        else:
+            assert a == b
+    assert card[6] == [{"restored_step": 2}]
+
+
+@pytest.mark.gpu
+def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
+    from repro_torch import checkpoint
+
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    tree = _delta_tree(gen, cuda_device)
+    checkpoint.save(str(tmp_path), 7, tree)
+    like = {"w": torch.zeros(33, 70), "b": torch.zeros(4099), "blocks": [torch.zeros(5, 2, 2)]}
+    got = checkpoint.restore(str(tmp_path), 7, like, strict=True, device=cuda_device)
+    assert all(x.device == cuda_device for x in [got["w"], got["b"], got["blocks"][0]])
+    assert _tree_bits(got) == _tree_bits(tree)
+    loaded = checkpoint.load_tree(str(tmp_path), 7, device=cuda_device)
+    assert loaded["blocks"]["#0"].device == cuda_device
+    assert _tree_bits(loaded["blocks"]["#0"]) == _tree_bits(tree["blocks"][0])

@@ -181,7 +181,7 @@ def test_mqtt_links_match_virtual_clocks():
 
 
 # ------------------------------------------------------------------ #
-# what the port does not run yet raises instead of running otherwise
+# policy lowering, and what the port does not run yet
 # ------------------------------------------------------------------ #
 def _port_job(**hp):
     return texp.JobSpec(
@@ -192,8 +192,27 @@ def _port_job(**hp):
 
 
 def test_policy_lowering_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        trt.run_job(_port_job(), device="cpu", policy=trt.RuntimePolicy(mode="async"))
+    """The async lowering runs (it raised before it was ported): one trainer
+    and FedBuff's default buffer of 2 give the JAX package's bytes and
+    staleness log."""
+    res = trt.run_job(_port_job(), device="cpu", program_overrides={"trainer": AddOneTrainer},
+                      policy=trt.RuntimePolicy(mode="async"))
+    ref = jrt.run_job(_ref_job(), program_overrides={"trainer": JaxAddOneTrainer},
+                      policy=jrt.RuntimePolicy(mode="async"))
+    assert not res.errors and not ref.errors
+    glob, jglob = res.program("global-aggregator-0"), ref.program("global-aggregator-0")
+    assert glob._version == jglob._version == 1
+    assert glob.staleness_log == jglob.staleness_log
+    a, b = tree_to_numpy(res.global_weights()), ref.global_weights()
+    assert all(a[k].tobytes() == np.asarray(b[k]).tobytes() for k in b)
+
+
+def _ref_job(**hp):
+    return jexp.JobSpec(
+        tag=jtop.classical_fl(),
+        datasets=(jtag.DatasetSpec(name="d0"),),
+        hyperparams={"rounds": 1, "init_weights": W0, **hp},
+    )
 
 
 def test_reduce_plan_not_ported_raises():

@@ -278,13 +278,35 @@ def test_hybrid_non_leader_dropout_under_sync_matches_reference():
 @pytest.mark.parametrize("template", ["coordinated", "hybrid", "vertical"])
 @pytest.mark.parametrize("mode", ["deadline", "async"])
 def test_policy_lowering_of_new_topologies_raises(template, mode):
-    """The templates with a root aggregator: its deadline or async lowering
-    waits for ROADMAP Queue 1 item 3 (distributed and gossip have no
-    aggregator tier to lower)."""
-    job = texp.JobSpec(tag=ttop.get_template(template)(), datasets=_datasets(PORT, 2),
-                       hyperparams={"rounds": 1, "init_weights": W0})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        trt.run_job(job, device="cpu", policy=trt.RuntimePolicy(mode=mode))
+    """The templates with a root aggregator under a deadline or async
+    policy, with the JAX package's outcome: the coordinated aggregators
+    override ``compose()`` and refuse the lowering (``ValueError``), the
+    vertical protocol is not weight-sync (``RuntimeError``), and the hybrid
+    job completes with the reference's participation (distributed and
+    gossip have no aggregator tier to lower)."""
+    outcomes = []
+    for pkg in (PORT, REF):
+        job = pkg["exp"].JobSpec(tag=pkg["top"].get_template(template)(),
+                                 datasets=_datasets(pkg, 2),
+                                 hyperparams={"rounds": 1, "init_weights": W0})
+        extra = {"device": "cpu"} if pkg["port"] else {}
+        try:
+            res = pkg["rt"].run_job(job, timeout=60, **extra,
+                                    policy=pkg["rt"].RuntimePolicy(mode=mode, grace=10.0))
+        except (ValueError, RuntimeError) as e:
+            outcomes.append((type(e), str(e)))
+            continue
+        assert not res.errors, res.errors
+        glob = res.program("global-aggregator-0")
+        outcomes.append((glob._version if mode == "async" else glob.participation_log,
+                         res.dropped, res.channel_bytes))
+    assert outcomes[0] == outcomes[1]
+    if template == "hybrid":  # the cluster leader uploads, once
+        assert outcomes[0][0] == (1 if mode == "async" else [{
+            "round": 0, "included": ["trainer-0"], "excluded": [], "missing": [],
+            "round_time": 0.0}])
+    else:
+        assert outcomes[0][0] is {"coordinated": ValueError, "vertical": RuntimeError}[template]
 
 
 # ---------------------------------------------------------------------- #
