@@ -7,7 +7,7 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs seven phases, each printing one line:
+source, started together), then runs eight phases, each printing one line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -43,6 +43,7 @@ source, started together), then runs seven phases, each printing one line:
    (aggregators + global) x leaves x rounds launches of ``agg_exact_fold``
    and none of the streaming fold, the stacked folds of a round timed
    beside ``torch.mv``; and ``distributed_fl`` with 4 trainers, 2 rounds,
+   on the tree cut to 2 layers (to make room for phase 7),
    the consensus byte-equal across trainers and to a float64 numpy fold of
    the same updates on the host, leaf by leaf; each job's peak memory;
    4c. the runtime policies on the same tree: (a) a deadline job, 8
@@ -83,12 +84,28 @@ source, started together), then runs seven phases, each printing one line:
    ``torch.profiler``, and both flash kernels' times at the serving shape:
    the tensor-core kernel at bf16, ``flash.cu`` on its own route, float32
    (checked against the plain version there too);
-7. a ``kernels`` JSON line: launches on each path (phase 4 for the
+7. the process plane (run after phase 5, before phase 6): (a) phase 5's job
+   (the same tree, seeds, 4 trainers, 2 rounds, ``int8_blocks``) through
+   ``run_job_multiproc`` with ``reduce_plan`` 1: 5 worker processes and the
+   hub in this process, which decodes each upload with the dequantize
+   kernel and folds it with the tree fold kernel on the card; every round's
+   weights byte-equal (sha256 of the bytes) to the same job through
+   ``run_job`` on the socket loopback at the same plan and to phase 5's
+   unreduced rounds; the hub's launches and every child's (from their
+   summaries) equal to the counts derived from the shapes; start-up, round
+   wall time, the hub fold's device ms, the hub's time under its lock, the
+   children's and the driver's peak memory; (b) a ``hierarchical_fl`` job
+   on 2 pool hosts with sharded hubs at ``reduce_plan`` 2 under the deadline
+   policy, an intermediate aggregator dropped and re-joined, and a
+   ``coordinated_fl`` sync job over 7 processes, each byte-equal (every
+   program's weights, events, drops, channel bytes) to ``run_job`` on the
+   card;
+8. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
-   the quant kernels, phase 6's serving run for the flash kernels), time,
-   plain version's time, bound and a library call's time per kernel, at
-   the path's shapes.
+   the quant kernels, phase 6's serving run for the flash kernels, phase
+   7's process job for the agg and quant entries), time, plain version's
+   time, bound and a library call's time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -130,7 +147,7 @@ from repro_torch.core.topologies import (  # noqa: E402
     classical_fl, coordinated_fl, distributed_fl, gossip_fl, hierarchical_fl, hybrid_fl,
     vertical_fl)
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
-from repro_torch.core.channels import payload_bytes  # noqa: E402
+from repro_torch.core.channels import InprocBackend, payload_bytes  # noqa: E402
 from repro_torch.fl.strategies import get_strategy  # noqa: E402
 from repro_torch.kernels.agg import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.quant import kernel as qkernel  # noqa: E402
@@ -143,6 +160,7 @@ from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.launch.spawn import run_job_multiproc  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 
@@ -164,6 +182,10 @@ N_TRAINERS, ROUNDS = 8, 3
 # distributed ring (4 trainers) on the same tree
 COORD_TRAINERS, COORD_AGGS, COORD_ROUNDS = 8, 2, 3
 DIST_TRAINERS, DIST_ROUNDS = 4, 2
+# the ring's tree at 2 of phase 4's 4 layers (465 M parameters): its host
+# float64 check was the script's largest piece, cut to keep the script near
+# 3 minutes beside phase 7
+DIST_LAYERS = 2
 # phase 4c: the deadline and async policies on the same tree: 8 trainers,
 # 3 rounds (versions); one straggler past the deadline; FedBuff's buffer; a
 # wall-clock grace no on-time update of 2.48 GB comes near (the rounds print
@@ -583,8 +605,8 @@ def phase_small_policies(dev: torch.device) -> None:
 # ---------------------------------------------------------------------- #
 # phase 4
 # ---------------------------------------------------------------------- #
-def qwen_shapes():
-    q = QWEN
+def qwen_shapes(layers=None):
+    q = dict(QWEN, layers=QWEN["layers"] if layers is None else layers)
     dq, dkv = q["heads"] * q["head_dim"], q["kv_heads"] * q["head_dim"]
     D, F = q["d_model"], q["d_ff"]
     layer = {
@@ -1080,7 +1102,9 @@ def phase_full_width_topologies(dev: torch.device) -> dict:
 
     # ---- distributed: the float64 ring fold ---- #
     gen = torch.Generator(device=dev).manual_seed(0)
-    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), shapes)
+    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev),
+                       qwen_shapes(DIST_LAYERS))
+    ring_n = sum(x.numel() for x in tree_leaves(init))
     job = JobSpec(
         tag=distributed_fl(),
         datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(DIST_TRAINERS)),
@@ -1136,7 +1160,7 @@ def phase_full_width_topologies(dev: torch.device) -> dict:
           f"{[round(b[0], 4) for b in bounds]} ({bounds[0][1]} at 3.35 TB/s), torch.mv ms "
           f"{[round(t, 4) for t in mv_ms]}, plain ms "
           f"{[round(t, 4) for t in plain_ms]}; distributed_fl {DIST_TRAINERS} trainers, "
-          f"{DIST_ROUNDS} rounds: consensus byte-equal across trainers and to the host's float64 "
+          f"{DIST_ROUNDS} rounds on the tree at {DIST_LAYERS} layers ({ring_n} params): consensus byte-equal across trainers and to the host's float64 "
           f"fold (host check {host_s:.1f} s); job_s {dist_s:.3f} peak_device_gb "
           f"{dist_peak_gb:.2f}", flush=True)
     return {"launches": {"exact_fold": launches["exact_fold"]}, "timings": timings}
@@ -1707,6 +1731,7 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     root = next(p for p in res.programs.values() if isinstance(p, RecordingAggregator))
     history, round_s = root.history, root.round_s
     check(len(history) == CODEC_ROUNDS + 1, f"{len(history) - 1} rounds recorded")
+    round_digests = [tree_digest(h) for h in history[1:]]  # phase 7's reference
     datasets = sorted((w.worker_id, w.dataset) for w in res.workers if w.role == "trainer")
     del res, root, job
     gc.collect()
@@ -1822,7 +1847,273 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
           f"serial sum per round {json.dumps({k: round(v, 3) for k, v in per_round.items()})}; "
           f"quantize ms {tq['ms']:.3f} dequantize ms {td['ms']:.3f} bound_ms {tq['bound'][0]:.3f}",
           flush=True)
-    return {"launches": launches, "timings": timings}
+    return {"launches": launches, "timings": timings, "round_digests": round_digests}
+
+
+# ---------------------------------------------------------------------- #
+# phase 7: the process plane
+# ---------------------------------------------------------------------- #
+def tree_digest(tree) -> str:
+    """sha256 over a tree's leaves (shape, dtype and bytes, in tree order),
+    hashed leaf by leaf on the host in threads: a byte-equality check that
+    crosses process boundaries without carrying the tree."""
+    leaves = tree_leaves(tree)
+    hosts = [x.detach().contiguous().cpu().numpy() for x in leaves]
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        parts = list(pool.map(lambda a: hashlib.sha256(memoryview(a).cast("B")).digest(), hosts))
+    h = hashlib.sha256()
+    for x, part in zip(leaves, parts):
+        h.update(f"{tuple(x.shape)}{x.dtype}".encode())
+        h.update(part)
+    return h.hexdigest()
+
+
+def codec_init(dev):
+    """Phase 5's initial weights, drawn from the seed-0 generator on ``dev``:
+    the same bytes in any process on the card."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), qwen_shapes())
+
+
+class ProcNoiseTrainer(NoiseTrainer):
+    """Phase 5's trainer; its final weights stay in its own process (each
+    would carry 2.48 GB back to the driver for nothing)."""
+
+    def run(self):
+        super().run()
+        self.weights = None
+
+
+class ProcRecordingAggregator(GlobalAggregator):
+    """Phase 5's root, which draws phase 5's initial weights itself (the job
+    carries none to its processes) and records each round's wall time and
+    weight digest in its metrics, which cross back to the driver."""
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.weights = codec_init(ctx.device)
+        self._t0 = 0.0
+
+    def distribute(self):
+        torch.cuda.synchronize(self.ctx.device)
+        self._t0 = time.perf_counter()
+        if not any("first_distribute_unix" in m for m in self.metrics):
+            self.metrics.append({"first_distribute_unix": time.time()})
+        super().distribute()
+
+    def aggregate(self):
+        super().aggregate()
+        if not self._work_done:
+            torch.cuda.synchronize(self.ctx.device)
+            round_s = time.perf_counter() - self._t0
+            self.metrics.append({"round_s": round_s, "digest": tree_digest(self.weights)})
+
+
+class HostNoiseTrainer(HostNoise, Trainer):
+    pass
+
+
+class HostNoiseCoord(HostNoise, CoordTrainer):
+    pass
+
+
+class _HubProbe:
+    """Times the hub's reduce plane in this process while a job runs: host
+    seconds inside ``InprocBackend._reduce_ingest`` (which runs under the
+    backend's lock) and, with CUDA events around each ``fold_into`` of a
+    hub ``StreamingMean``, the fold's device ms."""
+
+    def __enter__(self):
+        self.lock_s, self.events = [], []
+        self._ingest, self._fold = InprocBackend._reduce_ingest, troles.fold_into
+        ingest, fold = self._ingest, self._fold
+
+        def timed_ingest(backend, *args):
+            t0 = time.perf_counter()
+            try:
+                return ingest(backend, *args)
+            finally:
+                self.lock_s.append(time.perf_counter() - t0)
+
+        def timed_fold(acc, tree, w):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fold(acc, tree, w)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        InprocBackend._reduce_ingest, troles.fold_into = timed_ingest, timed_fold
+        return self
+
+    def __exit__(self, *exc):
+        InprocBackend._reduce_ingest, troles.fold_into = self._ingest, self._fold
+        torch.cuda.synchronize()
+        self.fold_ms = [s.elapsed_time(e) for s, e in self.events]
+
+
+def _proc_launches(launches: dict, programs) -> dict:
+    """The driver's (hub's) launch counts plus every child's."""
+    out = dict(launches)
+    for p in programs:
+        for name, n in p.launches.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def _small_obs(res) -> dict:
+    glob = res.program("global-aggregator-0")
+    return {
+        "weights": {w: {k: v.tobytes() for k, v in ws.items()} for w, ws in _host_weights(res).items()},
+        "participation": getattr(glob, "participation_log", None) or None,
+        "events": res.events, "dropped": res.dropped, "channel_bytes": res.channel_bytes,
+    }
+
+
+def phase_process_plane(dev: torch.device, codec: dict) -> dict:
+    """(a) phase 5's job as a process tree with the hub folding on the card;
+    (b) a pooled, sharded deadline job with a dropout and a re-join, and a
+    coordinated sync job, over processes."""
+    T, R = CODEC_TRAINERS, CODEC_ROUNDS
+    n_leaves = len(_flat_shapes(qwen_shapes()))
+    job = JobSpec(tag=codec_tag(),
+                  datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(T)),
+                  hyperparams={"rounds": R, "reduce_plan": 1})
+    overrides = {"trainer": ProcNoiseTrainer, "global-aggregator": ProcRecordingAggregator}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    t_launch, t0 = time.time(), time.perf_counter()
+    with _HubProbe() as probe:
+        res = run_job_multiproc(job, device=dev, timeout=600, program_overrides=overrides)
+    job_s = time.perf_counter() - t0
+    hub = {fn.__name__: fn.launches for fn in qkernel.KERNELS + kernel.KERNELS}
+    driver_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(not res.errors, f"process job errors: {res.errors}")
+    root = res.program("global-aggregator-0")
+    trainers = [res.program(f"trainer-{i}") for i in range(T)]
+    rounds = [m for m in root.metrics if "digest" in m]
+    check(len(rounds) == R, f"{len(rounds)} rounds recorded")
+    startup_s = next(m["first_distribute_unix"] for m in root.metrics
+                     if "first_distribute_unix" in m) - t_launch
+    # the hub folds every upload (R x T, one tree launch each: 50 leaves fit
+    # one table) after decoding it (one dequantize each), and encodes nothing
+    check(hub["exact_fold_into_tree"] == R * T and hub["dequantize_blocks"] == R * T
+          and hub["exact_fold_into"] == 0 and hub["quantize_blocks"] == 0,
+          f"hub launches {hub} != {R * T} tree folds and dequantizes")
+    check(len(probe.fold_ms) == R * T, f"{len(probe.fold_ms)} hub folds timed")
+    # the root encodes R + 1 broadcasts, folds one partial a round and
+    # divides every leaf; each trainer decodes R + 1 broadcasts, encodes R
+    want_root = {"quantize_blocks": R + 1, "dequantize_blocks": 0, "exact_fold_into_tree": R,
+                 "exact_divide": R * n_leaves}
+    check(all(root.launches[k] == v for k, v in want_root.items()),
+          f"root launches {root.launches} != {want_root}")
+    for t in trainers:
+        check(t.launches["dequantize_blocks"] == R + 1 and t.launches["quantize_blocks"] == R
+              and t.launches["exact_fold_into_tree"] == 0, f"{t.worker_id} launches {t.launches}")
+    stats = res.channel_stats["param-channel"]
+    check(stats.get("hub_reduced") == R * T and stats.get("hub_partials") == R,
+          f"hub reduce stats {stats}")
+    digests = [m["digest"] for m in rounds]
+    check(digests == codec["round_digests"],
+          "process job's rounds differ from phase 5's unreduced rounds")
+    final = res.global_weights()
+    check(all(x.device == dev for x in tree_leaves(final)), "global weights not on the card")
+    proc_bytes = res.channel_bytes["param-channel"]
+    children = {p.worker_id: {"launches": {k: v for k, v in p.launches.items() if v},
+                              "peak_gb": round(p.peak_device_bytes / 1e9, 3)}
+                for p in [root, *trainers]}
+    launches = _proc_launches(hub, [root, *trainers])
+    del res, root, trainers
+    gc.collect()
+
+    # the comparator: the same job through run_job, its param channel on the
+    # socket loopback at the same plan (the loopback's hub folds here too)
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    t0 = time.perf_counter()
+    cmp = run_job(job, device=dev, timeout=600, program_overrides=overrides)
+    cmp_s = time.perf_counter() - t0
+    check(not cmp.errors, f"loopback comparator errors: {cmp.errors}")
+    croot = cmp.program("global-aggregator-0")
+    check([m["digest"] for m in croot.metrics if "digest" in m] == digests,
+          "process job's rounds differ from the loopback comparator's")
+    check(all(same_bytes(a, b) for a, b in zip(tree_leaves(final), tree_leaves(croot.weights))),
+          "process job's global weights differ from the loopback comparator's")
+    check(cmp.channel_bytes["param-channel"] == proc_bytes,
+          f"channel_bytes {proc_bytes} != loopback {cmp.channel_bytes['param-channel']}")
+    cmp_round_s = [m["round_s"] for m in croot.metrics if "round_s" in m]
+    del cmp, croot, final
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) small jobs over processes against run_job on the card
+    # (b) two small jobs over processes at once (their start-ups overlap),
+    # then each through run_job on the card; only the H-FL job's shard hubs
+    # fold in this process while they run
+    hier = JobSpec(
+        tag=hierarchical_fl(groups=("west", "east"),
+                            dataset_groups={"west": ("d0", "d1"), "east": ("d2", "d3")}),
+        datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(4)),
+        hyperparams={"rounds": 3, "init_weights": HOST_W0, "reduce_plan": 2})
+    hier_kw = dict(policy=RuntimePolicy(mode="deadline", deadline=10.0, grace=2.0,
+                                        dropouts={"aggregator-1": 1.5},
+                                        rejoins={"aggregator-1": 2.5}),
+                   per_worker_hyperparams={f"trainer-{i}": {"compute_time": 1.0}
+                                           for i in range(4)},
+                   program_overrides={"trainer": HostNoiseTrainer})
+    coord = JobSpec(tag=coordinated_fl(dataset_groups={"default": ("d0", "d1", "d2", "d3")}),
+                    datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(4)),
+                    hyperparams={"rounds": 3, "init_weights": HOST_W0})
+    coord_kw = dict(program_overrides={"trainer": HostNoiseCoord})
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(run_job_multiproc, hier, device=dev, timeout=300, pool_size=2,
+                            sharded=True, **hier_kw),
+                pool.submit(run_job_multiproc, coord, device=dev, timeout=300, **coord_kw)]
+        mp_hier, mp_coord = (f.result() for f in futs)
+    small_s = time.perf_counter() - t0
+    hier_hub_folds = kernel.exact_fold_into_tree.launches
+    check(not mp_hier.errors, f"pooled sharded job errors: {mp_hier.errors}")
+    check(not mp_coord.errors, f"coordinated process job errors: {mp_coord.errors}")
+    thr = run_job(hier, device=dev, timeout=120, **hier_kw)
+    check(not thr.errors, f"threaded hierarchical job errors: {thr.errors}")
+    check(_small_obs(mp_hier) == _small_obs(thr),
+          "pooled sharded deadline job differs from run_job on the card")
+    check(mp_hier.dropped == {"aggregator-1": 1.5}
+          and (2.5, "rejoin", "aggregator-1") in mp_hier.events,
+          f"dropout and re-join did not happen: {mp_hier.dropped} {mp_hier.events}")
+    reduced = mp_hier.channel_stats["param-channel"]
+    check(reduced.get("hub_partials", 0) > 0 and hier_hub_folds == reduced["hub_reduced"],
+          f"shard hubs folded {hier_hub_folds} frames, reduced {reduced}")
+    coord_folds = _proc_launches({}, mp_coord.programs.values())["exact_fold"]
+    thr = run_job(coord, device=dev, timeout=120, **coord_kw)
+    check(not thr.errors and _small_obs(mp_coord) == _small_obs(thr),
+          "coordinated process job differs from run_job on the card")
+    check(coord_folds > 0, "the coordinated aggregators' processes never launched the stacked fold")
+
+    lock = probe.lock_s
+    fold = probe.fold_ms
+    print(f"phase process plane: ok Qwen2.5-3B tree ({QWEN_PARAMS} f32 params, layers 36->4) as "
+          f"{T + 1} processes, hub in the driver folding on the card at reduce_plan 1 over "
+          f"int8_blocks, {R} rounds byte-equal to the loopback comparator and to phase 5's "
+          f"unreduced rounds; startup_s {startup_s:.3f} job_s {job_s:.3f} round_wall_s "
+          f"{[round(m['round_s'], 4) for m in rounds]} (loopback comparator "
+          f"{[round(x, 4) for x in cmp_round_s]}, job_s {cmp_s:.3f}); hub launches "
+          f"exact_fold_into_tree {hub['exact_fold_into_tree']} dequantize_blocks "
+          f"{hub['dequantize_blocks']} (= {R} x {T}); hub fold device ms mean "
+          f"{sum(fold) / len(fold):.3f} max {max(fold):.3f}; hub under the lock s total "
+          f"{sum(lock):.3f} per frame mean {sum(lock) / len(lock):.3f} max {max(lock):.3f}; "
+          f"children {json.dumps(children)}; driver peak_device_gb {driver_peak_gb:.2f}; "
+          f"(b) hierarchical_fl pool_size 2 sharded reduce_plan 2 deadline with aggregator-1 "
+          f"dropped at 1.5 and re-joined at 2.5 (hub_reduced {reduced['hub_reduced']}) and "
+          f"coordinated_fl sync over 7 processes (exact_fold launches {coord_folds}), run at "
+          f"once in {small_s:.3f} s, byte-equal to run_job on the card", flush=True)
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------- #
@@ -2163,12 +2454,15 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
-def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict) -> str:
+def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
+                 proc: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
-    phase 5's job for the quant kernels, phase 6's serving for flash."""
+    phase 5's job for the quant kernels, phase 6's serving for flash, and
+    phase 7's process job (the hub's launches plus every child's) for the
+    agg and quant entries."""
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -2196,6 +2490,8 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
         by_path = {phase: run["launches"][name]}
         if src == agg_src:
             by_path["4c"] = policies["launches"].get(name, 0)
+        if src in (agg_src, quant_src):
+            by_path["7"] = proc["launches"].get(name, 0)
         launches = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2222,26 +2518,35 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = phase_environment()
-    phase_parity(dev)
-    phase_small_jobs(dev)
-    phase_small_topologies(dev)
-    phase_small_policies(dev)
-    full = phase_full_width(dev)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    smi = timed("1", phase_environment)
+    timed("2", phase_parity, dev)
+    timed("3", lambda: (phase_small_jobs(dev), phase_small_topologies(dev),
+                        phase_small_policies(dev)))
+    full = timed("4", phase_full_width, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    topo = phase_full_width_topologies(dev)
+    topo = timed("4b", phase_full_width_topologies, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    policies = phase_full_width_policies(dev)
-    errs = phase_codec_parity(dev)
-    codec = phase_codec_job(dev, errs)
+    policies = timed("4c", phase_full_width_policies, dev)
+    errs = timed("5a", phase_codec_parity, dev)
+    codec = timed("5", phase_codec_job, dev, errs)
+    proc = timed("7", phase_process_plane, dev, codec)
     # the earlier phases peak at about 46 GB: free them before serving
     gc.collect()
     torch.cuda.empty_cache()
-    serve = phase_serve(dev, phase_flash_parity(dev))
+    serve = timed("6", lambda: phase_serve(dev, phase_flash_parity(dev)))
+    print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
-    print(kernels_line(full, topo, policies, codec, serve), flush=True)
+    print(kernels_line(full, topo, policies, codec, serve, proc), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

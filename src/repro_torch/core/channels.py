@@ -25,13 +25,17 @@ computed from leaf sizes under the channel's ``wire_dtype``
 package counts; on a coded channel the in-process backends count the
 post-codec bytes without running the codec.
 
-Not ported yet: the hub reduce plane (``install_reduce`` raises
-``NotImplementedError``).
+The reduce plane (``install_reduce``): a backend can fold a reduced incast
+topic's update frames itself, in sorted-source order per shard block, and
+deliver one unfinalized partial per shard from ``wire.reduce_src(i)``. The
+fold runs on the backend's device (``set_device``; the job's device through
+``ChannelManager``), through the streaming fold kernel for float32 leaves.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -54,10 +58,6 @@ from repro_torch.core.tag import Channel as ChannelSpec
 from repro_torch.core.tree import tree_leaves
 
 _WIRE_BYTES = {"f32": 4, "bf16": 2, "f16": 2, "int8": 1}
-
-_NOT_PORTED_REDUCE = (
-    "the hub reduce plane is not ported yet (ROADMAP Queue 1 item 6)"
-)
 
 
 def payload_bytes(payload: Any, wire_dtype: str = "f32") -> int:
@@ -122,7 +122,7 @@ TRANSPORT_OPS: Tuple[str, ...] = (
     "set_link", "set_wire_dtype", "link",
     # clocks
     "now", "advance", "set_clock",
-    # reduce plane (not ported: raises NotImplementedError)
+    # reduce plane
     "install_reduce",
 )
 
@@ -209,6 +209,43 @@ class TransportBackend(Protocol):
     ) -> None: ...
 
 
+# Hub-reduce kill switch: the reduce plane is opt-in per job (the
+# ``reduce_plan`` hyperparameter), and this process-wide toggle can veto it
+# everywhere. Spawned workers inherit the environment variable, so one
+# setting governs every process of a job.
+_HUB_REDUCE_ENABLED = os.environ.get("REPRO_HUB_REDUCE", "1") not in ("0", "false")
+
+
+def set_hub_reduce(enabled: bool) -> None:
+    """Enable or disable hub-side partial aggregation process-wide."""
+    global _HUB_REDUCE_ENABLED
+    _HUB_REDUCE_ENABLED = bool(enabled)
+
+
+def hub_reduce_enabled() -> bool:
+    return _HUB_REDUCE_ENABLED
+
+
+def reduce_blocks(srcs: Sequence[str], shards: int) -> List[List[str]]:
+    """Partition an incast's sources into the reduce plan's shard blocks:
+    sorted sources, contiguous blocks, sizes as even as possible (the
+    remainder up front). The one partition shared by the installing server
+    and the reducing backend. ``[]`` when ``srcs`` is empty or
+    ``shards < 1`` (reduce off)."""
+    order = sorted(srcs)
+    if not order or int(shards) < 1:
+        return []
+    n = min(int(shards), len(order))
+    q, r = divmod(len(order), n)
+    blocks: List[List[str]] = []
+    i = 0
+    for b in range(n):
+        size = q + (1 if b < r else 0)
+        blocks.append(order[i:i + size])
+        i += size
+    return blocks
+
+
 class ChannelEnd:
     """One worker's handle on a channel — implements Table 2.
 
@@ -289,6 +326,15 @@ class ChannelEnd:
     def broadcast(self, msg: Any) -> None:
         self.send_many(self.ends(), msg)
 
+    def install_reduce(self, srcs: Sequence[str], shards: int = 1) -> None:
+        """Install (or, with empty ``srcs`` or ``shards < 1``, remove) a
+        backend-side reduce spec for this end's incast: while installed,
+        this end receives one partial frame per shard (from
+        ``wire.reduce_src(i)``) instead of one frame per source. The
+        ``bytes:``/``msgs:`` accounting of the uploads is unchanged; the
+        folded frames count in ``hub_reduced:`` and ``hub_partials:``."""
+        self._backend.install_reduce(self.channel, self.group, self.me, list(srcs), int(shards))
+
     def recv_ordered(self, ends: Sequence[str], timeout: Optional[float] = 30.0):
         """Receive one message from each of ``ends``, yielding
         ``(end, payload)`` in sorted-``ends`` order — the fold order that
@@ -325,6 +371,24 @@ class ChannelEnd:
         return self._backend.drop_time(worker if worker is not None else self.me)
 
 
+class _ReduceState:
+    """Backend-side partial-aggregation state of one reduced incast topic.
+
+    ``blocks`` is the shard partition from :func:`reduce_blocks`. Arriving
+    updates wait in ``pending`` until they can be folded in sorted-source
+    order (a cursor per block), so a partial's bytes do not depend on the
+    arrival order. When a block's cursor completes, one partial frame is
+    delivered and the block resets for the next round."""
+
+    def __init__(self, blocks: List[List[str]]) -> None:
+        self.blocks = blocks
+        self.block_of: Dict[str, int] = {s: i for i, b in enumerate(blocks) for s in b}
+        self.pending: List[Dict[str, Tuple[Any, float]]] = [{} for _ in blocks]
+        self.cursor: List[int] = [0] * len(blocks)
+        self.acc: List[Any] = [None] * len(blocks)
+        self.hwm: List[float] = [0.0] * len(blocks)  # latest folded arrival
+
+
 class InprocBackend:
     """Thread-safe in-process message transport with an emulated clock.
 
@@ -332,11 +396,27 @@ class InprocBackend:
     advances by each message's modeled transfer duration; ``recv`` blocks
     the receiving thread until real delivery, while each message's
     ``arrival`` records the *emulated* completion time.
+
+    ``wall_clock=True`` maps real elapsed time onto the same clock API: a
+    worker's clock never falls behind the wall-clock seconds since the
+    backend was made (the process launcher's hub runs a plain sync job so).
+
+    ``set_device`` names the device the reduce plane folds on: a reduced
+    topic's frames are decoded there (an ``int8_blocks`` frame through the
+    dequantize kernel on the card) and folded by the streaming fold kernel.
+    Without a device, it folds on the card, and raises where there is none.
     """
 
-    def __init__(self, name: str = "inproc", shared_broker: bool = False):
+    def __init__(
+        self, name: str = "inproc", shared_broker: bool = False, wall_clock: bool = False
+    ):
         self.name = name
         self.shared_broker = shared_broker
+        self.wall_clock = wall_clock
+        self._t0 = time.monotonic()
+        self._device: Optional[torch.device] = None
+        # reduce plane: (channel, group, dst) -> backend-side fold state
+        self._reduce: Dict[Tuple[str, str, str], _ReduceState] = {}
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)  # signaled on every delivery
         self._members: Dict[Tuple[str, str], List[str]] = collections.defaultdict(list)
@@ -382,6 +462,14 @@ class InprocBackend:
     def link(self, channel: str, worker: str) -> LinkModel:
         return self._links.get((channel, worker), LinkModel())
 
+    def set_device(self, device: Any) -> None:
+        """The device the reduce plane decodes and folds on."""
+        self._device = torch.device(device)
+
+    def _wall(self) -> float:
+        return time.monotonic() - self._t0
+
+    # --------------------------- reduce plane -------------------------- #
     def install_reduce(
         self,
         channel: str,
@@ -391,7 +479,67 @@ class InprocBackend:
         shards: int = 1,
         fused: Optional[bool] = None,
     ) -> None:
-        raise NotImplementedError(_NOT_PORTED_REDUCE)
+        """Install or replace (or, with empty ``srcs`` or ``shards < 1``,
+        remove) the reduce spec of one incast topic. An absolute-state write
+        like ``set_link``: installing resets the topic's fold for a fresh
+        round. The installing server issues it before the broadcast that
+        triggers the round's uploads, so no update races the spec.
+        ``fused`` is accepted for the JAX package's signature and ignored."""
+        key = (channel, group, dst)
+        blocks = reduce_blocks(srcs, shards)
+        with self._lock:
+            if not blocks:
+                self._reduce.pop(key, None)
+            else:
+                self._reduce[key] = _ReduceState(blocks)
+
+    def _reduce_ingest(
+        self, channel: str, group: str, dst: str, state: _ReduceState,
+        src: str, payload: Any, arrival: float,
+    ) -> bool:
+        """Fold one arriving update frame backend-side. Caller holds the lock
+        (the JAX package's semantics: every other operation waits while a
+        frame decodes and folds).
+
+        Returns True when the frame was absorbed; False lets the caller
+        deliver it normally: a frame that is not a weight-sync update (no
+        ``weights`` after the codec's decode) is never swallowed."""
+        from repro_torch.core.roles import StreamingMean
+        from repro_torch.transport.wire import (
+            decode_payload, pack_hub_partial, reduce_src, to_device)
+
+        # no device set: the card (a CPU-only host raises, never falls back)
+        device = self._device if self._device is not None else torch.device("cuda")
+        decoded = decode_payload(payload, device)
+        if not isinstance(decoded, dict) or "weights" not in decoded:
+            return False
+        decoded = to_device(decoded, device)
+        i = state.block_of[src]
+        state.pending[i][src] = (decoded, arrival)
+        self.stats[f"hub_reduced:{channel}"] += 1
+        block = state.blocks[i]
+        cur = state.cursor[i]
+        while cur < len(block) and block[cur] in state.pending[i]:
+            upd, arr = state.pending[i].pop(block[cur])
+            if state.acc[i] is None:
+                state.acc[i] = StreamingMean(device=device)
+            state.acc[i].fold(upd["weights"], float(upd.get("num_samples", 1)))
+            state.hwm[i] = max(state.hwm[i], arr)
+            cur += 1
+        state.cursor[i] = cur
+        if cur == len(block):
+            acc_tree, total = state.acc[i].partial()
+            part = pack_hub_partial(i, block, acc_tree, total, state.acc[i].count)
+            wire = self._wire_dtype.get(channel, "f32")
+            self._box(channel, group, dst, reduce_src(i)).put(
+                Message(reduce_src(i), part, payload_bytes(acc_tree, wire), state.hwm[i])
+            )
+            self.stats[f"hub_partials:{channel}"] += 1
+            # reset the block for the next round (the spec stays installed)
+            state.acc[i] = None
+            state.cursor[i] = 0
+            state.hwm[i] = 0.0
+        return True
 
     # --------------------------- dropout ------------------------------ #
     def set_drop(self, worker: str, at: float) -> None:
@@ -453,6 +601,11 @@ class InprocBackend:
         with self._lock:
             return [m for m in self._members[(channel, group)] if m != me]
 
+    def memberships(self, worker: str) -> List[Tuple[str, str]]:
+        """The (channel, group) pairs ``worker`` is a member of."""
+        with self._lock:
+            return [key for key, members in self._members.items() if worker in members]
+
     # ---------------------------- transport ---------------------------- #
     def _box(self, channel: str, group: str, dst: str, src: str) -> "queue.Queue[Message]":
         key = (channel, group, dst, src)
@@ -469,6 +622,8 @@ class InprocBackend:
         Caller holds the lock."""
         topic = (channel, group, dst)
         start = self._clock[src]
+        if self.wall_clock:
+            start = max(start, self._wall())
         if self.shared_broker:
             # broker serializes transfers on the destination's topic only
             start = max(start, self._broker_free_at[topic])
@@ -490,7 +645,13 @@ class InprocBackend:
         self.stats[f"msgs:{channel}"] += 1
         if raw_bytes is not None:
             self.stats[f"raw_bytes:{channel}"] += raw_bytes
-        self._box(channel, group, dst, src).put(Message(src, payload, nbytes, arrival))
+        state = self._reduce.get(topic)
+        if not (
+            state is not None
+            and src in state.block_of
+            and self._reduce_ingest(channel, group, dst, state, src, payload, arrival)
+        ):
+            self._box(channel, group, dst, src).put(Message(src, payload, nbytes, arrival))
 
     def send(self, channel: str, group: str, src: str, dst: str, payload: Any) -> None:
         self.send_many(channel, group, src, [dst], payload)
@@ -641,6 +802,14 @@ class InprocBackend:
     # ---------------------------- clocks ------------------------------ #
     def now(self, worker: str) -> float:
         with self._lock:
+            if self.wall_clock:
+                t = self._wall()
+                # a dropped worker's clock stays frozen at its dropout time:
+                # wall time must not resurrect it
+                drop_at = self._drop_at.get(worker)
+                if drop_at is not None:
+                    t = min(t, drop_at)
+                self._clock[worker] = max(self._clock[worker], t)
             return self._clock[worker]
 
     def advance(self, worker: str, seconds: float) -> None:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import tree_from_numpy
+from repro_torch.core import channels as channels_mod
 from repro_torch.core.composer import Composer, ComposerError, Tasklet
 from repro_torch.core.roles import Role, StreamingMean, _fold_allreduce, await_peer
 
@@ -68,6 +69,12 @@ class RoundProtocol:
     """
 
     name: str = ""
+
+    # the hub-side reduce plane is sound only where the upload channel
+    # carries independent, weighted-mean-foldable update frames; protocols
+    # whose servers need the individual frames keep False and stay on the
+    # per-frame path
+    upload_reducible: bool = False
 
     pack_broadcast = staticmethod(pack_broadcast)
     pack_update = staticmethod(pack_update)
@@ -133,16 +140,33 @@ class WeightSync(RoundProtocol):
             pack_update(role.weights, role.num_samples, role._server_version),
         )
 
+    upload_reducible = True
+
     # ---------------------- aggregator-side steps --------------------- #
+    def _reduce_plan(self) -> int:
+        """The job's hub-reduce shard count: 0 = reduce off (the default)."""
+        if not (self.upload_reducible and channels_mod.hub_reduce_enabled()):
+            return 0
+        try:
+            return max(0, int(self.role.config.get("reduce_plan", 0) or 0))
+        except (TypeError, ValueError):
+            return 0
+
     def distribute(self) -> None:
         role = self.role
-        if not role._work_done and int(role.config.get("reduce_plan", 0) or 0) > 0:
-            raise NotImplementedError(
-                "reduce_plan: the hub reduce plane (install_reduce) is not "
-                "ported yet (ROADMAP Queue 1 item 6)"
-            )
         end = self._end()
-        end.send_many(end.ends(), pack_broadcast(role.weights, role._work_done))
+        dsts = end.ends()
+        # install (or clear) the round's reduce spec before the broadcast
+        # that triggers the uploads: install is a synchronous op, so no
+        # update frame can race the spec
+        plan = self._reduce_plan() if not role._work_done else 0
+        blocks = channels_mod.reduce_blocks(dsts, plan) if plan else []
+        if blocks:
+            end.install_reduce(dsts, plan)
+        elif getattr(self, "_reduce_blocks", None):
+            end.install_reduce([], 0)  # plan gone or final round: uninstall
+        self._reduce_blocks = blocks
+        end.send_many(dsts, pack_broadcast(role.weights, role._work_done))
 
     def aggregate(self) -> None:
         role = self.role
@@ -150,14 +174,27 @@ class WeightSync(RoundProtocol):
             return  # peers were just told to exit; nothing will arrive
         end = self._end()
         acc = StreamingMean(device=role.ctx.device)
-        # stream per source in sorted-src order: one update is in flight at
-        # a time and the accumulation order is independent of arrival order
-        for _, msg in end.recv_ordered(end.ends()):
-            acc.fold(msg["weights"], float(msg.get("num_samples", 1)))
+        blocks = getattr(self, "_reduce_blocks", None)
+        if blocks:
+            # hub-reduced incast: the backend folded each shard's updates in
+            # sorted-source order; fold the shard partials in sorted-shard
+            # order. One shard gives the per-frame fold's bytes.
+            from repro_torch.transport.wire import reduce_src
+
+            for i, block in enumerate(blocks):
+                msg = end.recv(reduce_src(i))
+                acc.fold_partial(
+                    msg["acc"], msg["num_samples"], count=int(msg.get("count", len(block)))
+                )
+        else:
+            # stream per source in sorted-src order: one update is in flight
+            # at a time and the accumulation order is independent of arrival
+            for _, msg in end.recv_ordered(end.ends()):
+                acc.fold(msg["weights"], float(msg.get("num_samples", 1)))
         role.peak_buffered = max(role.peak_buffered, acc.peak_buffered)
         role.metrics.append({
             "agg_folds": acc.count,
-            "agg_frames": acc.count,
+            "agg_frames": len(blocks) if blocks else acc.count,
             "peak_buffered": role.peak_buffered,
         })
         mean, total = acc.finalize()

@@ -600,6 +600,13 @@ class HybridTrainer(Trainer):
     aggregator sent it the round weights but before its in-cluster
     re-broadcast loses that broadcast; under a sync aggregator the cluster
     then only recovers at the next round's distribute.
+
+    A dropping leader hands its uplink membership to its successor before
+    it leaves (``on_dropped``). Without the handover the successor joins
+    the uplink only once it notices the drop, and a deadline root that gave
+    up on the dead leader meanwhile could send its last broadcast before
+    that join: the successor then waits out its receive (the JAX package's
+    ``queue.Empty``, ROADMAP Queue 3).
     """
 
     ring_channel = "ring-channel"
@@ -632,6 +639,18 @@ class HybridTrainer(Trainer):
         rank, _ = self._cluster_rank()
         if rank == 0:
             self.ctx.end(self.param_channel)
+
+    def on_dropped(self, at: float) -> None:
+        """Leave every channel, joining the next live cluster member to the
+        uplink first when this worker is the cluster's uplink member, so
+        the aggregator's member list never lacks the cluster's leader."""
+        if self.param_channel in self.ctx._ends:
+            me = self.ctx.worker.worker_id
+            successors = [m for m in self._live_members() if m != me]
+            if successors:
+                group = self.ctx.worker.group_of(self.param_channel)
+                self.ctx.channels.end(self.param_channel, group, successors[0])
+        super().on_dropped(at)
 
     def cluster_allreduce(self) -> None:
         if self._work_done:

@@ -122,11 +122,10 @@ class RuntimePolicy:
     # concluding that no further update is coming (dropped/hung workers)
     grace: float = 5.0
     # seeded transport-layer chaos schedule (see ``FaultPlan``); its
-    # server_restarts entries are folded into dropouts/rejoins below, while
-    # conn_resets/hub_crashes are armed on the hub by the process launcher
-    # (the threaded deployment has no transport to fault — the plan is
-    # silently inert there, preserving cross-deployment equivalence of the
-    # fault-free observables)
+    # server_restarts entries are folded into dropouts/rejoins below. The
+    # threaded deployment has no transport to fault, so conn_resets and
+    # hub_crashes are inert there; the process launcher refuses them
+    # (``check_faults_launchable``) until the fault plane is ported
     faults: Optional[FaultPlan] = None
 
     MODES = ("sync", "deadline", "async")
@@ -212,6 +211,21 @@ class RuntimePolicy:
         )
 
 
+def check_faults_launchable(policy: RuntimePolicy) -> None:
+    """Refuse a policy whose ``FaultPlan`` needs the transport's fault plane
+    (``conn_resets``, ``hub_crashes``) on a process deployment: that plane
+    is not ported yet (ROADMAP Queue 1 item 6), and a fault dropped in
+    silence would pass for a fault survived. ``server_restarts`` run, as a
+    dropout and re-join."""
+    faults = policy.faults
+    if faults is not None and (faults.conn_resets or faults.hub_crashes):
+        raise NotImplementedError(
+            "FaultPlan conn_resets / hub_crashes need the transport's fault "
+            "plane, which is not ported yet (ROADMAP Queue 1 item 6, the "
+            "fault plane)"
+        )
+
+
 def validate_policy_tiers(policy: RuntimePolicy, tag: TAG) -> None:
     """Reject a ``tiers`` entry naming a role the TAG does not have — a
     typo'd role name would silently lower nothing while still flipping the
@@ -293,9 +307,11 @@ class JobResult:
 
     def global_weights(self) -> Any:
         """The root aggregator's weights: a tree of tensors on the job's
-        device (``repro_torch.convert.tree_to_numpy`` carries it to numpy)."""
+        device (``repro_torch.convert.tree_to_numpy`` carries it to numpy).
+        A process job's ``RemoteProgram`` carries the root verdict as its
+        ``is_root`` flag."""
         for prog in self.programs.values():
-            if isinstance(prog, GlobalAggregatorBase):
+            if isinstance(prog, GlobalAggregatorBase) or getattr(prog, "is_root", False):
                 return prog.weights
         # custom root programs that don't subclass GlobalAggregator still
         # resolve by the conventional role name

@@ -9,8 +9,8 @@ and a shared hub. Each check takes a zero-argument ``factory`` producing a
 are tensor trees, as the port's roles send them; received tensors are
 compared on the host.
 
-Not ported with the checks: those of the hub reduce plane and of the
-session fault hooks (ROADMAP Queue 1 item 6).
+Not ported with the checks: those of the session fault hooks (ROADMAP
+Queue 1 item 6, the fault plane).
 
 ``check_codec_roundtrip`` holds one codec to the JAX package's fixture set.
 ``SeededSGDTrainer`` is the reference workload for cross-deployment
@@ -34,7 +34,7 @@ from repro_torch.core.channels import (
     WorkerDropped,
     recv_any_multi,
 )
-from repro_torch.core.roles import Trainer
+from repro_torch.core.roles import StreamingMean, Trainer
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.datasets import synthetic_classification
 
@@ -478,6 +478,146 @@ def check_send_many_stateful_fallback(factory: Factory) -> None:
     assert stats_many == stats_loop, (stats_many, stats_loop)
 
 
+def check_install_reduce_fold(factory: Factory) -> None:
+    """The reduce plane folds an incast backend-side with the loop's
+    semantics: one partial per shard, its accumulator byte-equal to a
+    sorted-source ``StreamingMean`` fold of the same frames, its arrival the
+    latest folded arrival, while the uploads' ``bytes:``/``msgs:``
+    accounting and sender clocks equal the unreduced incast's. Installing
+    is an absolute-state write, a non-update frame is delivered as is, and
+    an empty install uninstalls. Each run has its own channel and workers,
+    so the check stays exact on shared-hub factories."""
+    from repro_torch.transport.wire import is_hub_partial, reduce_src
+
+    def _update(seed: int) -> dict:
+        rng = np.random.default_rng(seed)
+        return {"weights": {"w": _t(rng.normal(size=(33,)).astype(np.float32))},
+                "num_samples": 1 + seed % 3}
+
+    def _run(reduced: bool) -> tuple:
+        tag = "on" if reduced else "off"
+        ch = f"conf-rd-{tag}"
+        dst = f"rdb-{tag}"
+        srcs = sorted(f"rda{i}-{tag}" for i in range(3))
+        be = factory()
+        for s in srcs:
+            be.set_link(ch, s, LinkModel(bandwidth=50.0, latency=2.0))
+        for w in (dst, *srcs):
+            be.join(ch, G, w)
+        if reduced:
+            be.install_reduce(ch, G, dst, srcs, 1, None)
+        # reverse sorted order: the fold must hold out-of-order arrivals
+        # and still consume them in sorted-source order
+        for n, s in enumerate(reversed(srcs)):
+            be.send(ch, G, s, dst, _update(seed=len(srcs) - 1 - n))
+            if reduced and n < len(srcs) - 1:
+                assert be.earliest(ch, G, dst, [reduce_src(0)]) is None
+        clocks = [be.now(s) for s in srcs]
+        if reduced:
+            got = be.earliest(ch, G, dst, [reduce_src(0)])
+            assert got is not None
+            arrivals = [float(got[0])]
+            frames = [(reduce_src(0), be.recv(ch, G, dst, reduce_src(0), timeout=5.0))]
+        else:
+            arrivals, frames = [], []
+            for s in srcs:
+                got = be.earliest(ch, G, dst, [s])
+                assert got is not None, s
+                arrivals.append(float(got[0]))
+                frames.append((s, be.recv(ch, G, dst, s, timeout=5.0)))
+        return be, ch, dst, srcs, clocks, arrivals, frames, _wire_stats(dict(be.stats), ch)
+
+    be, ch, dst, srcs, clocks_on, arr_on, frames_on, stats_on = _run(reduced=True)
+    _, _, _, _, clocks_off, arr_off, _, stats_off = _run(reduced=False)
+    assert clocks_on == clocks_off, (clocks_on, clocks_off)
+    assert stats_on == stats_off, (stats_on, stats_off)
+    assert arr_on == [max(arr_off)], (arr_on, arr_off)
+
+    (psrc, part), = frames_on
+    assert is_hub_partial(part) and part["shard"] == 0 and psrc == reduce_src(0)
+    assert part["srcs"] == srcs and part["count"] == len(srcs)
+    ref = StreamingMean()
+    for i, _ in enumerate(srcs):
+        upd = _update(seed=i)
+        ref.fold(upd["weights"], float(upd["num_samples"]))
+    ref_acc, ref_total = ref.partial()
+    assert float(part["num_samples"]) == ref_total
+    assert _np(part["acc"]["w"]).tobytes() == _np(ref_acc["w"]).tobytes()
+
+    stats = dict(be.stats)
+    assert stats.get(f"hub_reduced:{ch}") == len(srcs), stats
+    assert stats.get(f"hub_partials:{ch}") == 1, stats
+
+    # reinstall is absolute-state: a half-folded round is discarded
+    be.install_reduce(ch, G, dst, srcs, 1, None)
+    be.send(ch, G, srcs[0], dst, _update(seed=0))
+    be.install_reduce(ch, G, dst, srcs, 1, None)
+    for i, s in enumerate(srcs):
+        be.send(ch, G, s, dst, _update(seed=i))
+    part2 = be.recv(ch, G, dst, reduce_src(0), timeout=5.0)
+    assert part2["count"] == len(srcs)
+    assert _np(part2["acc"]["w"]).tobytes() == _np(ref_acc["w"]).tobytes()
+
+    # a non-update frame on the reduced topic is not swallowed
+    be.install_reduce(ch, G, dst, srcs, 1, None)
+    be.send(ch, G, srcs[0], dst, {"hello": 1})
+    assert be.recv(ch, G, dst, srcs[0], timeout=5.0) == {"hello": 1}
+
+    # an empty install uninstalls: the next update is delivered per frame
+    be.install_reduce(ch, G, dst, [], 0, None)
+    be.send(ch, G, srcs[1], dst, _update(seed=1))
+    back = be.recv(ch, G, dst, srcs[1], timeout=5.0)
+    assert not is_hub_partial(back) and "weights" in back
+
+
+def check_install_reduce_sharded(factory: Factory) -> None:
+    """A multi-shard plan partitions the incast by ``reduce_blocks`` (one
+    partial per contiguous sorted block, each folded in sorted-source
+    order), two identical runs give byte-equal partials, and their
+    shard-ordered combination matches the unreduced mean within 1e-6."""
+    from repro_torch.core.channels import reduce_blocks
+    from repro_torch.transport.wire import reduce_src
+
+    def _update(seed: int) -> dict:
+        rng = np.random.default_rng(100 + seed)
+        return {"weights": {"w": _t(rng.normal(size=(17,)).astype(np.float32))},
+                "num_samples": 2}
+
+    def _run(tag: str) -> list:
+        ch = f"conf-rs-{tag}"
+        dst = f"rsb-{tag}"
+        srcs = sorted(f"rsa{i}-{tag}" for i in range(5))
+        be = factory()
+        for w in (dst, *srcs):
+            be.join(ch, G, w)
+        be.install_reduce(ch, G, dst, srcs, 2, None)
+        for i, s in enumerate(srcs):
+            be.send(ch, G, s, dst, _update(seed=i))
+        blocks = reduce_blocks(srcs, 2)
+        parts = [be.recv(ch, G, dst, reduce_src(i), timeout=5.0) for i in range(len(blocks))]
+        for i, part in enumerate(parts):
+            assert part["srcs"] == blocks[i], (part["srcs"], blocks[i])
+            assert part["count"] == len(blocks[i])
+        return parts
+
+    parts_a = _run("r1")
+    parts_b = _run("r2")
+    for pa, pb in zip(parts_a, parts_b):
+        assert _np(pa["acc"]["w"]).tobytes() == _np(pb["acc"]["w"]).tobytes()
+
+    server = StreamingMean()
+    for part in parts_a:
+        server.fold_partial(part["acc"], part["num_samples"], count=part["count"])
+    ref = StreamingMean()
+    for i in range(5):
+        upd = _update(seed=i)
+        ref.fold(upd["weights"], float(upd["num_samples"]))
+    mean_sharded, total_sharded = server.finalize()
+    mean_flat, total_flat = ref.finalize()
+    assert total_sharded == total_flat
+    np.testing.assert_allclose(_np(mean_sharded["w"]), _np(mean_flat["w"]), rtol=1e-6)
+
+
 # ------------------------------------------------------------------ #
 # wire-codec conformance: every registered codec must round-trip these
 # ------------------------------------------------------------------ #
@@ -648,6 +788,8 @@ CONFORMANCE_CHECKS: Dict[str, Callable[[Factory], None]] = {
     "send_many_fifo_interleave": check_send_many_fifo_interleave,
     "send_many_accounting": check_send_many_accounting,
     "send_many_stateful_fallback": check_send_many_stateful_fallback,
+    "install_reduce_fold": check_install_reduce_fold,
+    "install_reduce_sharded": check_install_reduce_sharded,
 }
 
 

@@ -8,21 +8,27 @@ turns each operation into an RPC to the hub over a local TCP socket, with
 payloads in the deterministic ``repro_torch.transport.wire`` format (no
 pickle on the wire). Centralizing the shared-state semantics in one backend
 means the conformance guarantees of ``InprocBackend`` carry over, as in the
-paper's MQTT-broker deployment (§6.2). The hub runs on virtual clocks.
+paper's MQTT-broker deployment (§6.2). The hub runs on virtual clocks
+unless made with ``wall_clock=True`` (the process launcher's sync jobs).
 
-Devices: the hub keeps the coded frames it receives on the host, as numpy
-trees. Only client ends move leaves to a device: a receive decodes the
-payload onto the client's device (``set_device``; the job's device through
+Devices: the hub keeps the frames it receives on the host, as numpy trees,
+and only client ends move them to a device: a receive decodes the payload
+onto the client's device (``set_device``; the job's device through
 ``ChannelManager``), where the ``int8_blocks`` codec dequantizes with the
 CUDA kernel. Without a device set, a client places received tensors on the
-card and raises where there is none.
+card and raises where there is none. The one exception is a reduced topic
+(``install_reduce``): the hub decodes its update frames onto the hub's
+``device`` and folds them there with the streaming fold kernel; the partial
+it delivers goes back to the host only when it is sent.
+
+A ``ShardedTransportHub`` is one hub per groupBy label plus a root, and a
+``ShardRouter`` the client that routes each op to the hub owning its group.
 
 Each client thread keeps one persistent connection (the hub serves each
 connection on its own thread), so a receive blocked in the hub never stalls
 other operations. Exactly-once sessions (sequence numbers, the hub's replay
-window, reconnect-resume-retransmit) are ported; the sharded hub fabric,
-the fault-injection hooks and process launch are not yet (ROADMAP Queue 1
-item 6) and raise ``NotImplementedError``.
+window, reconnect-resume-retransmit) are ported; the fault-injection hooks
+are not yet (ROADMAP Queue 1 item 6) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -66,10 +72,11 @@ __all__ = [
     "ShardedTransportHub",
     "TransportHub",
     "hub_backend_factory",
+    "make_backend_factory",
     "sharded_backend_factory",
 ]
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 6)"
+_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 6, the fault plane)"
 
 # Process-unique suffix for client session ids: a session is one (client
 # process, thread) stream of RPCs, so the id only has to be unique within
@@ -148,7 +155,9 @@ class TransportHub:
     keys carry the channel name), like a broker hosting one topic tree. The
     owner reaches the inner backend directly via ``.backend`` for
     configuration (link models, dropout schedules) and byte-accounting
-    reads. Bind port 0 (the default) to take any free port.
+    reads. Bind port 0 (the default) to take any free port. ``device`` is
+    where the reduce plane decodes and folds (the job's device);
+    ``wall_clock`` maps real elapsed time onto the inner backend's clocks.
     """
 
     # hard cap on cached replies per session: normally the client's floor
@@ -163,8 +172,12 @@ class TransportHub:
         port: int = 0,
         backend: Optional[InprocBackend] = None,
         backlog: int = 1024,
+        device: Any = None,
+        wall_clock: bool = False,
     ) -> None:
-        self.backend = backend or InprocBackend("multiproc-hub")
+        self.backend = backend or InprocBackend("multiproc-hub", wall_clock=wall_clock)
+        if device is not None:
+            self.backend.set_device(device)
         self._backlog = max(1, int(backlog))
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -194,6 +207,19 @@ class TransportHub:
     def address(self) -> Tuple[str, int]:
         host, port = self._sock.getsockname()[:2]
         return str(host), int(port)
+
+    # The driver-side fabric surface, mirrored by ``ShardedTransportHub`` so
+    # the launcher drives a single hub or a sharded fabric through one API:
+    # ``worker_address`` is what worker processes connect with (an address
+    # here, an address map for the fabric) and ``engine_transport`` what the
+    # EventEngine drives drop/poison/clock directives through.
+    @property
+    def worker_address(self) -> Tuple[str, int]:
+        return self.address
+
+    @property
+    def engine_transport(self) -> InprocBackend:
+        return self.backend
 
     @property
     def stats(self) -> Dict[str, float]:
@@ -966,7 +992,11 @@ class MultiprocBackend:
         shards: int = 1,
         fused: Optional[bool] = None,
     ) -> None:
-        raise NotImplementedError(f"the hub reduce plane {_NOT_PORTED}")
+        """Install or remove the hub-side reduce spec of ``dst``'s incast.
+        A synchronous RPC (it drains pipelined acks first), so every upload
+        sent after it returns is folded hub-side; exactly-once on retry like
+        every other op."""
+        self._call("install_reduce", channel, group, dst, list(srcs), int(shards), fused)
 
     # ----------------------------- clocks ------------------------------ #
     def now(self, worker: str) -> float:
@@ -997,24 +1027,339 @@ def hub_backend_factory(
 
 
 class ShardedTransportHub:
-    """The subtree-sharded broker fabric (one hub per groupBy label plus a
-    root) — not ported yet."""
+    """Subtree-sharded broker fabric: one hub per groupBy label plus a root.
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(f"ShardedTransportHub {_NOT_PORTED}")
+    The paper's deployer provisions one broker per channel group (§6.2).
+    Each shard key (a groupBy label of the TAG) gets its own
+    ``TransportHub``; the root hub carries everything no shard owns (the
+    implicit ``default`` group, so all cross-shard traffic). The routing key
+    is the ``group`` argument every channel-scoped op already carries, so
+    roles are untouched, and each (channel, group) topic lives on exactly
+    one hub.
+
+    Driver-side it exposes a single hub's fabric surface
+    (``worker_address``, ``engine_transport``, ``stats``, the config
+    setters) plus the ``EventEngine`` transport ops, which fan
+    worker-scoped directives out to every hub: a worker has one fabric-wide
+    clock, drop and poison state. Every hub folds reduced topics on
+    ``device``.
+    """
+
+    def __init__(
+        self,
+        shards: Sequence[str],
+        host: str = "127.0.0.1",
+        wall_clock: bool = False,
+        backlog: int = 1024,
+        device: Any = None,
+    ) -> None:
+        self.root = TransportHub(
+            host=host, backlog=backlog, device=device,
+            backend=InprocBackend("multiproc-hub-root", wall_clock=wall_clock),
+        )
+        self.shards: Dict[str, TransportHub] = {}
+        try:
+            for key in sorted(set(shards)):
+                self.shards[key] = TransportHub(
+                    host=host, backlog=backlog, device=device,
+                    backend=InprocBackend(f"multiproc-hub:{key}", wall_clock=wall_clock),
+                )
+        except BaseException:
+            self.close()
+            raise
+
+    def hubs(self) -> List[TransportHub]:
+        return [self.root, *self.shards.values()]
+
+    @property
+    def addresses(self) -> Dict[str, Tuple[str, int]]:
+        """Shard key -> hub address, the root under key ``""``: what worker
+        processes receive instead of one address (``ShardRouter``)."""
+        out: Dict[str, Tuple[str, int]] = {"": self.root.address}
+        for key, hub in self.shards.items():
+            out[key] = hub.address
+        return out
+
+    @property
+    def worker_address(self) -> Dict[str, Tuple[str, int]]:
+        return self.addresses
+
+    @property
+    def engine_transport(self) -> "ShardedTransportHub":
+        return self
+
+    def _backend_for(self, group: str) -> InprocBackend:
+        return self.shards.get(group, self.root).backend
+
+    # ------------- EventEngine transport ops (driver-side) -------------- #
+    def set_drop(self, worker: str, at: float) -> None:
+        for hub in self.hubs():
+            hub.backend.set_drop(worker, at)
+
+    def clear_drop(self, worker: str) -> None:
+        for hub in self.hubs():
+            hub.backend.clear_drop(worker)
+
+    def poison(self, worker: str, at: float) -> None:
+        for hub in self.hubs():
+            hub.backend.poison(worker, at)
+
+    def set_clock(self, worker: str, at: float) -> None:
+        for hub in self.hubs():
+            hub.backend.set_clock(worker, at)
+
+    def now(self, worker: str) -> float:
+        return max(hub.backend.now(worker) for hub in self.hubs())
+
+    def peers(self, channel: str, group: str, me: str) -> List[str]:
+        return self._backend_for(group).peers(channel, group, me)
+
+    def join(self, channel: str, group: str, worker: str) -> None:
+        self._backend_for(group).join(channel, group, worker)
+
+    def memberships(self, worker: str) -> List[Tuple[str, str]]:
+        return [key for hub in self.hubs() for key in hub.backend.memberships(worker)]
+
+    # ------------------- driver configuration / stats ------------------- #
+    def set_wire_dtype(self, channel: str, dtype: str) -> None:
+        # a channel's groups may live on different shards
+        for hub in self.hubs():
+            hub.backend.set_wire_dtype(channel, dtype)
+
+    def set_link(self, channel: str, worker: str, model: LinkModel) -> None:
+        for hub in self.hubs():
+            hub.backend.set_link(channel, worker, model)
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        """Fabric-wide accounting: each topic lives on one hub, so the sums
+        per key equal a single hub's totals."""
+        out: Dict[str, float] = {}
+        for hub in self.hubs():
+            for k, v in hub.stats.items():
+                out[k] = out.get(k, 0.0) + float(v)
+        return out
+
+    def arm_faults(self, plan: Any) -> None:
+        raise NotImplementedError(f"the sharded fabric's fault plane {_NOT_PORTED}")
+
+    def simulate_crash(self, shard: str = "") -> None:
+        raise NotImplementedError(f"the sharded fabric's fault plane {_NOT_PORTED}")
+
+    def close(self) -> None:
+        for hub in self.hubs():
+            try:
+                hub.close()
+            except OSError:  # pragma: no cover - teardown best-effort
+                pass
+
+    def __enter__(self) -> "ShardedTransportHub":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()
 
 
 class ShardRouter:
-    """The client of a sharded hub fabric — not ported yet."""
+    """``TransportBackend`` client over a sharded hub fabric: one
+    ``MultiprocBackend`` per hub, each op routed by its scope.
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(f"ShardRouter {_NOT_PORTED}")
+    * channel-scoped ops (membership, the send/recv family, peek, earliest,
+      install_reduce) go to the hub owning the op's group, else the root;
+    * worker-scoped writes (set_drop, clear_drop, poison, set_clock) fan out
+      to every hub; ``now`` reads the max across hubs; ``advance`` levels
+      every hub at that max, then steps them all, so each hub's dropout
+      check runs against the schedule a single hub would apply;
+      ``drop_time`` and ``check_poison`` are answered by the root;
+    * channel config (set_link, set_wire_dtype, set_codec, set_device) fans
+      out to every hub client.
+    """
+
+    def __init__(
+        self,
+        addresses: Dict[str, Tuple[str, int]],
+        name: str = "multiproc",
+        client_key: str = "",
+        device: Any = None,
+    ) -> None:
+        self.name = name
+        addrs = {str(k): (str(v[0]), int(v[1])) for k, v in addresses.items()}
+        if "" not in addrs:
+            raise ValueError('sharded address map needs a root hub under key ""')
+        self._root = MultiprocBackend(
+            addrs.pop(""), name=name, client_key=client_key, device=device)
+        self._shards = {
+            key: MultiprocBackend(addr, name=name, client_key=client_key, device=device)
+            for key, addr in sorted(addrs.items())
+        }
+        self._all: List[MultiprocBackend] = [self._root, *self._shards.values()]
+
+    def _be(self, group: str) -> MultiprocBackend:
+        return self._shards.get(group, self._root)
+
+    # --------------------------- membership --------------------------- #
+    def join(self, channel: str, group: str, worker: str) -> None:
+        self._be(group).join(channel, group, worker)
+
+    def leave(self, channel: str, group: str, worker: str) -> None:
+        self._be(group).leave(channel, group, worker)
+
+    def peers(self, channel: str, group: str, me: str) -> List[str]:
+        return self._be(group).peers(channel, group, me)
+
+    # ---------------------------- messaging --------------------------- #
+    def send(self, channel: str, group: str, src: str, dst: str, payload: Any) -> None:
+        self._be(group).send(channel, group, src, dst, payload)
+
+    def send_many(
+        self, channel: str, group: str, src: str, dsts: Sequence[str], payload: Any
+    ) -> None:
+        # a (channel, group) topic lives on one shard: one encode per call
+        self._be(group).send_many(channel, group, src, dsts, payload)
+
+    def recv(
+        self, channel: str, group: str, me: str, end: str, timeout: Optional[float]
+    ) -> Any:
+        return self._be(group).recv(channel, group, me, end, timeout)
+
+    def recv_any(
+        self,
+        channel: str,
+        group: str,
+        me: str,
+        ends: Sequence[str],
+        timeout: Optional[float],
+        advance: bool = True,
+    ) -> Tuple[str, Any, float]:
+        return self._be(group).recv_any(channel, group, me, ends, timeout, advance)
+
+    def recv_fifo(
+        self,
+        channel: str,
+        group: str,
+        me: str,
+        ends: Sequence[str],
+        timeout: Optional[float],
+    ) -> Iterable[Tuple[str, Any]]:
+        return self._be(group).recv_fifo(channel, group, me, ends, timeout)
+
+    def peek(self, channel: str, group: str, me: str, end: str) -> Optional[Any]:
+        return self._be(group).peek(channel, group, me, end)
+
+    def earliest(
+        self, channel: str, group: str, me: str, ends: Sequence[str]
+    ) -> Optional[Tuple[float, str]]:
+        return self._be(group).earliest(channel, group, me, ends)
+
+    # ------------------- failure emulation / cancel -------------------- #
+    def set_drop(self, worker: str, at: float) -> None:
+        for be in self._all:
+            be.set_drop(worker, at)
+
+    def clear_drop(self, worker: str) -> None:
+        for be in self._all:
+            be.clear_drop(worker)
+
+    def drop_time(self, worker: str) -> Optional[float]:
+        return self._root.drop_time(worker)
+
+    def poison(self, worker: str, at: float) -> None:
+        for be in self._all:
+            be.poison(worker, at)
+
+    def check_poison(self, worker: str) -> None:
+        self._root.check_poison(worker)
+
+    # ------------------------- configuration -------------------------- #
+    def set_link(self, channel: str, worker: str, model: LinkModel) -> None:
+        for be in self._all:
+            be.set_link(channel, worker, model)
+
+    def set_wire_dtype(self, channel: str, dtype: str) -> None:
+        for be in self._all:
+            be.set_wire_dtype(channel, dtype)
+
+    def set_codec(self, channel: str, codec: str) -> None:
+        for be in self._all:
+            be.set_codec(channel, codec)
+
+    def set_device(self, device: Any) -> None:
+        for be in self._all:
+            be.set_device(device)
+
+    def link(self, channel: str, worker: str) -> LinkModel:
+        return self._root.link(channel, worker)
+
+    def install_reduce(
+        self,
+        channel: str,
+        group: str,
+        dst: str,
+        srcs: Sequence[str],
+        shards: int = 1,
+        fused: Optional[bool] = None,
+    ) -> None:
+        # channel-scoped: the topic, and so its reduce state, lives on one hub
+        self._be(group).install_reduce(channel, group, dst, srcs, shards, fused)
+
+    # ----------------------------- clocks ------------------------------ #
+    def now(self, worker: str) -> float:
+        return max(be.now(worker) for be in self._all)
+
+    def advance(self, worker: str, seconds: float) -> None:
+        t = self.now(worker)
+        for be in self._all:
+            be.set_clock(worker, t)
+        for be in self._all:
+            be.advance(worker, seconds)
+
+    def set_clock(self, worker: str, at: float) -> None:
+        for be in self._all:
+            be.set_clock(worker, at)
+
+    @property
+    def stats(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for be in self._all:
+            for k, v in be.stats.items():
+                out[k] = out.get(k, 0.0) + float(v)
+        return out
+
+    def _chaos_break_conn(self) -> None:
+        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+
+    def _chaos_duplicate(self, op: str, *args: Any) -> Tuple[Any, str, Any]:
+        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+
+    def _chaos_probe_evicted(self) -> Tuple[str, Any]:
+        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+
+    def close(self) -> None:
+        for be in self._all:
+            be.close()
 
 
 def sharded_backend_factory(
-    addresses: Dict[str, Tuple[str, int]], client_key: str = ""
+    addresses: Dict[str, Tuple[str, int]], client_key: str = "", device: Any = None
+) -> Callable[[Any], ShardRouter]:
+    """``hub_backend_factory``'s sharded twin: every channel spec shares one
+    ``ShardRouter``."""
+    client = ShardRouter(addresses, client_key=client_key, device=device)
+    return lambda spec: client
+
+
+def make_backend_factory(
+    address: Any, client_key: str = "", device: Any = None
 ) -> Callable[[Any], Any]:
-    raise NotImplementedError(f"sharded_backend_factory {_NOT_PORTED}")
+    """Worker-side dispatch: a ``(host, port)`` address gives a single-hub
+    client factory, a shard address map (``ShardedTransportHub.addresses``)
+    a routing one. ``client_key`` (the worker id) seeds the session ids and
+    the reconnect jitter."""
+    if isinstance(address, dict):
+        return sharded_backend_factory(address, client_key=client_key, device=device)
+    return hub_backend_factory(
+        (str(address[0]), int(address[1])), client_key=client_key, device=device
+    )
 
 
 class LoopbackMultiprocBackend(MultiprocBackend):
@@ -1028,8 +1373,14 @@ class LoopbackMultiprocBackend(MultiprocBackend):
     """
 
     def __init__(self, device: Any = None) -> None:
-        self._own_hub = TransportHub()
+        self._own_hub = TransportHub(device=device)
         super().__init__(self._own_hub.address, name="multiproc", device=device)
+
+    def set_device(self, device: Any) -> None:
+        """The job's device, for received payloads and for the private
+        hub's reduce fold."""
+        super().set_device(device)
+        self._own_hub.backend.set_device(device)
 
     def close(self) -> None:
         try:

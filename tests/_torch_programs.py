@@ -1,0 +1,68 @@
+"""Program classes of the port's process-plane tests.
+
+Spawned workers import a program class by its module's name, so these live
+in a module that imports the port alone: a worker that re-imported a test
+file would import JAX and the JAX package too, for nothing.
+"""
+import multiprocessing
+import os
+import time
+
+from repro_torch.core.roles import GlobalAggregator, Trainer
+
+# the trainer of the process-plane jobs: its update is elementwise and
+# exact, so every deployment gives the same bytes (CPU products do not:
+# MKL's thread count, which a loaded host may change, decides their bits)
+TRAINER = "_torch_programs.HalfTrainer"
+
+
+def half_update(weights, idx):
+    """Exact binary fractions: the same float32 bits in numpy and torch."""
+    return {k: v * 0.5 + 0.25 * (idx + 1) for k, v in weights.items()}
+
+
+class HalfTrainer(Trainer):
+    """A trainer whose update is bit-reproducible in both packages."""
+
+    def train(self):
+        if self.weights is not None:
+            idx = int(self.ctx.worker.dataset[1:])
+            self.weights = half_update(self.weights, idx)
+            self.num_samples = 10 + idx
+
+
+class FailingTrainer(Trainer):
+    def load_data(self):
+        raise RuntimeError("boom: load_data")
+
+
+class FailingAggregator(GlobalAggregator):
+    def initialize(self):
+        raise RuntimeError("boom: initialize")
+
+
+class SleepyTrainer(Trainer):
+    def train(self):
+        time.sleep(300.0)
+
+
+class BadPreRunTrainer(Trainer):
+    def pre_run(self):
+        raise RuntimeError("boom: pre_run")
+
+
+class HardCrashTrainer(Trainer):
+    def pre_run(self):
+        os._exit(3)  # dies before the barrier, reporting nothing
+
+
+class SlowRejoinTrainer(HalfTrainer):
+    """``HalfTrainer``, whose re-joined incarnation (its clock at the
+    re-join time or later) takes a second to start in a spawned worker
+    process (a loaded host's process hop), and none on a thread."""
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        in_worker = multiprocessing.current_process().name.startswith("flame-")
+        if in_worker and ctx.now("param-channel") >= 1.5:
+            time.sleep(1.0)

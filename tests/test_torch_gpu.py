@@ -556,3 +556,61 @@ def test_checkpoint_restores_onto_the_card(cuda_device, tmp_path):
     loaded = checkpoint.load_tree(str(tmp_path), 7, device=cuda_device)
     assert loaded["blocks"]["#0"].device == cuda_device
     assert _tree_bits(loaded["blocks"]["#0"]) == _tree_bits(tree["blocks"][0])
+
+
+def _coded_job(trainers, plan):
+    import dataclasses
+
+    rng = np.random.default_rng(5)
+    w0 = {"w": rng.normal(size=(96, 129)).astype(np.float32),
+          "b": rng.normal(size=(129,)).astype(np.float32)}
+    tag = classical_fl(trainer_program="_torch_programs.HalfTrainer")
+    tag = dataclasses.replace(tag, channels=tuple(
+        dataclasses.replace(c, backend="multiproc", codec="int8_blocks") for c in tag.channels))
+    return JobSpec(tag=tag, datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(trainers)),
+                   hyperparams={"rounds": 2, "init_weights": w0, "reduce_plan": plan})
+
+
+@pytest.mark.gpu
+def test_reduced_process_job_folds_in_the_hub_on_card(cuda_device):
+    """A two-process job (one trainer, the root) with ``reduce_plan`` 1 on an
+    ``int8_blocks`` channel: the hub, in this process, decodes each upload
+    with the dequantize kernel and folds it with the tree fold kernel, one
+    launch of each per update (2 rounds x 1 trainer), and the weights equal
+    the threaded loopback run's on the card."""
+    from repro_torch.launch.spawn import run_job_multiproc
+
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    res = run_job_multiproc(_coded_job(1, 1), device=cuda_device, timeout=300)
+    hub = (kernel.exact_fold_into_tree.launches, qkernel.dequantize_blocks.launches,
+           kernel.exact_fold_into.launches, qkernel.quantize_blocks.launches)
+    assert not res.errors, res.errors
+    assert hub == (2, 2, 0, 0)
+    root = res.program("global-aggregator-0")
+    assert root.peak_device_bytes > 0
+    # the root folds the one partial (a tree launch a round) and quantizes
+    # its 3 broadcasts; the trainer dequantizes them and quantizes 2 uploads
+    assert root.launches["exact_fold_into_tree"] == 2 and root.launches["quantize_blocks"] == 3
+    trainer = res.program("trainer-0")
+    assert trainer.launches["dequantize_blocks"] == 3 and trainer.launches["quantize_blocks"] == 2
+    assert res.channel_stats["param-channel"]["hub_partials"] == 2.0
+    threads = run_job(_coded_job(1, 1), device=cuda_device, timeout=120)
+    assert not threads.errors, threads.errors
+    a, b = tree_to_numpy(res.global_weights()), tree_to_numpy(threads.global_weights())
+    assert res.global_weights()["w"].device.type == "cuda"
+    assert all(a[k].tobytes() == b[k].tobytes() for k in a)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_child_given_the_card_where_there_is_none_fails(cuda_device, monkeypatch):
+    """Children that find no card (``CUDA_VISIBLE_DEVICES`` empty in their
+    environment) raise, and the errors land in ``JobResult.errors``: no
+    child falls back to the CPU."""
+    from repro_torch.launch.spawn import run_job_multiproc
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    res = run_job_multiproc(_coded_job(1, 0), device=cuda_device, timeout=120)
+    assert set(res.errors) >= {"trainer-0", "global-aggregator-0"}
+    assert all("no CUDA device" in str(res.errors[w]) for w in ("trainer-0", "global-aggregator-0"))

@@ -191,7 +191,7 @@ def _port_job(**hp):
     )
 
 
-def test_policy_lowering_not_ported_raises():
+def test_async_lowering_matches_reference():
     """The async lowering runs (it raised before it was ported): one trainer
     and FedBuff's default buffer of 2 give the JAX package's bytes and
     staleness log."""
@@ -216,12 +216,29 @@ def _ref_job(**hp):
 
 
 def test_reduce_plan_not_ported_raises():
-    runtime = trt.JobRuntime(_port_job(reduce_plan=1), device="cpu")
-    root = next(w for w in runtime.workers if w.role == "global-aggregator")
-    prog = runtime._build_program(root)
-    prog.pre_run()
-    with pytest.raises(NotImplementedError, match="hub reduce plane .* Queue 1 item 6"):
-        prog.distribute()
+    """``reduce_plan`` runs (it raised before the hub reduce plane was
+    ported): at one shard the in-process job is byte-equal to the JAX
+    package's reduced job and to its own unreduced job, with one partial
+    frame a round. What stays unported is the fault plane: a policy whose
+    ``FaultPlan`` needs it is refused by the process launcher."""
+    from repro_torch.core.events import FaultPlan
+    from repro_torch.launch.spawn import MultiprocLauncher
+
+    port = trt.run_job(_port_job(reduce_plan=1), device="cpu",
+                       program_overrides={"trainer": AddOneTrainer})
+    flat = trt.run_job(_port_job(), device="cpu", program_overrides={"trainer": AddOneTrainer})
+    ref = jrt.run_job(_ref_job(reduce_plan=1), program_overrides={"trainer": JaxAddOneTrainer})
+    assert not port.errors and not flat.errors and not ref.errors
+    a, b, c = (tree_to_numpy(port.global_weights()), tree_to_numpy(flat.global_weights()),
+               ref.global_weights())
+    assert all(a[k].tobytes() == b[k].tobytes() == np.asarray(c[k]).tobytes() for k in c)
+    frames = [m["agg_frames"] for m in port.program("global-aggregator-0").metrics
+              if "agg_frames" in m]
+    assert frames == [m["agg_frames"] for m in ref.program("global-aggregator-0").metrics
+                      if "agg_frames" in m] == [1]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        MultiprocLauncher(_port_job(), device="cpu", policy=trt.RuntimePolicy(
+            faults=FaultPlan(conn_resets={"trainer-0": 1.0})))
 
 
 def test_policy_validation_matches_reference():

@@ -182,16 +182,30 @@ def test_channel_end_surface():
 def test_codec_channel_not_ported_raises():
     """Codecs are ported: a coded in-process channel builds and accounts the
     codec's wire bytes, and an unknown codec is refused when the manager is
-    built. What is still not ported, the hub reduce plane, raises."""
-    from repro_torch.transport.wire import WireError
+    built. The hub reduce plane is ported too: an installed spec folds the
+    update into one partial frame. What is still not ported, the loopback's
+    fault hooks (the fault plane), raises."""
+    from repro_torch.transport.wire import WireError, reduce_src
 
-    mgr = tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="int8")])
+    mgr = tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="int8")],
+                             device="cpu")
     ea = mgr.end("ch", "default", "a-0")
-    mgr.end("ch", "default", "b-0")
+    eb = mgr.end("ch", "default", "b-0")
     ea.send("b-0", {"w": torch.zeros(1000)})
     assert mgr.channel_stats("ch")["raw_bytes"] == 4000.0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        mgr.backend("ch").install_reduce("ch", "default", "b-0", ["a-0"])
+    assert eb.recv("a-0", timeout=5.0)["w"].shape == (1000,)
+    eb.install_reduce(["a-0"], 1)
+    ea.send("b-0", {"weights": {"w": torch.full((4,), 0.5)}, "num_samples": 2})
+    part = eb.recv(reduce_src(0), timeout=5.0)
+    assert part["count"] == 1 and part["num_samples"] == 2.0
+    assert part["acc"]["w"].tolist() == [1.0] * 4
+    loop = tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), backend="multiproc")],
+                              device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            loop.backend("ch")._chaos_break_conn()
+    finally:
+        loop.close()
     with pytest.raises(WireError):
         tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="zip9")])
     with pytest.raises(KeyError):

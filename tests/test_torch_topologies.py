@@ -277,7 +277,7 @@ def test_hybrid_non_leader_dropout_under_sync_matches_reference():
 
 @pytest.mark.parametrize("template", ["coordinated", "hybrid", "vertical"])
 @pytest.mark.parametrize("mode", ["deadline", "async"])
-def test_policy_lowering_of_new_topologies_raises(template, mode):
+def test_policy_lowering_of_new_topologies_matches_reference(template, mode):
     """The templates with a root aggregator under a deadline or async
     policy, with the JAX package's outcome: the coordinated aggregators
     override ``compose()`` and refuse the lowering (``ValueError``), the

@@ -98,7 +98,7 @@ def test_registered_backend_conformance(backend_name, check_name, tracked):
 def test_shared_hub_conformance(check_name, tracked):
     """Many clients of one hub, distinct from the loopback flavor (a private
     hub per backend)."""
-    hub = TransportHub()
+    hub = TransportHub(device="cpu")
     tracked.append(hub)
 
     def factory():
@@ -110,23 +110,40 @@ def test_shared_hub_conformance(check_name, tracked):
 
 
 def test_multiproc_is_registered_and_deferred_parts_raise():
+    """The sharded fabric, its router and factory and the client's
+    ``install_reduce`` work (they raised before this slice); the fault plane
+    (``arm_faults``, ``simulate_crash``, the ``_chaos_*`` hooks) still
+    raises, naming ROADMAP Queue 1 item 6."""
     assert "multiproc" in registered_backends()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ShardedTransportHub(["g0"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ShardRouter({"": ("127.0.0.1", 1)})
-    with pytest.raises(NotImplementedError):
-        sharded_backend_factory({"": ("127.0.0.1", 1)})
-    hub = TransportHub()
+    fabric = ShardedTransportHub(["g0"], device="cpu")
+    router = ShardRouter(fabric.addresses, device="cpu")
+    hub = TransportHub(device="cpu")
     client = MultiprocBackend(hub.address, device="cpu")
     try:
+        assert sorted(fabric.addresses) == ["", "g0"]
+        other = sharded_backend_factory(fabric.addresses, device="cpu")(None)
+        assert isinstance(other, ShardRouter) and other is not router
+        other.close()
+        for group in ("g0", "default"):
+            router.join("ch", group, "a-0")
+            router.join("ch", group, "b-0")
+            router.send("ch", group, "a-0", "b-0", {"x": group})
+            assert router.recv("ch", group, "b-0", "a-0", timeout=TIMEOUT) == {"x": group}
+        # each group's topic lives on one hub only
+        assert fabric.shards["g0"].backend.peers("ch", "g0", "a-0") == ["b-0"]
+        assert fabric.root.backend.peers("ch", "g0", "a-0") == []
+        assert fabric.stats["msgs:ch"] == 2.0
+        client.install_reduce("ch", "g", "b-0", ["a-0"])
+        client.install_reduce("ch", "g", "b-0", [], 0)
         for call in (lambda: hub.arm_faults(None), hub.simulate_crash, client._chaos_break_conn,
-                     lambda: client.install_reduce("ch", "g", "b-0", ["a-0"])):
-            with pytest.raises(NotImplementedError):
+                     lambda: fabric.arm_faults(None), router._chaos_break_conn,
+                     lambda: client._chaos_duplicate("now", "a-0"),
+                     client._chaos_probe_evicted):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
                 call()
     finally:
-        client.close()
-        hub.close()
+        for obj in (client, router, hub, fabric):
+            obj.close()
 
 
 # ------------------------------------------------------------------ #
