@@ -7,7 +7,7 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs eight phases, each printing one line:
+source, started together), then runs nine phases, each printing one line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -43,7 +43,7 @@ source, started together), then runs eight phases, each printing one line:
    (aggregators + global) x leaves x rounds launches of ``agg_exact_fold``
    and none of the streaming fold, the stacked folds of a round timed
    beside ``torch.mv``; and ``distributed_fl`` with 4 trainers, 2 rounds,
-   on the tree cut to 2 layers (to make room for phase 7),
+   on the tree cut to 1 layer (to make room for phases 7 and 8),
    the consensus byte-equal across trainers and to a float64 numpy fold of
    the same updates on the host, leaf by leaf; each job's peak memory;
    4c. the runtime policies on the same tree: (a) a deadline job, 8
@@ -100,12 +100,33 @@ source, started together), then runs eight phases, each printing one line:
    ``coordinated_fl`` sync job over 7 processes, each byte-equal (every
    program's weights, events, drops, channel bytes) to ``run_job`` on the
    card;
-8. a ``kernels`` JSON line: launches on each path (phase 4 for the
+8. the federated train step (run last): (a) ``build_train_step`` on
+   Qwen2.5-3B at full width and depth (36 layers, bf16, seeded random
+   weights), ``classical_fl`` lowered to a plan over 2 virtual clients,
+   FedAdam, ``launch/train.py``'s traffic (batch 8 x 128 tokens of
+   ``synthetic_lm_batches(seed=0)``, 2 local steps at lr 0.05): a warm-up
+   round and 5 timed rounds (host clock after a synchronize; the split
+   into the clients' SGD, the stage sums and the apply by CUDA events),
+   every kernel's launches over them (none: the stages are float32 sums and
+   training runs the plain attention), a profiled round (launches, busy
+   share), the peak memory and the memory held between rounds, every loss
+   and ``delta_norm``; gates: the held memory flat (within 1 GB), finite
+   losses, weights and server state, the last loss below the first (as
+   ``launch/train.py`` asserts), and, from a new init with the first batch
+   repeated 3 rounds, a loss at least 1 nat lower (the fresh batches alone
+   carry little to learn: 1 024 new tokens of 152 064 a round); (b)
+   ``hierarchical_fl`` over pod 2 x data 2 with a bf16 cross-pod wire at 4
+   layers, 3 rounds; (c) the first round at 2 layers, full width, float32,
+   on the card against the same round on the CPU from the same parameters
+   and batch: loss, ``delta_norm`` and every new parameter within the
+   stated tolerances;
+9. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
    the quant kernels, phase 6's serving run for the flash kernels, phase
-   7's process job for the agg and quant entries), time, plain version's
-   time, bound and a library call's time per kernel, at the path's shapes.
+   7's process job for the agg and quant entries, phase 8's rounds for
+   every kernel), time, plain version's time, bound and a library call's
+   time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
@@ -163,6 +184,11 @@ from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.spawn import run_job_multiproc  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.core.mesh_lowering import lower_tag_to_mesh  # noqa: E402
+from repro_torch.data.datasets import synthetic_lm_batches  # noqa: E402
+from repro_torch.fl.fedstep import FedStepConfig  # noqa: E402
+from repro_torch.launch.mesh import make_virtual_mesh  # noqa: E402
+from repro_torch.launch.steps import build_train_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -182,10 +208,10 @@ N_TRAINERS, ROUNDS = 8, 3
 # distributed ring (4 trainers) on the same tree
 COORD_TRAINERS, COORD_AGGS, COORD_ROUNDS = 8, 2, 3
 DIST_TRAINERS, DIST_ROUNDS = 4, 2
-# the ring's tree at 2 of phase 4's 4 layers (465 M parameters): its host
-# float64 check was the script's largest piece, cut to keep the script near
-# 3 minutes beside phase 7
-DIST_LAYERS = 2
+# the ring's tree at 1 of phase 4's 4 layers (388 M parameters): its host
+# float64 check was the script's largest piece, cut from 4 layers to 2 to
+# make room for phase 7 and to 1 for phase 8
+DIST_LAYERS = 1
 # phase 4c: the deadline and async policies on the same tree: 8 trainers,
 # 3 rounds (versions); one straggler past the deadline; FedBuff's buffer; a
 # wall-clock grace no on-time update of 2.48 GB comes near (the rounds print
@@ -216,6 +242,30 @@ FAULT_KEYS = 64
 # prefill: bf16 rounds at every product through 36 layers, in other orders;
 # prefills with a fault planted in the attention must read above it
 SERVE_REL_L2 = 5e-2
+# phase 8: the federated train step (TAG -> aggregation plan -> fed step) on
+# Qwen2.5-3B at full width and depth, classical_fl over 2 virtual clients,
+# the config's FedAdam; the traffic is launch/train.py's defaults
+TRAIN_CLIENTS, TRAIN_WARMUP, TRAIN_ROUNDS = 2, 1, 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOCAL_STEPS, TRAIN_LR = 8, 128, 2, 0.05
+# the second run: hierarchical_fl over pod 2 x data 2, bf16 cross-pod wire,
+# full width at 4 layers
+HIER_PODS, HIER_CLIENTS, HIER_LAYERS, HIER_ROUNDS = 2, 2, 4, 3
+# the gate: the first round at 2 layers, full width, float32, on the card and
+# on the CPU from the same parameters and batch
+GATE_LAYERS = 2
+# float32 products summed in other orders (cuBLAS against the CPU's BLAS, TF32
+# off): about sqrt(K) * 2**-24 = 6e-6 relative at K = 11 008, so the loss and
+# delta_norm within 1e-5 relative; FedAdam moves a parameter by at most half
+# its delta's difference where the delta is small, and by a sign-like 0.01
+# the float32 differences cannot flip where it is not: 1e-5 absolute
+GATE_LOSS_RTOL, GATE_NORM_RTOL, GATE_PARAM_ATOL = 1e-5, 1e-5, 1e-5
+# the step learns: one batch repeated, full width and depth; the loss must
+# fall by at least LEARN_DROP nats in LEARN_ROUNDS rounds (fresh batches move
+# it by about 0.1 either way: 1 024 new tokens of 152 064 a round)
+LEARN_ROUNDS, LEARN_DROP = 3, 1.0
+# memory held between rounds may not grow by a tree's worth (the parameters
+# are 6.2 GB) over the timed rounds
+HELD_GROWTH_GB = 1.0
 
 
 class PhaseFailed(RuntimeError):
@@ -2454,15 +2504,200 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# phase 8: the federated train step
+# ---------------------------------------------------------------------- #
+def _all_launches() -> dict:
+    out = {fn.__name__: fn.launches for fn in kernel.KERNELS + qkernel.KERNELS}
+    out.update(_route_launches())
+    return out
+
+
+def _reset_all_launches() -> None:
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    fkernel.reset_launches()
+
+
+def _train_round(setup, params, state, tokens, seed):
+    """One step, host-timed after a synchronize, split by CUDA events at the
+    step's segment marks (clients' SGD, stage sums, the strategy's apply)."""
+    events = []
+
+    def mark(label):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((label, e))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = setup.step(params, state, {"tokens": tokens}, seed, on_segment=mark)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    split = {}
+    for (label, a), (_, b) in zip(events, events[1:]):
+        split[label] = split.get(label, 0.0) + a.elapsed_time(b)
+    return params, state, {k: float(v) for k, v in m.items()}, wall_s, split
+
+
+def _finite(tree) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
+
+
+def phase_train(dev: torch.device, smi: str) -> dict:
+    """(a) the fed step on Qwen2.5-3B at full width and depth over 2 virtual
+    clients: a warm-up round, timed rounds, a profiled round, then one batch
+    repeated from a new init; (b)
+    ``hierarchical_fl`` over pod 2 x data 2 with a bf16 cross-pod wire at 4
+    layers; (c) the gate: the first round at 2 layers in float32 on the card
+    against the same round on the CPU."""
+    cfg = get_config("qwen2_5_3b")
+    check(cfg.num_layers == 36 and cfg.param_dtype == "bfloat16" and cfg.attn_impl == "xla"
+          and cfg.server_strategy == "fedadam", "qwen2_5_3b is not the full bf16 36-layer config")
+    fed = FedStepConfig(local_steps=TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    bundle, setup = build_train_step(cfg, make_virtual_mesh(TRAIN_CLIENTS), fed, device=dev)
+    check(setup.client_axes == ("data",) and setup.tag.name == "classical-fl",
+          f"the train step lowered {setup.tag} over {setup.client_axes}")
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == QWEN_FULL_PARAMS, f"{n_params} parameters, not {QWEN_FULL_PARAMS}")
+    state = setup.init_state(params)
+    data = synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(TRAIN_WARMUP + TRAIN_ROUNDS + 1)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: the warm-up and timed rounds, launches counted from 0
+    _reset_all_launches()
+    losses, norms, walls, splits, held_gb = [], [], [], [], []
+    for i in range(TRAIN_WARMUP + TRAIN_ROUNDS):
+        params, state, m, wall_s, split = _train_round(setup, params, state, batches[i], i)
+        check(m["participants"] == TRAIN_CLIENTS, f"round {i}: {m['participants']} participants")
+        losses.append(m["loss"])
+        norms.append(m["delta_norm"])
+        held_gb.append(torch.cuda.memory_allocated(dev) / 1e9)
+        if i >= TRAIN_WARMUP:
+            walls.append(wall_s)
+            splits.append(split)
+    launches = _all_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)), f"losses {losses}, norms {norms}")
+    check(_finite(params) and _finite(state), "a non-finite weight or server state")
+    # the launcher's own assertion; on these fresh batches it is no evidence
+    # of learning (1 024 new tokens of 152 064 a round move the loss about
+    # 0.1 either way, and whether the last is lower depends on which batch
+    # comes last): the repeated batch below, a nat lower, is that evidence
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    # between rounds the card holds the parameters, the server state and
+    # nothing of a finished round (a reference cycle once kept each round's
+    # old parameters until a full garbage collection)
+    check(held_gb[-1] - held_gb[0] < HELD_GROWTH_GB,
+          f"memory held between rounds grew: {held_gb} GB")
+    # where a round's device time goes, and its launches
+    i = TRAIN_WARMUP + TRAIN_ROUNDS
+    prof = _kernel_classes(lambda: setup.step(params, state, {"tokens": batches[i]}, i))
+    round_ms = float(np.median(walls)) * 1e3
+    split_ms = {k: float(np.median([sp.get(k, 0.0) for sp in splits]))
+                for k in ("local", "reduce", "apply")}
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the step learns: the first batch again and again from a new init
+    params = bundle.init(torch.Generator(device=dev).manual_seed(0))
+    state = setup.init_state(params)
+    learn = []
+    for i in range(LEARN_ROUNDS):
+        params, state, m = setup.step(params, state, {"tokens": batches[0]}, i)
+        learn.append(float(m["loss"]))
+    check(all(np.isfinite(learn)) and learn[-1] < learn[0] - LEARN_DROP,
+          f"one batch repeated {LEARN_ROUNDS} rounds: losses {learn}, not {LEARN_DROP} lower")
+    del params, state, bundle, setup
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two stages: the mean over data within each pod, then over pod in bf16
+    hcfg = dataclasses.replace(cfg, num_layers=HIER_LAYERS)
+    hmesh = make_virtual_mesh(HIER_CLIENTS, pods=HIER_PODS)
+    hbundle, hsetup = build_train_step(hcfg, hmesh, fed, cross_pod_wire="bf16", device=dev)
+    plan = lower_tag_to_mesh(hsetup.tag, ("data", "pod"))
+    check([(st.axes, st.wire_dtype) for st in plan.stages] == [(("data",), "f32"),
+                                                             (("pod",), "bf16")],
+          f"hierarchical plan {plan}")
+    hparams = hbundle.init(torch.Generator(device=dev).manual_seed(1))
+    hstate = hsetup.init_state(hparams)
+    hdata = synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    hlosses, hwalls = [], []
+    for i in range(HIER_ROUNDS):
+        hparams, hstate, m, wall_s, _ = _train_round(hsetup, hparams, hstate, next(hdata), i)
+        check(m["participants"] == HIER_PODS * HIER_CLIENTS, f"{m['participants']} participants")
+        hlosses.append(m["loss"])
+        hwalls.append(wall_s)
+    check(all(np.isfinite(hlosses)) and _finite(hparams), f"hierarchical losses {hlosses}")
+    del hparams, hstate, hbundle, hsetup
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the gate: 2 layers, full width, float32, card against CPU
+    gcfg = dataclasses.replace(cfg, num_layers=GATE_LAYERS, param_dtype="float32")
+    gmesh = make_virtual_mesh(TRAIN_CLIENTS)
+    cbundle, csetup = build_train_step(gcfg, gmesh, fed, device=dev)
+    pbundle, psetup = build_train_step(gcfg, gmesh, fed, device="cpu")
+    cparams = cbundle.init(torch.Generator(device=dev).manual_seed(2))
+    pparams = tree_map(lambda x: x.cpu(), cparams)
+    t0 = time.perf_counter()
+    cnew, _, cm = csetup.step(cparams, csetup.init_state(cparams), {"tokens": batches[0]}, 0)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pnew, _, pm = psetup.step(pparams, psetup.init_state(pparams), {"tokens": batches[0]}, 0)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(float(cm["loss"]) - float(pm["loss"])) / abs(float(pm["loss"]))
+    norm_rel = abs(float(cm["delta_norm"]) - float(pm["delta_norm"])) / float(pm["delta_norm"])
+    param_err = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(tree_leaves(cnew), tree_leaves(pnew)))
+    moved = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(pnew), tree_leaves(pparams)))
+    check(loss_rel <= GATE_LOSS_RTOL and norm_rel <= GATE_NORM_RTOL and param_err <= GATE_PARAM_ATOL,
+          f"card vs CPU at {GATE_LAYERS} layers, float32: loss rel {loss_rel:.3g} (limit "
+          f"{GATE_LOSS_RTOL}), delta_norm rel {norm_rel:.3g} ({GATE_NORM_RTOL}), params max abs "
+          f"{param_err:.3g} ({GATE_PARAM_ATOL})")
+    del cparams, pparams, cnew, pnew, cbundle, pbundle
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase train: ok card {smi}; Qwen2.5-3B ({n_params} bf16 params, 36 layers) "
+          f"classical_fl over {TRAIN_CLIENTS} virtual clients, fedadam, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, local_steps {TRAIN_LOCAL_STEPS}, local_lr {TRAIN_LR}; rounds_ms "
+          f"{json.dumps([round(w * 1e3, 3) for w in walls])} median round_ms {round_ms:.3f} "
+          f"train_tokens_per_s {tokens / (round_ms / 1e3):.1f}; split_ms (CUDA events, median) "
+          f"{json.dumps(_rounded(split_ms))}; launches on the path "
+          f"{json.dumps(launches)}; profiled round {json.dumps(_rounded(prof))}; "
+          f"peak_device_gb {peak_gb:.2f} held between rounds gb "
+          f"{json.dumps([round(x, 3) for x in held_gb])}; losses "
+          f"{json.dumps([round(x, 5) for x in losses])} "
+          f"delta_norms {json.dumps([round(x, 6) for x in norms])}; one batch repeated: losses "
+          f"{json.dumps([round(x, 5) for x in learn])}; hierarchical_fl pod "
+          f"{HIER_PODS} x data {HIER_CLIENTS}, bf16 cross-pod wire, {HIER_LAYERS} layers: losses "
+          f"{json.dumps([round(x, 5) for x in hlosses])} rounds_ms "
+          f"{json.dumps([round(w * 1e3, 3) for w in hwalls])}; gate {GATE_LAYERS} layers float32 "
+          f"card vs CPU: loss rel {loss_rel:.3g} delta_norm rel {norm_rel:.3g} params max abs "
+          f"{param_err:.3g} (largest move {moved:.3g}); card round_s {card_s:.2f} cpu round_s "
+          f"{cpu_s:.2f}", flush=True)
+    return {"launches": launches, "round_ms": round_ms, "peak_gb": peak_gb}
+
+
+# ---------------------------------------------------------------------- #
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
-                 proc: dict) -> str:
+                 proc: dict, train: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
-    phase 5's job for the quant kernels, phase 6's serving for flash, and
+    phase 5's job for the quant kernels, phase 6's serving for flash,
     phase 7's process job (the hub's launches plus every child's) for the
-    agg and quant entries."""
+    agg and quant entries, and phase 8's training rounds for every kernel
+    (none launches there: the stages are float32 sums and training runs the
+    plain attention)."""
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -2492,6 +2727,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             by_path["4c"] = policies["launches"].get(name, 0)
         if src in (agg_src, quant_src):
             by_path["7"] = proc["launches"].get(name, 0)
+        by_path["8"] = train["launches"][name]
         launches = sum(by_path.values())
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2544,9 +2780,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serve = timed("6", lambda: phase_serve(dev, phase_flash_parity(dev)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = timed("8", phase_train, dev, smi)
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
-    print(kernels_line(full, topo, policies, codec, serve, proc), flush=True)
+    print(kernels_line(full, topo, policies, codec, serve, proc, train), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,13 @@ port's rule for the device a job runs on.
 
 The JAX package's parameter trees hold numpy arrays (as
 ``hyperparams["init_weights"]`` carries them, or as ``jax.device_get`` gives
-a model's parameters, bfloat16 ones as ``ml_dtypes`` arrays); the port's
-hold ``torch.Tensor``s on the job's device. The functions keep structure
-and dtypes; Python scalars and ``None`` pass through unchanged.
+a model's parameters, bfloat16 ones as ``ml_dtypes`` arrays) or arrays that
+convert to numpy (``np.asarray``: a JAX array on the host); the port's hold
+``torch.Tensor``s on the job's device. The functions keep structure and
+dtypes; Python scalars and ``None`` pass through unchanged. A server state
+(``fl.fedstep.init_server_state``: ``{"stages": {"root": ...}}``, FedAdam's
+``m`` and ``v``, FedBuff's accumulator and 0-d count) carries with
+``tree_from_numpy``, as parameters do.
 """
 from __future__ import annotations
 
@@ -21,6 +25,9 @@ from repro_torch.core.tree import tree_map
 def _to_tensor(leaf: Any, device: torch.device) -> Any:
     if isinstance(leaf, torch.Tensor):
         return leaf.to(device)
+    if not isinstance(leaf, (np.ndarray, np.generic, int, float, bool, str)) and hasattr(
+            leaf, "__array__"):
+        leaf = np.asarray(leaf)
     if isinstance(leaf, (np.ndarray, np.generic)):
         arr = np.array(leaf, copy=True)
         if arr.dtype.name == "bfloat16":

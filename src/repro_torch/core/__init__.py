@@ -1,6 +1,5 @@
-"""Flame core of the port: TAG abstraction, expansion, composer, channels.
-
-Mesh lowering is not part of the port yet."""
+"""Flame core of the port: TAG abstraction, expansion, composer, channels,
+mesh lowering (over virtual clients)."""
 from repro_torch.core import topologies
 from repro_torch.core.channels import (
     ChannelManager,
@@ -13,6 +12,14 @@ from repro_torch.core.channels import (
 )
 from repro_torch.core.composer import Chain, CloneComposer, Composer, Loop, Tasklet
 from repro_torch.core.expansion import JobSpec, WorkerConfig, expand
+from repro_torch.core.mesh_lowering import (
+    AggregationPlan,
+    AggregationStage,
+    Mesh,
+    apply_plan,
+    lower_tag_to_mesh,
+    stage_reduce_mean,
+)
 from repro_torch.core.registry import ComputeSpec, ResourceRegistry, realm_matches
 from repro_torch.core.tag import TAG, Channel, DatasetSpec, FuncTags, Role, TagError, diff_tags
 
@@ -23,5 +30,6 @@ __all__ = [
     "Composer", "CloneComposer", "Chain", "Loop", "Tasklet",
     "ChannelManager", "InprocBackend", "LinkModel", "TransportBackend",
     "payload_bytes", "register_backend", "registered_backends",
-    "topologies",
+    "AggregationPlan", "AggregationStage", "Mesh", "apply_plan", "lower_tag_to_mesh",
+    "stage_reduce_mean", "topologies",
 ]

@@ -82,42 +82,46 @@ def _children(node: Any) -> Tuple[str, Any, List[Any]]:
     return _LEAF, None, []
 
 
+# The walks are module functions that take their list or iterator as an
+# argument. A nested function that calls itself is a reference cycle, and
+# one that also captures the leaves keeps them (a model's parameters, on the
+# card) alive until the garbage collector's next full pass.
+def _flatten_into(node: Any, leaves: List[Any]) -> TreeDef:
+    kind, meta, kids = _children(node)
+    if kind == _LEAF:
+        leaves.append(node)
+        return TreeDef(_LEAF)
+    return TreeDef(kind, meta, tuple(_flatten_into(k, leaves) for k in kids))
+
+
 def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
+    return leaves, _flatten_into(tree, leaves)
 
-    def walk(node: Any) -> TreeDef:
-        kind, meta, kids = _children(node)
-        if kind == _LEAF:
-            leaves.append(node)
-            return TreeDef(_LEAF)
-        return TreeDef(kind, meta, tuple(walk(k) for k in kids))
 
-    return leaves, walk(tree)
+def _build(td: TreeDef, it: Any) -> Any:
+    if td.kind == _LEAF:
+        return next(it)
+    kids = [_build(c, it) for c in td.children]
+    if td.kind == "none":
+        return None
+    if td.kind == "dict":
+        return dict(zip(td.meta, kids))
+    if td.kind == "defaultdict":
+        factory, keys = td.meta
+        return collections.defaultdict(factory, zip(keys, kids))
+    if td.kind == "ordereddict":
+        return collections.OrderedDict(zip(td.meta, kids))
+    if td.kind == "list":
+        return kids
+    if td.kind == "tuple":
+        return tuple(kids)
+    return td.meta(*kids)  # namedtuple
 
 
 def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> Any:
     it = iter(leaves)
-
-    def build(td: TreeDef) -> Any:
-        if td.kind == _LEAF:
-            return next(it)
-        kids = [build(c) for c in td.children]
-        if td.kind == "none":
-            return None
-        if td.kind == "dict":
-            return dict(zip(td.meta, kids))
-        if td.kind == "defaultdict":
-            factory, keys = td.meta
-            return collections.defaultdict(factory, zip(keys, kids))
-        if td.kind == "ordereddict":
-            return collections.OrderedDict(zip(td.meta, kids))
-        if td.kind == "list":
-            return kids
-        if td.kind == "tuple":
-            return tuple(kids)
-        return td.meta(*kids)  # namedtuple
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, _LEAF) is not _LEAF:
         raise ValueError("too many leaves for the tree structure")
     return out

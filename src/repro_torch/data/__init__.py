@@ -1,1 +1,1 @@
-"""Federated datasets (the port of ``repro.data``)."""
+"""Federated datasets and the batching pipeline (the port of ``repro.data``)."""

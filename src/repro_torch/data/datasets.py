@@ -1,6 +1,7 @@
 """Federated datasets (the port of ``repro.data.datasets``): the synthetic
-classification shards, as numpy arrays; a role moves them to its device in
-``load_data``.
+classification shards and the synthetic language-model streams, as numpy
+arrays made by the JAX package's numpy calls (equal arrays for the same
+names and seeds); a role or a step moves them to its device.
 
 Flame registers dataset *metadata* (realm + url); the actual payload loading
 is pluggable. For the reproduction we generate synthetic data deterministic
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Optional
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -55,3 +56,36 @@ def synthetic_classification(
         np.float32
     )
     return FederatedDataset(name=name, x=x.astype(np.float32), y=y.astype(np.int32))
+
+
+def synthetic_lm_shards(
+    num_clients: int,
+    seq_len: int = 128,
+    num_seqs: int = 64,
+    vocab_size: int = 1024,
+    prefix: str = "corpus",
+) -> List[FederatedDataset]:
+    """Synthetic token shards with client-specific n-gram structure (so the
+    LM has something to learn and clients are non-IID)."""
+    shards = []
+    for i in range(num_clients):
+        rng = np.random.default_rng(_seed_of(f"{prefix}-{i}"))
+        # client-specific bigram transition sparsity
+        base = rng.integers(0, vocab_size, size=(num_seqs, seq_len + 1))
+        stride = 2 + (i % 5)
+        base[:, 1::2] = (base[:, 0:-1:2] * stride + i) % vocab_size  # learnable pattern
+        x = base[:, :-1].astype(np.int32)
+        y = base[:, 1:].astype(np.int32)
+        shards.append(FederatedDataset(name=f"{prefix}-{i}", x=x, y=y))
+    return shards
+
+
+def synthetic_lm_batches(vocab: int, batch: int, seq: int, seed: int = 0) -> Iterator[np.ndarray]:
+    """Infinite iterator of (batch, seq) int32 token arrays with a learnable
+    bigram pattern (odd positions are a deterministic function of the
+    previous token), shared across batches."""
+    rng = np.random.default_rng(seed)
+    while True:
+        toks = rng.integers(0, vocab, size=(batch, seq + 1))
+        toks[:, 1::2] = (toks[:, 0:-1:2] * 3 + 7) % vocab
+        yield toks[:, :seq].astype(np.int32)

@@ -1,5 +1,7 @@
 """Federated-learning helpers of the port (``repro.fl``): the server
-strategies and the channel payload compression behind the wire codecs."""
+strategies, the channel payload compression behind the wire codecs,
+differential privacy and the federated train step (``fedstep``)."""
+from repro_torch.fl.privacy import DPConfig, clip_and_noise
 from repro_torch.fl.strategies import (
     FedAdagrad,
     FedAdam,
@@ -16,6 +18,8 @@ from repro_torch.fl.strategies import (
 )
 
 __all__ = [
+    "DPConfig",
+    "clip_and_noise",
     "ServerStrategy",
     "FedAvg",
     "FedProx",

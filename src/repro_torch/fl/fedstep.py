@@ -1,0 +1,258 @@
+"""The federated train step: TAG plan × model × strategy → one step function
+(the port of ``repro.fl.fedstep``).
+
+The TAG is lowered to an ``AggregationPlan`` (``repro_torch.core.
+mesh_lowering``). The JAX package runs the step under ``shard_map``, manual
+over the client axes, so each client is a slice of the device mesh and each
+aggregation stage a ``psum`` with its channel's wire policy. On one card the
+mesh is a plain description of named axis sizes (``Mesh``), and its clients
+are *virtual*: the step runs them in turn, and folds each client's float32
+delta into the stages' running float32 sums as soon as it exists, leaf by
+leaf, so N clients' deltas are never held at once (``fold_plan``). A
+Python loop, not ``torch.func.vmap``, which would hold N copies of the
+model's parameters and activations.
+
+Semantics per round (classic FedAvg-style local SGD), as in the JAX package:
+  1. every client (one index on the client axes; it takes the batch rows of
+     its linear index, the last client axis fastest) takes ``local_steps``
+     SGD steps on microbatches of its shard;
+  2. client delta = local_params - global_params in float32 (optional DP
+     clip and noise; under partial participation, times the client's 0/1
+     draw);
+  3. the plan reduces the deltas stage by stage (e.g. the mean over ``data``
+     within each pod, then over ``pod`` in the channel's wire dtype);
+  4. the root strategy (FedAvg/FedAdam/...) applies the mean, renormalized
+     over the clients that participated.
+
+Randomness: each client draws from its own ``torch.Generator`` on the
+step's device, seeded from (step seed, client index, stream); ``jax.random``
+streams differ from torch's, so the participation draws and the DP noise
+can be passed in (``made_it``, ``noise``) to reproduce the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.mesh_lowering import AggregationPlan, Mesh, StageSum, fold_plan
+from repro_torch.core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.fl.privacy import DPConfig, clip_and_noise
+from repro_torch.fl.strategies import ServerStrategy
+
+Tree = Any
+Batch = Dict[str, Any]
+LossFn = Callable[[Tree, Batch, torch.Generator], torch.Tensor]
+# called with "local" (a client's SGD), "reduce" (its delta into the stage
+# sums, the stage means) and "apply" (the root strategy) as each begins,
+# and "done" at the end: a tracer's hook
+SegmentHook = Callable[[str], None]
+
+
+@dataclasses.dataclass(frozen=True)
+class FedStepConfig:
+    local_steps: int = 1
+    local_lr: float = 1e-2
+    dp: Optional[DPConfig] = None
+    # gradient instead of weight-delta exchange (local_steps == 1 fast path)
+    exchange: str = "delta"  # "delta" | "grad"
+    # each client makes the round's straggler deadline with probability
+    # ``participation``; missed clients contribute a zero delta and the
+    # aggregate renormalizes over the clients that did participate
+    participation: float = 1.0
+
+
+_STREAMS = {"loss": 0, "dp": 1, "participation": 0x5EED}
+
+
+def client_generator(seed: int, client: int, stream: str, device: Any) -> torch.Generator:
+    """The generator of ``client``'s ``stream`` ("loss", "dp" or
+    "participation") in the step seeded ``seed``, on ``device``."""
+    key = f"{int(seed)}:{int(client)}:{_STREAMS[stream]}".encode()
+    value = int.from_bytes(hashlib.sha256(key).digest()[:8], "little") & ((1 << 63) - 1)
+    return torch.Generator(device=torch.device(device)).manual_seed(value)
+
+
+def batch_to_device(batch: Batch, device: torch.device) -> Batch:
+    """Every leaf of ``batch`` (numpy or tensor) as a tensor on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                               device=device) for k, v in batch.items()}
+
+
+def batch_size(batch: Batch) -> int:
+    """Rows of a batch: dim 0 of every leaf, dim 1 of ``positions`` (the
+    three M-RoPE streams lead)."""
+    k, v = next(iter(batch.items()))
+    return int(v.shape[1] if k == "positions" else v.shape[0])
+
+
+def split_batch(batch: Batch, parts: int, i: int) -> Batch:
+    """Rows ``[i*b, (i+1)*b)`` of every leaf, ``b = rows // parts``."""
+    n = batch_size(batch)
+    if n % parts:
+        raise ValueError(f"a batch of {n} rows does not split into {parts} equal parts")
+    b = n // parts
+    rows = slice(i * b, (i + 1) * b)
+    return {k: (v[:, rows] if k == "positions" else v[rows]) for k, v in batch.items()}
+
+
+def _drain(xs: List[Any], fn: Callable[[int, Any], Any]):
+    """``fn(i, xs[i])`` for each i in turn, dropping ``xs[i]`` as it goes
+    (so a client's copy of the model is freed leaf by leaf)."""
+    for i in range(len(xs)):
+        x, xs[i] = xs[i], None
+        yield fn(i, x)
+
+
+def value_and_grad(loss_fn: LossFn, leaves: Sequence[torch.Tensor], treedef: Any,
+                   batch: Batch, gen: torch.Generator) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The loss at the parameters ``leaves`` and its gradient, leaf by leaf."""
+    xs = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(treedef, xs), batch, gen)
+        grads = list(torch.autograd.grad(loss, xs))
+    return loss.detach(), grads
+
+
+def local_round(loss_fn: LossFn, leaves: List[torch.Tensor], treedef: Any, batch: Batch,
+                gen: torch.Generator, steps: int, lr: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``steps`` SGD steps on the ``steps`` microbatches of a client's
+    batch; returns the local parameters' leaves and the last step's loss.
+    The first step makes new tensors (``leaves`` are the global
+    parameters); later steps update the client's own copy in place."""
+    loss = None
+    for i in range(steps):
+        loss, grads = value_and_grad(loss_fn, leaves, treedef, split_batch(batch, steps, i), gen)
+        with torch.no_grad():
+            new = []
+            for j, w in enumerate(leaves):
+                g, grads[j] = grads[j], None
+                update = lr * g.to(w.dtype)
+                new.append(w.sub_(update) if i else w - update)
+            leaves = new
+    return leaves, loss
+
+
+def make_fl_train_step(
+    loss_fn: LossFn,
+    strategy: ServerStrategy,
+    plan: AggregationPlan,
+    mesh: Mesh,
+    config: FedStepConfig = FedStepConfig(),
+) -> Callable[..., Tuple[Tree, Tree, Dict[str, torch.Tensor]]]:
+    """Build ``step(params, server_state, batch, seed, *, made_it=None,
+    noise=None, on_segment=None) -> (params, server_state, metrics)``.
+
+    ``batch`` leaves lead with the global batch dim (``positions``: dim 1)
+    and are moved to the parameters' device; client ``c`` (linear index
+    over ``plan.all_axes``) takes rows ``[c*b, (c+1)*b)``. ``made_it[c]``
+    (0 or 1) replaces client c's participation draw, ``noise[c]`` (one
+    standard-normal array per parameter leaf) its DP noise draw.
+    ``metrics``: ``loss`` (the clients' mean last-step loss), ``delta_norm``
+    (of the aggregate) and ``participants``, 0-d float32 tensors.
+    """
+    if config.exchange not in ("delta", "grad"):
+        raise ValueError(f"unknown exchange {config.exchange!r}")
+    client_axes = plan.all_axes
+    sizes = {a: mesh.shape[a] for a in client_axes}
+    n_total = 1
+    for a in client_axes:
+        n_total *= sizes[a]
+    k = config.local_steps
+    lr = config.local_lr
+
+    def client_index(coords: Dict[str, int]) -> int:
+        idx = 0
+        for a in client_axes:
+            idx = idx * sizes[a] + coords[a]
+        return idx
+
+    def step(params: Tree, server_state: Tree, batch: Batch, seed: int, *,
+             made_it: Optional[Sequence[float]] = None,
+             noise: Optional[Sequence[Sequence[Any]]] = None,
+             on_segment: Optional[SegmentHook] = None):
+        mark = on_segment or (lambda label: None)
+        p_leaves, treedef = tree_flatten(params)
+        device = p_leaves[0].device
+        batch = batch_to_device(batch, device)
+        losses: List[torch.Tensor] = []
+        drawn: List[torch.Tensor] = []
+
+        def fold(acc: StageSum, coords: Dict[str, int]) -> None:
+            c = client_index(coords)
+            shard = split_batch(batch, n_total, c)
+            mark("local")
+            gen = client_generator(seed, c, "loss", device)
+            if config.exchange == "grad":
+                loss, grads = value_and_grad(loss_fn, p_leaves, treedef, shard, gen)
+                deltas = _drain(grads, lambda i, g: (-lr * g).to(torch.float32))
+            else:
+                local, loss = local_round(loss_fn, p_leaves, treedef, shard, gen, k, lr)
+                deltas = _drain(local, lambda i, w: (w - p_leaves[i]).to(torch.float32))
+            losses.append(loss)
+            mark("reduce")
+            if config.dp is not None:
+                # under partial participation the aggregate is a mean over
+                # ~participation*N clients: the noise is calibrated to that
+                n_eff = max(1, int(round(config.participation * n_total)))
+                deltas = tree_leaves(clip_and_noise(
+                    tree_unflatten(treedef, list(deltas)), config.dp,
+                    client_generator(seed, c, "dp", device), n_eff,
+                    noise=None if noise is None else noise[c]))
+            m = None
+            if config.participation < 1.0:
+                if made_it is not None:
+                    m = torch.tensor(float(made_it[c]), dtype=torch.float32, device=device)
+                else:
+                    g = client_generator(seed, c, "participation", device)
+                    m = (torch.rand((), generator=g, device=device)
+                         < config.participation).to(torch.float32)
+                drawn.append(m)
+            for i, d in enumerate(deltas):
+                acc.add_leaf(i, d if m is None else d * m, donate=True)
+            acc.end_member(treedef)
+
+        tree = fold_plan(fold, plan, sizes)
+        if config.participation < 1.0:
+            n_part = torch.stack(drawn).sum()
+            # the stage means divide by all N clients: renormalize to the
+            # mean over the clients that made the deadline
+            renorm = (torch.tensor(float(n_total), device=device)
+                      / torch.clamp(n_part, min=1.0))
+            tree = tree_map(lambda d: d * renorm, tree)
+        else:
+            n_part = torch.tensor(float(n_total), dtype=torch.float32, device=device)
+        d_leaves = tree_leaves(tree)
+        del tree
+        sq = None
+        for x in d_leaves:
+            s = torch.sum(torch.square(x))
+            sq = s if sq is None else sq + s
+        delta_norm = torch.sqrt(sq)
+        # the aggregate in the parameters' dtypes, float32 leaves freed as
+        # they are cast
+        cast = []
+        for i, p in enumerate(p_leaves):
+            cast.append(d_leaves[i].to(p.dtype))
+            d_leaves[i] = None
+        mark("apply")
+        new_params, new_root = strategy.apply(params, tree_unflatten(treedef, cast),
+                                              server_state["stages"]["root"])
+        del cast
+        stages = dict(server_state["stages"])
+        stages["root"] = new_root
+        mean_loss = torch.stack([x.to(torch.float32) for x in losses]).sum() / torch.tensor(
+            float(n_total), device=device)
+        mark("done")
+        metrics = {"loss": mean_loss, "delta_norm": delta_norm, "participants": n_part}
+        return new_params, {"stages": stages}, metrics
+
+    return step
+
+
+def init_server_state(strategy: ServerStrategy, plan: AggregationPlan, params: Tree) -> Tree:
+    """Server-side state for the plan's root strategy."""
+    return {"stages": {"root": strategy.init(params)}}

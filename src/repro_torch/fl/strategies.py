@@ -19,13 +19,18 @@ FedAsync    Xie et al. 2019              apply each update on arrival
 Two rules keep the bits. A division by a Python number divides by a 0-d
 tensor on the leaf's device (on CUDA, ``tensor / python_float`` is a
 reciprocal multiply). The staleness weight is computed on the host, in
-float32, as ``1 / pow(1 + s, exp)``: torch's CPU ``pow`` gives XLA's bits at
-the exponents 0.5, 1 and 2 (not at every exponent; ROADMAP Queue 3), and the
-card's ``pow`` is another implementation again.
+float32, as ``1 / powf(1 + s, exp)`` with the C library's ``powf``, which is
+what the JAX package's eager scalar ``jnp.power`` gives on the CPU; torch's
+``pow`` (up to 2 ulp away at exponents other than 0.5, 1 and 2) and a
+float64 power rounded to float32 (correctly rounded, where ``powf`` is not
+always) both differ from it.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -45,6 +50,11 @@ def _scalar(value: Any, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(value).to(dtype=like.dtype, device=like.device)
 
 
+# elements of a CPU tensor rooted at once: the float64 temporaries of a
+# chunk stay in cache (a 466 M-element tree's roots took 3x longer unchunked)
+_SQRT_CHUNK = 1 << 20
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 ``sqrt`` (XLA's), on any device.
 
@@ -56,6 +66,15 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     significant bits), and no float32 ``x`` sits on one."""
     if x.dtype != torch.float32:
         return torch.sqrt(x)
+    if x.is_cuda or x.numel() <= _SQRT_CHUNK:
+        return _sqrt32(x)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    for o, c in zip(out.view(-1).split(_SQRT_CHUNK), x.reshape(-1).split(_SQRT_CHUNK)):
+        o.copy_(_sqrt32(c))
+    return out
+
+
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
     x64 = x.to(torch.float64)
     r = torch.sqrt(x64).to(torch.float32)
     lo = torch.nextafter(r, torch.full_like(r, -float("inf")))
@@ -208,10 +227,23 @@ class FedDyn(ServerStrategy):
         return 0.5 * self.alpha * _sq_dist(params, global_params)
 
 
+@functools.lru_cache(maxsize=None)
+def _powf() -> Callable[[float, float], float]:
+    """The C library's float32 ``powf``, loaded at first use."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    libm.powf.restype = ctypes.c_float
+    return libm.powf
+
+
 def _host_staleness_weight(staleness: Any, exp: float) -> torch.Tensor:
-    """float32 ``1 / pow(1 + s, exp)`` on the host, as a 0-d tensor."""
-    s = torch.as_tensor(staleness).to(device="cpu", dtype=torch.float32)
-    return torch.ones((), dtype=torch.float32) / torch.pow(1.0 + s, exp)
+    """float32 ``1 / powf(1 + s, exp)`` on the host, as a 0-d tensor: ``1 +
+    s`` and ``exp`` rounded to float32, the C library's ``powf``, then an
+    IEEE float32 divide."""
+    base = torch.as_tensor(staleness).to(device="cpu", dtype=torch.float32) + 1.0
+    power = torch.tensor(_powf()(float(base), float(torch.tensor(exp, dtype=torch.float32))),
+                         dtype=torch.float32)
+    return torch.ones((), dtype=torch.float32) / power
 
 
 class _BufferedBatchMixin:

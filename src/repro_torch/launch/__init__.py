@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (batched prefill and decode)."""
+"""Launchers of the port: ``serve`` (batched prefill and decode), ``train``
+(the federated train step, ``steps``) and the meshes of virtual clients."""

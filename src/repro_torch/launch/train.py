@@ -1,0 +1,92 @@
+"""End-to-end training driver (the port of ``repro.launch.train``).
+
+Runs the TAG-driven federated train step for a chosen architecture on the
+card (``--device cpu`` for the CPU): the reduced config for runnable
+examples, the full config on the card. ``--clients N`` stands for the JAX
+driver's device count, which sizes its ``data`` axis: N virtual clients on
+one device. Data is the synthetic LM stream of ``repro_torch.data``, equal
+to the JAX package's for the same seed.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b --reduced \\
+      --steps 50 --batch 8 --seq 128 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint.checkpoint import save as save_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.data.datasets import synthetic_lm_batches
+from repro_torch.fl.fedstep import FedStepConfig
+from repro_torch.launch.mesh import make_smoke_mesh, make_virtual_mesh
+from repro_torch.launch.steps import build_train_step
+
+
+def make_batch(cfg, tokens, device) -> dict:
+    """The train batch of ``tokens`` (B, S) for ``cfg``'s family: the JAX
+    driver's stubs (zero patch embeddings, text positions) for a VLM."""
+    batch = {"tokens": torch.as_tensor(tokens, device=device)}
+    B, S = batch["tokens"].shape
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros((B, cfg.vision_patches, cfg.d_model), device=device)
+        batch["positions"] = torch.arange(S, dtype=torch.int32, device=device)[None, None].expand(
+            3, B, S)
+    return batch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_5_3b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--local-steps", type=int, default=2)
+    ap.add_argument("--local-lr", type=float, default=0.05)
+    ap.add_argument("--strategy", default=None)
+    ap.add_argument("--cross-pod-wire", default="f32")
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--clients", type=int, default=1,
+                    help="virtual clients on the data axis (the JAX driver's device count)")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch, reduced=args.reduced)
+    mesh = make_smoke_mesh() if args.clients == 1 else make_virtual_mesh(args.clients)
+    fed = FedStepConfig(local_steps=args.local_steps, local_lr=args.local_lr)
+    bundle, setup = build_train_step(cfg, mesh, fed, cross_pod_wire=args.cross_pod_wire,
+                                     strategy_name=args.strategy, device=args.device)
+    # bf16 products reduce split-K partial sums in float32, as the JAX
+    # package's float32 accumulation does (models/layers.py)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print(f"[train] arch={cfg.arch_id} params={cfg.param_count():,} "
+          f"mesh={mesh.shape} clients over {setup.client_axes} "
+          f"tag={setup.tag.name if setup.tag else None} device={bundle.device}")
+
+    params = bundle.init(torch.Generator(device=bundle.device).manual_seed(0))
+    state = setup.init_state(params)
+    data = synthetic_lm_batches(vocab=cfg.vocab_size, batch=args.batch, seq=args.seq, seed=0)
+    t0 = time.time()
+    losses = []
+    for i in range(args.steps):
+        batch = make_batch(cfg, next(data), bundle.device)
+        params, state, metrics = setup.step(params, state, batch, i)
+        losses.append(float(metrics["loss"]))
+        if i % args.log_every == 0 or i == args.steps - 1:
+            print(f"[train] step {i:4d} loss {losses[-1]:.4f} "
+                  f"({(time.time() - t0) / (i + 1):.2f}s/step)")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, args.steps, params)
+        print(f"[train] saved checkpoint to {args.checkpoint}")
+    print(f"[train] done: first loss {losses[0]:.4f} -> last {losses[-1]:.4f}")
+    assert losses[-1] < losses[0], "loss did not improve"
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

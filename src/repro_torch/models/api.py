@@ -1,5 +1,5 @@
 """Uniform model API: one ``ModelBundle`` per architecture family (the port
-of ``repro.models.api``, serving half).
+of ``repro.models.api``).
 
 Batch layouts per family:
 
@@ -12,10 +12,11 @@ Serve batches are ``{"token": (B, 1) int}`` against a model cache. The
 bundle holds its device: ``build_model`` puts it on the card unless the
 caller asks for the CPU, and raises where there is no card.
 
-Ported are the decoder-only families whose blocks are dense (dense, vlm).
-Training (``loss_fn``) and the encoder-decoder family raise
-``NotImplementedError`` (ROADMAP Queue 1 item 8); so do the other block
-kinds, when their parameters or caches are made.
+Ported are the decoder-only families whose blocks are dense (dense, vlm),
+for serving and training (``loss_fn``, through ``transformer.lm_loss``; the
+plain attention only: the flash kernel has no backward). The
+encoder-decoder family raises ``NotImplementedError`` (ROADMAP Queue 1 item
+8); so do the other block kinds, when their parameters or caches are made.
 """
 from __future__ import annotations
 
@@ -45,11 +46,12 @@ class ModelBundle:
 
 
 def _embed_with_patches(params, cfg, tokens, patch_embeds):
-    """Vision tokens (stub patch embeddings) occupy the first P slots."""
+    """Vision tokens (stub patch embeddings) occupy the first P slots (the
+    token embeddings of those slots get no gradient, as in the JAX
+    package's ``.at[:, :P].set``)."""
     h = embed_apply(params["embed"], tokens)
     P = patch_embeds.shape[1]
-    h[:, :P] = patch_embeds.to(h.dtype)
-    return h
+    return torch.cat([patch_embeds.to(h.dtype), h[:, P:]], dim=1)
 
 
 def build_model(cfg: ModelConfig, device: Any = None) -> ModelBundle:
@@ -73,8 +75,16 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         return transformer.init_params(gen, cfg)
 
     def loss_fn(params, batch, rng):
-        raise NotImplementedError("training (lm_loss, chunked_ce) is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+        """Mean next-token cross-entropy of ``batch`` (a 0-d float32 tensor);
+        ``rng`` is unused by these families."""
+        del rng
+        if cfg.attn_impl == "flash":
+            raise ValueError("the flash kernel is forward only: train with attn_impl='xla'")
+        if is_vlm:
+            embeds = _embed_with_patches(params, cfg, batch["tokens"], batch["patch_embeds"])
+            return transformer.lm_loss(params, cfg, batch["tokens"], embeds=embeds,
+                                       positions=batch.get("positions"))
+        return transformer.lm_loss(params, cfg, batch["tokens"])
 
     def init_cache(batch_size, max_len):
         return transformer.init_cache(cfg, batch_size, max_len, device)

@@ -4,10 +4,13 @@ form (the port of ``repro.models.attention``).
 This is the ``attn_impl="xla"`` path, the plain attention: ``chunked_attention``
 walks query chunks of ``q_chunk`` rows, so one chunk's score matrix is live
 at a time. ``attn_impl="flash"`` replaces it with the flash kernel
-(``repro_torch.kernels.flash_attention``), and ``chip_smoke.py`` holds the
-two against each other on the card. The JAX package's ``use_scan`` form
-drives the same chunks with ``lax.scan`` and gives the same values, so the
-port has only this loop (and ignores ``cfg.scan_attn_chunks``).
+(``repro_torch.kernels.flash_attention``, forward only), and
+``chip_smoke.py`` holds the two against each other on the card. The JAX
+package's ``use_scan`` form drives the same chunks with ``lax.scan`` and
+gives the same values, with each chunk under ``jax.checkpoint``; the port
+keeps the loop and, with ``recompute`` (``cfg.scan_attn_chunks``) while
+gradients are recorded, runs each chunk under ``torch.utils.checkpoint``,
+so the backward recomputes a chunk's scores instead of keeping them.
 
 Scores and the products with V accumulate in float32, as the JAX einsums do
 with ``preferred_element_type``: bfloat16 operands are widened to float32
@@ -19,6 +22,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_apply, dense_init
@@ -96,26 +100,33 @@ def chunked_attention(
     window: int = 0,
     q_chunk: int = 1024,
     q_offset: int = 0,
+    recompute: bool = False,
 ) -> torch.Tensor:
     """Masked attention, blocked over query chunks.
 
     q: (B, Sq, H, Dh); k, v: (B, Skv, Hkv, Dh). Returns (B, Sq, H, Dh) in q's
     dtype. ``window > 0`` keeps the last ``window`` positions (sliding-window
-    attention). The JAX package's ``use_scan`` form has the same values and
-    has no counterpart here.
+    attention). ``recompute`` (the JAX package's ``use_scan``: same values)
+    recomputes each chunk in the backward when gradients are recorded.
     """
     B, Sq, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
     scale = Dh**-0.5
     chunk = min(q_chunk, Sq)
+    recompute = recompute and torch.is_grad_enabled()
+
+    def attend(qc, k, v, qpos):
+        return _attend_chunk(qc, k, v, qpos, causal=causal, window=window,
+                             scale=scale).to(q.dtype)
+
     outs = []
     for lo in range(0, Sq, chunk):
         cq = min(chunk, Sq - lo)
         qc = q[:, lo:lo + cq].reshape(B, cq, Hkv, G, Dh)
         qpos = q_offset + lo + torch.arange(cq, device=q.device)
-        out = _attend_chunk(qc, k, v, qpos, causal=causal, window=window, scale=scale)
-        outs.append(out.to(q.dtype))
+        outs.append(checkpoint(attend, qc, k, v, qpos, use_reentrant=False) if recompute
+                    else attend(qc, k, v, qpos))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 

@@ -91,7 +91,8 @@ def _attn_core_full(
         out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     else:
         out = attn.chunked_attention(
-            q, k, v, causal=True, window=cfg.sliding_window, q_chunk=cfg.q_chunk)
+            q, k, v, causal=True, window=cfg.sliding_window, q_chunk=cfg.q_chunk,
+            recompute=cfg.scan_attn_chunks)
     new_cache = None
     if cache is not None:
         S = h.shape[1]

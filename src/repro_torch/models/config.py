@@ -75,8 +75,9 @@ class ModelConfig:
     q_chunk: int = 1024  # unrolled query-chunk size for attention
     ssd_chunk: int = 256  # chunk length for SSD/mLSTM chunked scan
     scan_layers: bool = True
-    # the JAX package's lax.scan over attention query chunks (same values as
-    # the unrolled loop); the port has only the loop and ignores it
+    # the JAX package's lax.scan over attention query chunks and CE blocks
+    # (same values as the unrolled loop); the port keeps the loop and
+    # recomputes each chunk in the backward (torch.utils.checkpoint)
     scan_attn_chunks: bool = False
     attn_impl: str = "xla"  # xla (plain attention) | flash (the flash kernel)
     remat: bool = False  # activation checkpointing around each block

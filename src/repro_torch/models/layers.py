@@ -62,13 +62,59 @@ def embed_apply(p: Tree, tokens: torch.Tensor) -> torch.Tensor:
     return F.embedding(tokens, p["emb"])
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` of two bfloat16 matrices: the exact products summed in
+    float32 and rounded once to ``out_dtype`` (one cuBLAS call on the card)."""
+    if a.is_cuda:
+        return torch.mm(a, b) if out_dtype == a.dtype else torch.mm(a, b, out_dtype=out_dtype)
+    return torch.mm(a.float(), b.float()).to(out_dtype)
+
+
+def _split3(g: torch.Tensor) -> torch.Tensor:
+    """float32 ``g`` (M, N) as three bfloat16 terms stacked to (3M, N) whose
+    sum is ``g``: each term takes the next 8 significant bits of the rest."""
+    hi = g.to(torch.bfloat16)
+    rest = g - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return torch.cat([hi, mid, (rest - mid.float()).to(torch.bfloat16)])
+
+
+class _Float32Logits(torch.autograd.Function):
+    """``x @ emb.T`` of two bfloat16 CUDA matrices with a float32 output: one
+    cuBLAS product accumulating in float32, with no float32 copy of ``emb``.
+    ``torch.mm(..., out_dtype=)`` has no derivative, so the backward is
+    written out. The JAX package's transpose keeps the float32 cotangent
+    (a float32 product rounded once to bfloat16); here the cotangent is
+    split into three bfloat16 terms, whose products with bfloat16 operands
+    are exact, so each gradient is still one float32-accumulating bfloat16
+    product reading ``emb`` once (``gx`` sums its three partial products)."""
+
+    @staticmethod
+    def forward(ctx, x2d: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x2d, emb)
+        return _mm(x2d, emb.t(), torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x2d, emb = ctx.saved_tensors
+        gs = _split3(g.to(torch.float32))
+        gx = gemb = None
+        if ctx.needs_input_grad[0]:
+            parts = _mm(gs, emb, torch.float32).view(3, *x2d.shape)
+            gx = (parts[0] + parts[1] + parts[2]).to(x2d.dtype)
+        if ctx.needs_input_grad[1]:
+            gemb = _mm(gs.t(), x2d.repeat(3, 1), emb.dtype)
+        return gx, gemb
+
+
 def unembed_apply(p: Tree, x: torch.Tensor) -> torch.Tensor:
     """float32 logits through the (tied or separate) unembedding matrix."""
     emb = p["emb"]
     if x.dtype == torch.float32 and emb.dtype == torch.float32:
         return torch.matmul(x, emb.t())
-    if x.is_cuda:  # float32 out of the bf16 product: no float32 copy of emb
-        flat = torch.mm(x.reshape(-1, x.shape[-1]), emb.t(), out_dtype=torch.float32)
+    if x.is_cuda and x.dtype == emb.dtype == torch.bfloat16:
+        # float32 out of the bf16 product: no float32 copy of emb
+        flat = _Float32Logits.apply(x.reshape(-1, x.shape[-1]), emb)
         return flat.reshape(*x.shape[:-1], emb.shape[0])
     return torch.matmul(x.float(), emb.float().t())
 

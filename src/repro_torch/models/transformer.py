@@ -1,5 +1,5 @@
 """Decoder-only language model assembled from ``repro_torch.models.blocks``
-(the port of ``repro.models.transformer``, serving half).
+(the port of ``repro.models.transformer``).
 
 Layer stacking follows the JAX package: the repeating kind pattern
 (``layer_kinds``) defines a period. With ``scan_layers`` the parameters are
@@ -9,17 +9,24 @@ package scans them); otherwise ``params["layers"]`` holds one tree per
 layer. The model-level cache is ``{"len": int32 0-d tensor,
 "layers"/"groups": ...}``; decode positions derive from ``len``.
 
+Training: ``lm_loss`` is the next-token cross-entropy through
+``chunked_ce``. Where the JAX package wraps a scanned body in
+``jax.checkpoint`` (``cfg.remat`` around each group of blocks, and each
+chunk of ``chunked_ce``'s scan), the port runs the same piece under
+``torch.utils.checkpoint`` while gradients are recorded, so its activations
+are recomputed in the backward instead of kept.
+
 The JAX package pins activations to a sharding profile (``shard_ctx``);
-on one device that is a no-op, so the port has none. ``lm_loss`` and
-``chunked_ce`` are training and are not ported yet (ROADMAP Queue 1 item 8).
+on one device that is a no-op, so the port has none.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init, layer_kinds
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_apply, embed_init, rmsnorm_apply, rmsnorm_init, unembed_apply
@@ -97,6 +104,15 @@ def default_positions(cfg: ModelConfig, batch: int, seq: int, device: torch.devi
     return pos
 
 
+def _unstack(tree: Tree, G: int) -> List[Tree]:
+    """The G per-group trees of a stacked tree, as views. One ``unbind`` per
+    leaf: its backward stacks the G gradients once, where G ``x[g]`` slices
+    would each scatter into a zero tensor of the whole stack."""
+    leaves, treedef = tree_flatten(tree)
+    cols = [torch.unbind(x, 0) for x in leaves]
+    return [tree_unflatten(treedef, [c[g] for c in cols]) for g in range(G)]
+
+
 def apply_stack(
     params: Tree,
     h: torch.Tensor,
@@ -112,12 +128,22 @@ def apply_stack(
         # layer g of kind j is the g-th slice of every leaf; the cache
         # slices are views, so each block's in-place update lands in the
         # stacked cache, which is returned as it came
-        for g in range(_n_groups(cfg)):
+        G = _n_groups(cfg)
+        layers = [_unstack(params["groups"][j], G) for j in range(len(kinds))]
+
+        def group(g, h, aux):
             for j, kind in enumerate(kinds):
-                p = tree_map(lambda x: x[g], params["groups"][j])
                 c = tree_map(lambda x: x[g], cache["groups"][j]) if cache is not None else None
-                h, _, a = block_apply(p, h, positions, c, mode, cfg, kind)
+                h, _, a = block_apply(layers[j][g], h, positions, c, mode, cfg, kind)
                 aux = aux + a
+            return h, aux
+
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        for g in range(G):
+            if remat:
+                h, aux = checkpoint(group, g, h, aux, use_reentrant=False)
+            else:
+                h, aux = group(g, h, aux)
         return h, new_cache, aux
 
     new_layers = []
@@ -180,6 +206,69 @@ def forward(
         cache=cache, mode=mode,
     )
     return logits_of(params, cfg, h), new_cache, aux
+
+
+def chunked_ce(
+    h: torch.Tensor,  # (B, S, d): hidden states of the positions predicting t+1
+    unemb: Tree,
+    targets: torch.Tensor,  # (B, S) int
+    *,
+    n_chunks: int = 16,
+    use_scan: bool = True,
+) -> torch.Tensor:
+    """Mean cross-entropy without materializing the full (B*S, V) float32
+    logits.
+
+    Flattens the tokens into ``n_chunks`` blocks (one block when they do not
+    divide evenly): each block computes its (chunk, V) logits, a
+    log-sum-exp and the target gather, and the blocks' sums add up in
+    order. With ``use_scan`` (the JAX package's scan) each block's logits
+    are recomputed in the backward instead of kept."""
+    B, S, d = h.shape
+    N = B * S
+    hf = h.reshape(N, d)
+    tf = targets.reshape(N).to(torch.int64)
+    if N % n_chunks:
+        n_chunks = 1
+    chunk = N // n_chunks
+
+    def chunk_nll(hc, tc):
+        logits = unembed_apply(unemb, hc)  # (chunk, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, 1, tc[:, None])[:, 0]
+        return torch.sum(lse - picked)
+
+    if use_scan and n_chunks > 1:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        recompute = torch.is_grad_enabled()
+        for i in range(n_chunks):
+            hc, tc = hf[i * chunk:(i + 1) * chunk], tf[i * chunk:(i + 1) * chunk]
+            nll = (checkpoint(chunk_nll, hc, tc, use_reentrant=False) if recompute
+                   else chunk_nll(hc, tc))
+            total = total + nll
+    else:
+        total = chunk_nll(hf, tf)
+    return total / N
+
+
+# --------------------------------------------------------------------- #
+# losses / steps
+# --------------------------------------------------------------------- #
+def lm_loss(
+    params: Tree,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    embeds: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Next-token cross-entropy (tokens shifted internally) + router aux.
+
+    Uses ``chunked_ce``'s recomputed blocks when the config is in
+    deployment mode (``scan_attn_chunks``), as the JAX package does."""
+    h, _, aux = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, positions=positions)
+    unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    loss = chunked_ce(h[:, :-1], unemb, tokens[:, 1:], use_scan=cfg.scan_attn_chunks)
+    return loss + cfg.router_aux_weight * aux
 
 
 def decode_step(

@@ -614,3 +614,83 @@ def test_child_given_the_card_where_there_is_none_fails(cuda_device, monkeypatch
     res = run_job_multiproc(_coded_job(1, 0), device=cuda_device, timeout=120)
     assert set(res.errors) >= {"trainer-0", "global-aggregator-0"}
     assert all("no CUDA device" in str(res.errors[w]) for w in ("trainer-0", "global-aggregator-0"))
+
+
+# ---------------------------------------------------------------------- #
+# the federated train step on the card
+# ---------------------------------------------------------------------- #
+@pytest.mark.gpu
+def test_fed_step_on_card_equals_cpu(cuda_device):
+    """The reduced Qwen2.5-3B (float32) over 2 virtual clients, FedAdam, 2
+    rounds, on the card and on the CPU from the same parameters and batches:
+    loss rtol 1e-5, ``delta_norm`` rtol 1e-4, parameters within 1e-4
+    (``tests/test_torch_train.py``'s tolerances against the JAX package:
+    float32 products in other orders), and no kernel of ours launched (the
+    stages are float32 sums)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.datasets import synthetic_lm_batches
+    from repro_torch.fl.fedstep import FedStepConfig
+    from repro_torch.launch.mesh import make_virtual_mesh
+    from repro_torch.launch.steps import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    fed = FedStepConfig(local_steps=2, local_lr=0.05)
+    it = synthetic_lm_batches(cfg.vocab_size, 8, 16, seed=0)
+    batches = [next(it) for _ in range(2)]
+    params0 = None
+    out = {}
+    kernel.reset_launches()
+    for dev in (cuda_device, torch.device("cpu")):
+        bundle, setup = build_train_step(cfg, make_virtual_mesh(2), fed, device=dev)
+        if params0 is None:
+            params0 = tree_map(lambda x: x.cpu(), bundle.init(
+                torch.Generator(device=dev).manual_seed(0)))
+        params = tree_map(lambda x: x.to(dev), params0)
+        state = setup.init_state(params)
+        hist = []
+        for i, tokens in enumerate(batches):
+            params, state, m = setup.step(params, state, {"tokens": tokens}, i)
+            hist.append(({k: float(v) for k, v in m.items()},
+                         [x.cpu() for x in tree_leaves(params)]))
+        out[dev.type] = hist
+    assert all(fn.launches == 0 for fn in kernel.KERNELS)
+    for (gm, gp), (cm, cp) in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(gm["loss"], cm["loss"], rtol=1e-5)
+        np.testing.assert_allclose(gm["delta_norm"], cm["delta_norm"], rtol=1e-4)
+        for a, b in zip(gp, cp):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_float32_logits_of_bf16_have_a_gradient(cuda_device):
+    """The bf16 unembedding's float32 logits on the card (one cuBLAS product,
+    a hand-written backward): forward and both gradients against the
+    float32 product of the same bf16 values, within bf16 rounding; each
+    bf16 gradient within one bf16 ulp (2**-7 relative) of the float32
+    gradient, plus 2**-16 of the largest where a sum cancels (float32 sums
+    in other orders), and at most 1% of elements off its rounding, as a
+    float32 cotangent gives (0.04% on an H100; one rounded to bf16 first put
+    35% and 40% off)."""
+    from repro_torch.models.layers import unembed_apply
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((2, 9, 256), generator=gen, device=cuda_device).to(torch.bfloat16)
+    emb = (0.05 * torch.randn((1000, 256), generator=gen, device=cuda_device)).to(torch.bfloat16)
+    t = torch.randint(0, 1000, (2, 9), generator=gen, device=cuda_device)
+    outs = []
+    for f32 in (False, True):
+        xs = (x.float() if f32 else x).detach().requires_grad_(True)
+        es = (emb.float() if f32 else emb).detach().requires_grad_(True)
+        logits = unembed_apply({"emb": es}, xs)
+        assert logits.dtype == torch.float32
+        torch.nn.functional.cross_entropy(logits.reshape(-1, 1000), t.reshape(-1)).backward()
+        outs.append((logits.detach(), xs.grad.float(), es.grad.float()))
+    for a, b in zip(outs[0], outs[1]):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 2e-2 * scale, (float((a - b).abs().max()), scale)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert bool(((a - b).abs() <= 2.0**-7 * b.abs() + 2.0**-16 * b.abs().max()).all())
+        off = float((a != b.bfloat16().float()).float().mean())
+        assert off <= 0.01, off

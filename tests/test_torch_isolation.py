@@ -4,7 +4,10 @@
   ``tools/flash_sm90_variants.py`` or ``tools/agg_fold_variants.py``, imports
   ``jax``, ``repro`` or ``ml_dtypes`` (an AST walk, and a subprocess import
   with them blocked in ``sys.modules``); the card's machine has none.
-* ``run_job`` without ``device`` raises where there is no CUDA device.
+* ``run_job``, ``build_train_step`` and the train launcher without a
+  device raise where there is no CUDA device.
+* The training slice's modules (mesh lowering, DP, the fed step, the data
+  pipeline, the train launchers) are among the files walked.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card and
   outside a checkout.
 """
@@ -85,6 +88,35 @@ def test_run_job_defaults_to_cuda_and_raises_without_it(monkeypatch):
         runtime.run_job(job, device="cuda")
     res = runtime.run_job(job, device="cpu", timeout=30)
     assert not res.errors and res.global_weights()["w"].device.type == "cpu"
+
+
+TRAINING_MODULES = ["core/mesh_lowering.py", "fl/privacy.py", "fl/fedstep.py",
+                    "data/datasets.py", "data/pipeline.py", "launch/mesh.py",
+                    "launch/steps.py", "launch/train.py", "models/transformer.py",
+                    "models/api.py", "convert.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES)
+def test_training_modules_are_held_to_the_import_rule(module):
+    path = ROOT / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _banned(m)]
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_train_step(cfg, make_smoke_mesh())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
+    bundle, setup = build_train_step(cfg, make_smoke_mesh(), device="cpu")
+    assert bundle.device.type == "cpu" and setup.client_axes == ("data",)
 
 
 def _smoke(cwd: Path, env: dict) -> subprocess.CompletedProcess:

@@ -171,6 +171,29 @@ def test_bf16_dot_and_unembed_round_as_jax():
     np.testing.assert_allclose(_np(logits), _np(ref), atol=1e-4, rtol=0)
 
 
+def test_bf16_logits_gradient_keeps_the_float32_cotangent():
+    """The card's bf16 unembedding backward (``_Float32Logits``: the float32
+    cotangent split into three bf16 terms) against JAX's vjp of the same
+    bf16 operands, which transposes with the float32 cotangent and rounds
+    once. Within one bf16 ulp (2**-7 relative) and at most 1% of elements
+    off, from float32 sums in other orders; rounding the cotangent to bf16
+    first puts about 43% of them off."""
+    rng = np.random.default_rng(6)
+    x = jnp.asarray(rng.normal(size=(64, 256)), jnp.bfloat16)
+    emb = jnp.asarray(0.02 * rng.normal(size=(512, 256)), jnp.bfloat16)
+    g = rng.normal(size=(64, 512)).astype(np.float32) * 1e-3
+    _, vjp = jax.vjp(lambda a, e: jlayers.unembed_apply({"emb": e}, a), x, emb)
+    want = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(_np(x)).bfloat16().requires_grad_(True)
+    te = torch.from_numpy(_np(emb)).bfloat16().requires_grad_(True)
+    got = torch.autograd.grad(tlayers._Float32Logits.apply(tx, te), (tx, te), torch.from_numpy(g))
+    for mine, ref in zip(got, want):
+        assert mine.dtype == torch.bfloat16
+        a, b = mine.float().numpy(), _np(ref).astype(np.float32)
+        assert np.all(np.abs(a - b) <= 2.0**-7 * np.abs(b))
+        assert np.mean(a != b) <= 0.01, np.mean(a != b)
+
+
 # ------------------------------------------------------------------ #
 # attention
 # ------------------------------------------------------------------ #
@@ -358,9 +381,16 @@ def test_what_is_not_ported_raises():
             bundle.init(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
         build_model(get_config("seamless_m4t_medium", reduced=True), "cpu")
-    bundle = build_model(get_config("qwen2_5_3b", reduced=True), "cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        bundle.loss_fn({}, {}, None)
+    # training is ported (tests/test_torch_train.py): the loss is a 0-d
+    # float32 tensor; only the forward-only flash kernel refuses to train
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    bundle = build_model(cfg, "cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    loss = bundle.loss_fn(bundle.init(torch.Generator().manual_seed(0)), {"tokens": tokens}, None)
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    flash = build_model(dataclasses.replace(cfg, attn_impl="flash"), "cpu")
+    with pytest.raises(ValueError, match="forward only"):
+        flash.loss_fn(flash.init(torch.Generator().manual_seed(0)), {"tokens": tokens}, None)
     with pytest.raises(ValueError, match="generator"):
         build_model(get_config("qwen2_5_3b", reduced=True), "meta").init(torch.Generator())
 
