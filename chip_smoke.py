@@ -58,7 +58,8 @@ source, started together), then runs nine phases, each printing one line:
    leaf) against ``accumulate_stream`` and the plain chain; (d) a
    checkpoint round trip of the global weights onto the card;
 5. codec: (a) the quant kernels against their plain versions on the card
-   (q and scales as bytes) over edge-case blocks; (b) the same job with the
+   (q and scales as bytes) over edge-case blocks; (b) the same job, its
+   tree cut to 1 layer (388 M parameters, the last block padded), with the
    param channel on the socket loopback (``backend="multiproc"``, codec
    ``int8_blocks``): 4 trainers, 2 rounds, the job's weights byte-equal
    every round to the plain fold of the plain-dequantized, plain-quantized
@@ -99,7 +100,21 @@ source, started together), then runs nine phases, each printing one line:
    policy, an intermediate aggregator dropped and re-joined, and a
    ``coordinated_fl`` sync job over 7 processes, each byte-equal (every
    program's weights, events, drops, channel bytes) to ``run_job`` on the
-   card;
+   card; (c) the fault plane: (a) job (a) again under a ``FaultPlan`` with
+   a connection reset of ``trainer-1`` during round 1's uploads and a hub
+   crash during round 2's (times taken from (a)'s hub clock): every
+   round's digest, the channel bytes and every launch count (the hub's
+   folds and dequantizes, each child's) equal to (a)'s, the faults fired
+   and recovered (``transport_recovery``), no device memory held after the
+   job; (b) job (b)'s H-FL job with its ``west`` shard hub crashed,
+   byte-equal to (b); (c) a FedBuff server (buffer 1) over processes on
+   the same tree and codec, restarted from its checkpoint
+   (``server_restarts``, ``checkpoint_every`` 1), against its fault-free
+   run: the absorbed sequence, version vector and final weights equal, the
+   restored step recorded; recovery counters, round times, the hub's time
+   under its lock, its peak memory before and after the restart, the time
+   from the crash to the next frame served, checkpoint bytes and save and
+   restore times;
 8. the federated train step (run last): (a) ``build_train_step`` on
    Qwen2.5-3B at full width and depth (36 layers, bf16, seeded random
    weights), ``classical_fl`` lowered to a plan over 2 virtual clients,
@@ -124,7 +139,8 @@ source, started together), then runs nine phases, each printing one line:
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
    the quant kernels, phase 6's serving run for the flash kernels, phase
-   7's process job for the agg and quant entries, phase 8's rounds for
+   7's process job and phase 7c's faulted jobs for the agg and quant
+   entries, phase 8's rounds for
    every kernel), time, plain version's time, bound and a library call's
    time per kernel, at the path's shapes.
 
@@ -176,6 +192,8 @@ from repro_torch.kernels.quant import ops as qops  # noqa: E402
 from repro_torch.kernels.quant import ref as qref  # noqa: E402
 from repro_torch.transport import wire  # noqa: E402
 from repro_torch.transport.conformance import SeededSGDTrainer  # noqa: E402
+from repro_torch.transport.multiproc import TransportHub  # noqa: E402
+from repro_torch.core.events import FaultPlan  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
@@ -220,10 +238,14 @@ POLICY_TRAINERS, POLICY_ROUNDS = 8, 3
 DEADLINE_S, STRAGGLER, STRAGGLER_S = 2.0, "trainer-1", 5.0
 ASYNC_BUFFER, POLICY_GRACE_S = 4, 60.0
 BATCH_STALENESS = (0, 1, 2, 3, 0, 1, 2, 3)
-# phase 5: the same tree over the socket loopback with the int8_blocks codec
-CODEC_TRAINERS, CODEC_ROUNDS = 4, 2
+# phase 5: the tree over the socket loopback with the int8_blocks codec, cut
+# to 1 of phase 4's 4 layers together with phase 7's process jobs (which
+# check their rounds against phase 5's) to make room for phase 7c: full
+# width, 388 M parameters, the last of 94 787 blocks a padded one
+CODEC_TRAINERS, CODEC_ROUNDS, CODEC_LAYERS = 4, 2, 1
+CODEC_PARAMS = 388_243_968
 QUANT_BLOCK = qkernel.BLOCK
-QWEN_BLOCKS = 151_239  # QWEN_PARAMS / 4096, exactly
+QWEN_BLOCKS = 151_239  # QWEN_PARAMS / 4096, exactly: the quant kernels' parity case
 # phase 6: serving the full Qwen2.5-3B (36 layers, bf16, vocab padded to 152 064)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 2048, 64
 QWEN_FULL_PARAMS = 3_086_200_832
@@ -266,6 +288,16 @@ LEARN_ROUNDS, LEARN_DROP = 3, 1.0
 # memory held between rounds may not grow by a tree's worth (the parameters
 # are 6.2 GB) over the timed rounds
 HELD_GROWTH_GB = 1.0
+# phase 7c: the faulted jobs leave no device memory held after them beyond
+# this (a decoded update the hub kept alive would be 1.55 GB)
+FAULT_HELD_MB = 64.0
+# (b): the H-FL job's west shard hub crashes at this virtual time (round 1's
+# uploads: the trainers compute for 1 s a round)
+SHARD_CRASH = ("west", 1.0)
+# (c): the reference test's FedBuff restart (tests/test_chaos.py): trainer-1
+# a 50 s straggler dropped at 0.5, the server dropped at 2.5 and re-joined
+# at 3.0, buffer 1, 3 versions
+RESTART_AT = (2.5, 3.0)
 
 
 class PhaseFailed(RuntimeError):
@@ -1752,12 +1784,11 @@ def _socket_crossing_ms(frame) -> float:
 def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     """(b) the full-width job over the socket loopback with int8_blocks, and
     (c) the quant kernels' times at its shapes."""
-    shapes = qwen_shapes()
+    shapes = qwen_shapes(CODEC_LAYERS)
     n_params = sum(int(np.prod(s)) for s in _flat_shapes(shapes))
     n_leaves = len(_flat_shapes(shapes))
-    check(n_params == QWEN_BLOCKS * QUANT_BLOCK, "tree is not a whole number of blocks")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    init = _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), shapes)
+    check(n_params == CODEC_PARAMS, f"tree has {n_params} parameters, not {CODEC_PARAMS}")
+    init = codec_init(dev)
     job = JobSpec(
         tag=codec_tag(),
         datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(CODEC_TRAINERS)),
@@ -1836,7 +1867,8 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     leaves = tree_leaves(base)
     codec = wire.Int8BlocksCodec()
     payload = {"weights": base, "num_samples": samples_of(datasets[0][1])}
-    flat = clock.span("cat", lambda: torch.cat([x.reshape(-1) for x in leaves]))
+    pad = leaves[0].new_zeros((-n_params) % QUANT_BLOCK)  # the codec pads to whole blocks
+    flat = clock.span("cat", lambda: torch.cat([x.reshape(-1) for x in leaves] + [pad]))
     q, s = clock.span("quantize", lambda: qkernel.quantize_blocks(flat.view(-1, QUANT_BLOCK)))
     clock.span("d2h", lambda: (q.view(-1).cpu(), s.cpu()))
     del flat
@@ -1859,8 +1891,9 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     del decoded, updates, on_wire, frame, payload
     ms = clock.ms
 
-    # (c) kernel times at full width, CUDA events
-    x = torch.cat([x_.reshape(-1) for x_ in leaves]).view(-1, QUANT_BLOCK)
+    # (c) kernel times at full width, CUDA events, on the blocks the codec
+    # quantizes (the last one zero-padded)
+    x = torch.cat([x_.reshape(-1) for x_ in leaves] + [pad]).view(-1, QUANT_BLOCK)
     nb = x.shape[0]
     q, s = qkernel.quantize_blocks(x)
     nbytes = (5 * QUANT_BLOCK + 4) * nb
@@ -1886,7 +1919,7 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
         "decode_ms": ms["decode"] * 2 * T, "fold_ms": ms["fold"],
     }
     tq, td = timings["quantize_blocks"], timings["dequantize_blocks"]
-    print(f"phase codec job: ok Qwen2.5-3B tree ({n_params} f32 params, {nb} blocks, layers 36->4) "
+    print(f"phase codec job: ok Qwen2.5-3B tree ({n_params} f32 params, {nb} blocks, layers 36->{CODEC_LAYERS}) "
           f"over the socket loopback with int8_blocks, {T} trainers, {R} rounds byte-equal to the "
           f"plain chain; job_s {job_s:.3f} round_wall_s {[round(t, 4) for t in round_s]} "
           f"peak_device_gb {peak_gb:.2f} channel_bytes {channel_bytes} raw_bytes {raw} "
@@ -1922,7 +1955,8 @@ def codec_init(dev):
     """Phase 5's initial weights, drawn from the seed-0 generator on ``dev``:
     the same bytes in any process on the card."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    return _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev), qwen_shapes())
+    return _map_shapes(lambda s: 0.02 * torch.randn(s, generator=gen, device=dev),
+                       qwen_shapes(CODEC_LAYERS))
 
 
 class ProcNoiseTrainer(NoiseTrainer):
@@ -1970,15 +2004,18 @@ class HostNoiseCoord(HostNoise, CoordTrainer):
 class _HubProbe:
     """Times the hub's reduce plane in this process while a job runs: host
     seconds inside ``InprocBackend._reduce_ingest`` (which runs under the
-    backend's lock) and, with CUDA events around each ``fold_into`` of a
-    hub ``StreamingMean``, the fold's device ms."""
+    backend's lock), the hub's clock at each (``ingest_at``: seconds since
+    the hub started, the clock a ``FaultPlan`` is written in) and, with CUDA
+    events around each ``fold_into`` of a hub ``StreamingMean``, the fold's
+    device ms."""
 
     def __enter__(self):
-        self.lock_s, self.events = [], []
+        self.lock_s, self.events, self.ingest_at = [], [], []
         self._ingest, self._fold = InprocBackend._reduce_ingest, troles.fold_into
         ingest, fold = self._ingest, self._fold
 
         def timed_ingest(backend, *args):
+            self.ingest_at.append(backend._wall())
             t0 = time.perf_counter()
             try:
                 return ingest(backend, *args)
@@ -2025,7 +2062,7 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
     (b) a pooled, sharded deadline job with a dropout and a re-join, and a
     coordinated sync job, over processes."""
     T, R = CODEC_TRAINERS, CODEC_ROUNDS
-    n_leaves = len(_flat_shapes(qwen_shapes()))
+    n_leaves = len(_flat_shapes(qwen_shapes(CODEC_LAYERS)))
     job = JobSpec(tag=codec_tag(),
                   datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(T)),
                   hyperparams={"rounds": R, "reduce_plan": 1})
@@ -2077,6 +2114,11 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
                               "peak_gb": round(p.peak_device_bytes / 1e9, 3)}
                 for p in [root, *trainers]}
     launches = _proc_launches(hub, [root, *trainers])
+    job_a = {"job": job, "overrides": overrides, "digests": [m["digest"] for m in rounds],
+             "round_s": [m["round_s"] for m in rounds], "channel_bytes": proc_bytes,
+             "hub": hub, "launches": launches, "startup_s": startup_s,
+             "ingest_at": sorted(probe.ingest_at), "lock_s": list(probe.lock_s),
+             "driver_peak_gb": driver_peak_gb}
     del res, root, trainers
     gc.collect()
 
@@ -2145,10 +2187,12 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
     check(not thr.errors and _small_obs(mp_coord) == _small_obs(thr),
           "coordinated process job differs from run_job on the card")
     check(coord_folds > 0, "the coordinated aggregators' processes never launched the stacked fold")
+    job_b = {"job": hier, "kw": hier_kw, "obs": _small_obs(mp_hier),
+             "stats": dict(reduced)}
 
     lock = probe.lock_s
     fold = probe.fold_ms
-    print(f"phase process plane: ok Qwen2.5-3B tree ({QWEN_PARAMS} f32 params, layers 36->4) as "
+    print(f"phase process plane: ok Qwen2.5-3B tree ({CODEC_PARAMS} f32 params, layers 36->{CODEC_LAYERS}) as "
           f"{T + 1} processes, hub in the driver folding on the card at reduce_plan 1 over "
           f"int8_blocks, {R} rounds byte-equal to the loopback comparator and to phase 5's "
           f"unreduced rounds; startup_s {startup_s:.3f} job_s {job_s:.3f} round_wall_s "
@@ -2163,6 +2207,330 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
           f"dropped at 1.5 and re-joined at 2.5 (hub_reduced {reduced['hub_reduced']}) and "
           f"coordinated_fl sync over 7 processes (exact_fold launches {coord_folds}), run at "
           f"once in {small_s:.3f} s, byte-equal to run_job on the card", flush=True)
+    return {"launches": launches, "a": job_a, "b": job_b}
+
+
+# ---------------------------------------------------------------------- #
+# phase 7c: the fault plane
+# ---------------------------------------------------------------------- #
+class _FaultProbe:
+    """Watches the hubs of this process through a faulted job: every hub
+    armed with faults (so the phase can check that each fired), the hub
+    clock and the frame of each connection reset, the hub clock and host
+    time of each restart, the device memory peak before the first restart
+    and after it, and the host time of the first frame a hub served after
+    each restart."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        self.armed, self.crashes, self.first_after, self.resets = [], [], [], []
+        self.peak_before_gb = None
+        self._saved = (TransportHub._arm_crash, TransportHub._arm_conn_resets,
+                       TransportHub.simulate_crash, TransportHub._dispatch,
+                       TransportHub._inject_fault)
+        arm_crash, arm_resets, crash, dispatch, inject = self._saved
+        probe = self
+
+        def armed_crash(hub, at):
+            probe.armed.append(hub)
+            return arm_crash(hub, at)
+
+        def armed_resets(hub, resets):
+            probe.armed.append(hub)
+            return arm_resets(hub, resets)
+
+        def timed_crash(hub):
+            if probe.peak_before_gb is None:
+                probe.peak_before_gb = torch.cuda.max_memory_allocated(probe.dev) / 1e9
+                torch.cuda.reset_peak_memory_stats(probe.dev)
+            probe.crashes.append((hub.backend._wall(), time.perf_counter()))
+            return crash(hub)
+
+        def first_dispatch(hub, op, args):
+            if len(probe.first_after) < len(probe.crashes):
+                probe.first_after.append(time.perf_counter())
+            return dispatch(hub, op, args)
+
+        def noted_inject(hub, conn, args):
+            crashes = len(probe.crashes)
+            fired = inject(hub, conn, args)
+            if fired and len(probe.crashes) == crashes:
+                probe.resets.append((round(hub.backend._wall(), 3),
+                                     [a for a in args if isinstance(a, str)]))
+            return fired
+
+        (TransportHub._arm_crash, TransportHub._arm_conn_resets, TransportHub.simulate_crash,
+         TransportHub._dispatch, TransportHub._inject_fault) = (
+            armed_crash, armed_resets, timed_crash, first_dispatch, noted_inject)
+        return self
+
+    def __exit__(self, *exc):
+        (TransportHub._arm_crash, TransportHub._arm_conn_resets, TransportHub.simulate_crash,
+         TransportHub._dispatch, TransportHub._inject_fault) = self._saved
+
+    def unfired(self) -> list:
+        """The faults still armed on any hub: each fires once, so a fault
+        left here never fired."""
+        return [(hub.backend.name, dict(hub._conn_resets), hub._crash_at) for hub in self.armed
+                if hub._conn_resets or hub._crash_at is not None]
+
+    def recovery_ms(self) -> list:
+        return [round((b - a[1]) * 1e3, 3) for a, b in zip(self.crashes, self.first_after)]
+
+
+def _recovery(res) -> dict:
+    root = res.program("global-aggregator-0")
+    return next((m["transport_recovery"] for m in root.metrics if "transport_recovery" in m), {})
+
+
+def _held_mb(dev, before: int) -> float:
+    gc.collect()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(dev) - before) / 1e6
+
+
+class ProcVersionNoiseTrainer(Trainer):
+    """``noisy`` of (dataset, 1 + the server version it trained from) on the
+    card: an upload lost to a server restart and trained again from the
+    restored version is the same bytes. Its weights stay in its process."""
+
+    def train(self):
+        if self.weights is None or self._work_done:
+            return
+        self.weights = noisy(self.weights, self.ctx.worker.dataset, 1 + self._server_version)
+        self.num_samples = samples_of(self.ctx.worker.dataset)
+
+    def run(self):
+        super().run()
+        self.weights = None
+
+
+def _timed_checkpoints(times: dict) -> None:
+    """Time this process's checkpoint saves and loads into ``times``. After
+    each save the older steps' files go: a restart reads the newest only,
+    and each file holds several copies of the tree (weights, snapshots, the
+    strategy's accumulator), 8 GB at phase 5's depth."""
+    ck = roles_async.checkpoint
+    if getattr(ck.save, "_timed", False):
+        return
+    save, load = ck.save, ck.load_tree
+
+    def timed_save(directory, step, tree):
+        t0 = time.perf_counter()
+        path = save(directory, step, tree)
+        times.setdefault("save_s", []).append(round(time.perf_counter() - t0, 4))
+        times.setdefault("bytes", []).append(os.path.getsize(path))
+        for name in os.listdir(directory):
+            if name.endswith(".npz") and os.path.join(directory, name) != path:
+                os.unlink(os.path.join(directory, name))
+        return path
+
+    def timed_load(directory, step, device):
+        t0 = time.perf_counter()
+        tree = load(directory, step, device=device)
+        torch.cuda.synchronize(device)
+        times.setdefault("restore_s", []).append(round(time.perf_counter() - t0, 4))
+        return tree
+
+    timed_save._timed = True
+    ck.save, ck.load_tree = timed_save, timed_load
+
+
+class ProcAsyncRoot(GlobalAggregator):
+    """Lowered to the FedBuff root: draws phase 5's initial weights itself
+    (the job carries none to its processes) and reports the checkpoint
+    saves and loads of its incarnation in its metrics."""
+
+    def __init__(self, ctx):
+        super().__init__(ctx)
+        self.weights = codec_init(ctx.device)
+        self._ckpt_times: dict = {}
+        _timed_checkpoints(self._ckpt_times)
+
+    def run(self):
+        try:
+            super().run()
+        finally:
+            self.metrics.append({"checkpoint_times": dict(self._ckpt_times)})
+
+
+def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
+    """(a) phase 7a's job under a connection reset and a hub crash; (b)
+    phase 7b's H-FL job with a shard hub crashed; (c) a FedBuff server
+    restarted from its checkpoint over processes; each against its
+    fault-free run."""
+    a, b = proc["a"], proc["b"]
+    T, R = CODEC_TRAINERS, CODEC_ROUNDS
+    ingest = a["ingest_at"]
+    check(len(ingest) == R * T, f"phase 7a recorded {len(ingest)} hub folds")
+    # times on the hub's clock (seconds since it started) from 7a's run:
+    # the reset half-way from round 1's broadcast to its first fold, so the
+    # next frame naming trainer-1 is its round-1 upload; the crash half-way
+    # from round 1's last fold to round 2's first, so it lands in round 2's
+    # broadcast or uploads whether this job starts up a little faster or
+    # slower than 7a's (a fault that never fires fails the phase)
+    reset_at = (a["startup_s"] + ingest[0]) / 2
+    crash_at = (ingest[T - 1] + ingest[T]) / 2
+    plan = FaultPlan(conn_resets={"trainer-1": reset_at}, hub_crashes={"": crash_at})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    t0 = time.perf_counter()
+    with _HubProbe() as hub_probe, _FaultProbe(dev) as faults:
+        res = run_job_multiproc(a["job"], device=dev, timeout=600, policy=RuntimePolicy(faults=plan),
+                                program_overrides=a["overrides"])
+        job_s = time.perf_counter() - t0
+        peak_after_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        unfired = faults.unfired()
+    hub = {fn.__name__: fn.launches for fn in qkernel.KERNELS + kernel.KERNELS}
+    check(not res.errors, f"faulted process job errors: {res.errors}")
+    rec = _recovery(res)
+    check(not unfired and rec.get("hub_restarts", 0) >= 1 and rec.get("resumes", 0) >= 1,
+          f"a fault did not fire or was not recovered: unfired {unfired}, recovery {rec}")
+    root = res.program("global-aggregator-0")
+    programs = [root, *(res.program(f"trainer-{i}") for i in range(T))]
+    rounds = [m for m in root.metrics if "digest" in m]
+    check([m["digest"] for m in rounds] == a["digests"],
+          "faulted job's rounds differ from phase 7a's fault-free rounds")
+    check(res.channel_bytes["param-channel"] == a["channel_bytes"],
+          f"channel_bytes {res.channel_bytes['param-channel']} != 7a's {a['channel_bytes']}")
+    check(hub == a["hub"], f"hub launches {hub} != 7a's {a['hub']}: a frame folded twice or lost")
+    launches_a = _proc_launches(hub, programs)
+    check(launches_a == a["launches"], f"launches {launches_a} != 7a's {a['launches']}")
+    stats = res.channel_stats["param-channel"]
+    check(stats.get("hub_reduced") == R * T and stats.get("hub_partials") == R,
+          f"hub reduce stats {stats}")
+    del res, root, programs
+    held_a = _held_mb(dev, before)
+    check(held_a <= FAULT_HELD_MB, f"{held_a:.1f} MB of device memory held after the faulted job")
+    lock = hub_probe.lock_s
+    folds_before = [sum(1 for t in hub_probe.ingest_at if t < c[0]) for c in faults.crashes]
+    a_line = (f"(a) plan conn_resets trainer-1 at {reset_at:.3f} s, hub_crashes '' at "
+              f"{crash_at:.3f} s (7a's hub clock: start-up {a['startup_s']:.3f}, folds at "
+              f"{[round(t, 3) for t in ingest]}); the reset fired at (hub clock, the frame's names) "
+              f"{faults.resets}; the "
+              f"crash fired at {[round(c[0], 3) for c in faults.crashes]} s, after "
+              f"{folds_before} of {R * T} folds; transport_recovery {json.dumps(rec)}; {R} rounds byte-equal to "
+              f"7a, channel_bytes and every launch count equal (hub exact_fold_into_tree "
+              f"{hub['exact_fold_into_tree']} dequantize_blocks {hub['dequantize_blocks']}); job_s "
+              f"{job_s:.3f} round_wall_s {[round(m['round_s'], 4) for m in rounds]} (7a "
+              f"{[round(x, 4) for x in a['round_s']]}); hub under the lock per frame s "
+              f"{[round(x, 3) for x in lock]} (7a {[round(x, 3) for x in a['lock_s']]}); driver peak "
+              f"device GB before the crash {faults.peak_before_gb:.3f}, after it "
+              f"{peak_after_gb:.3f} (7a's job {a['driver_peak_gb']:.3f}); crash to the next "
+              f"frame served ms {faults.recovery_ms()}; held after the job {held_a:.1f} MB")
+    print(f"phase fault plane {a_line}", flush=True)
+
+    # (b) the H-FL job with its west shard hub crashed
+    kw = dict(b["kw"])
+    shard, at = SHARD_CRASH
+    kw["policy"] = dataclasses.replace(kw["policy"], faults=FaultPlan(hub_crashes={shard: at}))
+    before = torch.cuda.memory_allocated(dev)
+    kernel.reset_launches()
+    qkernel.reset_launches()
+    t0 = time.perf_counter()
+    with _FaultProbe(dev) as faults:
+        res = run_job_multiproc(b["job"], device=dev, timeout=300, pool_size=2, sharded=True, **kw)
+        unfired = faults.unfired()
+    job_b_s = time.perf_counter() - t0
+    hub_b = {fn.__name__: fn.launches for fn in qkernel.KERNELS + kernel.KERNELS}
+    check(not res.errors, f"faulted sharded job errors: {res.errors}")
+    rec_b = _recovery(res)
+    check(not unfired and rec_b.get("hub_restarts", 0) >= 1,
+          f"the shard crash did not fire: unfired {unfired}, recovery {rec_b}")
+    check(_small_obs(res) == b["obs"], "faulted sharded H-FL job differs from phase 7b's")
+    reduced = res.channel_stats["param-channel"]
+    check(reduced.get("hub_reduced") == b["stats"].get("hub_reduced")
+          and hub_b["exact_fold_into_tree"] == reduced["hub_reduced"],
+          f"shard hubs folded {hub_b['exact_fold_into_tree']} frames, reduced {reduced}, "
+          f"7b {b['stats']}")
+    launches_b = _proc_launches(hub_b, res.programs.values())
+    del res
+    held_b = _held_mb(dev, before)
+    check(held_b <= FAULT_HELD_MB, f"{held_b:.1f} MB of device memory held after the sharded job")
+
+    # (c) a FedBuff server restarted from its checkpoint, against its
+    # fault-free run, the two jobs at once
+    per_worker = {"trainer-0": {"compute_time": 1.0},
+                  "trainer-1": {"compute_time": 50.0}}  # never finishes an upload
+    # the grace outlasts a coded full-width round trip on a loaded host (the
+    # reference test's 3 s is for a toy model)
+    pol = dict(mode="async", buffer_size=1, grace=POLICY_GRACE_S, dropouts={"trainer-1": 0.5})
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    overrides = {"trainer": ProcVersionNoiseTrainer, "global-aggregator": ProcAsyncRoot}
+
+    def fedbuff_job(**hp):
+        return JobSpec(tag=codec_tag(), datasets=(DatasetSpec(name="d0"), DatasetSpec(name="d1")),
+                       hyperparams={"rounds": 3, **hp})
+
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            futs = [
+                pool.submit(run_job_multiproc, fedbuff_job(), device=dev, timeout=600,
+                            policy=RuntimePolicy(**pol), per_worker_hyperparams=per_worker,
+                            program_overrides=overrides),
+                pool.submit(run_job_multiproc,
+                            fedbuff_job(checkpoint_every=1, checkpoint_dir=ckpt_dir),
+                            device=dev, timeout=600, per_worker_hyperparams=per_worker,
+                            program_overrides=overrides,
+                            policy=RuntimePolicy(**pol, faults=FaultPlan(
+                                server_restarts={"global-aggregator-0": RESTART_AT}))),
+            ]
+            clean, restarted = (f.result() for f in futs)
+        del futs
+        job_c_s = time.perf_counter() - t0
+        ckpt_files = sorted(os.listdir(os.path.join(ckpt_dir, "global-aggregator-0")))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(not clean.errors, f"fault-free FedBuff job errors: {clean.errors}")
+    check(not restarted.errors, f"restarted FedBuff job errors: {restarted.errors}")
+    glob, cglob = restarted.program("global-aggregator-0"), clean.program("global-aggregator-0")
+
+    def absorbed(p):
+        return [(e["src"], e["version"], e["staleness"]) for e in p.staleness_log]
+
+    check(absorbed(glob) == absorbed(cglob) == [("trainer-0", v, 0) for v in range(3)],
+          f"absorbed {absorbed(glob)} != fault-free {absorbed(cglob)}")
+    check(glob.version == cglob.version == 3 and glob.version_vector == cglob.version_vector,
+          f"versions {glob.version} {glob.version_vector} != {cglob.version} {cglob.version_vector}")
+    check({"restored_step": 2} in glob.metrics, f"no restored_step 2 in {glob.metrics}")
+    check(restarted.dropped.get("global-aggregator-0") == RESTART_AT[0]
+          and (RESTART_AT[0], "dropout", "global-aggregator-0") in restarted.events
+          and (RESTART_AT[1], "rejoin", "global-aggregator-0") in restarted.events,
+          f"the restart is not in the events: {restarted.dropped} {restarted.events}")
+    final = tree_digest(restarted.global_weights())
+    check(final == tree_digest(clean.global_weights()),
+          "restarted FedBuff job's final weights differ from the fault-free run's")
+    check(final != tree_digest(codec_init(dev)), "the FedBuff job did not train")
+    times = next(m["checkpoint_times"] for m in glob.metrics if "checkpoint_times" in m)
+    check(times.get("restore_s") and times.get("save_s"),
+          f"the restarted server neither restored nor saved: {times}")
+    launches_c = _proc_launches({}, restarted.programs.values())
+    del clean, restarted, glob, cglob
+    held_c = _held_mb(dev, before)
+    check(held_c <= FAULT_HELD_MB, f"{held_c:.1f} MB of device memory held after the FedBuff jobs")
+
+    launches = dict(launches_a)
+    for extra in (launches_b, launches_c):
+        for name, n in extra.items():
+            launches[name] = launches.get(name, 0) + n
+    print(f"phase fault plane: ok Qwen2.5-3B tree ({CODEC_PARAMS} f32 params, layers "
+          f"36->{CODEC_LAYERS}) (a) as above; (b) hierarchical_fl sharded pooled deadline job with "
+          f"the {shard} shard hub crashed at {at} s (virtual), byte-equal to 7b, "
+          f"transport_recovery {json.dumps(rec_b)}, hub_reduced {reduced['hub_reduced']}, job_s "
+          f"{job_b_s:.3f}; (c) FedBuff buffer 1 over processes on the int8_blocks channel, "
+          f"server dropped at {RESTART_AT[0]} and re-joined at {RESTART_AT[1]}, restored_step 2, "
+          f"3 versions of trainer-0 absorbed, final weights byte-equal to the fault-free run "
+          f"(both jobs at once in {job_c_s:.3f} s); checkpoint files left {ckpt_files}, the restarted "
+          f"incarnation's saves and restore {json.dumps(times)}", flush=True)
     return {"launches": launches}
 
 
@@ -2688,14 +3056,15 @@ def phase_train(dev: torch.device, smi: str) -> dict:
 
 # ---------------------------------------------------------------------- #
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
-                 proc: dict, train: dict) -> str:
+                 proc: dict, fault: dict, train: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
     phase 5's job for the quant kernels, phase 6's serving for flash,
-    phase 7's process job (the hub's launches plus every child's) for the
-    agg and quant entries, and phase 8's training rounds for every kernel
+    phase 7's process job (the hub's launches plus every child's) and
+    phase 7c's three faulted jobs (the same) for the agg and quant entries,
+    and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
     plain attention)."""
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
@@ -2727,6 +3096,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             by_path["4c"] = policies["launches"].get(name, 0)
         if src in (agg_src, quant_src):
             by_path["7"] = proc["launches"].get(name, 0)
+            by_path["7c"] = fault["launches"].get(name, 0)
         by_path["8"] = train["launches"][name]
         launches = sum(by_path.values())
         out.append({
@@ -2776,6 +3146,7 @@ def main() -> int:
     errs = timed("5a", phase_codec_parity, dev)
     codec = timed("5", phase_codec_job, dev, errs)
     proc = timed("7", phase_process_plane, dev, codec)
+    fault = timed("7c", phase_fault_plane, dev, proc)
     # the earlier phases peak at about 46 GB: free them before serving
     gc.collect()
     torch.cuda.empty_cache()
@@ -2785,7 +3156,7 @@ def main() -> int:
     train = timed("8", phase_train, dev, smi)
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
-    print(kernels_line(full, topo, policies, codec, serve, proc, train), flush=True)
+    print(kernels_line(full, topo, policies, codec, serve, proc, fault, train), flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,6 +126,11 @@ TRANSPORT_OPS: Tuple[str, ...] = (
     "install_reduce",
 )
 
+# The session layer's transport-wide recovery counters, as a hub's stats
+# name them (``ChannelManager.channel_stats`` and the process launcher's
+# ``transport_recovery`` metric report them without the colon).
+RECOVERY_COUNTERS: Tuple[str, ...] = ("resumes:", "replays:", "dedup_hits:", "hub_restarts:")
+
 
 class TransportBackend(Protocol):
     """The pluggable transport contract behind ``ChannelEnd``.
@@ -823,6 +828,13 @@ class InprocBackend:
         with self._lock:
             self._clock[worker] = max(self._clock[worker], float(at))
 
+    def fabric_time(self) -> float:
+        """The largest worker clock: how far the job has progressed, which
+        the hub's fault plane reads to fire a seeded hub crash at its
+        time."""
+        with self._lock:
+            return max(self._clock.values(), default=0.0)
+
 
 def recv_any_multi(
     sources: Sequence[Tuple[ChannelEnd, Sequence[str]]],
@@ -1017,7 +1029,7 @@ class ChannelManager:
                 out[key] = float(val)
         # session layer: recovery counters are transport-wide, surfaced here
         # so a test reads "recovery happened" off the same dict
-        for key in ("resumes:", "replays:", "dedup_hits:"):
+        for key in RECOVERY_COUNTERS:
             val = stats.get(key)
             if val:
                 out[key.rstrip(":")] = float(val)

@@ -122,10 +122,10 @@ class RuntimePolicy:
     # concluding that no further update is coming (dropped/hung workers)
     grace: float = 5.0
     # seeded transport-layer chaos schedule (see ``FaultPlan``); its
-    # server_restarts entries are folded into dropouts/rejoins below. The
-    # threaded deployment has no transport to fault, so conn_resets and
-    # hub_crashes are inert there; the process launcher refuses them
-    # (``check_faults_launchable``) until the fault plane is ported
+    # server_restarts entries are folded into dropouts/rejoins below, while
+    # conn_resets/hub_crashes are armed on the hub by the process launcher
+    # (the threaded deployment has no transport to fault, so they are inert
+    # there)
     faults: Optional[FaultPlan] = None
 
     MODES = ("sync", "deadline", "async")
@@ -138,7 +138,9 @@ class RuntimePolicy:
         if self.faults is not None:
             # a server restart IS a dropout + re-join as far as scheduling
             # goes — fold it in before validation so is_event_driven flips
-            # and the supervisor sizes its standby pool for the respawn
+            # and the supervisor sizes its standby pool for the respawn.
+            # Into copies: the caller's dicts may back another policy.
+            self.dropouts, self.rejoins = dict(self.dropouts), dict(self.rejoins)
             for wid, (drop_at, rejoin_at) in self.faults.server_restarts.items():
                 self.dropouts.setdefault(wid, float(drop_at))
                 self.rejoins.setdefault(wid, float(rejoin_at))
@@ -208,21 +210,6 @@ class RuntimePolicy:
     def is_event_driven(self) -> bool:
         return bool(
             self.is_lowering or self.arrivals or self.dropouts or self.rejoins
-        )
-
-
-def check_faults_launchable(policy: RuntimePolicy) -> None:
-    """Refuse a policy whose ``FaultPlan`` needs the transport's fault plane
-    (``conn_resets``, ``hub_crashes``) on a process deployment: that plane
-    is not ported yet (ROADMAP Queue 1 item 6), and a fault dropped in
-    silence would pass for a fault survived. ``server_restarts`` run, as a
-    dropout and re-join."""
-    faults = policy.faults
-    if faults is not None and (faults.conn_resets or faults.hub_crashes):
-        raise NotImplementedError(
-            "FaultPlan conn_resets / hub_crashes need the transport's fault "
-            "plane, which is not ported yet (ROADMAP Queue 1 item 6, the "
-            "fault plane)"
         )
 
 

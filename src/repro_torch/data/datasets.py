@@ -58,6 +58,35 @@ def synthetic_classification(
     return FederatedDataset(name=name, x=x.astype(np.float32), y=y.astype(np.int32))
 
 
+def dirichlet_partition(
+    num_clients: int,
+    alpha: float = 0.5,
+    num_classes: int = 10,
+    samples_per_client: int = 128,
+    num_features: int = 32,
+    prefix: str = "client",
+    seed: int = 0,
+) -> List[FederatedDataset]:
+    """Label-distribution-skewed federation (the standard Dirichlet split):
+    client ``i`` draws its class mix from ``Dirichlet(alpha)`` with numpy's
+    generator seeded by ``seed``, as the JAX package does, so the skews and
+    the shards are equal to its own."""
+    rng = np.random.default_rng(seed)
+    shards = []
+    for i in range(num_clients):
+        skew = rng.dirichlet(np.full(num_classes, alpha))
+        shards.append(
+            synthetic_classification(
+                f"{prefix}-{i}",
+                num_samples=samples_per_client,
+                num_features=num_features,
+                num_classes=num_classes,
+                class_skew=skew,
+            )
+        )
+    return shards
+
+
 def synthetic_lm_shards(
     num_clients: int,
     seq_len: int = 128,

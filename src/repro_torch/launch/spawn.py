@@ -34,9 +34,10 @@ Event-driven jobs (deadline and async ``RuntimePolicy`` modes, dropout and
 re-join schedules) bind the deployment-agnostic ``EventEngine`` to a
 driver-side **process supervisor**: dropout is enforced hub-side
 (``set_drop``), orphans are poisoned hub-side, and a re-join is a task
-assigned to a warm standby host. A ``FaultPlan`` with ``conn_resets`` or
-``hub_crashes`` is refused (``check_faults_launchable``): the transport's
-fault plane is not ported yet (ROADMAP Queue 1 item 6).
+assigned to a warm standby host. A policy's ``FaultPlan`` arms the hub
+(``conn_resets``, ``hub_crashes``; ``server_restarts`` run as a dropout and
+re-join), and the fabric's recovery counters land on the root program's
+metrics as ``transport_recovery``.
 """
 from __future__ import annotations
 
@@ -50,7 +51,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.convert import resolve_device
-from repro_torch.core.channels import ChannelManager, LinkModel, WorkerDropped
+from repro_torch.core.channels import (
+    RECOVERY_COUNTERS,
+    ChannelManager,
+    LinkModel,
+    WorkerDropped,
+)
 from repro_torch.core.events import EventEngine
 from repro_torch.core.expansion import JobSpec, WorkerConfig, expand
 from repro_torch.core.registry import ResourceRegistry
@@ -58,7 +64,6 @@ from repro_torch.core.roles import GlobalAggregatorBase, RoleContext
 from repro_torch.core.runtime import (
     JobResult,
     RuntimePolicy,
-    check_faults_launchable,
     resolve_policy_class,
     resolve_program,
     static_membership,
@@ -525,7 +530,6 @@ class MultiprocLauncher:
         self.program_overrides = dict(program_overrides or {})
         self.policy = policy or RuntimePolicy()
         validate_policy_tiers(self.policy, job.tag)
-        check_faults_launchable(self.policy)
         self.wall_clock = not self.policy.is_event_driven
         self.pool_size = None if pool_size is None else max(1, int(pool_size))
         self._shard_keys = (
@@ -551,6 +555,12 @@ class MultiprocLauncher:
             hub.set_wire_dtype(c.name, c.wire_dtype)
         for (channel, worker), model in self.link_models.items():
             hub.set_link(channel, worker, model)
+        if self.policy.faults is not None:
+            try:
+                hub.arm_faults(self.policy.faults)
+            except ValueError:
+                hub.close()
+                raise
         return hub
 
     def _spawn(
@@ -755,6 +765,16 @@ class MultiprocLauncher:
         }
         for w in self.workers:  # stubs for workers that returned nothing
             programs.setdefault(w.worker_id, RemoteProgram(worker_id=w.worker_id, role=w.role))
+        # the fabric's recovery counters ride the root program's metrics, so
+        # a caller reads that recovery happened off the job result
+        recovery = {
+            key.rstrip(":"): float(stats[key]) for key in RECOVERY_COUNTERS if stats.get(key)
+        }
+        if recovery:
+            for prog in programs.values():
+                if prog.is_root:
+                    prog.metrics.append({"transport_recovery": recovery})
+                    break
         return JobResult(
             workers=self.workers,
             programs=programs,

@@ -9,8 +9,9 @@ and a shared hub. Each check takes a zero-argument ``factory`` producing a
 are tensor trees, as the port's roles send them; received tensors are
 compared on the host.
 
-Not ported with the checks: those of the session fault hooks (ROADMAP
-Queue 1 item 6, the fault plane).
+The three session checks drive a connection-oriented backend's chaos hooks
+(``_chaos_break_conn``, ``_chaos_duplicate``, ``_chaos_probe_evicted``); a
+backend without them has no connection to lose and passes them vacuously.
 
 ``check_codec_roundtrip`` holds one codec to the JAX package's fixture set.
 ``SeededSGDTrainer`` is the reference workload for cross-deployment
@@ -768,6 +769,80 @@ def check_codec_roundtrip(codec_name: str, device: Any = "cpu") -> None:
             )
 
 
+# ------------------------------------------------------------------ #
+# exactly-once session semantics (connection-oriented backends)
+# ------------------------------------------------------------------ #
+def check_session_resume_mid_recv(factory: Factory) -> None:
+    """Severing every connection under a *blocked* recv must not lose it:
+    the client reconnects, resumes its session, re-attaches to the
+    in-flight recv and receives the message sent after the break."""
+    be = factory()
+    if getattr(be, "_chaos_break_conn", None) is None:
+        return
+    _pair(be)
+    box: Dict[str, object] = {}
+
+    def _blocked() -> None:
+        try:
+            box["got"] = be.recv(CH, G, "b-0", "a-0", 30.0)
+        except BaseException as exc:  # noqa: BLE001 - surfaced via assert
+            box["err"] = exc
+
+    t = threading.Thread(target=_blocked, daemon=True)
+    t.start()
+    time.sleep(0.2)  # let the recv frame reach the hub and block there
+    be._chaos_break_conn()
+    time.sleep(0.1)
+    be.send(CH, G, "a-0", "b-0", {"y": 2})
+    be.now("a-0")  # ack barrier: the pipelined send is confirmed delivered
+    t.join(10.0)
+    assert not t.is_alive(), "blocked recv did not re-attach after the break"
+    assert "err" not in box, f"re-attached recv raised: {box['err']!r}"
+    assert box["got"]["y"] == 2  # type: ignore[index]
+    be.close()
+
+
+def check_duplicate_send_dedup(factory: Factory) -> None:
+    """A retransmitted (duplicate) send frame must be answered from the
+    replay cache, not run again: exactly one copy of the message exists."""
+    from repro_torch.transport.wire import encode_payload
+
+    be = factory()
+    if getattr(be, "_chaos_duplicate", None) is None:
+        return
+    _pair(be)
+    _, dup_status, _ = be._chaos_duplicate(
+        "send", CH, G, "a-0", "b-0", encode_payload({"x": 1}, "")
+    )
+    assert dup_status == "ok", f"duplicate send rejected: {dup_status!r}"
+    got = be.recv(CH, G, "b-0", "a-0", 5.0)
+    assert got["x"] == 1
+    try:
+        extra = be.recv(CH, G, "b-0", "a-0", 0.2)
+    except queue.Empty:
+        extra = None
+    assert extra is None, f"duplicate send was run again: {extra!r}"
+    be.close()
+
+
+def check_replay_window_eviction(factory: Factory) -> None:
+    """A duplicate whose ack was already consumed (below the client's
+    floor) must be *rejected*: replaying it could otherwise run again an op
+    whose reply left the cache."""
+    be = factory()
+    if getattr(be, "_chaos_probe_evicted", None) is None:
+        return
+    _pair(be)
+    # two completed sync ops: the second frame's floor evicts the first's
+    # cached reply hub-side
+    be.now("a-0")
+    be.now("a-0")
+    status, value = be._chaos_probe_evicted()
+    assert status == "err", "evicted duplicate was answered (possibly run again)"
+    assert "replay window" in str(value), value
+    be.close()
+
+
 CONFORMANCE_CHECKS: Dict[str, Callable[[Factory], None]] = {
     "protocol_surface": check_protocol_surface,
     "send_recv_roundtrip": check_send_recv_roundtrip,
@@ -790,6 +865,9 @@ CONFORMANCE_CHECKS: Dict[str, Callable[[Factory], None]] = {
     "send_many_stateful_fallback": check_send_many_stateful_fallback,
     "install_reduce_fold": check_install_reduce_fold,
     "install_reduce_sharded": check_install_reduce_sharded,
+    "session_resume_mid_recv": check_session_resume_mid_recv,
+    "duplicate_send_dedup": check_duplicate_send_dedup,
+    "replay_window_eviction": check_replay_window_eviction,
 }
 
 

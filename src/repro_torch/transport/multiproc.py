@@ -27,8 +27,14 @@ A ``ShardedTransportHub`` is one hub per groupBy label plus a root, and a
 Each client thread keeps one persistent connection (the hub serves each
 connection on its own thread), so a receive blocked in the hub never stalls
 other operations. Exactly-once sessions (sequence numbers, the hub's replay
-window, reconnect-resume-retransmit) are ported; the fault-injection hooks
-are not yet (ROADMAP Queue 1 item 6) and raise ``NotImplementedError``.
+window, reconnect-resume-retransmit) make every op safe to retry. The
+deterministic chaos plane sits on top: a hub armed with a ``FaultPlan``
+severs a worker's connection (``conn_resets``) or restarts itself
+(``hub_crashes``, ``simulate_crash``) at a seeded time, and the clients'
+``_chaos_*`` hooks drive the session checks of the conformance suite. A
+frame cut mid-stream is never decoded (``recv_obj`` reads a whole frame
+first), and an op still running on a severed connection's serve thread
+finishes into the replay cache, so a retransmitted upload is folded once.
 """
 from __future__ import annotations
 
@@ -75,8 +81,6 @@ __all__ = [
     "make_backend_factory",
     "sharded_backend_factory",
 ]
-
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 6, the fault plane)"
 
 # Process-unique suffix for client session ids: a session is one (client
 # process, thread) stream of RPCs, so the id only has to be unique within
@@ -187,16 +191,20 @@ class TransportHub:
         # net.core.somaxconn, and MultiprocBackend reconnects with backoff)
         self._sock.listen(self._backlog)
         self._closed = threading.Event()
-        # exactly-once session state survives any individual connection:
-        # sessions are keyed by the client-minted id, not by the socket that
-        # carried them
+        # exactly-once session state survives any individual connection (and
+        # a simulated hub crash): sessions are keyed by the client-minted id,
+        # not by the socket that carried them
         self._sessions: Dict[str, _HubSession] = {}
         self._sessions_lock = threading.Lock()
         self._counters = {"resumes:": 0.0, "replays:": 0.0, "dedup_hits:": 0.0}
         self._counters_lock = threading.Lock()
-        # live client connections, shut down by close()
+        # live client connections, severed by close() and simulate_crash()
         self._conns: List[socket.socket] = []
         self._conns_lock = threading.Lock()
+        # armed chaos faults (a FaultPlan's), each one-shot
+        self._fault_lock = threading.Lock()
+        self._conn_resets: Dict[str, float] = {}
+        self._crash_at: Optional[float] = None
         self._accept_thread = threading.Thread(
             target=self._accept_loop, name="transport-hub-accept", daemon=True
         )
@@ -302,7 +310,7 @@ class TransportHub:
                 try:
                     frame = recv_obj(conn)
                 except (ConnectionError, OSError):
-                    return  # client gone, or the hub is closing
+                    return  # client gone, the hub closing, or chaos severed us
                 if len(frame) == 2:
                     # sessionless frame: the resume handshake itself, plus
                     # legacy 2-tuple callers (raw ping probes)
@@ -351,6 +359,8 @@ class TransportHub:
         seq: int,
         floor: int,
     ) -> bool:
+        if self._inject_fault(conn, args):
+            return False  # connection severed before dispatch: the frame is lost
         sess = self._session(sid)
         cached: Optional[Tuple[str, Any]] = None
         wait_ev: Optional[threading.Event] = None
@@ -431,10 +441,116 @@ class TransportHub:
 
     # --------------------- deterministic chaos plane -------------------- #
     def arm_faults(self, plan: Any) -> None:
-        raise NotImplementedError(f"the hub's fault plane {_NOT_PORTED}")
+        """Arm this hub with a ``FaultPlan``'s transport faults, each
+        one-shot: ``conn_resets`` sever the connection carrying the first
+        frame that names the worker once its clock passes ``at``;
+        ``hub_crashes`` (shard key ``""`` for a single hub) trigger
+        ``simulate_crash`` once fabric time passes ``at``."""
+        crashes = dict(getattr(plan, "hub_crashes", {}) or {})
+        unknown = [k for k in crashes if k != ""]
+        if unknown:
+            raise ValueError(
+                f"unknown hub_crash shard key(s) {unknown!r} for a single "
+                'hub (use "" for the root)'
+            )
+        self._arm_conn_resets(getattr(plan, "conn_resets", {}) or {})
+        if "" in crashes:
+            self._arm_crash(crashes[""])
+
+    def _arm_crash(self, at: float) -> None:
+        with self._fault_lock:
+            self._crash_at = float(at)
+
+    def _arm_conn_resets(self, resets: Dict[str, float]) -> None:
+        with self._fault_lock:
+            for worker, at in resets.items():
+                self._conn_resets[str(worker)] = float(at)
+
+    def _frame_worker(self, args: List[Any]) -> Optional[str]:
+        """First armed worker named anywhere in a frame's arguments."""
+        for a in args:
+            if isinstance(a, str) and a in self._conn_resets:
+                return a
+            if isinstance(a, (list, tuple)):
+                for b in a:
+                    if isinstance(b, str) and b in self._conn_resets:
+                        return b
+        return None
+
+    def _inject_fault(self, conn: socket.socket, args: List[Any]) -> bool:
+        """The deterministic pre-dispatch fault check. True when the frame's
+        connection was severed: the op did not run, so from the client's
+        view the request is lost, and its session retry runs it exactly
+        once. With nothing armed it costs two attribute reads; armed, one
+        read of the worker clocks (``fabric_time``) per frame."""
+        if self._crash_at is None and not self._conn_resets:
+            return False
+        crash = False
+        reset = False
+        with self._fault_lock:
+            if (
+                self._crash_at is not None
+                and self.backend.fabric_time() >= self._crash_at
+            ):
+                self._crash_at = None
+                crash = True
+            elif self._conn_resets:
+                worker = self._frame_worker(args)
+                if (
+                    worker is not None
+                    and self.backend.now(worker) >= self._conn_resets[worker]
+                ):
+                    del self._conn_resets[worker]
+                    reset = True
+        if crash:
+            self.simulate_crash()
+            return True
+        if reset:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            return True
+        return False
 
     def simulate_crash(self) -> None:
-        raise NotImplementedError(f"the hub's fault plane {_NOT_PORTED}")
+        """Chaos hook: shut the listener and sever every live client
+        connection, which is what a hub process's death looks like from
+        outside, then listen again on the same port. Broker state
+        (mailboxes, clocks, reduce accumulators on the hub's device,
+        sessions) survives in-process: the restarted hub re-admits clients
+        through the session layer, and ops still running on the severed
+        connections' serve threads finish into the replay cache for the
+        re-attached clients to collect."""
+        host, port = self.address
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        self._accept_thread.join(timeout=2.0)
+        with self._conns_lock:
+            conns, self._conns = list(self._conns), []
+        for conn in conns:
+            # shutdown, not close: the owning serve thread wakes on the read
+            # fault and closes its own fd
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind((host, port))
+        sock.listen(self._backlog)
+        self._sock = sock
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="transport-hub-accept", daemon=True
+        )
+        self._accept_thread.start()
+        self._bump("hub_restarts:")
 
     def _dispatch(self, op: str, args: List[Any]) -> Any:
         """Special-case the ops whose arguments/results need wire coercion;
@@ -751,13 +867,56 @@ class MultiprocBackend:
 
     # --------------------- deterministic chaos hooks -------------------- #
     def _chaos_break_conn(self) -> None:
-        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+        """Sever every live connection of this client (all threads) without
+        touching session state: blocked threads wake on the read fault,
+        reconnect, resume and re-attach. shutdown() rather than close() so
+        a thread blocked inside recv_obj wakes at once and the owning
+        thread keeps sole custody of its fd."""
+        with self._socks_lock:
+            socks = list(self._all_socks)
+        for sock in socks:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def _raw_exchange(self, frames: Sequence[Any]) -> Tuple[str, Any]:
+        """Replay pre-built frames over a fresh connection, the exact wire
+        pattern of a crashed-and-reconnected client, returning the last
+        reply. A test and conformance hook."""
+        sock = socket.create_connection(self.address, timeout=30.0)
+        try:
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            status: str = "err"
+            value: Any = None
+            for frame in frames:
+                send_obj(sock, frame)
+                status, value = recv_obj(sock)
+            return str(status), value
+        finally:
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     def _chaos_duplicate(self, op: str, *args: Any) -> Tuple[Any, str, Any]:
-        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+        """Run one RPC normally, then replay its exact frame over a fresh
+        connection (as a crash-retry would): returns (result, dup_status,
+        dup_value). The duplicate must be answered from the hub's replay
+        cache, never run again."""
+        result = self._call(op, *args)
+        st = self._state()
+        frame = st.last_frames[-1]
+        status, value = self._raw_exchange([("session_resume", [st.session]), frame])
+        return result, status, value
 
     def _chaos_probe_evicted(self) -> Tuple[str, Any]:
-        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+        """Replay the second-newest completed frame: the newest frame's
+        floor has evicted its cached reply, so the hub must answer with the
+        replay-window error instead of running it again."""
+        st = self._state()
+        frame = st.last_frames[0]
+        return self._raw_exchange([("session_resume", [st.session]), frame])
 
     def close(self) -> None:
         """Close every connection this client ever opened (all threads).
@@ -1140,11 +1299,30 @@ class ShardedTransportHub:
                 out[k] = out.get(k, 0.0) + float(v)
         return out
 
+    # --------------------- deterministic chaos plane -------------------- #
     def arm_faults(self, plan: Any) -> None:
-        raise NotImplementedError(f"the sharded fabric's fault plane {_NOT_PORTED}")
+        """Fan a ``FaultPlan`` across the fabric: ``hub_crashes`` route by
+        shard key (``""`` is the root hub); ``conn_resets`` arm every hub,
+        since a worker's frames may land on any shard it touches."""
+        crashes = dict(getattr(plan, "hub_crashes", {}) or {})
+        unknown = [k for k in crashes if k != "" and k not in self.shards]
+        if unknown:
+            raise ValueError(
+                f"unknown hub_crash shard key(s) {unknown!r}; have "
+                f"{['', *sorted(self.shards)]!r}"
+            )
+        resets = {
+            str(w): float(t) for w, t in (getattr(plan, "conn_resets", {}) or {}).items()
+        }
+        for key, hub in (("", self.root), *self.shards.items()):
+            if resets:
+                hub._arm_conn_resets(resets)
+            if key in crashes:
+                hub._arm_crash(float(crashes[key]))
 
     def simulate_crash(self, shard: str = "") -> None:
-        raise NotImplementedError(f"the sharded fabric's fault plane {_NOT_PORTED}")
+        """Restart the hub of ``shard`` (the root for ``""``)."""
+        self.shards.get(shard, self.root).simulate_crash()
 
     def close(self) -> None:
         for hub in self.hubs():
@@ -1325,14 +1503,19 @@ class ShardRouter:
                 out[k] = out.get(k, 0.0) + float(v)
         return out
 
+    # --------------------- deterministic chaos hooks -------------------- #
     def _chaos_break_conn(self) -> None:
-        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+        for be in self._all:
+            be._chaos_break_conn()
 
     def _chaos_duplicate(self, op: str, *args: Any) -> Tuple[Any, str, Any]:
-        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+        # channel-scoped ops carry (channel, group, ...): replay on the shard
+        # client that owns the group's session
+        group = str(args[1]) if len(args) > 1 else ""
+        return self._be(group)._chaos_duplicate(op, *args)
 
     def _chaos_probe_evicted(self) -> Tuple[str, Any]:
-        raise NotImplementedError(f"the client's fault hooks {_NOT_PORTED}")
+        return self._root._chaos_probe_evicted()
 
     def close(self) -> None:
         for be in self._all:

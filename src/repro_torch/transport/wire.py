@@ -697,27 +697,31 @@ class Int8BlocksCodec(WireCodec):
     _QB_ESC = "__qb_block_escape__"
     _SENTINELS = ({_QB}, {_QB_ESC})
 
+    def _mark(self, node: Any, leaves: List[Any]) -> Any:
+        """The payload's structure with an index marker where each float
+        leaf lived, the leaves appended to ``leaves``. A method, not a
+        nested function: a nested walk that calls itself is a reference
+        cycle, and one that captures ``leaves`` keeps a coded update's
+        leaves alive until the garbage collector's next full pass."""
+        if isinstance(node, dict):
+            coded = {k: self._mark(v, leaves) for k, v in node.items()}
+            if set(node) in self._SENTINELS:
+                return {self._QB_ESC: coded}
+            return coded
+        if isinstance(node, list):
+            return [self._mark(v, leaves) for v in node]
+        if isinstance(node, tuple):
+            return tuple(self._mark(v, leaves) for v in node)
+        if _is_float_array(node):
+            leaves.append(node)
+            return {self._QB: len(leaves) - 1}
+        return node
+
     def encode(self, payload: Any, link: Any = ()) -> Any:
         from repro_torch.kernels.quant.ops import BLOCK, quantize_flat
 
         leaves: List[Any] = []
-
-        def walk(node: Any) -> Any:
-            if isinstance(node, dict):
-                coded = {k: walk(v) for k, v in node.items()}
-                if set(node) in self._SENTINELS:
-                    return {self._QB_ESC: coded}
-                return coded
-            if isinstance(node, list):
-                return [walk(v) for v in node]
-            if isinstance(node, tuple):
-                return tuple(walk(v) for v in node)
-            if _is_float_array(node):
-                leaves.append(node)
-                return {self._QB: len(leaves) - 1}
-            return node
-
-        tree = walk(payload)
+        tree = self._mark(payload, leaves)
         specs = [(tuple(int(d) for d in leaf.shape), _dtype_str(leaf)) for leaf in leaves]
         n = sum(_numel(leaf) for leaf in leaves)
         if not n:  # no float leaves, or only zero-size ones: nothing to code

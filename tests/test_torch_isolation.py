@@ -7,7 +7,9 @@
 * ``run_job``, ``build_train_step`` and the train launcher without a
   device raise where there is no CUDA device.
 * The training slice's modules (mesh lowering, DP, the fed step, the data
-  pipeline, the train launchers) are among the files walked.
+  pipeline, the train launchers), the fault plane's (channels, runtime,
+  launcher, hub and conformance) and client and sample selection are
+  among the files walked.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card and
   outside a checkout.
 """
@@ -96,7 +98,14 @@ TRAINING_MODULES = ["core/mesh_lowering.py", "fl/privacy.py", "fl/fedstep.py",
                     "models/api.py", "convert.py"]
 
 
-@pytest.mark.parametrize("module", TRAINING_MODULES)
+# the fault plane's and the selection slice's modules
+FAULT_PLANE_MODULES = ["core/channels.py", "core/runtime.py", "launch/spawn.py",
+                       "transport/multiproc.py", "transport/conformance.py",
+                       "fl/selection.py", "fl/sampling.py", "data/__init__.py",
+                       "fl/__init__.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_MODULES + FAULT_PLANE_MODULES)
 def test_training_modules_are_held_to_the_import_rule(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES

@@ -219,10 +219,14 @@ def test_reduce_plan_not_ported_raises():
     """``reduce_plan`` runs (it raised before the hub reduce plane was
     ported): at one shard the in-process job is byte-equal to the JAX
     package's reduced job and to its own unreduced job, with one partial
-    frame a round. What stays unported is the fault plane: a policy whose
-    ``FaultPlan`` needs it is refused by the process launcher."""
+    frame a round. The fault plane runs too (a policy whose ``FaultPlan``
+    needs it was refused by the process launcher before it was ported): the
+    launcher arms its hub with the plan, and the connection reset it arms
+    fires on a worker's frame, which its client sends again and the hub
+    runs once."""
     from repro_torch.core.events import FaultPlan
     from repro_torch.launch.spawn import MultiprocLauncher
+    from repro_torch.transport.multiproc import MultiprocBackend
 
     port = trt.run_job(_port_job(reduce_plan=1), device="cpu",
                        program_overrides={"trainer": AddOneTrainer})
@@ -236,9 +240,22 @@ def test_reduce_plan_not_ported_raises():
               if "agg_frames" in m]
     assert frames == [m["agg_frames"] for m in ref.program("global-aggregator-0").metrics
                       if "agg_frames" in m] == [1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        MultiprocLauncher(_port_job(), device="cpu", policy=trt.RuntimePolicy(
-            faults=FaultPlan(conn_resets={"trainer-0": 1.0})))
+    launcher = MultiprocLauncher(_port_job(), device="cpu", policy=trt.RuntimePolicy(
+        faults=FaultPlan(conn_resets={"trainer-0": 1.0})))
+    hub = launcher._make_hub()
+    client = MultiprocBackend(hub.address, client_key="trainer-0", device="cpu")
+    try:
+        for w in ("trainer-0", "global-aggregator-0"):
+            client.join("param-channel", "default", w)
+        client.advance("trainer-0", 1.5)
+        # trainer-0's clock is past 1.0: the reset fires on this frame
+        client.send("param-channel", "default", "trainer-0", "global-aggregator-0", {"x": 1})
+        got = client.recv("param-channel", "default", "global-aggregator-0", "trainer-0", 5.0)
+        assert got == {"x": 1} and client.now("trainer-0") >= 1.5
+        assert hub.stats["resumes:"] >= 1.0 and hub.stats["msgs:param-channel"] == 1.0
+    finally:
+        client.close()
+        hub.close()
 
 
 def test_policy_validation_matches_reference():

@@ -48,6 +48,18 @@ SGD_RTOL, SGD_ATOL = 1e-5, 1e-6
 GRACE = 10.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this file's torch work, as the other files
+    that run jobs on threads pin them: the suite runs six files at once on
+    the CPU, and each job's trainer threads would otherwise each open eight
+    OpenMP threads on a host already running dozens."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 class AddOneTrainer(troles.Trainer):
     def train(self):
         if self.weights is not None:

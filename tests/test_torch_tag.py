@@ -183,8 +183,9 @@ def test_codec_channel_not_ported_raises():
     """Codecs are ported: a coded in-process channel builds and accounts the
     codec's wire bytes, and an unknown codec is refused when the manager is
     built. The hub reduce plane is ported too: an installed spec folds the
-    update into one partial frame. What is still not ported, the loopback's
-    fault hooks (the fault plane), raises."""
+    update into one partial frame. So is the fault plane, which raised
+    before: the loopback's connections severed by its fault hook are
+    resumed, and the message sent across the break arrives once."""
     from repro_torch.transport.wire import WireError, reduce_src
 
     mgr = tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), codec="int8")],
@@ -202,8 +203,14 @@ def test_codec_channel_not_ported_raises():
     loop = tch.ChannelManager([ttag.Channel(name="ch", pair=("a", "b"), backend="multiproc")],
                               device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            loop.backend("ch")._chaos_break_conn()
+        la, lb = loop.end("ch", "default", "a-0"), loop.end("ch", "default", "b-0")
+        la.send("b-0", {"x": 1})
+        loop.backend("ch")._chaos_break_conn()
+        assert lb.recv("a-0", timeout=5.0) == {"x": 1}
+        la.send("b-0", {"x": 2})
+        assert lb.recv("a-0", timeout=5.0) == {"x": 2}
+        stats = loop.channel_stats("ch")
+        assert stats["msgs"] == 2.0 and stats["resumes"] >= 1.0
     finally:
         loop.close()
     with pytest.raises(WireError):

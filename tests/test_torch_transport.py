@@ -2,7 +2,10 @@
 coded channels, against the JAX package's, on the CPU.
 
 * the port's conformance suite over every registered backend (the
-  ``multiproc`` loopback included) and over clients of one shared hub;
+  ``multiproc`` loopback included), over clients of one shared hub and over
+  the routers of a sharded fabric, the three session checks (a blocked
+  receive across a severed connection, a duplicate send, an evicted
+  replay) among them;
 * the loopback twins of the codec and collision cases of
   ``tests/test_transport_conformance.py``;
 * small ``classical_fl`` jobs with the param channel on the loopback, per
@@ -109,11 +112,33 @@ def test_shared_hub_conformance(check_name, tracked):
     run_conformance(factory, checks=[check_name])
 
 
+@pytest.mark.parametrize("check_name", sorted(CONFORMANCE_CHECKS))
+def test_sharded_hub_conformance(check_name, tracked):
+    """Clients of a sharded fabric (``ShardRouter``), the checks' group
+    owned by a shard hub and every worker-scoped op fanned out to it and the
+    root."""
+    fabric = ShardedTransportHub(["default"], device="cpu")
+    tracked.append(fabric)
+
+    def factory():
+        router = ShardRouter(fabric.addresses, device="cpu")
+        tracked.insert(0, router)
+        return router
+
+    run_conformance(factory, checks=[check_name])
+
+
 def test_multiproc_is_registered_and_deferred_parts_raise():
     """The sharded fabric, its router and factory and the client's
-    ``install_reduce`` work (they raised before this slice); the fault plane
-    (``arm_faults``, ``simulate_crash``, the ``_chaos_*`` hooks) still
-    raises, naming ROADMAP Queue 1 item 6."""
+    ``install_reduce`` work (they raised before the process plane was
+    ported); so does the fault plane, which raised before this slice: a
+    hub crash (``arm_faults`` or ``simulate_crash``) and a severed client
+    (``_chaos_break_conn``) are recovered by the session layer on a single
+    hub and on a shard of the fabric, a duplicate frame is answered from
+    the replay cache and an evicted one refused, and an unknown shard key
+    is a ``ValueError``."""
+    from repro_torch.core.events import FaultPlan
+
     assert "multiproc" in registered_backends()
     fabric = ShardedTransportHub(["g0"], device="cpu")
     router = ShardRouter(fabric.addresses, device="cpu")
@@ -135,12 +160,35 @@ def test_multiproc_is_registered_and_deferred_parts_raise():
         assert fabric.stats["msgs:ch"] == 2.0
         client.install_reduce("ch", "g", "b-0", ["a-0"])
         client.install_reduce("ch", "g", "b-0", [], 0)
-        for call in (lambda: hub.arm_faults(None), hub.simulate_crash, client._chaos_break_conn,
-                     lambda: fabric.arm_faults(None), router._chaos_break_conn,
-                     lambda: client._chaos_duplicate("now", "a-0"),
-                     client._chaos_probe_evicted):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-                call()
+
+        # a hub crash armed at fabric time 0 fires on the next frame
+        for bad in (hub, fabric):
+            with pytest.raises(ValueError, match="unknown hub_crash shard key"):
+                bad.arm_faults(FaultPlan(hub_crashes={"nope": 1.0}))
+        port = hub.address[1]
+        hub.arm_faults(FaultPlan(hub_crashes={"": 0.0}))
+        client.join("ch", "g", "a-0")
+        client.join("ch", "g", "b-0")
+        hub.simulate_crash()
+        client.send("ch", "g", "a-0", "b-0", {"y": 1})
+        assert client.recv("ch", "g", "b-0", "a-0", timeout=TIMEOUT) == {"y": 1}
+        client._chaos_break_conn()
+        assert client.now("a-0") == 0.0
+        assert hub.address[1] == port and hub.stats["hub_restarts:"] == 2.0
+        assert hub.stats["resumes:"] >= 2.0 and hub.stats["msgs:ch"] == 1.0
+        result, status, _ = client._chaos_duplicate("now", "a-0")
+        assert result == 0.0 and status == "ok" and hub.stats["replays:"] >= 1.0
+        status, value = client._chaos_probe_evicted()
+        assert status == "err" and "replay window" in str(value)
+
+        fabric.arm_faults(FaultPlan(hub_crashes={"g0": 0.0}))
+        router.send("ch", "g0", "a-0", "b-0", {"z": 1})
+        fabric.simulate_crash("")
+        router._chaos_break_conn()
+        assert router.recv("ch", "g0", "b-0", "a-0", timeout=TIMEOUT) == {"z": 1}
+        assert fabric.shards["g0"].stats["hub_restarts:"] == 1.0
+        assert fabric.root.stats["hub_restarts:"] == 1.0
+        assert fabric.stats["msgs:ch"] == 3.0
     finally:
         for obj in (client, router, hub, fabric):
             obj.close()

@@ -281,3 +281,25 @@ def test_hub_partial_vocabulary_matches_jax():
     assert tw.encode(part) == jw.encode(jw.pack_hub_partial(1, ["a-0", "a-1"], {"w": np.ones(2, np.float32)}, 7.0, 2))
     assert tw.is_hub_partial(part) and not tw.is_hub_partial({"w": 1})
     assert tw.reduce_src(3) == jw.reduce_src(3)
+
+
+def test_int8_blocks_encode_frees_the_leaves_without_the_garbage_collector():
+    """With the collector off, an encoded update's leaves are freed once the
+    caller drops them: the encode leaves no reference cycle behind (its
+    nested walk held every float leaf, 2.48 GB on the card for a coded
+    Qwen2.5-3B update, until a full collection)."""
+    import gc
+    import weakref
+
+    codec = tw.make_codec("int8_blocks")
+    gc.collect()
+    gc.disable()
+    try:
+        leaf = torch.linspace(-1.0, 1.0, 5000)
+        old = weakref.ref(leaf)
+        coded = codec.encode({"weights": {"w": leaf, "b": [leaf[:3].clone()]}, "n": 1})
+        del leaf
+        assert old() is None
+        assert coded["n"] == 5003 and coded["tree"]["n"] == 1
+    finally:
+        gc.enable()
