@@ -65,8 +65,12 @@ source, started together), then runs nine phases, each printing one line:
    every round to the plain fold of the plain-dequantized, plain-quantized
    updates, byte counts and codec ratio equal to those worked out from the
    shapes, kernel launches equal to the codec's encode/decode counts and
-   one fold launch per update, and a split of one round; (c) the quant
-   kernels' times at full width;
+   one fold launch per update, and a split of one round; the same job
+   again with the decode pool off (``REPRO_DECODE_POOL`` 0: the root
+   receives the uploads one at a time; the default pool of 4 fetches and
+   decodes them at once), every round's weights byte-equal (sha256) to the
+   pooled run's, both runs' round times; (c) the quant kernels' times at
+   full width;
 6. serve: (a) both flash kernels against their plain version on the same
    CUDA tensors: every case through the wrapper, which picks the route by
    dtype and head dim (bf16 at D 64 and 128: the tensor-core kernel of
@@ -74,7 +78,7 @@ source, started together), then runs nine phases, each printing one line:
    expected route, and each bf16 D 64 / 128 case also on ``flash.cu``
    directly, which takes it too (the five shapes of the JAX package's
    kernel test and its bf16 case, head dims 32 to 256, causal, not, sliding
-   windows, GQA 8:1, ragged S, the serving shape); (b) ``serve.generate``
+   windows, GQA 8:1 and 16:1, ragged S, the serving shape); (b) ``serve.generate``
    on Qwen2.5-3B at full width and depth (36 layers, bf16, random weights
    from a seeded generator), 8 prompts of 2048 tokens and 64 greedy tokens,
    with the flash kernel: logits finite, 36 launches of the tensor-core
@@ -85,6 +89,20 @@ source, started together), then runs nine phases, each printing one line:
    ``torch.profiler``, and both flash kernels' times at the serving shape:
    the tensor-core kernel at bf16, ``flash.cu`` on its own route, float32
    (checked against the plain version there too);
+   6d. serving Qwen3-MoE-235B-A22B at its published widths (128 experts
+   top-8, 64/4 heads of 128), depth cut from 94 layers to 8, bf16, random
+   weights from a seeded generator, through ``serve.generate`` with the
+   flash kernel: phase 6's traffic, logits finite, one launch of the
+   tensor-core kernel a layer per prefill and none per decode step, the
+   prefill's logits against the plain attention's with every token routed
+   to the experts the flash prefill picked (and, reported, without), and
+   teacher forcing at capacity factor 8 on 2 prompts of 256 tokens (the
+   routing pinned to the longer prefill's, and reported unpinned); the
+   prefill and decode times, each split by CUDA events into routing and
+   dispatch, the expert products, the combine and flash, and a
+   ``torch.profiler`` breakdown; the peak memory and 0 MB held after; the
+   tensor-core kernel at the model's attention shape (B 8, S 2048, H 64/4,
+   D 128, causal) against the plain version, SDPA and its bound;
 7. the process plane (run after phase 5, before phase 6): (a) phase 5's job
    (the same tree, seeds, 4 trainers, 2 rounds, ``int8_blocks``) through
    ``run_job_multiproc`` with ``reduce_plan`` 1: 5 worker processes and the
@@ -95,22 +113,34 @@ source, started together), then runs nine phases, each printing one line:
    unreduced rounds; the hub's launches and every child's (from their
    summaries) equal to the counts derived from the shapes; start-up, round
    wall time, the hub fold's device ms, the hub's time under its lock, the
-   children's and the driver's peak memory; (b) a ``hierarchical_fl`` job
+   children's and this process's peak memory; then, each job alone, (a)'s
+   job with the decode pool off, with the broadcast fan-out off
+   (``REPRO_BROADCAST_FANOUT`` 0: one send per destination) and on the
+   per-frame path (no reduce plan, the root's pool of 2 fetching and
+   decoding the 4 uploads on the card, the root holding each round's first
+   update until the fetches ahead of it land), every round byte-equal to
+   (a)'s, their round times, the pooled receive's high-water count of
+   payloads held (exactly the pool's 2 workers + 1, every round) and the
+   device memory the per-frame root's aggregate allocates, held to the
+   accumulator, 3 decoded updates and 2 updates' codes; (b) a ``hierarchical_fl`` job
    on 2 pool hosts with sharded hubs at ``reduce_plan`` 2 under the deadline
    policy, an intermediate aggregator dropped and re-joined, and a
    ``coordinated_fl`` sync job over 7 processes, each byte-equal (every
    program's weights, events, drops, channel bytes) to ``run_job`` on the
-   card; (c) the fault plane: (a) job (a) again under a ``FaultPlan`` with
-   a connection reset of ``trainer-1`` during round 1's uploads and a hub
-   crash during round 2's (times taken from (a)'s hub clock): every
-   round's digest, the channel bytes and every launch count (the hub's
-   folds and dequantizes, each child's) equal to (a)'s, the faults fired
-   and recovered (``transport_recovery``), no device memory held after the
-   job; (b) job (b)'s H-FL job with its ``west`` shard hub crashed,
-   byte-equal to (b); (c) a FedBuff server (buffer 1) over processes on
-   the same tree and codec, restarted from its checkpoint
-   (``server_restarts``, ``checkpoint_every`` 1), against its fault-free
-   run: the absorbed sequence, version vector and final weights equal, the
+   card; (c) the fault plane, each job alone, each fault fired at a point
+   of the job's own progress (``_FaultProbe``): (a) job (a) again with
+   ``trainer-1``'s connection reset on the first frame naming it after the
+   root's round-1 broadcast and the hub crashed on the first frame after
+   round 1's last fold (both points gated): every round's digest, the
+   channel bytes and every launch count (the hub's folds and dequantizes,
+   each child's) equal to (a)'s, the faults fired and recovered
+   (``transport_recovery``), no device memory held after the job; (b) job
+   (b)'s H-FL job with its ``west`` shard hub crashed after its round-1
+   folds, byte-equal to (b); (c) a FedBuff server (buffer 1) over processes
+   on phase 5's tree less its embedding, with its codec, restarted from its
+   checkpoint (``server_restarts``, 4 versions, ``checkpoint_every`` 2), then
+   its fault-free run: the absorbed sequence, version vector and final
+   weights equal, the
    restored step recorded; recovery counters, round times, the hub's time
    under its lock, its peak memory before and after the restart, the time
    from the crash to the next frame served, checkpoint bytes and save and
@@ -138,15 +168,20 @@ source, started together), then runs nine phases, each printing one line:
 9. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
-   the quant kernels, phase 6's serving run for the flash kernels, phase
+   the quant kernels, phase 6's and 6d's serving runs for the flash kernels, phase
    7's process job and phase 7c's faulted jobs for the agg and quant
    entries, phase 8's rounds for
    every kernel), time, plain version's time, bound and a library call's
    time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
-that line; so does a run without a CUDA device or outside a checkout.
+``{"ok": true, "device": {...}}``. A phase that raises prints ``phase <id>
+FAILED: <type>: <message>`` and the phases' seconds so far on stdout, its
+traceback on stderr, and the script exits 1 without that line; a run
+without a CUDA device or outside a checkout exits non-zero without it too.
+The held-memory gates read the device after a collection and a
+synchronize with cuBLAS's workspaces released, on both sides
+(``program_bytes``), and print the live blocks when they fail.
 """
 from __future__ import annotations
 
@@ -161,6 +196,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -184,6 +220,7 @@ from repro_torch.core.topologies import (  # noqa: E402
     classical_fl, coordinated_fl, distributed_fl, gossip_fl, hierarchical_fl, hybrid_fl,
     vertical_fl)
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.core import channels as tch  # noqa: E402
 from repro_torch.core.channels import InprocBackend, payload_bytes  # noqa: E402
 from repro_torch.fl.strategies import get_strategy  # noqa: E402
 from repro_torch.kernels.agg import kernel, ops, ref  # noqa: E402
@@ -201,6 +238,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.spawn import run_job_multiproc  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.core.mesh_lowering import lower_tag_to_mesh  # noqa: E402
 from repro_torch.data.datasets import synthetic_lm_batches  # noqa: E402
@@ -243,6 +281,13 @@ BATCH_STALENESS = (0, 1, 2, 3, 0, 1, 2, 3)
 # check their rounds against phase 5's) to make room for phase 7c: full
 # width, 388 M parameters, the last of 94 787 blocks a padded one
 CODEC_TRAINERS, CODEC_ROUNDS, CODEC_LAYERS = 4, 2, 1
+# the process plane's default decode pool (REPRO_DECODE_POOL)
+DECODE_POOL = 4
+# phase 7a's pool gates: the per-frame root receives through a pool of 2,
+# fewer workers than its 4 trainers, and holds each round's first update
+# until the fetches ahead of it land, so a pool that fetched past its bound
+# would hold all 3 other updates
+GATE_POOL = 2
 CODEC_PARAMS = 388_243_968
 QUANT_BLOCK = qkernel.BLOCK
 QWEN_BLOCKS = 151_239  # QWEN_PARAMS / 4096, exactly: the quant kernels' parity case
@@ -264,6 +309,12 @@ FAULT_KEYS = 64
 # prefill: bf16 rounds at every product through 36 layers, in other orders;
 # prefills with a fault planted in the attention must read above it
 SERVE_REL_L2 = 5e-2
+# phase 6d: serving Qwen3-MoE-235B-A22B (src/repro/configs/qwen3_moe_235b_a22b.py)
+# at its published widths, depth cut 94 -> 8 layers (42 GB of bf16 weights),
+# the phase 6 traffic; teacher forcing at the JAX package's test capacity
+# (tests/test_models.py) on 2 prompts of 256 tokens
+MOE_LAYERS = 8
+MOE_TF_CAPACITY, MOE_TF_PROMPTS, MOE_TF_LEN = 8.0, 2, 256
 # phase 8: the federated train step (TAG -> aggregation plan -> fed step) on
 # Qwen2.5-3B at full width and depth, classical_fl over 2 virtual clients,
 # the config's FedAdam; the traffic is launch/train.py's defaults
@@ -291,13 +342,17 @@ HELD_GROWTH_GB = 1.0
 # phase 7c: the faulted jobs leave no device memory held after them beyond
 # this (a decoded update the hub kept alive would be 1.55 GB)
 FAULT_HELD_MB = 64.0
-# (b): the H-FL job's west shard hub crashes at this virtual time (round 1's
-# uploads: the trainers compute for 1 s a round)
-SHARD_CRASH = ("west", 1.0)
+# (b): the H-FL job's west shard hub crashes on its first frame after it
+# folded this many frames (its 2 trainers' round-1 uploads)
+SHARD_CRASH = ("west", 2)
 # (c): the reference test's FedBuff restart (tests/test_chaos.py): trainer-1
 # a 50 s straggler dropped at 0.5, the server dropped at 2.5 and re-joined
-# at 3.0, buffer 1, 3 versions
+# at 3.0, buffer 1; 4 versions with a checkpoint every 2 (the reference's 3
+# versions with one every version wrote three checkpoints through host
+# numpy): version 2's is restored, version 4's is the restarted
+# incarnation's; on phase 5's tree less its embedding (``restart_init``)
 RESTART_AT = (2.5, 3.0)
+RESTART_VERSIONS, RESTART_CKPT_EVERY = 4, 2
 
 
 class PhaseFailed(RuntimeError):
@@ -355,8 +410,20 @@ def phase_environment() -> str:
              if "registers" in ln or "spill" in ln]
     print(f"phase environment: ok python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} card {torch.cuda.get_device_name(0)!r} "
-          f"build_s {build_s:.3f} ptxas {ptxas}", flush=True)
+          f"build_s {build_s:.3f} ptxas {ptxas}; host cpu_count {os.cpu_count()} "
+          f"sched_affinity {len(os.sched_getaffinity(0))} mem_available_gb "
+          f"{_mem_available_gb():.1f} checkpoint dir {tempfile.gettempdir()} disk_free_gb "
+          f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.1f}", flush=True)
     return smi
+
+
+def _mem_available_gb() -> float:
+    """The host's available memory (``MemAvailable`` of /proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
 
 
 # ---------------------------------------------------------------------- #
@@ -1788,6 +1855,9 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     n_params = sum(int(np.prod(s)) for s in _flat_shapes(shapes))
     n_leaves = len(_flat_shapes(shapes))
     check(n_params == CODEC_PARAMS, f"tree has {n_params} parameters, not {CODEC_PARAMS}")
+    check(tch.decode_pool_workers() == DECODE_POOL and tch.broadcast_fanout_enabled(),
+          f"the process plane's defaults: decode pool {tch.decode_pool_workers()}, fan-out "
+          f"{tch.broadcast_fanout_enabled()}")
     init = codec_init(dev)
     job = JobSpec(
         tag=codec_tag(),
@@ -1815,6 +1885,23 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     round_digests = [tree_digest(h) for h in history[1:]]  # phase 7's reference
     datasets = sorted((w.worker_id, w.dataset) for w in res.workers if w.role == "trainer")
     del res, root, job
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the decode pool off: the root receives the uploads one at a time;
+    # every round's weights byte-equal (sha256) to the pooled run's
+    with tch.switches(decode_pool=0):
+        res = run_job(JobSpec(
+            tag=codec_tag(), datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(CODEC_TRAINERS)),
+            hyperparams={"rounds": CODEC_ROUNDS, "init_weights": codec_init(dev)}),
+            device=dev, timeout=900,
+            program_overrides={"trainer": NoiseTrainer, "global-aggregator": RecordingAggregator})
+    check(not res.errors, f"codec job without the decode pool: errors {res.errors}")
+    root = next(p for p in res.programs.values() if isinstance(p, RecordingAggregator))
+    unpooled_s = root.round_s
+    check([tree_digest(h) for h in root.history[1:]] == round_digests,
+          "codec job without the decode pool differs from the pooled run")
+    del res, root
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1921,7 +2008,9 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
     tq, td = timings["quantize_blocks"], timings["dequantize_blocks"]
     print(f"phase codec job: ok Qwen2.5-3B tree ({n_params} f32 params, {nb} blocks, layers 36->{CODEC_LAYERS}) "
           f"over the socket loopback with int8_blocks, {T} trainers, {R} rounds byte-equal to the "
-          f"plain chain; job_s {job_s:.3f} round_wall_s {[round(t, 4) for t in round_s]} "
+          f"plain chain; job_s {job_s:.3f} round_wall_s (decode pool {tch.decode_pool_workers()}) "
+          f"{[round(t, 4) for t in round_s]} (decode pool 0, byte-equal: "
+          f"{[round(t, 4) for t in unpooled_s]}) "
           f"peak_device_gb {peak_gb:.2f} channel_bytes {channel_bytes} raw_bytes {raw} "
           f"codec_ratio {coded / raw:.6f} encodes {encodes} decodes {decodes}; "
           f"one message: encode_ms {ms['encode']:.3f} (cat {ms['cat']:.3f} quantize {ms['quantize']:.3f} "
@@ -1930,7 +2019,8 @@ def phase_codec_job(dev: torch.device, errs: dict) -> dict:
           f"serial sum per round {json.dumps({k: round(v, 3) for k, v in per_round.items()})}; "
           f"quantize ms {tq['ms']:.3f} dequantize ms {td['ms']:.3f} bound_ms {tq['bound'][0]:.3f}",
           flush=True)
-    return {"launches": launches, "timings": timings, "round_digests": round_digests}
+    return {"launches": launches, "timings": timings, "round_digests": round_digests,
+            "round_s": {"pool": list(round_s), "unpooled": list(unpooled_s)}}
 
 
 # ---------------------------------------------------------------------- #
@@ -1993,6 +2083,52 @@ class ProcRecordingAggregator(GlobalAggregator):
             self.metrics.append({"round_s": round_s, "digest": tree_digest(self.weights)})
 
 
+class ProcPoolRoot(ProcRecordingAggregator):
+    """Phase 5's root on the per-frame path (no reduce plan): its pooled
+    receive fetches and decodes the uploads on the card. Each round it
+    holds the first update the receive hands it until the fetches ahead of
+    that update have landed, so the receive reaches its bound (``workers +
+    1`` payloads held) on every run, and a pool that fetched past the bound
+    would show in the count and in the bytes. Records the receive's
+    high-water count and the device bytes each aggregate allocated above
+    what the root held before it."""
+
+    def aggregate(self):
+        dev, me = self.ctx.device, self.ctx.worker.worker_id
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        base_req = torch.cuda.memory_stats(dev).get("requested_bytes.all.current")
+        torch.cuda.reset_peak_memory_stats(dev)
+        tch.reset_decode_pool_held(me)
+        recv_ordered = tch.ChannelEnd.recv_ordered
+
+        def first_held_until_full(end, ends, timeout=30.0):
+            it = recv_ordered(end, ends, timeout)
+            first = next(it, None)
+            if first is None:
+                return
+            want = min(tch.decode_pool_workers() + 1, len(ends))
+            deadline = time.monotonic() + 120.0  # a hang guard; the count gate fails
+            while tch.decode_pool_held(me)[0] < want and time.monotonic() < deadline:
+                time.sleep(0.002)
+            yield first
+            del first
+            yield from it
+
+        tch.ChannelEnd.recv_ordered = first_held_until_full
+        try:
+            super().aggregate()
+        finally:
+            tch.ChannelEnd.recv_ordered = recv_ordered
+        if not self._work_done:
+            torch.cuda.synchronize(dev)
+            peak_req = torch.cuda.memory_stats(dev).get("requested_bytes.all.peak")
+            self.metrics.append({
+                "aggregate_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                "aggregate_requested": None if base_req is None else peak_req - base_req,
+                "held_high_water": tch.decode_pool_held(me)[1]})
+
+
 class HostNoiseTrainer(HostNoise, Trainer):
     pass
 
@@ -2004,18 +2140,15 @@ class HostNoiseCoord(HostNoise, CoordTrainer):
 class _HubProbe:
     """Times the hub's reduce plane in this process while a job runs: host
     seconds inside ``InprocBackend._reduce_ingest`` (which runs under the
-    backend's lock), the hub's clock at each (``ingest_at``: seconds since
-    the hub started, the clock a ``FaultPlan`` is written in) and, with CUDA
-    events around each ``fold_into`` of a hub ``StreamingMean``, the fold's
-    device ms."""
+    backend's lock) and, with CUDA events around each ``fold_into`` of a
+    hub ``StreamingMean``, the fold's device ms."""
 
     def __enter__(self):
-        self.lock_s, self.events, self.ingest_at = [], [], []
+        self.lock_s, self.events = [], []
         self._ingest, self._fold = InprocBackend._reduce_ingest, troles.fold_into
         ingest, fold = self._ingest, self._fold
 
         def timed_ingest(backend, *args):
-            self.ingest_at.append(backend._wall())
             t0 = time.perf_counter()
             try:
                 return ingest(backend, *args)
@@ -2117,7 +2250,7 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
     job_a = {"job": job, "overrides": overrides, "digests": [m["digest"] for m in rounds],
              "round_s": [m["round_s"] for m in rounds], "channel_bytes": proc_bytes,
              "hub": hub, "launches": launches, "startup_s": startup_s,
-             "ingest_at": sorted(probe.ingest_at), "lock_s": list(probe.lock_s),
+             "lock_s": list(probe.lock_s),
              "driver_peak_gb": driver_peak_gb}
     del res, root, trainers
     gc.collect()
@@ -2142,10 +2275,57 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (b) small jobs over processes against run_job on the card
-    # (b) two small jobs over processes at once (their start-ups overlap),
-    # then each through run_job on the card; only the H-FL job's shard hubs
-    # fold in this process while they run
+    # the switches over processes, each run's rounds byte-equal (sha256) to
+    # (a)'s, each job alone (their times and the pool's count are gated or
+    # reported): the decode pool off; the broadcast fan-out off; the
+    # per-frame path (no reduce plan), whose root receives the uploads
+    # through a pool of GATE_POOL, decodes them on the card and is held to
+    # the pool's bound in payloads and in bytes
+    def run(job_, **kw):
+        res_ = run_job_multiproc(job_, device=dev, timeout=600, **kw)
+        check(not res_.errors, f"process job errors: {res_.errors}")
+        root_ = res_.program("global-aggregator-0")
+        rounds_ = [m for m in root_.metrics if "digest" in m]
+        check([m["digest"] for m in rounds_] == digests,
+              f"process job ({sorted(kw)}) differs from phase 7a's rounds")
+        return [m["round_s"] for m in rounds_], root_.metrics
+
+    with tch.switches(decode_pool=0):
+        unpooled_round_s, _ = run(job, program_overrides=overrides)
+    with tch.switches(fanout=False):
+        no_fanout_round_s, _ = run(job, program_overrides=overrides)
+    per_frame = JobSpec(tag=job.tag, datasets=job.datasets, hyperparams={"rounds": R})
+    with tch.switches(decode_pool=GATE_POOL):
+        per_frame_round_s, metrics = run(per_frame, program_overrides={
+            "trainer": ProcNoiseTrainer, "global-aggregator": ProcPoolRoot})
+    agg_bytes = [m["aggregate_bytes"] for m in metrics if "aggregate_bytes" in m]
+    agg_requested = [m["aggregate_requested"] for m in metrics if "aggregate_bytes" in m]
+    high_water = [m["held_high_water"] for m in metrics if "held_high_water" in m]
+    # the pool's bound in payloads: reached every round (the root holds its
+    # first update until the fetches ahead of it land) and never passed
+    check(high_water == [GATE_POOL + 1] * R,
+          f"the root's pooled receive held at most {high_water} payloads a round, not "
+          f"{GATE_POOL + 1} (the pool's {GATE_POOL} workers + 1)")
+    # ... and in bytes: the accumulator; per update yielded or fetched
+    # ahead, its float32 tree (whole blocks); per fetch still decoding, its
+    # int8 codes and scales. The caching allocator counts a block, not the
+    # request: it hands out a cached block whole when splitting would leave
+    # 1 MiB or less, so each of those buffers (a leaf of the accumulator; a
+    # tree, codes, scales) may count up to 1 MiB over its bytes. One more
+    # update held is 1.55 GB.
+    blocks_ = -(-CODEC_PARAMS // QUANT_BLOCK)
+    tree_bytes, code_bytes = blocks_ * QUANT_BLOCK * 4, blocks_ * (QUANT_BLOCK + 4)
+    held = CODEC_PARAMS * 4 + (GATE_POOL + 1) * tree_bytes + GATE_POOL * code_bytes
+    block_slack = (n_leaves + GATE_POOL + 1 + 2 * GATE_POOL) * 2**20
+    agg_limit = held + block_slack
+    check(len(agg_bytes) == R and max(agg_bytes) <= agg_limit,
+          f"the root's aggregate allocated {agg_bytes} bytes, over the accumulator plus "
+          f"{GATE_POOL + 1} decoded updates and {GATE_POOL} updates' codes ({held}) plus "
+          f"the allocator's blocks ({block_slack})")
+    free_device()
+
+    # (b) two small jobs over processes, one after the other (the deadline
+    # job's grace is wall time), then each through run_job on the card
     hier = JobSpec(
         tag=hierarchical_fl(groups=("west", "east"),
                             dataset_groups={"west": ("d0", "d1"), "east": ("d2", "d3")}),
@@ -2163,13 +2343,11 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
     coord_kw = dict(program_overrides={"trainer": HostNoiseCoord})
     kernel.reset_launches()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        futs = [pool.submit(run_job_multiproc, hier, device=dev, timeout=300, pool_size=2,
-                            sharded=True, **hier_kw),
-                pool.submit(run_job_multiproc, coord, device=dev, timeout=300, **coord_kw)]
-        mp_hier, mp_coord = (f.result() for f in futs)
-    small_s = time.perf_counter() - t0
+    mp_hier = run_job_multiproc(hier, device=dev, timeout=300, pool_size=2, sharded=True,
+                                **hier_kw)
     hier_hub_folds = kernel.exact_fold_into_tree.launches
+    mp_coord = run_job_multiproc(coord, device=dev, timeout=300, **coord_kw)
+    small_s = time.perf_counter() - t0
     check(not mp_hier.errors, f"pooled sharded job errors: {mp_hier.errors}")
     check(not mp_coord.errors, f"coordinated process job errors: {mp_coord.errors}")
     thr = run_job(hier, device=dev, timeout=120, **hier_kw)
@@ -2203,26 +2381,76 @@ def phase_process_plane(dev: torch.device, codec: dict) -> dict:
           f"{sum(fold) / len(fold):.3f} max {max(fold):.3f}; hub under the lock s total "
           f"{sum(lock):.3f} per frame mean {sum(lock) / len(lock):.3f} max {max(lock):.3f}; "
           f"children {json.dumps(children)}; driver peak_device_gb {driver_peak_gb:.2f}; "
+          f"the switches, each job alone, each byte-equal to (a): round_wall_s decode pool 0 "
+          f"{[round(x, 4) for x in unpooled_round_s]} (a: pool {DECODE_POOL}); fan-out off "
+          f"{[round(x, 4) for x in no_fanout_round_s]}; the per-frame path (no reduce plan, "
+          f"the root's pool of {GATE_POOL} decoding) {[round(x, 4) for x in per_frame_round_s]} "
+          f"with the pooled receive's high-water count {high_water} payloads (bound "
+          f"{GATE_POOL + 1}) and the root's aggregate allocating bytes {agg_bytes} (requested "
+          f"{agg_requested}; limit {agg_limit}: the accumulator, {GATE_POOL + 1} decoded "
+          f"updates of {tree_bytes} and {GATE_POOL} updates' codes of {code_bytes}, {held} in "
+          f"all, plus 1 MiB for each of their {block_slack >> 20} buffers; margin "
+          f"{agg_limit - max(agg_bytes)} bytes); "
           f"(b) hierarchical_fl pool_size 2 sharded reduce_plan 2 deadline with aggregator-1 "
           f"dropped at 1.5 and re-joined at 2.5 (hub_reduced {reduced['hub_reduced']}) and "
-          f"coordinated_fl sync over 7 processes (exact_fold launches {coord_folds}), run at "
-          f"once in {small_s:.3f} s, byte-equal to run_job on the card", flush=True)
-    return {"launches": launches, "a": job_a, "b": job_b}
+          f"coordinated_fl sync over 7 processes (exact_fold launches {coord_folds}), one "
+          f"after the other in {small_s:.3f} s, byte-equal to run_job on the card", flush=True)
+    return {"launches": launches, "a": job_a, "b": job_b,
+            "round_s": {"pool": job_a["round_s"], "unpooled": unpooled_round_s,
+                        "no_fanout": no_fanout_round_s, "per_frame": per_frame_round_s},
+            "aggregate_bytes": agg_bytes, "aggregate_requested": agg_requested,
+            "high_water": high_water}
 
 
 # ---------------------------------------------------------------------- #
 # phase 7c: the fault plane
 # ---------------------------------------------------------------------- #
-class _FaultProbe:
-    """Watches the hubs of this process through a faulted job: every hub
-    armed with faults (so the phase can check that each fired), the hub
-    clock and the frame of each connection reset, the hub clock and host
-    time of each restart, the device memory peak before the first restart
-    and after it, and the host time of the first frame a hub served after
-    each restart."""
+NEVER = float("inf")
 
-    def __init__(self, dev):
-        self.dev = dev
+
+class _FaultProbe:
+    """Watches the hubs of this process through a faulted job, and fires
+    its faults at points of the job's own progress. The job's ``FaultPlan``
+    names each fault at time ``NEVER``, so no clock fires it; the probe
+    re-arms it at time 0 (the hub then fires it on the next frame that
+    qualifies) once its event has passed:
+
+    * ``reset=(worker, broadcaster, channel, n)``: the connection reset of
+      ``worker``, once ``broadcaster``'s first broadcast on ``channel`` (its
+      ``n`` destinations) was dispatched, so it severs the first frame
+      naming ``worker`` after it;
+    * ``crash=(hub_name, channel, n)``: the crash of the hub whose backend
+      is ``hub_name`` (any hub for ``""``), once it has folded ``n`` frames
+      of ``channel``, so it fires on that hub's next frame.
+
+    It records every hub armed (so the phase can check that each fault
+    fired), the fold count and frame of each reset and crash, the host time
+    of each restart, the device memory peak before the first restart and
+    after it, and the host time of the first frame a hub served after each
+    restart."""
+
+    def __init__(self, dev, reset=None, crash=None):
+        self.dev, self.reset, self.crash = dev, reset, crash
+        self._sent = 0
+        self.reset_armed_at = self.crash_armed_at = None
+
+    def _folds(self, hub, channel):
+        return int(hub.backend.stats.get(f"hub_reduced:{channel}", 0))
+
+    def _after(self, hub, op, args):
+        """Arm a fault whose event the frame just dispatched completed."""
+        if self.reset is not None and self.reset_armed_at is None and op in ("send", "send_many"):
+            worker, src, channel, n = self.reset
+            if args[0] == channel and args[2] == src:
+                self._sent += len(args[3]) if op == "send_many" else 1
+                if self._sent >= n:
+                    self.reset_armed_at = self._folds(hub, channel)
+                    hub._arm_conn_resets({worker: 0.0})
+        if self.crash is not None and self.crash_armed_at is None:
+            name, channel, n = self.crash
+            if name in ("", hub.backend.name) and self._folds(hub, channel) >= n:
+                self.crash_armed_at = self._folds(hub, channel)
+                hub._arm_crash(0.0)
 
     def __enter__(self):
         self.armed, self.crashes, self.first_after, self.resets = [], [], [], []
@@ -2245,25 +2473,30 @@ class _FaultProbe:
             if probe.peak_before_gb is None:
                 probe.peak_before_gb = torch.cuda.max_memory_allocated(probe.dev) / 1e9
                 torch.cuda.reset_peak_memory_stats(probe.dev)
-            probe.crashes.append((hub.backend._wall(), time.perf_counter()))
+            channel = probe.crash[1] if probe.crash else ""
+            probe.crashes.append((hub.backend.name, probe._folds(hub, channel),
+                                  time.perf_counter()))
             return crash(hub)
 
-        def first_dispatch(hub, op, args):
+        def watched_dispatch(hub, op, args):
             if len(probe.first_after) < len(probe.crashes):
                 probe.first_after.append(time.perf_counter())
-            return dispatch(hub, op, args)
+            out = dispatch(hub, op, args)
+            probe._after(hub, op, args)
+            return out
 
         def noted_inject(hub, conn, args):
             crashes = len(probe.crashes)
             fired = inject(hub, conn, args)
             if fired and len(probe.crashes) == crashes:
-                probe.resets.append((round(hub.backend._wall(), 3),
+                channel = probe.reset[2] if probe.reset else ""
+                probe.resets.append((probe._folds(hub, channel),
                                      [a for a in args if isinstance(a, str)]))
             return fired
 
         (TransportHub._arm_crash, TransportHub._arm_conn_resets, TransportHub.simulate_crash,
          TransportHub._dispatch, TransportHub._inject_fault) = (
-            armed_crash, armed_resets, timed_crash, first_dispatch, noted_inject)
+            armed_crash, armed_resets, timed_crash, watched_dispatch, noted_inject)
         return self
 
     def __exit__(self, *exc):
@@ -2277,7 +2510,7 @@ class _FaultProbe:
                 if hub._conn_resets or hub._crash_at is not None]
 
     def recovery_ms(self) -> list:
-        return [round((b - a[1]) * 1e3, 3) for a, b in zip(self.crashes, self.first_after)]
+        return [round((b - a[2]) * 1e3, 3) for a, b in zip(self.crashes, self.first_after)]
 
 
 def _recovery(res) -> dict:
@@ -2285,10 +2518,45 @@ def _recovery(res) -> dict:
     return next((m["transport_recovery"] for m in root.metrics if "transport_recovery" in m), {})
 
 
-def _held_mb(dev, before: int) -> float:
+def program_bytes(dev) -> int:
+    """The device bytes the program's own tensors hold: read after a
+    collection and a synchronize, with cuBLAS's workspaces released (PyTorch
+    keeps one per (handle, stream), so which threads and streams ran a
+    product since the last reading would otherwise count), and never inside
+    a profiler session. Every held-memory gate reads both its sides so."""
+    check(not torch.autograd._profiler_enabled(), "device memory read inside a profiler session")
     gc.collect()
-    torch.cuda.synchronize()
-    return (torch.cuda.memory_allocated(dev) - before) / 1e6
+    torch.cuda.synchronize(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated(dev)
+
+
+def _live_blocks(dev, limit: int = 20) -> list:
+    """The largest live allocator blocks: size, stream and the frames of
+    the allocation where the allocator recorded them."""
+    out = []
+    for seg in torch.cuda.memory_snapshot():
+        if seg.get("device", dev.index) != dev.index:
+            continue
+        for blk in seg.get("blocks", ()):
+            if blk.get("state") == "active_allocated":
+                frames = [f"{f.get('filename')}:{f.get('line')} {f.get('name')}"
+                          for f in blk.get("frames", ())[:6]]
+                out.append({"size": blk.get("size"), "stream": seg.get("stream"),
+                            "frames": frames})
+    return sorted(out, key=lambda b: -(b["size"] or 0))[:limit]
+
+
+def check_held(dev, before: int, limit_mb: float, what: str, strict: bool = False) -> float:
+    """Gate the megabytes of device memory held beyond ``before`` (a
+    ``program_bytes`` reading): at most ``limit_mb`` (under it when
+    ``strict``). On failure print the live blocks first."""
+    held = (program_bytes(dev) - before) / 1e6
+    if held > limit_mb or (strict and held >= limit_mb):
+        print(f"{what}: {held:.1f} MB held; live blocks "
+              f"{json.dumps(_live_blocks(dev))}", flush=True)
+        raise PhaseFailed(f"{held:.1f} MB of device memory held after {what}")
+    return held
 
 
 class ProcVersionNoiseTrainer(Trainer):
@@ -2338,14 +2606,25 @@ def _timed_checkpoints(times: dict) -> None:
     ck.save, ck.load_tree = timed_save, timed_load
 
 
+def restart_init(dev):
+    """7c (c)'s initial weights: phase 5's, less the embedding (the layer at
+    full width and the final norm, 77 M parameters). A checkpoint holds
+    five copies of the tree (weights, base snapshots, the accumulator) and
+    moves through host numpy at about 0.7 GB/s: 1.55 GB a save instead of
+    the whole tree's 7.76 GB (10 s a save)."""
+    init = codec_init(dev)
+    del init["embed"]
+    return init
+
+
 class ProcAsyncRoot(GlobalAggregator):
-    """Lowered to the FedBuff root: draws phase 5's initial weights itself
+    """Lowered to the FedBuff root: draws 7c (c)'s initial weights itself
     (the job carries none to its processes) and reports the checkpoint
     saves and loads of its incarnation in its metrics."""
 
     def __init__(self, ctx):
         super().__init__(ctx)
-        self.weights = codec_init(ctx.device)
+        self.weights = restart_init(ctx.device)
         self._ckpt_times: dict = {}
         _timed_checkpoints(self._ckpt_times)
 
@@ -2363,26 +2642,22 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
     fault-free run."""
     a, b = proc["a"], proc["b"]
     T, R = CODEC_TRAINERS, CODEC_ROUNDS
-    ingest = a["ingest_at"]
-    check(len(ingest) == R * T, f"phase 7a recorded {len(ingest)} hub folds")
-    # times on the hub's clock (seconds since it started) from 7a's run:
-    # the reset half-way from round 1's broadcast to its first fold, so the
-    # next frame naming trainer-1 is its round-1 upload; the crash half-way
-    # from round 1's last fold to round 2's first, so it lands in round 2's
-    # broadcast or uploads whether this job starts up a little faster or
-    # slower than 7a's (a fault that never fires fails the phase)
-    reset_at = (a["startup_s"] + ingest[0]) / 2
-    crash_at = (ingest[T - 1] + ingest[T]) / 2
-    plan = FaultPlan(conn_resets={"trainer-1": reset_at}, hub_crashes={"": crash_at})
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated(dev)
+    # the faults fire at points of this job's own progress (no clock fires
+    # them): trainer-1's connection reset on the first frame naming it after
+    # the root's round-1 broadcast went out (its round-1 upload, or an op on
+    # its way there), so before round 1's last fold; the hub's crash on the
+    # first frame after round 1's last fold (round 1's partial to the root
+    # or round 2's broadcast), so after exactly T folds
+    plan = FaultPlan(conn_resets={"trainer-1": NEVER}, hub_crashes={"": NEVER})
+    events = dict(reset=("trainer-1", "global-aggregator-0", "param-channel", T),
+                  crash=("", "param-channel", T))
+    free_device()
+    before = program_bytes(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     kernel.reset_launches()
     qkernel.reset_launches()
     t0 = time.perf_counter()
-    with _HubProbe() as hub_probe, _FaultProbe(dev) as faults:
+    with _HubProbe() as hub_probe, _FaultProbe(dev, **events) as faults:
         res = run_job_multiproc(a["job"], device=dev, timeout=600, policy=RuntimePolicy(faults=plan),
                                 program_overrides=a["overrides"])
         job_s = time.perf_counter() - t0
@@ -2393,6 +2668,12 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
     rec = _recovery(res)
     check(not unfired and rec.get("hub_restarts", 0) >= 1 and rec.get("resumes", 0) >= 1,
           f"a fault did not fire or was not recovered: unfired {unfired}, recovery {rec}")
+    check(faults.reset_armed_at == 0 and len(faults.resets) == 1 and faults.resets[0][0] < T,
+          f"the reset was armed after {faults.reset_armed_at} folds and fired at (folds, the "
+          f"frame's names) {faults.resets}, not after round 1's broadcast and before its last fold")
+    check([c[1] for c in faults.crashes] == [T],
+          f"the hub crashed after {[c[1] for c in faults.crashes]} folds, not after round 1's "
+          f"last ({T})")
     root = res.program("global-aggregator-0")
     programs = [root, *(res.program(f"trainer-{i}") for i in range(T))]
     rounds = [m for m in root.metrics if "digest" in m]
@@ -2407,16 +2688,13 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
     check(stats.get("hub_reduced") == R * T and stats.get("hub_partials") == R,
           f"hub reduce stats {stats}")
     del res, root, programs
-    held_a = _held_mb(dev, before)
-    check(held_a <= FAULT_HELD_MB, f"{held_a:.1f} MB of device memory held after the faulted job")
+    held_a = check_held(dev, before, FAULT_HELD_MB, "the faulted job")
     lock = hub_probe.lock_s
-    folds_before = [sum(1 for t in hub_probe.ingest_at if t < c[0]) for c in faults.crashes]
-    a_line = (f"(a) plan conn_resets trainer-1 at {reset_at:.3f} s, hub_crashes '' at "
-              f"{crash_at:.3f} s (7a's hub clock: start-up {a['startup_s']:.3f}, folds at "
-              f"{[round(t, 3) for t in ingest]}); the reset fired at (hub clock, the frame's names) "
-              f"{faults.resets}; the "
-              f"crash fired at {[round(c[0], 3) for c in faults.crashes]} s, after "
-              f"{folds_before} of {R * T} folds; transport_recovery {json.dumps(rec)}; {R} rounds byte-equal to "
+    a_line = (f"(a) trainer-1's connection reset armed after the root's round-1 broadcast "
+              f"({faults.reset_armed_at} folds), fired at (folds, the frame's names) "
+              f"{faults.resets}; the hub crash armed after round 1's last fold, fired after "
+              f"{[c[1] for c in faults.crashes]} of {R * T} folds; transport_recovery "
+              f"{json.dumps(rec)}; {R} rounds byte-equal to "
               f"7a, channel_bytes and every launch count equal (hub exact_fold_into_tree "
               f"{hub['exact_fold_into_tree']} dequantize_blocks {hub['dequantize_blocks']}); job_s "
               f"{job_s:.3f} round_wall_s {[round(m['round_s'], 4) for m in rounds]} (7a "
@@ -2427,15 +2705,16 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
               f"frame served ms {faults.recovery_ms()}; held after the job {held_a:.1f} MB")
     print(f"phase fault plane {a_line}", flush=True)
 
-    # (b) the H-FL job with its west shard hub crashed
+    # (b) the H-FL job with its west shard hub crashed on the first frame
+    # after the shard's round-1 folds (its trainers' uploads), alone
     kw = dict(b["kw"])
-    shard, at = SHARD_CRASH
-    kw["policy"] = dataclasses.replace(kw["policy"], faults=FaultPlan(hub_crashes={shard: at}))
-    before = torch.cuda.memory_allocated(dev)
+    shard, shard_folds = SHARD_CRASH
+    kw["policy"] = dataclasses.replace(kw["policy"], faults=FaultPlan(hub_crashes={shard: NEVER}))
+    before = program_bytes(dev)
     kernel.reset_launches()
     qkernel.reset_launches()
     t0 = time.perf_counter()
-    with _FaultProbe(dev) as faults:
+    with _FaultProbe(dev, crash=(f"multiproc-hub:{shard}", "param-channel", shard_folds)) as faults:
         res = run_job_multiproc(b["job"], device=dev, timeout=300, pool_size=2, sharded=True, **kw)
         unfired = faults.unfired()
     job_b_s = time.perf_counter() - t0
@@ -2444,19 +2723,24 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
     rec_b = _recovery(res)
     check(not unfired and rec_b.get("hub_restarts", 0) >= 1,
           f"the shard crash did not fire: unfired {unfired}, recovery {rec_b}")
+    check([c[:2] for c in faults.crashes] == [(f"multiproc-hub:{shard}", shard_folds)],
+          f"the crashes {[c[:2] for c in faults.crashes]} are not the {shard} shard's after its "
+          f"{shard_folds} round-1 folds")
     check(_small_obs(res) == b["obs"], "faulted sharded H-FL job differs from phase 7b's")
     reduced = res.channel_stats["param-channel"]
     check(reduced.get("hub_reduced") == b["stats"].get("hub_reduced")
           and hub_b["exact_fold_into_tree"] == reduced["hub_reduced"],
           f"shard hubs folded {hub_b['exact_fold_into_tree']} frames, reduced {reduced}, "
           f"7b {b['stats']}")
+    # (b)'s frames are float32: no codec kernel ran in this process
+    check(hub_b["dequantize_blocks"] == 0 and hub_b["quantize_blocks"] == 0,
+          f"codec launches in this process during (b): {hub_b}")
     launches_b = _proc_launches(hub_b, res.programs.values())
     del res
-    held_b = _held_mb(dev, before)
-    check(held_b <= FAULT_HELD_MB, f"{held_b:.1f} MB of device memory held after the sharded job")
+    held_b = check_held(dev, before, FAULT_HELD_MB, "the sharded job")
 
-    # (c) a FedBuff server restarted from its checkpoint, against its
-    # fault-free run, the two jobs at once
+    # (c) a FedBuff server restarted from its checkpoint, then its
+    # fault-free run, each alone (their results are gated on virtual times)
     per_worker = {"trainer-0": {"compute_time": 1.0},
                   "trainer-1": {"compute_time": 50.0}}  # never finishes an upload
     # the grace outlasts a coded full-width round trip on a loaded host (the
@@ -2467,29 +2751,26 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
 
     def fedbuff_job(**hp):
         return JobSpec(tag=codec_tag(), datasets=(DatasetSpec(name="d0"), DatasetSpec(name="d1")),
-                       hyperparams={"rounds": 3, **hp})
+                       hyperparams={"rounds": RESTART_VERSIONS, **hp})
 
-    before = torch.cuda.memory_allocated(dev)
-    t0 = time.perf_counter()
+    before_c = program_bytes(dev)
+    t_c = time.perf_counter()
     try:
-        with ThreadPoolExecutor(2) as pool:
-            futs = [
-                pool.submit(run_job_multiproc, fedbuff_job(), device=dev, timeout=600,
-                            policy=RuntimePolicy(**pol), per_worker_hyperparams=per_worker,
-                            program_overrides=overrides),
-                pool.submit(run_job_multiproc,
-                            fedbuff_job(checkpoint_every=1, checkpoint_dir=ckpt_dir),
-                            device=dev, timeout=600, per_worker_hyperparams=per_worker,
-                            program_overrides=overrides,
-                            policy=RuntimePolicy(**pol, faults=FaultPlan(
-                                server_restarts={"global-aggregator-0": RESTART_AT}))),
-            ]
-            clean, restarted = (f.result() for f in futs)
-        del futs
-        job_c_s = time.perf_counter() - t0
+        restarted = run_job_multiproc(
+            fedbuff_job(checkpoint_every=RESTART_CKPT_EVERY, checkpoint_dir=ckpt_dir),
+            device=dev, timeout=600, per_worker_hyperparams=per_worker,
+            program_overrides=overrides,
+            policy=RuntimePolicy(**pol, faults=FaultPlan(
+                server_restarts={"global-aggregator-0": RESTART_AT})))
+        restarted_s = time.perf_counter() - t_c
         ckpt_files = sorted(os.listdir(os.path.join(ckpt_dir, "global-aggregator-0")))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t_clean = time.perf_counter()
+    clean = run_job_multiproc(fedbuff_job(), device=dev, timeout=600,
+                              policy=RuntimePolicy(**pol), per_worker_hyperparams=per_worker,
+                              program_overrides=overrides)
+    clean_s = time.perf_counter() - t_clean
     check(not clean.errors, f"fault-free FedBuff job errors: {clean.errors}")
     check(not restarted.errors, f"restarted FedBuff job errors: {restarted.errors}")
     glob, cglob = restarted.program("global-aggregator-0"), clean.program("global-aggregator-0")
@@ -2497,9 +2778,11 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
     def absorbed(p):
         return [(e["src"], e["version"], e["staleness"]) for e in p.staleness_log]
 
-    check(absorbed(glob) == absorbed(cglob) == [("trainer-0", v, 0) for v in range(3)],
+    check(absorbed(glob) == absorbed(cglob)
+          == [("trainer-0", v, 0) for v in range(RESTART_VERSIONS)],
           f"absorbed {absorbed(glob)} != fault-free {absorbed(cglob)}")
-    check(glob.version == cglob.version == 3 and glob.version_vector == cglob.version_vector,
+    check(glob.version == cglob.version == RESTART_VERSIONS
+          and glob.version_vector == cglob.version_vector,
           f"versions {glob.version} {glob.version_vector} != {cglob.version} {cglob.version_vector}")
     check({"restored_step": 2} in glob.metrics, f"no restored_step 2 in {glob.metrics}")
     check(restarted.dropped.get("global-aggregator-0") == RESTART_AT[0]
@@ -2507,16 +2790,17 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
           and (RESTART_AT[1], "rejoin", "global-aggregator-0") in restarted.events,
           f"the restart is not in the events: {restarted.dropped} {restarted.events}")
     final = tree_digest(restarted.global_weights())
+    restart_params = sum(x.numel() for x in tree_leaves(restarted.global_weights()))
     check(final == tree_digest(clean.global_weights()),
           "restarted FedBuff job's final weights differ from the fault-free run's")
-    check(final != tree_digest(codec_init(dev)), "the FedBuff job did not train")
+    check(final != tree_digest(restart_init(dev)), "the FedBuff job did not train")
     times = next(m["checkpoint_times"] for m in glob.metrics if "checkpoint_times" in m)
     check(times.get("restore_s") and times.get("save_s"),
           f"the restarted server neither restored nor saved: {times}")
     launches_c = _proc_launches({}, restarted.programs.values())
+    glob_vv = dict(glob.version_vector)
     del clean, restarted, glob, cglob
-    held_c = _held_mb(dev, before)
-    check(held_c <= FAULT_HELD_MB, f"{held_c:.1f} MB of device memory held after the FedBuff jobs")
+    check_held(dev, before_c, FAULT_HELD_MB, "the FedBuff jobs")
 
     launches = dict(launches_a)
     for extra in (launches_b, launches_c):
@@ -2524,12 +2808,15 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
             launches[name] = launches.get(name, 0) + n
     print(f"phase fault plane: ok Qwen2.5-3B tree ({CODEC_PARAMS} f32 params, layers "
           f"36->{CODEC_LAYERS}) (a) as above; (b) hierarchical_fl sharded pooled deadline job with "
-          f"the {shard} shard hub crashed at {at} s (virtual), byte-equal to 7b, "
-          f"transport_recovery {json.dumps(rec_b)}, hub_reduced {reduced['hub_reduced']}, job_s "
-          f"{job_b_s:.3f}; (c) FedBuff buffer 1 over processes on the int8_blocks channel, "
-          f"server dropped at {RESTART_AT[0]} and re-joined at {RESTART_AT[1]}, restored_step 2, "
-          f"3 versions of trainer-0 absorbed, final weights byte-equal to the fault-free run "
-          f"(both jobs at once in {job_c_s:.3f} s); checkpoint files left {ckpt_files}, the restarted "
+          f"the {shard} shard hub crashed after its {shard_folds} round-1 folds, alone, byte-equal "
+          f"to 7b, transport_recovery {json.dumps(rec_b)}, hub_reduced {reduced['hub_reduced']}, "
+          f"job_s {job_b_s:.3f}, held after {held_b:.1f} MB; (c) FedBuff buffer 1 over processes "
+          f"on the int8_blocks channel, server dropped at {RESTART_AT[0]} and re-joined at "
+          f"{RESTART_AT[1]}, restored_step 2, {RESTART_VERSIONS} versions of trainer-0 absorbed "
+          f"(a checkpoint every {RESTART_CKPT_EVERY}) on phase 5's tree less its embedding "
+          f"({restart_params} f32 params), version vector {glob_vv}, final weights "
+          f"byte-equal to the fault-free run (each alone: restarted job_s {restarted_s:.3f}, "
+          f"fault-free {clean_s:.3f}); checkpoint files left {ckpt_files}, the restarted "
           f"incarnation's saves and restore {json.dumps(times)}", flush=True)
     return {"launches": launches}
 
@@ -2559,6 +2846,7 @@ FLASH_CASES = (
     (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
     (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
     (1, 2049, 16, 2, 128, True, 0, torch.bfloat16),
+    (1, 512, 64, 4, 128, True, 0, torch.bfloat16),  # Qwen3-MoE's heads: GQA 16:1
     (SERVE_BATCH, SERVE_PROMPT, 16, 2, 128, True, 0, torch.bfloat16),
 )
 # the routes' counters and the C entries they launch
@@ -2872,6 +3160,265 @@ def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# phase 6d: serving the mixture-of-experts model
+# ---------------------------------------------------------------------- #
+class _RegionTimer:
+    """CUDA events around the MoE layer's pieces (routing and dispatch,
+    the expert products, the combine) and the flash attention while a
+    prefill or a decode step runs: device ms per piece (one stream, so the
+    events bracket each piece's kernels)."""
+
+    PIECES = {"route": (tmoe, "_route"), "experts": (tmoe, "expert_ffn"),
+              "combine": (tmoe, "_combine"), "flash": (blocks, "flash_attention")}
+
+    def __enter__(self):
+        self.events = {name: [] for name in self.PIECES}
+        self._saved = {name: getattr(mod, attr) for name, (mod, attr) in self.PIECES.items()}
+        for name, (mod, attr) in self.PIECES.items():
+            setattr(mod, attr, self._timed(name, self._saved[name]))
+        return self
+
+    def _timed(self, name, fn):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.PIECES.items():
+            setattr(mod, attr, self._saved[name])
+        torch.cuda.synchronize()
+        self.ms = {name: sum(a.elapsed_time(b) for a, b in ev) for name, ev in self.events.items()}
+
+
+class _PinnedRouting:
+    """Records the experts each MoE routing call picks (``moe._top_k``, one
+    call a layer), and after ``replay(transform)`` hands the recorded picks
+    back, through ``transform``, in the same order: a later run then routes
+    each token to the experts the recorded run picked for it, weighted by
+    its own router probabilities."""
+
+    def __enter__(self):
+        self._top_k, self.picks, self._replay, self.calls = tmoe._top_k, [], None, 0
+
+        def top_k(x, k):
+            self.calls += 1
+            if self._replay is None:
+                vals, idx = self._top_k(x, k)
+                self.picks.append(idx)
+                return vals, idx
+            idx = self._replay.pop(0)
+            return torch.gather(x, -1, idx), idx
+
+        tmoe._top_k = top_k
+        return self
+
+    def replay(self, transform=lambda idx: idx):
+        self._replay = [transform(idx) for idx in self.picks]
+
+    def __exit__(self, *exc):
+        tmoe._top_k = self._top_k
+
+
+def _moe_param_count(cfg) -> int:
+    """The parameters of the model's tree: untied embedding and unembedding
+    at the padded vocabulary, per layer two norms, attention (no biases)
+    and the MoE block (float32 router, stacked experts), the final norm."""
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
+    layer = 2 * d + attn + d * E + 3 * E * d * ff
+    return 2 * cfg.padded_vocab * d + cfg.num_layers * layer + d
+
+
+def phase_serve_moe(dev: torch.device) -> dict:
+    """Serving Qwen3-MoE-235B-A22B at its published widths, depth cut to
+    MOE_LAYERS, through ``serve.generate`` with the flash kernel; checks
+    and times, and the tensor-core flash kernel at its attention shape."""
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    full = get_config("qwen3_moe_235b_a22b")
+    check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
+           full.num_experts, full.experts_per_token, full.moe_d_ff, full.vocab_size,
+           full.tie_embeddings, full.param_dtype, full.moe_every)
+          == (94, 4096, 64, 4, 128, 128, 8, 1536, 151936, False, "bfloat16", 1),
+          "qwen3_moe_235b_a22b is not the published config")
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS, attn_impl="flash")
+    free_device()
+    before = program_bytes(dev)
+    bundle = build_model(cfg, dev)
+    plain_bundle = build_model(dataclasses.replace(cfg, attn_impl="xla"), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = bundle.init(gen)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == _moe_param_count(cfg), f"{n_params} parameters, not {_moe_param_count(cfg)}")
+    params_gb = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: one generate call, launches counted from 0
+    fkernel.reset_launches()
+    out = generate(bundle, params, prompts, T)
+    launches = fkernel.flash_attention_bhsd.launches
+    routes = _route_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(out.all_finite, "non-finite logits while serving the MoE model")
+    check(out.tokens.shape == (B, T), f"tokens {tuple(out.tokens.shape)}")
+    on_path = {"flash_attention_forward_sm90": MOE_LAYERS, "flash_attention_forward": 0}
+    check(launches == MOE_LAYERS and routes == on_path,
+          f"{launches} flash launches ({routes}) in a prefill and {T - 1} decode steps, "
+          f"not {on_path}")
+
+    # per call: one launch a layer per prefill, none per decode step
+    fkernel.reset_launches()
+    logits_f, cache = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
+    per_prefill, per_prefill_routes = fkernel.flash_attention_bhsd.launches, _route_launches()
+    nxt = torch.argmax(logits_f[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    fkernel.reset_launches()
+    _, cache = bundle.serve_step(params, cache, {"token": nxt})
+    per_step = fkernel.flash_attention_bhsd.launches
+    check(per_prefill == MOE_LAYERS and per_prefill_routes == on_path and per_step == 0,
+          f"flash launches per prefill {per_prefill} ({per_prefill_routes}), per decode step "
+          f"{per_step}")
+    del cache
+    # the flash prefill against the plain attention's, both routing every
+    # token to the experts the flash prefill picked (a top-k choice turns a
+    # bf16 rounding difference in the router's input into another expert);
+    # and, unpinned, the plain prefill as it routes itself
+    with _PinnedRouting() as pin:
+        logits_f, _ = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
+        pin.replay()
+        logits_x, _ = plain_bundle.prefill(params, {"tokens": prompts},
+                                           plain_bundle.init_cache(B, S + 1))
+    logits_u, _ = plain_bundle.prefill(params, {"tokens": prompts}, plain_bundle.init_cache(B, S + 1))
+    fx_rel = _rel_l2(logits_f, logits_x)
+    fx_err = float((logits_f - logits_x).abs().max())
+    unpinned_rel = _rel_l2(logits_f, logits_u)
+    check(all(bool(torch.isfinite(x).all()) for x in (logits_f, logits_x, logits_u)),
+          "non-finite prefill logits")
+    check(pin.calls == 2 * MOE_LAYERS, f"{pin.calls} routing calls pinned, not {2 * MOE_LAYERS}")
+    check(fx_rel <= SERVE_REL_L2,
+          f"MoE flash vs plain prefill logits (routing pinned): rel L2 {fx_rel} > {SERVE_REL_L2}")
+    del logits_x, logits_u
+    # teacher forcing at capacity factor 8 (no slot dropped, so the decode
+    # step routes as the longer prefill does): a decode step after a
+    # prefill of S tokens against a prefill of S + 1
+    tf = build_model(dataclasses.replace(cfg, capacity_factor=MOE_TF_CAPACITY), dev)
+    P, L = MOE_TF_PROMPTS, MOE_TF_LEN
+    tf_prompts = prompts[:P, :L + 1]
+
+    def teacher_forcing():
+        """(the decode step's logits after a prefill of L, a prefill of L + 1's)"""
+        _, cache_ = tf.prefill(params, {"tokens": tf_prompts[:, :-1]}, tf.init_cache(P, L + 1))
+        step, _ = tf.serve_step(params, cache_, {"token": tf_prompts[:, -1:]})
+        return step
+
+    # pinned: the prefill of L + 1 routes itself; the prefill of L and the
+    # decode step route each token as it did (one routing block each)
+    with _PinnedRouting() as pin:
+        logits_s1, _ = tf.prefill(params, {"tokens": tf_prompts}, tf.init_cache(P, L + 1))
+        k = cfg.experts_per_token
+        pin.replay(lambda idx: idx.view(P, L + 1, k)[:, :L].reshape(1, P * L, k))
+        _, cache = tf.prefill(params, {"tokens": tf_prompts[:, :-1]}, tf.init_cache(P, L + 1))
+        pin.replay(lambda idx: idx.view(P, L + 1, k)[:, L:].reshape(1, P, k))
+        logits_d, _ = tf.serve_step(params, cache, {"token": tf_prompts[:, -1:]})
+    check(pin.calls == 3 * MOE_LAYERS, f"{pin.calls} routing calls, not {3 * MOE_LAYERS}")
+    tf_rel = _rel_l2(logits_d, logits_s1)
+    tf_err = float((logits_d - logits_s1).abs().max())
+    tf_unpinned_rel = _rel_l2(teacher_forcing(), logits_s1)
+    check(bool(torch.isfinite(logits_d).all()) and tf_rel <= SERVE_REL_L2,
+          f"MoE teacher forcing (routing pinned): rel L2 {tf_rel} > {SERVE_REL_L2}")
+    # the picks are views of whole sort indices; the prompts' view holds them
+    del cache, logits_d, logits_s1, logits_f, pin, tf_prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # times: the prefill (median of 3 after a warm-up, CUDA events), a
+    # decode step (from generate), and where the device time of each goes
+    def prefill():
+        return bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + T))
+
+    times = []
+    prefill()
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        prefill()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    prefill_ms = float(np.median(times))
+    prof_prefill = _kernel_classes(prefill)
+    with _RegionTimer() as regions_prefill:
+        cache = prefill()[1]
+    with _RegionTimer() as regions_step:
+        bundle.serve_step(params, cache, {"token": nxt})
+    del cache
+    decode_ms = out.decode_s / (T - 1) * 1e3
+    out_prefill_ms = out.prefill_s * 1e3
+    cache = prefill()[1]
+    prof_step = _kernel_classes(lambda: bundle.serve_step(params, cache, {"token": nxt}))
+    del cache, params, bundle, plain_bundle, tf, out, prompts, nxt
+    free_device()
+    held_mb = check_held(dev, before, 1.0, "the MoE phase", strict=True)
+
+    # the tensor-core flash kernel at the model's attention shape, against
+    # the plain version and SDPA; the bound is the causal products' work
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    plain = fref.reference_attention(q, k, v)
+    got = flash_attention(q, k, v)
+    err, rel = float((got.float() - plain.float()).abs().max()), _rel_l2(got, plain)
+    check(err <= FLASH_ATOL[torch.bfloat16] and rel <= FLASH_REL_L2[torch.bfloat16],
+          f"flash at the MoE shape: max abs err {err}, rel L2 {rel}")
+    del plain, got
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    flops = 4 * D * B * H * (S * (S + 1) // 2)
+    flash = dict(
+        ms=cuda_ms(lambda: flash_attention(q, k, v), reps=20),
+        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
+        bound=bound(nbytes, flops, BF16_TENSOR_FLOPS), max_abs_err=err)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    # the expert products' work and their least time: 3 products of
+    # (E, C_total, d) x (d, ff) per layer, and a decode step's expert
+    # weights read once per layer
+    nb = tmoe.route_blocks(S * B)
+    C = tmoe._capacity(S * B // nb, cfg)
+    expert_flops = MOE_LAYERS * 3 * 2 * cfg.num_experts * nb * C * cfg.d_model * cfg.moe_d_ff
+    expert_bytes = MOE_LAYERS * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * 2
+    print(f"phase serve moe: Qwen3-MoE-235B-A22B (published widths, {MOE_LAYERS} of "
+          f"{full.num_layers} layers, {n_params} bf16 params ({params_gb:.2f} GB), 128 experts "
+          f"top-8, random weights) B {B} prompt {S} gen {T} with the flash kernel; flash "
+          f"launches {launches} {json.dumps(routes)} (per prefill {per_prefill}, per decode step "
+          f"{per_step}); flash vs plain prefill (routing pinned to the flash run's) rel_l2 "
+          f"{fx_rel:.3g} max_abs_err {fx_err:.3g} (unpinned: rel_l2 {unpinned_rel:.3g}); "
+          f"teacher forcing (capacity {MOE_TF_CAPACITY}, {MOE_TF_PROMPTS} prompts of "
+          f"{MOE_TF_LEN}, routing pinned to the longer prefill's) rel_l2 {tf_rel:.3g} max_abs_err "
+          f"{tf_err:.3g} (unpinned: rel_l2 {tf_unpinned_rel:.3g}); prefill_ms "
+          f"{prefill_ms:.3f} (in generate {out_prefill_ms:.3f}) decode_ms_per_step "
+          f"{decode_ms:.3f}; peak_device_gb {peak_gb:.2f}; held after {held_mb:.1f} MB; "
+          f"prefill pieces device ms {json.dumps({k: round(v, 3) for k, v in regions_prefill.ms.items()})} "
+          f"decode step pieces device ms {json.dumps({k: round(v, 3) for k, v in regions_step.ms.items()})}; "
+          f"prefill profile {json.dumps(_rounded(prof_prefill))} decode step profile "
+          f"{json.dumps(_rounded(prof_step))}; expert products per prefill {expert_flops:.4g} "
+          f"FLOP (least {expert_flops / BF16_TENSOR_FLOPS * 1e3:.3f} ms), a decode step's "
+          f"expert weights {expert_bytes / 1e9:.2f} GB (least "
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); flash at (B {B}, S {S}, H {H}/{Hkv}, "
+          f"D {D}, causal) ms {flash['ms']:.3f} max_abs_err {err:.3g} rel_l2 {rel:.3g} plain_ms "
+          f"{flash['plain_ms']:.3f} sdpa_ms {flash['library_ms']:.3f} bound_ms "
+          f"{flash['bound'][0]:.4f} ({flash['bound'][1]})", flush=True)
+    print("phase serve moe: ok", flush=True)
+    return {"launches": routes, "flash": flash}
+
+
+# ---------------------------------------------------------------------- #
 # phase 8: the federated train step
 # ---------------------------------------------------------------------- #
 def _all_launches() -> dict:
@@ -3056,12 +3603,13 @@ def phase_train(dev: torch.device, smi: str) -> dict:
 
 # ---------------------------------------------------------------------- #
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
-                 proc: dict, fault: dict, train: dict) -> str:
+                 moe: dict, proc: dict, fault: dict, train: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
-    phase 5's job for the quant kernels, phase 6's serving for flash,
+    phase 5's job for the quant kernels, phase 6's serving and phase 6d's
+    MoE serving for flash,
     phase 7's process job (the hub's launches plus every child's) and
     phase 7c's three faulted jobs (the same) for the agg and quant entries,
     and phase 8's training rounds for every kernel
@@ -3097,8 +3645,18 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
         if src in (agg_src, quant_src):
             by_path["7"] = proc["launches"].get(name, 0)
             by_path["7c"] = fault["launches"].get(name, 0)
+        else:
+            by_path["6d"] = moe["launches"][name]
         by_path["8"] = train["launches"][name]
         launches = sum(by_path.values())
+        at_moe_shape = {}
+        if name == "flash_attention_forward_sm90":
+            f = moe["flash"]
+            at_moe_shape = {"at_moe_shape": {
+                "shape": "B 8, S 2048, H 64/4, D 128, causal", "ms": f["ms"],
+                "max_abs_err": f["max_abs_err"], "plain_ms": f["plain_ms"],
+                "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
+                "library_ms": f["library_ms"]}}
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path,
@@ -3109,8 +3667,33 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             **({"library_per_leaf_ms": t["library_per_leaf_ms"],
                 "library_per_leaf_call": "torch.add(acc, d, alpha=w, out=acc) per leaf"}
                if "library_per_leaf_ms" in t else {}),
+            **at_moe_shape,
         })
     return json.dumps({"kernels": out})
+
+
+def run_phase(phase_s: dict, name: str, fn, *args):
+    """Run one phase, recording its seconds in ``phase_s``. A phase that
+    raises names itself: ``phase <name> FAILED: <type>: <message>`` on
+    stdout, then the phases' seconds so far, then the traceback on stderr,
+    and the script exits 1. Nothing is retried or skipped."""
+    t = time.perf_counter()
+    try:
+        out = fn(*args)
+    except Exception as e:  # noqa: BLE001 - reported, then the script exits 1
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name} FAILED: {type(e).__name__}: {e}", flush=True)
+        print(f"phase_s {json.dumps(phase_s)}", flush=True)
+        traceback.print_exc(file=sys.stderr)
+        sys.stderr.flush()
+        raise SystemExit(1) from e
+    phase_s[name] = round(time.perf_counter() - t, 1)
+    return out
+
+
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3127,36 +3710,34 @@ def main() -> int:
     phase_s = {}
 
     def timed(name, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        phase_s[name] = round(time.perf_counter() - t, 1)
-        return out
+        return run_phase(phase_s, name, fn, *args)
 
     smi = timed("1", phase_environment)
     timed("2", phase_parity, dev)
     timed("3", lambda: (phase_small_jobs(dev), phase_small_topologies(dev),
                         phase_small_policies(dev)))
     full = timed("4", phase_full_width, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_device()
     topo = timed("4b", phase_full_width_topologies, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_device()
     policies = timed("4c", phase_full_width_policies, dev)
     errs = timed("5a", phase_codec_parity, dev)
     codec = timed("5", phase_codec_job, dev, errs)
     proc = timed("7", phase_process_plane, dev, codec)
     fault = timed("7c", phase_fault_plane, dev, proc)
     # the earlier phases peak at about 46 GB: free them before serving
-    gc.collect()
-    torch.cuda.empty_cache()
-    serve = timed("6", lambda: phase_serve(dev, phase_flash_parity(dev)))
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_device()
+    flash_errs = timed("6a", phase_flash_parity, dev)
+    serve = timed("6", phase_serve, dev, flash_errs)
+    free_device()
+    moe = timed("6d", phase_serve_moe, dev)
+    free_device()
     train = timed("8", phase_train, dev, smi)
+    lines = timed("9", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
+                                            fault, train))
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
-    print(kernels_line(full, topo, policies, codec, serve, proc, fault, train), flush=True)
+    print(lines, flush=True)
     print(f"card: {smi}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

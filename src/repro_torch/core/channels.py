@@ -34,11 +34,14 @@ fold runs on the backend's device (``set_device``; the job's device through
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import itertools
 import os
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import (
     Any,
     Callable,
@@ -214,6 +217,25 @@ class TransportBackend(Protocol):
     ) -> None: ...
 
 
+# Broadcast fan-out: when enabled (the default), ``ChannelEnd`` lowers a
+# multi-destination send onto the backend's ``send_many`` (one encode, one
+# RPC per broadcast); when disabled, it sends once per destination. Spawned
+# workers inherit the environment variable, so one setting governs every
+# process of a job; ordering, clocks and byte accounting are the same
+# either way.
+_FANOUT_ENABLED = os.environ.get("REPRO_BROADCAST_FANOUT", "1") not in ("0", "false")
+
+
+def set_broadcast_fanout(enabled: bool) -> None:
+    """Enable or disable the ``send_many`` broadcast path process-wide."""
+    global _FANOUT_ENABLED
+    _FANOUT_ENABLED = bool(enabled)
+
+
+def broadcast_fanout_enabled() -> bool:
+    return _FANOUT_ENABLED
+
+
 # Hub-reduce kill switch: the reduce plane is opt-in per job (the
 # ``reduce_plan`` hyperparameter), and this process-wide toggle can veto it
 # everywhere. Spawned workers inherit the environment variable, so one
@@ -249,6 +271,115 @@ def reduce_blocks(srcs: Sequence[str], shards: int) -> List[List[str]]:
         blocks.append(order[i:i + size])
         i += size
     return blocks
+
+
+# Decode pool of the per-frame incast path: ``recv_ordered`` fetches (and,
+# on socket transports, decodes) the frames of several sources at once on
+# its receiver's pool, while its caller still folds them in sorted-source
+# order, so the fold's bytes are the sequential loop's. 0 or 1 receives one
+# source at a time. Spawned workers inherit the environment variable.
+_DECODE_POOL_WORKERS = int(os.environ.get("REPRO_DECODE_POOL", "4") or 0)
+_DECODE_POOLS: Dict[str, Tuple[ThreadPoolExecutor, int]] = {}
+_DECODE_POOLS_LOCK = threading.Lock()
+
+
+def set_decode_pool(workers: int) -> None:
+    """Set the receive-side decode concurrency (0 or 1: sequential)."""
+    global _DECODE_POOL_WORKERS
+    _DECODE_POOL_WORKERS = max(0, int(workers))
+
+
+def decode_pool_workers() -> int:
+    return _DECODE_POOL_WORKERS
+
+
+# receiver -> [payloads its pooled ``recv_ordered`` holds now, the high-water mark
+# since the last reset]: a payload counts from the moment its fetch returns
+# until the caller asks for the next one (or the receive ends)
+_HELD: Dict[str, List[int]] = {}
+_HELD_LOCK = threading.Lock()
+
+
+def _held_add_locked(receiver: str, n: int) -> None:
+    c = _HELD.setdefault(receiver, [0, 0])
+    c[0] += n
+    c[1] = max(c[1], c[0])
+
+
+def decode_pool_held(receiver: str) -> Tuple[int, int]:
+    """``(held now, high-water mark)`` of the received payloads that
+    ``receiver``'s pooled ``recv_ordered`` holds: at most ``workers + 1``."""
+    with _HELD_LOCK:
+        held, mark = _HELD.get(receiver, (0, 0))
+        return held, mark
+
+
+def reset_decode_pool_held(receiver: Optional[str] = None) -> None:
+    """Restart the high-water mark at what is held now (every receiver's
+    when ``receiver`` is None)."""
+    with _HELD_LOCK:
+        for r, c in _HELD.items():
+            if receiver is None or r == receiver:
+                c[1] = c[0]
+
+
+def _decode_pool(receiver: str, workers: int) -> ThreadPoolExecutor:
+    """``receiver``'s executor, built at first use and rebuilt larger when
+    more workers are asked for. One per receiving worker, not one per
+    process: a root and the intermediate aggregators below it may share a
+    process (threads, a pool host), and a root whose fetches held every
+    thread of a shared pool would starve the fetches its own uploads wait
+    on. Each thread opens its own hub connection (a socket backend's
+    sessions are per thread), so fetches from a hub overlap."""
+    with _DECODE_POOLS_LOCK:
+        pool, size = _DECODE_POOLS.get(receiver, (None, 0))
+        if pool is None or size < workers:
+            if pool is not None:
+                pool.shutdown(wait=False)
+            pool = ThreadPoolExecutor(max_workers=workers,
+                                      thread_name_prefix=f"decode-pool-{receiver}")
+            _DECODE_POOLS[receiver] = (pool, workers)
+        return pool
+
+
+@contextlib.contextmanager
+def switches(decode_pool: Optional[int] = None, fanout: Optional[bool] = None):
+    """Set the decode pool's workers and the broadcast fan-out in this
+    process and in the environment that worker processes spawned meanwhile
+    inherit; both are restored on exit. ``None`` leaves a switch as it is."""
+    saved = {k: os.environ.get(k) for k in ("REPRO_DECODE_POOL", "REPRO_BROADCAST_FANOUT")}
+    was = (decode_pool_workers(), broadcast_fanout_enabled())
+    if decode_pool is not None:
+        os.environ["REPRO_DECODE_POOL"] = str(int(decode_pool))
+        set_decode_pool(decode_pool)
+    if fanout is not None:
+        os.environ["REPRO_BROADCAST_FANOUT"] = "1" if fanout else "0"
+        set_broadcast_fanout(fanout)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        set_decode_pool(was[0])
+        set_broadcast_fanout(was[1])
+
+
+def _on_callers_stream(fn: Callable[..., Any]) -> Callable[..., Any]:
+    """``fn`` run, on a pool thread, on the CUDA stream current in the
+    calling thread: the kernels a decode launches (copies, dequantize) are
+    then ordered before whatever the caller launches on the result."""
+    if not torch.cuda.is_initialized():
+        return fn
+    stream = torch.cuda.current_stream()
+
+    def run(*args: Any) -> Any:
+        with torch.cuda.stream(stream):
+            return fn(*args)
+
+    return run
 
 
 class ChannelEnd:
@@ -318,15 +449,17 @@ class ChannelEnd:
         return self._backend.earliest(self.channel, self.group, self.me, ends)
 
     def send_many(self, ends: Sequence[str], msg: Any) -> None:
-        """Send one payload to several destinations through the backend's
-        ``send_many``: ordering, clocks and byte accounting equal the
-        per-destination ``send`` loop."""
+        """Send one payload to several destinations: through the backend's
+        ``send_many`` while the fan-out switch is on
+        (``set_broadcast_fanout``), else one ``send`` per destination.
+        Ordering, clocks and byte accounting are the same either way."""
         if not ends:
             return
-        if len(ends) > 1:
+        if _FANOUT_ENABLED and len(ends) > 1:
             self._backend.send_many(self.channel, self.group, self.me, list(ends), msg)
         else:
-            self.send(ends[0], msg)
+            for end in ends:
+                self.send(end, msg)
 
     def broadcast(self, msg: Any) -> None:
         self.send_many(self.ends(), msg)
@@ -343,9 +476,63 @@ class ChannelEnd:
     def recv_ordered(self, ends: Sequence[str], timeout: Optional[float] = 30.0):
         """Receive one message from each of ``ends``, yielding
         ``(end, payload)`` in sorted-``ends`` order — the fold order that
-        keeps aggregation bit-identical whatever the arrival order."""
-        for end in sorted(ends):
-            yield end, self.recv(end, timeout=timeout)
+        keeps aggregation bit-identical whatever the arrival order.
+
+        With the decode pool on (``set_decode_pool``, more than one worker)
+        the fetches run on the pool, at most ``workers`` ahead of the one
+        yielded: the caller holds at most ``workers + 1`` received payloads
+        at once (``decode_pool_held`` reads the count and its high-water
+        mark). What a fetch raises surfaces at its sorted position, after
+        every earlier source was yielded, as in the sequential loop."""
+        order = sorted(ends)
+        workers = decode_pool_workers()
+        if workers <= 1 or len(order) <= 1:
+            for end in order:
+                yield end, self.recv(end, timeout=timeout)
+            return
+        me = self.me
+        pool = _decode_pool(me, workers)
+        recv = _on_callers_stream(self._backend.recv)
+        rest = iter(order)
+        # (end, future, counted): ``counted`` gets an entry when the fetch's
+        # payload starts to count as held, which stops once the receive ends
+        pending: collections.deque = collections.deque()
+        live = [True]
+
+        def fetch(counted: list, end: str) -> Any:
+            msg = recv(self.channel, self.group, me, end, timeout)
+            with _HELD_LOCK:
+                if live[0]:
+                    counted.append(end)
+                    _held_add_locked(me, 1)
+            return msg
+
+        def submit(end: str) -> None:
+            counted: list = []
+            pending.append((end, pool.submit(fetch, counted, end), counted))
+
+        try:
+            for end in itertools.islice(rest, workers):
+                submit(end)
+            while pending:
+                end, fut, counted = pending[0]
+                msg = fut.result()
+                pending.popleft()
+                nxt = next(rest, None)
+                if nxt is not None:
+                    submit(nxt)
+                try:
+                    yield end, msg
+                finally:
+                    del msg
+                    with _HELD_LOCK:
+                        _held_add_locked(me, -len(counted))
+        finally:
+            with _HELD_LOCK:
+                live[0] = False
+                _held_add_locked(me, -sum(len(c) for _, _, c in pending))
+            for _, fut, _ in pending:
+                fut.cancel()
 
     # ----------------------------- topology --------------------------- #
     def ends(self) -> List[str]:

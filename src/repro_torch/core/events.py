@@ -248,10 +248,7 @@ class EventEngine:
     def initial_cohort(self) -> List[WorkerConfig]:
         """Workers that must join their channels before anyone runs (no join
         races among the t<=0 cohort; everyone when joins are static)."""
-        return [
-            w for w in self.workers
-            if not self.dynamic_join or self.arrival(w.worker_id) <= 0.0
-        ]
+        return [w for w in self.workers if self.policy.joins_at_start(w.worker_id)]
 
     def arm_dropouts(self) -> None:
         """Install the dropout schedule on the transport: a worker dies the

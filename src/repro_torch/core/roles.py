@@ -14,7 +14,7 @@ from __future__ import annotations
 import abc
 import queue
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,7 @@ class RoleContext:
         hyperparams: Optional[Dict[str, Any]] = None,
         static_members: Optional[Dict[str, List[str]]] = None,
         device: Any = "cpu",
+        start_cohort: Optional[Iterable[str]] = None,
     ) -> None:
         self.worker = worker
         self.tag = tag
@@ -57,6 +58,10 @@ class RoleContext:
         # channel -> sorted worker ids in this worker's group on that channel,
         # computed statically from the expansion (no join races).
         self.static_members = dict(static_members or {})
+        # the workers whose pre_run joins run at the same time as this one's
+        # (a process tree's start-up cohort); None where pre_runs run one
+        # after another (threads) or the worker starts late
+        self.start_cohort = frozenset(start_cohort) if start_cohort is not None else None
         self.device = torch.device(device)
         self._ends: Dict[str, ChannelEnd] = {}
         self._clock_ends: Dict[str, ChannelEnd] = {}
@@ -634,10 +639,23 @@ class HybridTrainer(Trainer):
 
     def pre_run(self) -> None:
         """Non-leaders never join the uplink channel, so the aggregator's
-        ``ends()`` sees exactly one leader per cluster."""
+        ``ends()`` sees exactly one leader per cluster.
+
+        Where pre_runs run one after another (threads), the ring members
+        joined so far elect. Where a start-up cohort joins at once (a
+        process tree), the ring's members join in any order, so the
+        election does not read the ring: the leader is the first of the
+        cluster's expanded members in the cohort, the member the ring
+        elects once the whole cohort has joined."""
         self.ctx.end(self.ring_channel)
-        rank, _ = self._cluster_rank()
-        if rank == 0:
+        me = self.ctx.worker.worker_id
+        cohort = self.ctx.start_cohort
+        if cohort is None:
+            leads = self._cluster_rank()[0] == 0
+        else:
+            static = self.ctx.static_members.get(self.ring_channel) or [me]
+            leads = [m for m in static if m in cohort or m == me][0] == me
+        if leads:
             self.ctx.end(self.param_channel)
 
     def on_dropped(self, at: float) -> None:

@@ -428,10 +428,24 @@ class _BufferedAsyncBase(_PolicyBase):
         return min(self._version_vector.values()) - 1
 
     def _prune_version_vector(self, members: set) -> None:
-        """Forget clients that left the channel so a dead straggler cannot
-        pin old snapshots in memory forever."""
-        for t in [t for t in self._version_vector if t not in members]:
-            del self._version_vector[t]
+        """Forget clients that left the channel, so a dead straggler cannot
+        pin old snapshots in memory forever, and clients whose scheduled
+        dropout lies before this server's clock with no message of theirs
+        waiting here: they are dead in virtual time though their leave may
+        not have reached the channel yet (over processes it comes a
+        wall-clock moment after the drop, and without this rule the vector
+        would depend on that moment). An upload sent before the drop and
+        still waiting keeps its sender, and so its base snapshot."""
+        end = self._down()
+        scheduled = bool(self._version_vector) and bool(self._policy().dropouts)
+        now = end.now() if scheduled else 0.0
+        for t in list(self._version_vector):
+            if t not in members:
+                del self._version_vector[t]
+                continue
+            at = end.drop_time(t) if scheduled else None
+            if at is not None and at < now and end.earliest([t]) is None:
+                del self._version_vector[t]
 
     def _absorb(self, src: str, msg: Any, arrival: float) -> bool:
         """Fold one update into the strategy state at arrival

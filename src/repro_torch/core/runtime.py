@@ -212,6 +212,13 @@ class RuntimePolicy:
             self.is_lowering or self.arrivals or self.dropouts or self.rejoins
         )
 
+    def joins_at_start(self, worker_id: str) -> bool:
+        """Whether the worker joins its channels before anyone runs: late
+        arrivals join at their start time when any tier is policy-lowered;
+        barriered sync servers cannot handle membership growth, so there an
+        arrival only offsets the worker's clock."""
+        return not self.is_lowering or self.arrivals.get(worker_id, 0.0) <= 0.0
+
 
 def validate_policy_tiers(policy: RuntimePolicy, tag: TAG) -> None:
     """Reject a ``tiers`` entry naming a role the TAG does not have — a

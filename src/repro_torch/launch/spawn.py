@@ -274,9 +274,14 @@ def _worker_body(
             hyperparams.setdefault("runtime_policy", pol)
         else:
             cls = program_cls if program_cls is not None else resolve_program(worker.program)
+        # the workers behind the barrier join their channels at once
+        cohort = None
+        if barrier is not None:
+            cohort = {m for ms in static_members.values() for m in ms
+                      if pol.joins_at_start(m)}
         ctx = RoleContext(
             worker, job.tag, channels, hyperparams=hyperparams,
-            static_members=static_members, device=dev,
+            static_members=static_members, device=dev, start_cohort=cohort,
         )
         prog = cls(ctx)
         prog.pre_run()

@@ -1,6 +1,7 @@
 """Train-step builders: (arch config × mesh × TAG) → a train step (the port
 of ``repro.launch.steps``, training half; the serving half is
-``launch/serve.py``).
+``launch/serve.py``, which runs without a profile, as the JAX package's
+``launch/serve.py`` does).
 
 ``build_train_step`` lowers the FL topology (a TAG) to an
 ``AggregationPlan`` over the mesh's client axes and runs it inside the
@@ -26,8 +27,37 @@ from repro_torch.fl.fedstep import (FedStepConfig, batch_to_device, client_gener
 from repro_torch.fl.strategies import get_strategy
 from repro_torch.models.api import ModelBundle, build_model
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.shard_ctx import shard_profile
 
 Tree = Any
+
+
+def _batch_axes(cfg: ModelConfig, mesh: Mesh) -> Tuple[str, ...]:
+    """Mesh axes the global token set is split over (the flat MoE block
+    dim): pod and data, and model for the FSDP configs (sequence
+    parallelism); ``repro.launch.sharding.batch_axes``."""
+    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+    if cfg.param_sharding == "fsdp" and "model" in mesh.axis_names:
+        axes.append("model")
+    return tuple(axes)
+
+
+def _with_moe_profile(fn: Callable, cfg: ModelConfig, mesh: Mesh,
+                      manual_axes: Tuple[str, ...] = ()) -> Callable:
+    """``fn`` run under the mesh's sharding profile, as the JAX package
+    traces its steps. The profile's batch axes are the mesh's batch axes
+    less the client (manual) axes; its ``min_blocks``, their size, decides
+    the MoE routing blocks."""
+    auto_batch = tuple(a for a in _batch_axes(cfg, mesh) if a not in manual_axes)
+    min_blocks = 1
+    for a in auto_batch:
+        min_blocks *= mesh.shape[a]
+
+    def wrapped(*a, **k):
+        with shard_profile(auto_batch, "model", min_blocks=min_blocks):
+            return fn(*a, **k)
+
+    return wrapped
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +107,8 @@ def build_train_step(
         # order axes fast->slow: data (within a pod) first, pod last
         ordered = tuple(a for a in ("data", "pod") if a in client_axes) or client_axes
         plan = lower_tag_to_mesh(tag, ordered)
-        step = make_fl_train_step(bundle.loss_fn, strategy, plan, mesh, fed)
+        step = _with_moe_profile(make_fl_train_step(bundle.loss_fn, strategy, plan, mesh, fed),
+                                 cfg, mesh, manual_axes=client_axes)
 
         def init_state(params):
             return init_server_state(strategy, plan, params)
@@ -100,4 +131,4 @@ def build_train_step(
     def init_state(params):
         return ()
 
-    return bundle, TrainSetup(step, init_state, (), None)
+    return bundle, TrainSetup(_with_moe_profile(step, cfg, mesh), init_state, (), None)

@@ -12,8 +12,8 @@ Serve batches are ``{"token": (B, 1) int}`` against a model cache. The
 bundle holds its device: ``build_model`` puts it on the card unless the
 caller asks for the CPU, and raises where there is no card.
 
-Ported are the decoder-only families whose blocks are dense (dense, vlm),
-for serving and training (``loss_fn``, through ``transformer.lm_loss``; the
+Ported are the decoder-only families whose blocks are dense or
+mixture-of-experts (dense, vlm, moe), for serving and training (``loss_fn``, through ``transformer.lm_loss``; the
 plain attention only: the flash kernel has no backward). The
 encoder-decoder family raises ``NotImplementedError`` (ROADMAP Queue 1 item
 8); so do the other block kinds, when their parameters or caches are made.

@@ -16,8 +16,10 @@ cache. The cache is updated in place (the JAX package's serve step donates
 it, so XLA does the same): the returned tree has the JAX package's
 structure and values, and its tensors are the ones passed in.
 
-Only the ``dense`` kind is ported. ``moe``, ``hymba``, ``mlstm`` and
-``slstm`` raise ``NotImplementedError`` (ROADMAP Queue 1 item 8).
+The ``dense`` and ``moe`` kinds are ported (``moe``: the dense block with
+its MLP replaced by ``models.moe``, whose router aux loss the block
+returns). ``hymba``, ``mlstm`` and ``slstm`` raise ``NotImplementedError``
+(ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -37,13 +39,17 @@ from repro_torch.models.layers import (
     rmsnorm_apply,
     rmsnorm_init,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
 Tree = Dict[str, torch.Tensor]
 
 
+_PORTED = ("dense", "moe")
+
+
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: only 'dense' is "
+        f"block kind {kind!r} is not ported yet: only 'dense' and 'moe' are "
         "(ROADMAP Queue 1 item 8)")
 
 
@@ -150,20 +156,24 @@ def _attn_core_decode(
 # block kinds
 # ===================================================================== #
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype: torch.dtype) -> Tree:
-    if kind != "dense":
+    if kind not in _PORTED:
         raise _not_ported(kind)
     d = cfg.d_model
-    return {
+    p = {
         "ln1": rmsnorm_init(d, dtype, gen.device),
         "attn": attn.attn_init(gen, cfg, dtype),
         "ln2": rmsnorm_init(d, dtype, gen.device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
     }
+    if kind == "moe":
+        p["moe"] = moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype)
+    return p
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, device: torch.device) -> Tree:
-    if kind != "dense":
+    if kind not in _PORTED:
         raise _not_ported(kind)
     return {"attn": attn_cache_init(cfg, batch, max_len, dtype, device)}
 
@@ -177,10 +187,10 @@ def block_apply(
     cfg: ModelConfig,
     kind: str,
 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
-    """Returns (y, new_cache, aux_loss); a dense block's aux loss is 0."""
-    if kind != "dense":
+    """Returns (y, new_cache, aux_loss); a dense block's aux loss is 0, a
+    moe block's its router's load-balancing loss."""
+    if kind not in _PORTED:
         raise _not_ported(kind)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Optional[Tree] = dict(cache) if cache is not None else None
     h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
     if mode == "decode":
@@ -191,7 +201,12 @@ def block_apply(
         new_cache["attn"] = ac
     x = x + a
     h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h, cfg.activation), new_cache, aux
+    if kind == "moe":
+        m, aux = moe_apply(p["moe"], h, cfg)
+    else:
+        m = mlp_apply(p["mlp"], h, cfg.activation)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, new_cache, aux
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:

@@ -17,7 +17,7 @@ chunk of ``chunked_ce``'s scan), the port runs the same piece under
 are recomputed in the backward instead of kept.
 
 The JAX package pins activations to a sharding profile (``shard_ctx``);
-on one device that is a no-op, so the port has none.
+on one device that is a no-op, so the port pins none.
 """
 from __future__ import annotations
 
@@ -56,13 +56,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Tree:
     G = _n_groups(cfg)
     params: Dict[str, Tree] = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
     if cfg.scan_layers:
-        # stack per period position: each leaf leads with G
-        groups = [tuple(block_init(gen, cfg, kind, dtype) for kind in kinds) for _ in range(G)]
-        params["groups"] = tuple(
-            tree_map(lambda *xs: torch.stack(xs), *(g[j] for g in groups))
-            for j in range(len(kinds))
-        )
-        del groups
+        # stack per period position: each leaf leads with G. Each group is
+        # drawn, copied into the stack and dropped, so the init holds the
+        # stack and one group, not two copies of every layer.
+        stacked = None
+        for g in range(G):
+            trees = tuple(block_init(gen, cfg, kind, dtype) for kind in kinds)
+            if stacked is None:
+                stacked = tuple(tree_map(lambda x: x.new_empty((G,) + tuple(x.shape)), t)
+                                for t in trees)
+            for dst, src in zip(stacked, trees):
+                for a, b in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
+                    a[g].copy_(b)
+            del trees
+        params["groups"] = stacked
     else:
         params["layers"] = tuple(
             block_init(gen, cfg, kinds[i % len(kinds)], dtype) for i in range(cfg.num_layers))

@@ -604,7 +604,8 @@ class MultiprocBackend:
     # attempt up to MAX_BACKOFF, scaled by deterministic per-client jitter)
     RETRY_BACKOFF = 0.05
     MAX_BACKOFF = 1.0
-    # connect attempts after the first failure
+    # connect attempts after the first failure; REPRO_CONNECT_RETRIES
+    # overrides it at call time
     CONNECT_RETRIES = 5
     # full reconnect-resume-retransmit cycles per op before giving up
     MAX_RECOVERIES = 3
@@ -674,9 +675,14 @@ class MultiprocBackend:
         """Dial the hub with capped exponential backoff and deterministic
         (seed-derived) jitter: each worker's schedule is a pure function of
         its client key, so a reconnect storm spreads out instead of
-        thundering in lockstep. Attempts are bounded by ``CONNECT_RETRIES``."""
+        thundering in lockstep. Attempts are bounded by
+        ``REPRO_CONNECT_RETRIES`` when it is set (read on each call), else by
+        ``CONNECT_RETRIES``."""
         st = self._state()
         retries = self.CONNECT_RETRIES
+        env = os.environ.get("REPRO_CONNECT_RETRIES")
+        if env:
+            retries = max(0, int(env))
         for attempt in range(retries + 1):
             try:
                 sock = socket.create_connection(self.address, timeout=30.0)

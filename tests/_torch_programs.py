@@ -8,7 +8,7 @@ import multiprocessing
 import os
 import time
 
-from repro_torch.core.roles import GlobalAggregator, Trainer
+from repro_torch.core.roles import GlobalAggregator, HybridTrainer, Trainer
 
 # the trainer of the process-plane jobs: its update is elementwise and
 # exact, so every deployment gives the same bytes (CPU products do not:
@@ -52,8 +52,25 @@ class BadPreRunTrainer(Trainer):
 
 
 class HardCrashTrainer(Trainer):
+    """``trainer-0`` dies before the barrier, reporting nothing; the other
+    trainers start as usual, so the crash is always ``trainer-0``'s (when
+    every trainer crashed, the launcher could tear ``trainer-0`` down
+    while it still started up, after another's crash)."""
+
     def pre_run(self):
-        os._exit(3)  # dies before the barrier, reporting nothing
+        if self.ctx.worker.worker_id == "trainer-0":
+            os._exit(3)
+        super().pre_run()
+
+
+# the trainer of the hybrid process-plane job
+HYBRID_TRAINER = "_torch_programs.HalfHybridTrainer"
+
+
+class HalfHybridTrainer(HybridTrainer):
+    """A hybrid cluster member with ``HalfTrainer``'s exact update."""
+
+    train = HalfTrainer.train
 
 
 class SlowRejoinTrainer(HalfTrainer):
@@ -66,3 +83,14 @@ class SlowRejoinTrainer(HalfTrainer):
         in_worker = multiprocessing.current_process().name.startswith("flame-")
         if in_worker and ctx.now("param-channel") >= 1.5:
             time.sleep(1.0)
+
+
+class FanoutProbeAggregator(GlobalAggregator):
+    """The global aggregator, recording in its metrics whether its process
+    runs with the broadcast fan-out switch on."""
+
+    def pre_run(self):
+        from repro_torch.core.channels import broadcast_fanout_enabled
+
+        self.metrics.append({"fanout": broadcast_fanout_enabled()})
+        super().pre_run()

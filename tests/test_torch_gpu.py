@@ -420,6 +420,87 @@ def test_serving_on_card_launches_flash_once_per_layer(cuda_device, dtype, head_
     assert out.all_finite and out.tokens.shape == (2, 4)
 
 
+@pytest.mark.gpu
+def test_moe_layer_on_card_equals_cpu(cuda_device):
+    """The reduced Qwen3-MoE's MoE layer (float32, TF32 off) on the card
+    against the CPU, and its gradient: within 1e-5 (float32 products summed
+    in other orders; the same routing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3_moe_235b_a22b", reduced=True)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(gen, cfg, torch.float32)
+    x = torch.randn(2, 64, cfg.d_model, generator=gen)
+    out = []
+    for dev in ("cpu", cuda_device):
+        pd = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict) else v.to(dev))
+              for k, v in p.items()}
+        xd = x.to(dev).requires_grad_(True)
+        y, aux = moe.moe_apply(pd, xd, cfg)
+        (gx,) = torch.autograd.grad((y * y).sum() + aux, xd)
+        out.append((y.detach().cpu(), float(aux), gx.cpu()))
+    (y0, a0, g0), (y1, a1, g1) = out
+    assert torch.allclose(y0, y1, atol=1e-5, rtol=0) and abs(a0 - a1) <= 1e-6 * abs(a0)
+    assert torch.allclose(g0, g1, atol=1e-4 * float(g0.abs().max()), rtol=0)
+
+
+@pytest.mark.gpu
+def test_moe_serving_on_card_launches_flash_once_per_layer(cuda_device):
+    """The reduced Qwen3-MoE in bf16 at head dim 128 with GQA 16:1 (the full
+    model's): one tensor-core flash launch per layer per prefill, none per
+    decode step, finite logits."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+
+    cfg = dataclasses.replace(get_config("qwen3_moe_235b_a22b", reduced=True), attn_impl="flash",
+                              param_dtype="bfloat16", head_dim=128, num_heads=16, num_kv_heads=1)
+    bundle = build_model(cfg, cuda_device)
+    params = bundle.init(torch.Generator(device=cuda_device).manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
+    fkernel.reset_launches()
+    out = generate(bundle, params, prompts, 4)
+    assert fkernel.ROUTES["flash_forward_sm90"].launches == cfg.num_layers
+    assert fkernel.flash_attention_bhsd.launches == cfg.num_layers
+    assert out.all_finite and out.tokens.shape == (2, 4)
+
+
+@pytest.mark.gpu
+def test_decode_pool_on_card_is_byte_invisible(cuda_device):
+    """The int8_blocks loopback job on the card with the decode pool at 0
+    and at 4 (its threads dequantize on the card): the same bytes and the
+    same launch counts."""
+    import dataclasses
+
+    from repro_torch.core import channels
+
+    rng = np.random.default_rng(2)
+    w0 = {"w": rng.normal(size=(96, 129)).astype(np.float32),
+          "b": rng.normal(size=(129,)).astype(np.float32)}
+    tag = classical_fl()
+    tag = dataclasses.replace(tag, channels=tuple(
+        dataclasses.replace(c, backend="multiproc", codec="int8_blocks") for c in tag.channels))
+    out = []
+    prev = channels.decode_pool_workers()
+    try:
+        for workers in (0, 4):
+            channels.set_decode_pool(workers)
+            job = JobSpec(tag=tag, datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(6)),
+                          hyperparams={"rounds": 2, "init_weights": w0})
+            qkernel.reset_launches()
+            res = run_job(job, device=cuda_device, timeout=120,
+                          program_overrides={"trainer": AddOneTrainer})
+            assert not res.errors, res.errors
+            out.append((tree_to_numpy(res.global_weights()), qkernel.dequantize_blocks.launches))
+    finally:
+        channels.set_decode_pool(prev)
+    (a, na), (b, nb) = out
+    assert all(a[k].tobytes() == b[k].tobytes() for k in a) and na == nb > 0
+
+
 # ---------------------------------------------------------------------- #
 # strategies, policies and checkpoints on the card
 # ---------------------------------------------------------------------- #

@@ -13,6 +13,9 @@ its own ``timeout``. Also here: the client's fire-and-forget ack window.
 """
 import dataclasses
 import os
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +26,9 @@ import repro.core.roles as jroles
 import repro.core.runtime as jrt
 import repro.core.tag as jtag
 import repro.core.topologies as jtop
+import repro_torch.core.expansion as texp
+import repro_torch.core.tag as ttag
+import repro_torch.core.topologies as ttop
 from _torch_programs import TRAINER, HalfTrainer
 from repro_torch.convert import tree_to_numpy
 from repro_torch.core import channels as tch
@@ -260,3 +266,180 @@ def test_deferred_fault_surfaces_first_at_next_sync_op():
     finally:
         be.close()
         hub.close()
+
+
+# ---------------------------------------------------------------------- #
+# the decode pool: test_hub_reduce.py::TestRecvOrderedDecodePool
+# ---------------------------------------------------------------------- #
+class TestRecvOrderedDecodePool:
+    """``recv_ordered`` through the decode pool equals the sequential
+    sorted loop: the same yield order and payloads, the same clock effect,
+    a failure surfacing at its sorted position; at most ``workers + 1``
+    payloads are held at once; and over a hub every receive counter is
+    exact however the pool's threads interleave."""
+
+    SRCS = sorted(f"t-{i}" for i in range(5))
+
+    def _incast(self, be=None):
+        be = be or tch.InprocBackend()
+        for w in ("agg-0", *self.SRCS):
+            be.join("up", "default", w)
+        return be, tch.ChannelEnd(be, "up", "default", "agg-0")
+
+    def _run(self, workers, skip=None, timeout=5.0):
+        with tch.switches(decode_pool=workers):
+            be, end = self._incast()
+            for i, s in enumerate(self.SRCS):
+                be.advance(s, 0.5 * (5 - i))  # later sources arrive earlier
+                if s != skip:
+                    be.send("up", "default", s, "agg-0", {"weights": {"w": np.float32(i)}})
+            seen = []
+            try:
+                for s, m in end.recv_ordered(self.SRCS, timeout=timeout):
+                    seen.append((s, np.asarray(m["weights"]["w"]).tobytes()))
+            except Exception as e:  # noqa: BLE001 - compared across modes
+                seen.append(type(e).__name__)
+            return seen, be.now("agg-0")
+
+    def test_defaults_match_reference(self):
+        assert tch.decode_pool_workers() == jch.decode_pool_workers() == 4
+        assert tch.broadcast_fanout_enabled() and jch.broadcast_fanout_enabled()
+
+    def test_pooled_equals_sequential(self):
+        seq = self._run(workers=0)
+        assert [s for s, _ in seq[0]] == self.SRCS
+        for workers in (2, 4, 8):
+            assert self._run(workers=workers) == seq
+
+    def test_failure_surfaces_at_sorted_position(self):
+        """All but the middle source upload: both modes yield the two
+        earlier sources, then raise ``queue.Empty`` at the middle one."""
+        for workers in (0, 4):
+            seen, _ = self._run(workers, skip=self.SRCS[2], timeout=0.2)
+            assert seen[:2] == self._run(0)[0][:2] and seen[2:] == ["Empty"], (workers, seen)
+
+    def test_holds_at_most_workers_plus_one_payloads(self):
+        """A backend that counts the payloads fetched and not yet released
+        by the consumer: the pool never runs more than ``workers`` ahead of
+        the payload being folded."""
+        class Counting(tch.InprocBackend):
+            def __init__(self):
+                super().__init__()
+                self.lock, self.held, self.peak = threading.Lock(), 0, 0
+
+            def recv(self, *args):
+                msg = super().recv(*args)
+                with self.lock:
+                    self.held += 1
+                    self.peak = max(self.peak, self.held)
+                return msg
+
+        with tch.switches(decode_pool=2):
+            be, end = self._incast(Counting())
+            srcs = sorted(f"u-{i:02d}" for i in range(12))
+            for s in srcs:
+                be.join("up", "default", s)
+                be.send("up", "default", s, "agg-0", {"x": 1})
+            for _ in end.recv_ordered(srcs, timeout=5.0):
+                with be.lock:
+                    be.held -= 1  # the consumer folded and dropped it
+            assert be.held == 0 and 2 <= be.peak <= 3, be.peak
+
+    def test_held_count_reaches_workers_plus_one_and_no_more(self):
+        """``decode_pool_held``: a consumer that waits at each payload for
+        the pool's fetches to land sees the count reach ``workers + 1``
+        (fewer near the end) and the high-water mark stop there; a receive
+        closed early counts nothing after."""
+        srcs = sorted(f"u-{i:02d}" for i in range(7))
+        for workers in (2, 3):
+            bound = workers + 1
+            with tch.switches(decode_pool=workers):
+                be, end = self._incast()
+                for s in srcs:
+                    be.join("up", "default", s)
+                    be.send("up", "default", s, "agg-0", {"x": 1})
+                tch.reset_decode_pool_held("agg-0")
+                seen = []
+                for i, _ in enumerate(end.recv_ordered(srcs, timeout=5.0)):
+                    want = min(bound, len(srcs) - i)
+                    deadline = time.monotonic() + 5.0
+                    while tch.decode_pool_held("agg-0")[0] < want and time.monotonic() < deadline:
+                        time.sleep(0.001)
+                    seen.append(tch.decode_pool_held("agg-0")[0])
+                assert seen == [min(bound, len(srcs) - i) for i in range(len(srcs))], (workers, seen)
+                assert tch.decode_pool_held("agg-0") == (0, bound)
+                for s in srcs:
+                    be.send("up", "default", s, "agg-0", {"x": 1})
+                tch.reset_decode_pool_held("agg-0")
+                for _ in end.recv_ordered(srcs, timeout=5.0):
+                    break
+                time.sleep(0.05)  # fetches still running when it closed land
+                assert tch.decode_pool_held("agg-0")[0] == 0
+
+    def test_four_groups_in_one_process_equal_sequential_and_reference(self):
+        """A threaded ``hierarchical_fl`` job of 4 groups: the root and its
+        4 intermediate aggregators receive through their pools in one
+        process, so the root's fetches alone could hold 4 threads. With the
+        pool at 4 the job is byte-equal to the pool at 0 and to the JAX
+        package's job, which runs at its pool 0: its one process-wide pool
+        deadlocks on this job (the root's fetches take every thread while
+        the intermediates' fetches, which feed them, wait in its queue)."""
+        groups = {f"g{i}": (f"d{2 * i}", f"d{2 * i + 1}") for i in range(4)}
+
+        def job(top, exp, tag_mod):
+            return exp.JobSpec(
+                tag=top.hierarchical_fl(groups=tuple(groups), dataset_groups=groups),
+                datasets=tuple(tag_mod.DatasetSpec(name=f"d{i}") for i in range(8)),
+                hyperparams=_hp(None, 2, W0))
+
+        def folds(res):
+            return {w: [m["agg_folds"] for m in p.metrics if "agg_folds" in m]
+                    for w, p in res.programs.items()}
+
+        port = {}
+        for workers in (4, 0):
+            with tch.switches(decode_pool=workers):
+                res = run_job(job(ttop, texp, ttag), device="cpu", timeout=60,
+                              program_overrides={"trainer": HalfTrainer})
+            port[workers] = (_observables(res), folds(res))
+        prev = jch.decode_pool_workers()
+        jch.set_decode_pool(0)
+        try:
+            ref = jrt.run_job(job(jtop, jexp, jtag), timeout=60,
+                              program_overrides={"trainer": JaxHalfTrainer})
+        finally:
+            jch.set_decode_pool(prev)
+        assert port[4] == port[0]
+        obs, agg_folds = port[4]
+        assert obs["weights"] == _ref_weights(ref)
+        assert obs["channel_bytes"] == ref.channel_bytes and agg_folds == folds(ref)
+        assert agg_folds["global-aggregator-0"] == [4, 4]
+
+    def test_hub_counters_exact_under_the_pool(self):
+        """Pooled receives over a hub, with a short switch interval: every
+        payload arrives, and the client's ``payload_decodes:`` and the
+        hub's message counters count each frame once."""
+        hub, be = _hub_client()
+        old = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            with tch.switches(decode_pool=8):
+                srcs = sorted(f"s-{i:02d}" for i in range(24))
+                for w in ("agg-0", *srcs):
+                    be.join("up", "default", w)
+                end = tch.ChannelEnd(be, "up", "default", "agg-0")
+                for rnd in range(3):
+                    for i, s in enumerate(srcs):
+                        be.send("up", "default", s, "agg-0",
+                                {"w": np.full(64, i + rnd, np.float32)})
+                    got = [(s, int(m["w"][0]))
+                           for s, m in end.recv_ordered(srcs, timeout=10.0)]
+                    assert got == [(s, i + rnd) for i, s in enumerate(srcs)]
+            stats = be.stats
+            assert stats["payload_decodes:up"] == 3 * len(srcs)
+            assert stats["msgs:up"] == 3 * len(srcs)
+        finally:
+            sys.setswitchinterval(old)
+            be.close()
+            hub.close()
+

@@ -8,8 +8,8 @@
   device raise where there is no CUDA device.
 * The training slice's modules (mesh lowering, DP, the fed step, the data
   pipeline, the train launchers), the fault plane's (channels, runtime,
-  launcher, hub and conformance) and client and sample selection are
-  among the files walked.
+  launcher, hub and conformance), client and sample selection and the MoE
+  block's (``shard_ctx``, ``moe``, ``blocks``) are among the files walked.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card and
   outside a checkout.
 """
@@ -104,8 +104,11 @@ FAULT_PLANE_MODULES = ["core/channels.py", "core/runtime.py", "launch/spawn.py",
                        "fl/selection.py", "fl/sampling.py", "data/__init__.py",
                        "fl/__init__.py"]
 
+# the MoE block's modules
+MOE_MODULES = ["models/shard_ctx.py", "models/moe.py", "models/blocks.py"]
 
-@pytest.mark.parametrize("module", TRAINING_MODULES + FAULT_PLANE_MODULES)
+
+@pytest.mark.parametrize("module", TRAINING_MODULES + FAULT_PLANE_MODULES + MOE_MODULES)
 def test_training_modules_are_held_to_the_import_rule(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES

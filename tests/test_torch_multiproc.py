@@ -20,6 +20,7 @@ import repro.core.runtime as jrt
 import repro.core.tag as jtag
 import repro.core.topologies as jtop
 from _torch_programs import (
+    HYBRID_TRAINER,
     TRAINER,
     BadPreRunTrainer,
     FailingAggregator,
@@ -31,7 +32,8 @@ from repro_torch.convert import tree_to_numpy
 from repro_torch.core.expansion import JobSpec
 from repro_torch.core.runtime import RuntimePolicy, run_job
 from repro_torch.core.tag import DatasetSpec
-from repro_torch.core.topologies import classical_fl, gossip_fl, hierarchical_fl, vertical_fl
+from repro_torch.core.topologies import (classical_fl, gossip_fl, hierarchical_fl, hybrid_fl,
+                                          vertical_fl)
 from repro_torch.launch.spawn import MultiprocLauncher, run_job_multiproc
 
 _RNG = np.random.default_rng(7)
@@ -151,6 +153,28 @@ def test_protocol_topology_inproc_vs_multiproc_byte_identical(template):
         assert losses[0] == losses[1] and len(losses[0]) == 2
 
 
+def test_hybrid_job_over_processes_byte_equal_to_threads():
+    """``hybrid_fl`` over processes: 4 trainers in 2 clusters (c0: d0, d1;
+    c1: d2, d3), 2 rounds. The ring members join in any order over
+    processes; each cluster must still elect one leader, the one the
+    threaded run elects, so that every program's weights are byte-equal to
+    ``run_job``'s and each cluster uploads once a round."""
+    job = JobSpec(
+        tag=hybrid_fl(groups=("c0", "c1"), dataset_groups={"c0": ("d0", "d1"), "c1": ("d2", "d3")},
+                      trainer_program=HYBRID_TRAINER),
+        datasets=tuple(DatasetSpec(name=f"d{i}") for i in range(4)),
+        hyperparams={"rounds": 2, "init_weights": W0},
+    )
+    res_in = run_job(job, device="cpu", timeout=60)
+    res_mp = run_job_multiproc(job, device="cpu", timeout=60)
+    _assert_programs_byte_equal(res_in, res_mp)
+    assert res_in.channel_bytes == res_mp.channel_bytes
+    root = res_mp.program("global-aggregator-0")
+    assert [m["agg_folds"] for m in root.metrics if "agg_folds" in m] == [2, 2]
+    w = tree_to_numpy(res_mp.global_weights())
+    assert not np.array_equal(w["w"], W0["w"])
+
+
 # ---------------------------------------------------------------------- #
 # failure handling
 # ---------------------------------------------------------------------- #
@@ -191,15 +215,20 @@ def test_hung_child_is_killed_not_wedged(assert_children_reaped):
 def test_hard_crash_without_report_tears_tree_down(assert_children_reaped):
     """A worker dying before the barrier without reporting (``os._exit``)
     tears the tree down promptly: no zombie children, no waiting out the
-    job's timeout."""
+    job's timeout; the crashed worker is labelled as crashed and its live
+    peers as torn down after it. (``trainer-0`` alone crashes: with every
+    trainer crashing, the first crash could tear ``trainer-0`` down while
+    its process still started up, before it could crash.)"""
     t0 = time.monotonic()
     res = run_job_multiproc(
         _classical_job(rounds=1, n_datasets=2), device="cpu", timeout=60,
         program_overrides={"trainer": HardCrashTrainer},
     )
     assert time.monotonic() - t0 < 30.0
-    assert "exited without a result" in str(res.errors["trainer-0"])
-    assert "global-aggregator-0" in res.errors
+    assert "exited without a result (exitcode=3)" in str(res.errors["trainer-0"])
+    for wid in ("trainer-1", "global-aggregator-0"):
+        assert "torn down after peer crash: ['trainer-0']" in str(res.errors[wid]), res.errors
+    assert "__timeout__" not in res.errors
     assert_children_reaped()
 
 

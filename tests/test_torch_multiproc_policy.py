@@ -15,8 +15,9 @@ import repro.core.expansion as jexp
 import repro.core.runtime as jrt
 import repro.core.tag as jtag
 import repro.core.topologies as jtop
-from _torch_programs import TRAINER, SlowRejoinTrainer
+from _torch_programs import TRAINER, FanoutProbeAggregator, SlowRejoinTrainer
 from repro_torch.convert import tree_to_numpy
+from repro_torch.core import channels as tch
 from repro_torch.core.expansion import JobSpec
 from repro_torch.core.runtime import RuntimePolicy, run_job
 from repro_torch.core.tag import DatasetSpec
@@ -188,3 +189,105 @@ def test_intermediate_dropout_surfaces_same_orphans_as_inproc():
     assert orphans[0] == orphans[1] and len(orphans[1]) == 2
     assert all(res_mp.dropped[w] == 0.5 for w in orphans[1])
     assert not np.array_equal(tree_to_numpy(res_mp.global_weights())["w"], W0["w"])
+
+
+# ---------------------------------------------------------------------- #
+# the broadcast fan-out switch: TestBroadcastFanoutTransparency
+# ---------------------------------------------------------------------- #
+class TestBroadcastFanoutTransparency:
+    """The ``send_many`` broadcast path is a performance switch only:
+    seeded jobs give byte-equal observables with it on and off, on the
+    threaded runtime and over processes, whose workers take the switch
+    from the inherited environment."""
+
+    @staticmethod
+    def _observables(res):
+        assert not res.errors, res.errors
+        out = {
+            "dropped": res.dropped,
+            "events": res.events,
+            "channel_bytes": res.channel_bytes,
+            "weights": {k: v.tobytes() for k, v in tree_to_numpy(res.global_weights()).items()},
+        }
+        if getattr(res.program("global-aggregator-0"), "participation_log", None):
+            out["participation"] = _participation(res)
+        return out
+
+    @staticmethod
+    def _both(run):
+        out = []
+        for enabled in (True, False):
+            with tch.switches(fanout=enabled):
+                out.append(run())
+        return out
+
+    def test_switch_routes_broadcasts(self):
+        """On: one backend ``send_many`` per broadcast; off: one ``send``
+        per destination; the same mailboxes either way."""
+        calls = []
+
+        class Spy(tch.InprocBackend):
+            """Records the calls made from outside (the backend's ``send``
+            and ``send_many`` call each other)."""
+
+            depth = 0
+
+            def _outer(self, name, fn, *a):
+                if not self.depth:
+                    calls.append(name)
+                self.depth += 1
+                try:
+                    fn(*a)
+                finally:
+                    self.depth -= 1
+
+            def send(self, *a):
+                self._outer("send", super().send, *a)
+
+            def send_many(self, *a):
+                self._outer("send_many", super().send_many, *a)
+
+        got = []
+        for enabled, want in ((True, ["send_many"]), (False, ["send"] * 3)):
+            be, calls[:] = Spy(), []
+            for w in ("agg-0", "t-0", "t-1", "t-2"):
+                be.join("ch", "default", w)
+            with tch.switches(fanout=enabled):
+                tch.ChannelEnd(be, "ch", "default", "agg-0").broadcast({"v": 1})
+            assert calls == want and tch.broadcast_fanout_enabled()
+            got.append([be.recv("ch", "default", t, "agg-0", 1.0) for t in ("t-0", "t-1", "t-2")])
+        assert got[0] == got[1] == [{"v": 1}] * 3
+
+    def test_sync_job_identical_fanout_on_vs_off(self):
+        def job():
+            return _classical_job(rounds=2)
+
+        on_in, off_in = self._both(lambda: run_job(job(), device="cpu", timeout=60))
+        assert self._observables(on_in) == self._observables(off_in)
+        probe = {"global-aggregator": FanoutProbeAggregator}
+        on_mp, off_mp = self._both(lambda: run_job_multiproc(
+            job(), device="cpu", timeout=120, program_overrides=probe))
+        assert self._observables(on_mp) == self._observables(off_mp)
+        # across deployments, with the fan-out on in both
+        assert self._observables(on_in) == self._observables(on_mp)
+        # the spawned root took the switch from its environment
+        assert [res.program("global-aggregator-0").metrics[0] for res in (on_mp, off_mp)] == [
+            {"fanout": True}, {"fanout": False}]
+
+    def test_deadline_job_identical_fanout_on_vs_off(self):
+        kw = dict(policy=RuntimePolicy(mode="deadline", deadline=2.0, grace=5.0,
+                                       dropouts={"trainer-1": 0.7}),
+                  per_worker_hyperparams={"trainer-0": {"compute_time": 0.5},
+                                          "trainer-1": {"compute_time": 0.5},
+                                          "trainer-2": {"compute_time": 5.0}})
+        on_in, off_in = self._both(lambda: run_job(_classical_job(), device="cpu", timeout=60,
+                                                   **kw))
+        assert self._observables(on_in) == self._observables(off_in)
+        on_mp, off_mp = self._both(lambda: run_job_multiproc(
+            _classical_job(), device="cpu", timeout=120, **kw))
+        assert self._observables(on_mp) == self._observables(off_mp)
+        assert self._observables(on_in) == self._observables(on_mp)
+        # the schedule bit: the straggler excluded, the dropout recorded
+        assert _participation(on_mp)[0]["excluded"] == ["trainer-2"]
+        assert on_mp.dropped == {"trainer-1": 0.7}
+

@@ -205,6 +205,62 @@ def test_async_job_survives_dropout():
         assert res.program("global-aggregator-0")._version == 4
 
 
+def _upload_gate(base):
+    """``base`` whose ``trainer-0`` sends its fourth upload (virtual 1.2)
+    only once ``trainer-1`` has sent its upload (1.0): the server then
+    finds that upload waiting before its clock can pass 1.2, however the
+    job's threads are scheduled on a loaded host (unguarded, a late
+    ``trainer-1`` thread can miss every version or upload after the
+    server's clock passed its drop)."""
+    sent = threading.Event()
+
+    class Gated(base):
+        def upload(self):
+            me = self.ctx.worker.worker_id
+            if me == "trainer-0":
+                self._uploads = getattr(self, "_uploads", 0) + 1
+                if self._uploads == 4:
+                    assert sent.wait(30.0), "trainer-1 never uploaded"
+            try:
+                super().upload()
+            finally:
+                if me == "trainer-1":
+                    sent.set()
+
+    return Gated
+
+
+def test_async_upload_sent_just_before_a_dropout_keeps_its_base():
+    """``trainer-1`` uploads at 1.0 and is dropped at 1.1, while
+    ``trainer-0`` uploads every 0.3 and sends its 1.2 upload only after
+    ``trainer-1``'s upload left. That upload is absorbed once, against its
+    own base (no clamped entry); the server's clock then passes the drop
+    with nothing of ``trainer-1`` waiting, which forgets it; the versions,
+    absorbed sources, drops, events and final version vector equal the JAX
+    package's."""
+    pol = {"mode": "async", "buffer_size": 1, "grace": 1.5, "dropouts": {"trainer-1": 1.1}}
+    port, ref = (
+        _run(pkg, _classical(pkg, n=2, rounds=6), trainer=None, policy=dict(pol),
+             program_overrides={"trainer": _upload_gate(pkg["add_one"])},
+             per_worker_hyperparams={"trainer-0": {"compute_time": 0.3},
+                                     "trainer-1": {"compute_time": 1.0}})
+        for pkg in (PORT, REF))
+
+    def absorbed(res):
+        return sorted(e["src"] for e in res.program("global-aggregator-0").staleness_log)
+
+    for res in (port, ref):
+        log = res.program("global-aggregator-0").staleness_log
+        assert res.dropped == {"trainer-1": 1.1}
+        assert absorbed(res).count("trainer-1") == 1
+        assert not any(e.get("clamped") for e in log), log
+    glob, rglob = port.program("global-aggregator-0"), ref.program("global-aggregator-0")
+    assert glob._version == rglob._version == 6
+    assert absorbed(port) == absorbed(ref)
+    assert glob._version_vector == rglob._version_vector
+    assert port.events == ref.events
+
+
 def test_on_time_update_from_doomed_worker_still_counts():
     pol = {"mode": "deadline", "deadline": 2.0, "grace": 1.5, "dropouts": {"trainer-2": 1.5}}
     port, ref = _both(lambda p: _classical(p, n=3, rounds=2), pol, trainer=None,

@@ -14,6 +14,7 @@ import repro.core.runtime as jrt
 from _torch_programs import TRAINER
 from repro.launch.spawn import _rejoin_high_water as jax_rejoin_high_water
 from repro_torch.convert import tree_to_numpy
+from repro_torch.core import channels as tch
 from repro_torch.core.expansion import JobSpec
 from repro_torch.core.runtime import RuntimePolicy, run_job
 from repro_torch.core.tag import DatasetSpec
@@ -135,3 +136,28 @@ def test_standby_pool_sizing_matches_reference(dropouts, rejoins, hosts):
     kw = dict(mode="deadline", deadline=5.0, grace=1.0, dropouts=dropouts, rejoins=rejoins)
     assert _rejoin_high_water(RuntimePolicy(**kw)) == hosts
     assert jax_rejoin_high_water(jrt.RuntimePolicy(**kw)) == hosts
+
+
+class TestShardedFanoutTransparency:
+    def test_sharded_deadline_job_identical_fanout_on_vs_off(self):
+        """``test_pooled_sharded.py``'s twin: the ``send_many`` path over the
+        sharded fabric (one encode per owning shard, fan-out in the hub) is
+        invisible: a grouped deadline job gives the same observables with
+        it on and off, pooled and sharded, on one hub and on threads."""
+        kw = dict(policy=RuntimePolicy(mode="deadline", deadline=10.0, grace=30.0),
+                  per_worker_hyperparams={f"trainer-{i}": {"compute_time": 1.0}
+                                          for i in range(4)})
+        runs = {}
+        for enabled in (True, False):
+            with tch.switches(fanout=enabled):
+                runs["sharded", enabled] = _observables(run_job_multiproc(
+                    _grouped_job(), device="cpu", timeout=120, pool_size=2, sharded=True, **kw))
+                runs["threads", enabled] = _observables(
+                    run_job(_grouped_job(), device="cpu", timeout=60, **kw))
+        with tch.switches(fanout=True):
+            runs["single", True] = _observables(
+                run_job_multiproc(_grouped_job(), device="cpu", timeout=120, **kw))
+        first = runs["sharded", True]
+        assert all(obs == first for obs in runs.values()), sorted(runs)
+        assert len(first["participation"]) == 2 and first["channel_bytes"]["param-channel"] > 0
+

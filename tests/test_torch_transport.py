@@ -462,3 +462,35 @@ def test_seeded_sgd_loopback_job_agrees_within_one_quantization_step():
         np.testing.assert_allclose(tw[k], np.asarray(jw[k]), rtol=0, atol=step)
     assert tres.channel_bytes == jres.channel_bytes
     assert tres.channel_stats == jstats
+
+
+@pytest.mark.parametrize("env", [None, "0", "2", "7"])
+def test_connect_retries_env_sets_attempts_per_call(monkeypatch, env):
+    """``REPRO_CONNECT_RETRIES``, read on each call, overrides
+    ``CONNECT_RETRIES``: a hub that never answers is dialled that many
+    times more than once, as the JAX package's client dials it."""
+    import repro.transport.multiproc as jmp
+    from repro_torch.transport.multiproc import MultiprocBackend
+
+    attempts = []
+
+    def refuse(address, timeout=None):
+        attempts.append(address)
+        raise ConnectionRefusedError("no hub")
+
+    monkeypatch.setattr(socket_mod, "create_connection", refuse)
+    monkeypatch.setattr("time.sleep", lambda s: None)
+    if env is None:
+        monkeypatch.delenv("REPRO_CONNECT_RETRIES", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_CONNECT_RETRIES", env)
+    counts = []
+    for be in (MultiprocBackend(("127.0.0.1", 9), client_key="t-0", device="cpu"),
+               jmp.MultiprocBackend(("127.0.0.1", 9), client_key="t-0")):
+        attempts.clear()
+        with pytest.raises(OSError):
+            be._connect()
+        counts.append(len(attempts))
+    want = 1 + (MultiprocBackend.CONNECT_RETRIES if env is None else int(env))
+    assert counts == [want, want]
+
