@@ -7,7 +7,8 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs nine phases, each printing one line:
+source, started together), then runs nine phases (phase 6 in seven
+parts), each printing its lines:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -78,17 +79,20 @@ source, started together), then runs nine phases, each printing one line:
    expected route, and each bf16 D 64 / 128 case also on ``flash.cu``
    directly, which takes it too (the five shapes of the JAX package's
    kernel test and its bf16 case, head dims 32 to 256, causal, not, sliding
-   windows, GQA 8:1 and 16:1, ragged S, the serving shape); (b) ``serve.generate``
-   on Qwen2.5-3B at full width and depth (36 layers, bf16, random weights
-   from a seeded generator), 8 prompts of 2048 tokens and 64 greedy tokens,
-   with the flash kernel: logits finite, 36 launches of the tensor-core
-   kernel per prefill, none of ``flash.cu`` and none per decode step, the
-   prefill's logits against the plain attention's, and teacher forcing (a
-   decode step after a prefill of S tokens against a prefill of S + 1);
-   (c) prefill and decode times, a kernel-time breakdown of each from
-   ``torch.profiler``, and both flash kernels' times at the serving shape:
-   the tensor-core kernel at bf16, ``flash.cu`` on its own route, float32
-   (checked against the plain version there too);
+   windows, GQA 8:1 and 16:1, ragged S, the serving shape); (b)
+   ``serve.generate`` on Qwen2.5-3B at full width and depth (36 layers,
+   bf16, random weights from a seeded generator), 8 prompts of 2048 tokens
+   and 64 greedy tokens, with the flash kernel, through the serving checks
+   every serving phase but 6d shares (``_serve_phase``): logits finite, 36
+   launches of the tensor-core kernel per prefill, none of ``flash.cu`` and
+   none per decode step, the prefill's logits against the plain
+   attention's and the planted attention faults (a KV tile dropped, the
+   wrong kv heads, no causal mask) against the same limit, and teacher
+   forcing (a decode step after a prefill of S tokens against a prefill of
+   S + 1); (c) prefill, plain prefill and decode times, a kernel-time
+   breakdown of each from ``torch.profiler``, and both flash kernels'
+   times at the serving shape: the tensor-core kernel at bf16, ``flash.cu``
+   on its own route, float32 (checked against the plain version there too);
    6d. serving Qwen3-MoE-235B-A22B at its published widths (128 experts
    top-8, 64/4 heads of 128), depth cut from 94 layers to 8, bf16, random
    weights from a seeded generator, through ``serve.generate`` with the
@@ -103,6 +107,30 @@ source, started together), then runs nine phases, each printing one line:
    ``torch.profiler`` breakdown; the peak memory and 0 MB held after; the
    tensor-core kernel at the model's attention shape (B 8, S 2048, H 64/4,
    D 128, causal) against the plain version, SDPA and its bound;
+   6h, 6x, 6s, 6g. serving the families the earlier phases do not reach,
+   each at its published widths and full depth, bf16, seeded weights
+   (parameters counted against the JAX package's tree, worked out from the
+   shapes), through phase 6's checks, no memory held after:
+   6h Hymba-1.5B (prompts of 4096, twice its window of 2048; 32 tensor-core
+   flash launches a prefill, gated against the same weights in float32;
+   teacher forcing: 32 decode steps after a prefill of 2048, in float32, and
+   256 bf16 decode steps at 2 layers whose first-layer SSD state must match
+   a prefill's, with planted decode faults), then 2 layers in float32 on the
+   card against the CPU and the tensor-core kernel at Hymba's attention
+   shape (GQA 25/5, D 64, window 2048) against the plain version, SDPA
+   (explicit mask, K/V repeated) and its bound; 6x xLSTM-1.3B (48 layers, 6
+   sLSTM; prompts of 2048; no flash launch: the path runs no TPU kernel; 32
+   decode steps after a prefill of 1792, in float32, and the bf16 decode at
+   one period of 8 layers and on the sLSTM block alone; the sLSTM loop and
+   the chunked mLSTM timed apart), then one period of 8 layers in float32
+   card against CPU; 6s SeamlessM4T-medium (12 + 12 layers, 1024 float32
+   stub frames of 0.1 randn, prompts of 256; 12 tensor-core launches a
+   prefill, the decoder's self-attention only), then 2 + 2 layers in
+   float32 card against CPU and the tensor-core kernel at the decoder's
+   attention shape (B 8, S 256, H 16/16, D 64); 6g Gemma-7B (28 layers,
+   head dim 256: 28 ``flash.cu`` launches a prefill, the route's first
+   path), then ``flash.cu`` at Gemma's attention shape against the plain
+   version, SDPA and its bound;
 7. the process plane (run after phase 5, before phase 6): (a) phase 5's job
    (the same tree, seeds, 4 trainers, 2 rounds, ``int8_blocks``) through
    ``run_job_multiproc`` with ``reduce_plan`` 1: 5 worker processes and the
@@ -161,14 +189,15 @@ source, started together), then runs nine phases, each printing one line:
    repeated 3 rounds, a loss at least 1 nat lower (the fresh batches alone
    carry little to learn: 1 024 new tokens of 152 064 a round); (b)
    ``hierarchical_fl`` over pod 2 x data 2 with a bf16 cross-pod wire at 4
-   layers, 3 rounds; (c) the first round at 2 layers, full width, float32,
+   layers, 3 rounds; (c) the first round at 1 layer, full width, float32,
    on the card against the same round on the CPU from the same parameters
    and batch: loss, ``delta_norm`` and every new parameter within the
    stated tolerances;
 9. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
-   the quant kernels, phase 6's and 6d's serving runs for the flash kernels, phase
+   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's and 6g's serving
+   runs for the flash kernels, phase
    7's process job and phase 7c's faulted jobs for the agg and quant
    entries, phase 8's rounds for
    every kernel), time, plain version's time, bound and a library call's
@@ -238,7 +267,9 @@ from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E40
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.spawn import run_job_multiproc  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import encdec as tencdec  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.core.mesh_lowering import lower_tag_to_mesh  # noqa: E402
 from repro_torch.data.datasets import synthetic_lm_batches  # noqa: E402
@@ -315,6 +346,47 @@ SERVE_REL_L2 = 5e-2
 # (tests/test_models.py) on 2 prompts of 256 tokens
 MOE_LAYERS = 8
 MOE_TF_CAPACITY, MOE_TF_PROMPTS, MOE_TF_LEN = 8.0, 2, 256
+# phases 6h, 6x, 6s, 6g: Hymba-1.5B, xLSTM-1.3B, SeamlessM4T-medium and
+# Gemma-7B (src/repro/configs/) at their published widths, full depth, bf16,
+# seeded weights; 8 prompts each, 64 greedy tokens: Hymba's of 4096 tokens
+# (twice its window), Seamless's of 256 tokens on 1024 frames, the others
+# phase 6's 2048. Teacher forcing of the recurrent models on 2 prompts: 32
+# decode steps after a prefill that ends on a chunk boundary (the chunked
+# recurrence takes whole chunks): Hymba's of 2048 (its window, so the steps
+# wrap the ring), xLSTM's of 1792
+HYMBA_PROMPT, SEAMLESS_PROMPT, TF_PROMPTS, TF_STEPS = 4096, 256, 2, 32
+# the encoder-decoder's stub frames, float32 as the serve loop's: this
+# times randn, so that the encoder does real work
+STUB_FRAMES = 0.1
+# The recurrent models' teacher forcing at full depth runs on their weights
+# in float32: in bf16 the random-weight stacks' own rounding swamps the check
+# (a bf16 prefill is 5.7e-2 from the float32 model for Hymba; xLSTM's bf16
+# teacher forcing reads 0.39, its float32 one 3.5e-4), while in float32 a
+# 1e-7 relative change of the embeddings moves the logits by 2.5e-4 (xLSTM)
+# and 1.4e-5 (Hymba) (H100 80GB HBM3, 700 W): the limit is about 6x xLSTM's
+# reading, and Hymba's control, a prefill of 2304 (past the window, not a
+# multiple of it: the ring fault of ROADMAP Queue 3), reads 0.354
+TF_F32_REL, HYMBA_TF_CONTROL = 2e-3, 2304
+# The bf16 decode path, at cut depth (Hymba 2 layers; xLSTM one period of 8
+# and its sLSTM block alone), seeded weights: DECODE_STEPS teacher-forced
+# steps (one SSD chunk, so that the prompt and the steps are whole chunks)
+# after the float32 check's prefill, their logits within SERVE_REL_L2 of the
+# bf16 full forward; and the first layer's float32 state after them within
+# DECODE_STATE_REL of a prefill's over the same tokens. That layer's inputs
+# are the same in both, so only the float32 order and the products' row
+# rounding differ: 2.4e-6 (Hymba), 6.4e-5 (xLSTM), 0 (sLSTM); a decode that
+# rounds the state to bf16 reads 7.3e-4 to 1.5e-3 (H100 80GB HBM3, 700 W)
+DECODE_STEPS, DECODE_STATE_REL = 256, 2e-4
+# Hymba's bf16 flash prefill against the plain one: both sit 5.7e-2 from the
+# same weights in float32 (32 layers of bf16 rounding), above SERVE_REL_L2,
+# so the gate is the float32 model: the flash prefill may be at most this
+# many times as far from it as the plain prefill is (1.04 measured), and
+# each planted attention fault must read above it
+FLASH_F32_RATIO = 1.25
+# each family's float32 model cut in depth (Hymba and Seamless: 2 layers,
+# and 2 encoder layers; xLSTM: one period of 8) on the card against the CPU
+# on 1 x 512 tokens (two SSD chunks): float32 products in other orders
+CARD_CPU_LAYERS, CARD_CPU_LEN, CARD_CPU_REL = 2, 512, 1e-4
 # phase 8: the federated train step (TAG -> aggregation plan -> fed step) on
 # Qwen2.5-3B at full width and depth, classical_fl over 2 virtual clients,
 # the config's FedAdam; the traffic is launch/train.py's defaults
@@ -323,9 +395,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOCAL_STEPS, TRAIN_LR = 8, 128, 2, 0.05
 # the second run: hierarchical_fl over pod 2 x data 2, bf16 cross-pod wire,
 # full width at 4 layers
 HIER_PODS, HIER_CLIENTS, HIER_LAYERS, HIER_ROUNDS = 2, 2, 4, 3
-# the gate: the first round at 2 layers, full width, float32, on the card and
-# on the CPU from the same parameters and batch
-GATE_LAYERS = 2
+# the gate: the first round at 1 layer, full width, float32, on the card and
+# on the CPU from the same parameters and batch (2 layers until phases 6h to
+# 6g came: its CPU round was 23-39 s of the script)
+GATE_LAYERS = 1
 # float32 products summed in other orders (cuBLAS against the CPU's BLAS, TF32
 # off): about sqrt(K) * 2**-24 = 6e-6 relative at K = 11 008, so the loss and
 # delta_norm within 1e-5 relative; FedAdam moves a parameter by at most half
@@ -380,6 +453,22 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _median_ms(fn, runs: int = 3, warm: bool = True) -> float:
+    """The median device ms of ``fn`` over ``runs`` runs (CUDA events
+    around each), after a warm-up run unless the caller ran one."""
+    if warm:
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
@@ -2828,7 +2917,8 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
 # case of tests/test_kernels.py, the bf16 shapes the tensor-core kernel
 # takes (D 64 and 128: causal, not, a window whose rows' first visited
 # tiles are all masked, a non-causal window, GQA 8:1, ragged S), float32
-# at D 128 and bf16 at D 32 and 256 (flash.cu only), and the serving
+# at D 128 and bf16 at D 32 and 256 (flash.cu only), Hymba-1.5B's heads
+# and window and Gemma-7B's prefill (flash.cu's path), and the serving
 # prefill's shape last
 FLASH_CASES = (
     (2, 128, 4, 2, 64, True, 0, torch.float32),
@@ -2847,6 +2937,8 @@ FLASH_CASES = (
     (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
     (1, 2049, 16, 2, 128, True, 0, torch.bfloat16),
     (1, 512, 64, 4, 128, True, 0, torch.bfloat16),  # Qwen3-MoE's heads: GQA 16:1
+    (1, 4096, 25, 5, 64, True, 2048, torch.bfloat16),  # Hymba's: GQA 5:1, odd heads, window
+    (SERVE_BATCH, SERVE_PROMPT, 16, 16, 256, True, 0, torch.bfloat16),  # Gemma-7B's prefill
     (SERVE_BATCH, SERVE_PROMPT, 16, 2, 128, True, 0, torch.bfloat16),
 )
 # the routes' counters and the C entries they launch
@@ -2866,15 +2958,18 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def _attention_without_tile(q, k, v, *, causal=True, window=0):
-    """Causal plain attention with a planted fault: the FAULT_KEYS keys from
-    S/2 on are masked for every row, as a kernel that skips one KV tile
-    would compute. (B, S, H, D) layout, the flash op's signature."""
-    check(causal and not window, "the planted tile fault is causal without a window")
+    """Causal plain attention (under ``window``, if any) with a planted
+    fault: the FAULT_KEYS keys from S/2 on are masked for every row, as a
+    kernel that skips one KV tile would compute. (B, S, H, D) layout, the
+    flash op's signature."""
+    check(causal, "the planted tile fault is causal")
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     lo = S // 2 - S // 2 % FAULT_KEYS
     pos = torch.arange(S, device=q.device)
     keep = (pos[None, :] <= pos[:, None]) & ~((pos >= lo) & (pos < lo + FAULT_KEYS))[None, :]
+    if window:
+        keep &= pos[None, :] > pos[:, None] - window
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, S, Hkv, H // Hkv, D), k.float())
     s = (s * D**-0.5).masked_fill(~keep, fref.NEG_INF)
     out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.float())
@@ -2897,17 +2992,15 @@ PLANTED_FAULTS = {"tile_dropped": _attention_without_tile, "wrong_kv_head": _att
                   "not_causal": _attention_not_causal}
 
 
-def phase_flash_parity(dev: torch.device) -> dict:
+def phase_flash_parity(dev: torch.device) -> None:
     """(a) both flash kernels against their plain version on the same
     tensors, by max abs error and by relative L2: each case through the
     wrapper (one launch, on the route its dtype and head dim pick), and the
     cases of the tensor-core route also on flash.cu directly; then the
     plain version with one KV tile dropped against it at the serving shape
-    (a control that the relative limit must see). Returns each route's max
-    abs error at the serving shape."""
+    (a control that the relative limit must see)."""
     gen = torch.Generator(device=dev).manual_seed(13)
     errs, rels, routes = [], [], []
-    serving_err = {}
     for B, S, H, Hkv, D, causal, window, dtype in FLASH_CASES:
         q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, dtype)
         plain = fref.reference_attention(q, k, v, causal=causal, window=window)
@@ -2933,7 +3026,6 @@ def phase_flash_parity(dev: torch.device) -> dict:
             errs.append(err)
             rels.append(rel)
             routes.append("sm90" if name == "flash_forward_sm90" else "simt")
-            serving_err[ROUTE_ENTRIES[name]] = err
         del runs
     # the last case is the serving shape: a dropped tile must show
     control = _attention_without_tile(q, k, v)
@@ -2949,7 +3041,6 @@ def phase_flash_parity(dev: torch.device) -> dict:
           f"{[f'{e:.3g}' for e in errs]} rel_l2 {[f'{r:.3g}' for r in rels]}; control (plain with "
           f"{FAULT_KEYS} keys dropped, serving shape) rel_l2 {control_rel:.3g} max_abs_err "
           f"{control_err:.3g}", flush=True)
-    return serving_err
 
 
 def _rounded(d: dict) -> dict:
@@ -2970,17 +3061,20 @@ def _kernel_classes(fn) -> dict:
     ms = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
     other = {}
     n = 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # the raw trace: ``prof.events()`` would build the profiler's event tree
+    # first, tens of seconds for the 176 000 kernels of an xLSTM prefill
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        name = e.name.lower()
+        full = e.name()
+        name = full.lower()
         cls = ("flash" if "flash_kernel" in name else
                "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet", "cublas")) else
                "other")
-        t = e.time_range.elapsed_us() / 1e3
+        t = e.duration_ns() / 1e6
         ms[cls] += t
         if cls == "other":
-            other[e.name[:60]] = other.get(e.name[:60], 0.0) + t
+            other[full[:60]] = other.get(full[:60], 0.0) + t
         n += 1
     check(n > 0, "the profiler recorded no device kernels")
     busy = sum(ms.values())
@@ -2994,169 +3088,24 @@ def _route_launches() -> dict:
     return {entry: fkernel.ROUTES[name].launches for name, entry in ROUTE_ENTRIES.items()}
 
 
-def phase_serve(dev: torch.device, flash_errs: dict) -> dict:
+def phase_serve(dev: torch.device) -> dict:
     """(b) serving the full Qwen2.5-3B through ``serve.generate`` with the
-    flash kernel, checked; (c) its times and both flash kernels'."""
-    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    flash kernel, with the checks of every serving phase
+    (``_serve_phase``); (c) its times, the tensor-core kernel at the
+    serving shape and flash.cu at the same shape in float32 (CUDA cores:
+    TF32 would miss the 2e-5 limit)."""
     cfg = dataclasses.replace(get_config("qwen2_5_3b"), attn_impl="flash")
-    check(cfg.num_layers == 36 and cfg.scan_layers and cfg.param_dtype == "bfloat16",
-          "qwen2_5_3b is not the full bf16 36-layer config")
-    bundle = build_model(cfg, dev)
-    plain_bundle = build_model(dataclasses.replace(cfg, attn_impl="xla"), dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    params = bundle.init(gen)
-    n_params = sum(x.numel() for x in tree_leaves(params))
-    check(n_params == QWEN_FULL_PARAMS, f"{n_params} parameters, not {QWEN_FULL_PARAMS}")
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-
-    # the main path: one generate call, launches counted from 0
-    fkernel.reset_launches()
-    out = generate(bundle, params, prompts, T)
-    launches = fkernel.flash_attention_bhsd.launches
-    routes = _route_launches()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    check(out.all_finite, "non-finite logits while serving")
-    check(out.tokens.shape == (B, T), f"tokens {tuple(out.tokens.shape)}")
-    on_path = {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0}
-    check(launches == cfg.num_layers and routes == on_path,
-          f"{launches} flash launches ({routes}) in a prefill and {T - 1} decode steps, "
-          f"not {on_path}")
-
-    # per call: 36 launches per prefill, all on the tensor-core kernel, none per decode step
-    fkernel.reset_launches()
-    logits_f, cache = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
-    per_prefill = fkernel.flash_attention_bhsd.launches
-    per_prefill_routes = _route_launches()
-    nxt = torch.argmax(logits_f[:, -1], dim=-1, keepdim=True).to(torch.int32)
-    fkernel.reset_launches()
-    logits_d, _ = bundle.serve_step(params, cache, {"token": nxt})
-    per_step = fkernel.flash_attention_bhsd.launches
-    check(per_prefill == cfg.num_layers and per_prefill_routes == on_path and per_step == 0,
-          f"flash launches per prefill {per_prefill} ({per_prefill_routes}), per decode step "
-          f"{per_step}")
-    del cache
-    # teacher forcing: the decode step against a prefill of S + 1 tokens
-    logits_s1, _ = bundle.prefill(params, {"tokens": torch.cat([prompts, nxt], dim=1)},
-                                  bundle.init_cache(B, S + 1))
-    tf_rel = _rel_l2(logits_d, logits_s1)
-    tf_err = float((logits_d - logits_s1).abs().max())
-    # the flash prefill against the plain attention's
-    logits_x, _ = plain_bundle.prefill(params, {"tokens": prompts}, plain_bundle.init_cache(B, S + 1))
-    fx_rel = _rel_l2(logits_f, logits_x)
-    fx_err = float((logits_f - logits_x).abs().max())
-    check(all(bool(torch.isfinite(x).all()) for x in (logits_f, logits_d, logits_s1, logits_x)),
-          "non-finite logits")
-    check(fx_rel <= SERVE_REL_L2, f"flash vs plain prefill logits: rel L2 {fx_rel} > {SERVE_REL_L2}")
-    check(tf_rel <= SERVE_REL_L2, f"teacher forcing: rel L2 {tf_rel} > {SERVE_REL_L2}")
-    # controls: prefills with a fault planted in the attention, against the
-    # plain prefill; each must read above the bound
-    controls = {}
-    try:
-        for name, fault in PLANTED_FAULTS.items():
-            blocks.flash_attention = fault
-            logits_c, _ = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
-            controls[name] = _rel_l2(logits_c, logits_x)
-            del logits_c
-    finally:
-        blocks.flash_attention = flash_attention
-    check(min(controls.values()) > SERVE_REL_L2,
-          f"a planted attention fault reads within the bound {SERVE_REL_L2}: rel L2 {controls}")
-    del logits_s1, logits_x, logits_d
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (c) prefill time: median of 3 after a warm-up, CUDA events
-    def prefill(which=bundle):
-        return which.prefill(params, {"tokens": prompts}, which.init_cache(B, S + T))
-
-    def median_ms(fn, runs=3):
-        fn()
-        times = []
-        for _ in range(runs):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end))
-        return float(np.median(times))
-
-    prefill_ms = median_ms(prefill)
-    plain_prefill_ms = median_ms(lambda: prefill(plain_bundle), runs=1)
-    # bf16 products that may reduce split-K sums in bf16 (PyTorch's default)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
-    reduced_ms = median_ms(prefill)
-    logits_r, _ = prefill()
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    reduced_rel = _rel_l2(logits_r, logits_f)
-    del logits_r
-    # where a prefill's and a decode step's device time goes
-    prof_prefill = _kernel_classes(prefill)
-    _, cache = prefill()
-    prof_step = _kernel_classes(lambda: bundle.serve_step(params, cache, {"token": nxt}))
-    del cache
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # the tensor-core kernel alone at the serving shape
-    gen = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = _qkv(dev, gen, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)  # q, k, v read, out written
-    flops = 4 * D * B * H * (S * (S + 1) // 2)  # two products over the causal pairs
-    timing = dict(
-        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
-        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-        bound=bound(nbytes, flops, BF16_TENSOR_FLOPS),
-        ms=cuda_ms(lambda: flash_attention(q, k, v), reps=20),
-        max_abs_err=flash_errs["flash_attention_forward_sm90"],
-    )
-    del q, k, v, qt, kt, vt
-    # flash.cu on its own route: float32 at the serving shape, against the
-    # plain version, SDPA at float32 and the float32 bound (CUDA cores: TF32
-    # would miss the 2e-5 limit)
-    q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, torch.float32)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    plain32 = fref.reference_attention(q, k, v)
-    out32 = fkernel.flash_forward(qt, kt, vt).transpose(1, 2)
-    err32, rel32 = float((out32 - plain32).abs().max()), _rel_l2(out32, plain32)
-    check(err32 <= FLASH_ATOL[torch.float32] and rel32 <= FLASH_REL_L2[torch.float32],
-          f"flash.cu at float32, serving shape: max abs err {err32}, rel L2 {rel32}")
-    del plain32, out32
-    simt = dict(
-        ms=cuda_ms(lambda: fkernel.flash_forward(qt, kt, vt), reps=3),
-        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
-        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=5),
-        bound=bound(2 * nbytes, flops), max_abs_err=err32)
-    timings = {"flash_attention_forward_sm90": timing, "flash_attention_forward": simt}
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
-    decode_ms = out.decode_s / (T - 1) * 1e3
-    print(f"phase serve: ok Qwen2.5-3B ({n_params} bf16 params, 36 layers) B {B} prompt {S} "
-          f"gen {T} with the flash kernel; flash launches {launches} {json.dumps(routes)} (per "
-          f"prefill {per_prefill}, per decode step {per_step}); flash vs plain prefill rel_l2 {fx_rel:.3g} max_abs_err "
-          f"{fx_err:.3g}; teacher forcing rel_l2 {tf_rel:.3g} max_abs_err {tf_err:.3g}; "
-          f"controls (planted attention faults) rel_l2 "
-          f"{json.dumps({k: float(f'{v:.4g}') for k, v in controls.items()})}; "
-          f"prefill_ms {prefill_ms:.3f} (in generate {out.prefill_s * 1e3:.3f}) plain_prefill_ms "
-          f"{plain_prefill_ms:.3f} bf16_reduced_reduction prefill_ms {reduced_ms:.3f} rel_l2 "
-          f"{reduced_rel:.3g}; decode_ms_per_step {decode_ms:.3f} decode_tokens_per_s "
-          f"{B * (T - 1) / out.decode_s:.1f} generated_tokens_per_s "
-          f"{B * T / (out.prefill_s + out.decode_s):.1f} peak_device_gb {peak_gb:.2f}; "
-          f"prefill profile {json.dumps(_rounded(prof_prefill))} "
-          f"decode step profile {json.dumps(_rounded(prof_step))}; "
-          f"flash ms {timing['ms']:.3f} plain_ms {timing['plain_ms']:.3f} sdpa_ms "
-          f"{timing['library_ms']:.3f} bound_ms {timing['bound'][0]:.4f} ({timing['bound'][1]}); "
-          f"flash.cu float32 ms {simt['ms']:.3f} max_abs_err {err32:.3g} rel_l2 {rel32:.3g} "
-          f"plain_ms {simt['plain_ms']:.3f} sdpa_f32_ms {simt['library_ms']:.3f} bound_ms "
-          f"{simt['bound'][0]:.4f} ({simt['bound'][1]})", flush=True)
-    return {"launches": routes, "timings": timings}
+    _published(cfg, num_layers=36, d_model=2048, num_heads=16, num_kv_heads=2, head_dim=128,
+               scan_layers=True, param_dtype="bfloat16")
+    check(_tree_param_count(cfg) == QWEN_FULL_PARAMS,
+          f"the JAX-shaped tree counts {_tree_param_count(cfg)} parameters, not {QWEN_FULL_PARAMS}")
+    shape = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0)
+    return _serve_phase(
+        dev, "Qwen2.5-3B", cfg, SERVE_PROMPT,
+        {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0},
+        pieces={"flash": (blocks, "flash_attention")},
+        step_pieces={"attention": (blocks, "_attn_core_decode")},
+        flash_shapes=[shape + (torch.bfloat16,), shape + (torch.float32,)])
 
 
 # ---------------------------------------------------------------------- #
@@ -3170,6 +3119,12 @@ class _RegionTimer:
 
     PIECES = {"route": (tmoe, "_route"), "experts": (tmoe, "expert_ffn"),
               "combine": (tmoe, "_combine"), "flash": (blocks, "flash_attention")}
+
+    def __init__(self, pieces=None):
+        """``pieces``: name -> (module, function name); the MoE pieces when
+        None."""
+        if pieces is not None:
+            self.PIECES = pieces
 
     def __enter__(self):
         self.events = {name: [] for name in self.PIECES}
@@ -3277,7 +3232,7 @@ def phase_serve_moe(dev: torch.device) -> dict:
     per_prefill, per_prefill_routes = fkernel.flash_attention_bhsd.launches, _route_launches()
     nxt = torch.argmax(logits_f[:, -1], dim=-1, keepdim=True).to(torch.int32)
     fkernel.reset_launches()
-    _, cache = bundle.serve_step(params, cache, {"token": nxt})
+    cache = bundle.serve_step(params, cache, {"token": nxt})[1]
     per_step = fkernel.flash_attention_bhsd.launches
     check(per_prefill == MOE_LAYERS and per_prefill_routes == on_path and per_step == 0,
           f"flash launches per prefill {per_prefill} ({per_prefill_routes}), per decode step "
@@ -3288,11 +3243,12 @@ def phase_serve_moe(dev: torch.device) -> dict:
     # bf16 rounding difference in the router's input into another expert);
     # and, unpinned, the plain prefill as it routes itself
     with _PinnedRouting() as pin:
-        logits_f, _ = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))
+        logits_f = bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + 1))[0]
         pin.replay()
-        logits_x, _ = plain_bundle.prefill(params, {"tokens": prompts},
-                                           plain_bundle.init_cache(B, S + 1))
-    logits_u, _ = plain_bundle.prefill(params, {"tokens": prompts}, plain_bundle.init_cache(B, S + 1))
+        logits_x = plain_bundle.prefill(params, {"tokens": prompts},
+                                        plain_bundle.init_cache(B, S + 1))[0]
+    logits_u = plain_bundle.prefill(params, {"tokens": prompts},
+                                    plain_bundle.init_cache(B, S + 1))[0]
     fx_rel = _rel_l2(logits_f, logits_x)
     fx_err = float((logits_f - logits_x).abs().max())
     unpinned_rel = _rel_l2(logits_f, logits_u)
@@ -3317,13 +3273,14 @@ def phase_serve_moe(dev: torch.device) -> dict:
 
     # pinned: the prefill of L + 1 routes itself; the prefill of L and the
     # decode step route each token as it did (one routing block each)
+    # [0], [1]: a name for a returned cache would keep it to the phase's end
     with _PinnedRouting() as pin:
-        logits_s1, _ = tf.prefill(params, {"tokens": tf_prompts}, tf.init_cache(P, L + 1))
+        logits_s1 = tf.prefill(params, {"tokens": tf_prompts}, tf.init_cache(P, L + 1))[0]
         k = cfg.experts_per_token
         pin.replay(lambda idx: idx.view(P, L + 1, k)[:, :L].reshape(1, P * L, k))
-        _, cache = tf.prefill(params, {"tokens": tf_prompts[:, :-1]}, tf.init_cache(P, L + 1))
+        cache = tf.prefill(params, {"tokens": tf_prompts[:, :-1]}, tf.init_cache(P, L + 1))[1]
         pin.replay(lambda idx: idx.view(P, L + 1, k)[:, L:].reshape(1, P, k))
-        logits_d, _ = tf.serve_step(params, cache, {"token": tf_prompts[:, -1:]})
+        logits_d = tf.serve_step(params, cache, {"token": tf_prompts[:, -1:]})[0]
     check(pin.calls == 3 * MOE_LAYERS, f"{pin.calls} routing calls, not {3 * MOE_LAYERS}")
     tf_rel = _rel_l2(logits_d, logits_s1)
     tf_err = float((logits_d - logits_s1).abs().max())
@@ -3340,16 +3297,7 @@ def phase_serve_moe(dev: torch.device) -> dict:
     def prefill():
         return bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + T))
 
-    times = []
-    prefill()
-    for _ in range(3):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        prefill()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    prefill_ms = float(np.median(times))
+    prefill_ms = _median_ms(prefill)
     prof_prefill = _kernel_classes(prefill)
     with _RegionTimer() as regions_prefill:
         cache = prefill()[1]
@@ -3419,6 +3367,604 @@ def phase_serve_moe(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# phases 6h, 6x, 6s, 6g: the recurrent families, the encoder-decoder and
+# Gemma-7B, each served at its published widths
+# ---------------------------------------------------------------------- #
+def _attn_params(cfg) -> int:
+    bias = cfg.q_dim + 2 * cfg.kv_dim if cfg.qkv_bias else 0
+    return cfg.d_model * cfg.q_dim + 2 * cfg.d_model * cfg.kv_dim + cfg.q_dim * cfg.d_model + bias
+
+
+def _ssd_params(cfg) -> int:
+    """in_xz, in_bc (per head k and q), in_dt, float32 a_log and d_skip, out."""
+    d = cfg.d_model
+    d_i = d * cfg.ssm_expand
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    return d * 2 * d_i + d * 2 * H * N + d * H + 2 * H + d_i * d
+
+
+def _tree_param_count(cfg) -> int:
+    """The parameters of the JAX package's tree for ``cfg`` (its init's
+    leaves, worked out from the shapes, not ``param_count()``): embedding
+    (and unembedding, untied) at the padded vocabulary, the layers, the
+    final norm (and the encoder's)."""
+    d = cfg.d_model
+    emb = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
+    mlp = 3 * d * cfg.d_ff
+    if cfg.encoder_layers:
+        enc = 2 * d + _attn_params(cfg) + mlp
+        dec = 3 * d + 2 * _attn_params(cfg) + mlp
+        return emb + cfg.encoder_layers * enc + cfg.num_layers * dec + 2 * d
+    if cfg.family == "hybrid":
+        layer = 4 * d + _attn_params(cfg) + _ssd_params(cfg) + mlp
+        return emb + cfg.num_layers * layer + d
+    if cfg.family == "ssm":
+        n_s = cfg.num_layers // cfg.slstm_every
+        mlstm = d + _ssd_params(cfg)
+        slstm = d + 4 * d * d + d * d
+        return emb + (cfg.num_layers - n_s) * mlstm + n_s * slstm + d
+    return emb + cfg.num_layers * (2 * d + _attn_params(cfg) + mlp) + d
+
+
+def _has_attention(cfg) -> bool:
+    return bool(cfg.encoder_layers or set(blocks.layer_kinds(cfg)) & {"dense", "moe", "hymba"})
+
+
+def _serve_family(dev, label: str, cfg, seed: int, B: int, S: int, T: int,
+                  on_path: dict) -> dict:
+    """``serve.generate`` on ``cfg`` with the flash kernel: params from a
+    seeded generator (counted against the JAX-shaped tree), B prompts of S
+    tokens and T greedy tokens with the launches counted from 0
+    (``on_path`` per prefill, none per decode step), the per-call
+    launches, and the flash prefill's logits and, with attention, the
+    plain attention's (gated by the caller). An encoder-decoder gets
+    ``STUB_FRAMES * randn`` stub frames. Returns what the phase goes on
+    with (the bundles, params, prompts, batch, numbers)."""
+    bundle = build_model(cfg, dev)
+    attention = _has_attention(cfg)
+    plain = build_model(dataclasses.replace(cfg, attn_impl="xla"), dev) if attention else None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = bundle.init(gen)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    check(n_params == _tree_param_count(cfg), f"{label}: {n_params} parameters, not "
+                                               f"{_tree_param_count(cfg)} (the JAX-shaped tree)")
+    params_gb = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    batch = {"tokens": prompts}
+    frames = None
+    if cfg.encoder_layers:
+        frames = STUB_FRAMES * torch.randn(B, cfg.frontend_len, cfg.d_model, generator=gen,
+                                           device=dev)
+        batch["frames"] = frames
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path: one generate call, launches counted from 0
+    fkernel.reset_launches()
+    out = generate(bundle, params, prompts, T, frames=frames)
+    routes = _route_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    check(out.all_finite, f"{label}: non-finite logits while serving")
+    check(out.tokens.shape == (B, T), f"{label}: tokens {tuple(out.tokens.shape)}")
+    check(routes == on_path, f"{label}: flash launches {routes} in a prefill and {T - 1} decode "
+                             f"steps, not {on_path}")
+
+    # per call: on_path per prefill, none per decode step
+    fkernel.reset_launches()
+    logits_f, cache = bundle.prefill(params, dict(batch), bundle.init_cache(B, S + 1))
+    per_prefill = _route_launches()
+    nxt = torch.argmax(logits_f[:, -1], dim=-1, keepdim=True).to(torch.int32)
+    fkernel.reset_launches()
+    logits_d, cache = bundle.serve_step(params, cache, {"token": nxt})
+    per_step = _route_launches()
+    check(per_prefill == on_path and not any(per_step.values()),
+          f"{label}: flash launches per prefill {per_prefill}, per decode step {per_step}")
+    logits_x = plain.prefill(params, dict(batch), plain.init_cache(B, S + 1))[0] if attention else None
+    check(all(bool(torch.isfinite(x).all()) for x in (logits_f, logits_d, logits_x)
+              if x is not None), f"{label}: non-finite prefill or decode logits")
+    del cache, logits_d
+    return dict(bundle=bundle, plain=plain, params=params, prompts=prompts, batch=batch, nxt=nxt,
+                logits_f=logits_f, logits_x=logits_x, out=out, routes=routes,
+                per_prefill=per_prefill, per_step=per_step, peak_gb=peak_gb,
+                n_params=n_params, params_gb=params_gb)
+
+
+def _plain_gate(run: dict):
+    """The flash prefill's gate: the relative L2 of a prefill's logits from
+    the plain attention's prefill, within SERVE_REL_L2."""
+    ref = run["logits_x"]
+    return (lambda logits: _rel_l2(logits, ref)), SERVE_REL_L2, "rel L2 from the plain prefill"
+
+
+def _float32_gate(run: dict):
+    """Hymba's gate: a bf16 prefill's relative L2 from the same weights in
+    float32, as a multiple of the plain bf16 prefill's, within
+    FLASH_F32_RATIO (32 layers of bf16 rounding put both prefills about
+    5.7e-2 from the float32 model, above SERVE_REL_L2)."""
+    cfg32 = dataclasses.replace(run["bundle"].cfg, param_dtype="float32", attn_impl="xla")
+    b32 = build_model(cfg32, run["prompts"].device)
+    p32 = tree_map(lambda x: x.float(), run["params"])
+    B, S = run["prompts"].shape
+    # [0]: a name for the returned cache would keep it to the phase's end
+    l32 = b32.prefill(p32, dict(run["batch"]), b32.init_cache(B, S + 1))[0]
+    del b32, p32
+    plain = _rel_l2(run["logits_x"], l32)
+    check(plain > 0, "the plain prefill equals the float32 model's: no bf16 model to gate")
+    return ((lambda logits: _rel_l2(logits, l32) / plain), FLASH_F32_RATIO,
+            f"rel L2 from the float32 model over the plain bf16 prefill's ({plain:.4g})")
+
+
+def _flash_gate(label: str, cfg, run: dict, gate) -> str:
+    """The flash prefill within ``gate``'s limit, and each planted
+    attention fault (phase 6's: the plain attention with one KV tile
+    dropped, with q heads on the wrong kv heads, without the causal mask)
+    in the same prefill above it. With as many kv heads as query heads
+    there is no wrong kv head (h % Hkv is h // 1): that fault is left out."""
+    distance, limit, what = gate(run)
+    got = distance(run["logits_f"])
+    check(got <= limit, f"{label}: the flash prefill's {what} is {got} > {limit}")
+    faults = {name: f for name, f in PLANTED_FAULTS.items()
+              if name != "wrong_kv_head" or cfg.num_kv_heads < cfg.num_heads}
+    bundle, params, batch = run["bundle"], run["params"], run["batch"]
+    B, S = run["prompts"].shape
+    controls = {}
+    try:
+        for name, fault in faults.items():
+            blocks.flash_attention = fault
+            controls[name] = distance(bundle.prefill(params, dict(batch),
+                                                     bundle.init_cache(B, S + 1))[0])
+    finally:
+        blocks.flash_attention = flash_attention
+    check(min(controls.values()) > limit,
+          f"{label}: a planted attention fault reads within {limit}: {controls}")
+    return (f"flash prefill {what} {got:.4g} <= {limit}; controls (planted attention faults) "
+            f"{json.dumps({k: float(f'{v:.4g}') for k, v in controls.items()})}")
+
+
+def _tf_one(dev, run: dict) -> tuple:
+    """Teacher forcing: a decode step after a prefill of S tokens against a
+    prefill of S + 1 (the step's token appended), within SERVE_REL_L2.
+    Returns (rel L2, max abs, what was compared)."""
+    bundle, params, batch, nxt = run["bundle"], run["params"], run["batch"], run["nxt"]
+    B, S = run["prompts"].shape
+    _, cache = bundle.prefill(params, dict(batch), bundle.init_cache(B, S + 1))
+    logits_d, _ = bundle.serve_step(params, cache, {"token": nxt})
+    longer = dict(batch, tokens=torch.cat([batch["tokens"], nxt], dim=1))
+    logits_s1, _ = bundle.prefill(params, longer, bundle.init_cache(B, S + 1))
+    rel, err = _rel_l2(logits_d, logits_s1), float((logits_d - logits_s1).abs().max())
+    check(rel <= SERVE_REL_L2, f"teacher forcing: rel L2 {rel} > {SERVE_REL_L2}")
+    return rel, err, f"a decode step after a prefill of {S} against one of {S + 1}"
+
+
+def _teacher_forcing_steps(bundle, params, cfg, tokens: torch.Tensor, prefill_len: int,
+                           steps: int) -> tuple:
+    """A prefill of ``prefill_len`` tokens, then ``steps`` decode steps fed
+    the next ones, against the full forward at those positions: (rel L2
+    over every step's logits, max abs, the last step's rel L2, the cache
+    after the steps). The chunked recurrence takes whole chunks, so the
+    prefill ends on a chunk boundary and the full forward runs to the next
+    boundary past the steps; under a window the prefill is a multiple of
+    the window too (see ``phase_serve_hymba``)."""
+    chunk = cfg.ssd_chunk
+    L = prefill_len + -(-steps // chunk) * chunk
+    check(tokens.shape[1] >= L, f"teacher forcing over {L} tokens of prompts of {tokens.shape[1]}")
+    tokens = tokens[:, :L]
+    P = tokens.shape[0]
+    h, _, _ = transformer.forward_hidden(params, cfg, tokens=tokens)
+    full = transformer.logits_of(params, cfg, h[:, prefill_len:prefill_len + steps])
+    del h
+    _, cache = bundle.prefill(params, {"tokens": tokens[:, :prefill_len]},
+                              bundle.init_cache(P, prefill_len + steps))
+    got = []
+    for i in range(prefill_len, prefill_len + steps):
+        logits, cache = bundle.serve_step(params, cache, {"token": tokens[:, i:i + 1]})
+        got.append(logits)
+    got = torch.cat(got, dim=1)
+    check(bool(torch.isfinite(got).all()) and bool(torch.isfinite(full).all()),
+          "non-finite teacher-forcing logits")
+    return (_rel_l2(got, full), float((got - full).abs().max()),
+            _rel_l2(got[:, -1], full[:, -1]), cache)
+
+
+def _first_state(cache: dict) -> dict:
+    """The first layer's recurrent state in a stacked cache: the SSD state
+    (hymba, mlstm) or the sLSTM carry."""
+    group = cache["groups"][0]
+    if "ssd" in group:
+        return {"state": group["ssd"]["state"][0].clone()}
+    return {name: group[name][0].clone() for name in ("c", "n", "m")}
+
+
+_SSD_DECODE, _SLSTM_SCAN = blocks.ssd_decode_step, blocks.slstm_scan
+
+
+def _decode_state_bf16(kind: str):
+    """A planted decode fault: the recurrent state rounded to bf16 before
+    each decode step (the SSD state, the sLSTM's c and n), as a decode that
+    kept it in the model's dtype would."""
+    def ssd(state, *a):
+        return _SSD_DECODE(state.to(torch.bfloat16).float(), *a)
+
+    def slstm(i, f, z, o, initial=None):
+        if initial is not None and z.shape[1] == 1:
+            c, n, m = initial
+            initial = (c.bfloat16().float(), n.bfloat16().float(), m)
+        return _SLSTM_SCAN(i, f, z, o, initial=initial)
+    return {"ssd_decode_step": ssd, "slstm_scan": slstm}[kind]
+
+
+def _decode_state_dropped(kind: str):
+    """A planted decode fault: each decode step starts from a fresh state."""
+    def ssd(state, *a):
+        return _SSD_DECODE(torch.zeros_like(state), *a)
+
+    def slstm(i, f, z, o, initial=None):
+        return _SLSTM_SCAN(i, f, z, o, initial=None if z.shape[1] == 1 else initial)
+    return {"ssd_decode_step": ssd, "slstm_scan": slstm}[kind]
+
+
+DECODE_FAULTS = {"state_bf16": _decode_state_bf16, "state_dropped": _decode_state_dropped}
+
+
+def _decode_check(dev, cfg, prefill_len: int) -> str:
+    """The bf16 decode path of a recurrent model cut in depth (seeded
+    weights): DECODE_STEPS teacher-forced decode steps after a prefill of
+    ``prefill_len`` on TF_PROMPTS prompts. Their logits within SERVE_REL_L2
+    of the bf16 full forward's, and the first layer's float32 state after
+    them within DECODE_STATE_REL of a prefill's over the same tokens; with
+    each planted decode fault, the state (``state_bf16``) or the logits
+    (``state_dropped``) above their limit."""
+    bundle = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = bundle.init(gen)
+    L = prefill_len + DECODE_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (TF_PROMPTS, L), generator=gen, device=dev)
+    ref = _first_state(bundle.prefill(params, {"tokens": toks},
+                                      bundle.init_cache(TF_PROMPTS, L))[1])
+
+    def run():
+        rel, err, _, cache = _teacher_forcing_steps(bundle, params, cfg, toks, prefill_len,
+                                                    DECODE_STEPS)
+        got = _first_state(cache)
+        return rel, max(_rel_l2(got[k], ref[k]) for k in ref)
+
+    rel, state = run()
+    controls = {}
+    for name, fault in DECODE_FAULTS.items():
+        try:
+            for kind in ("ssd_decode_step", "slstm_scan"):
+                setattr(blocks, kind, fault(kind))
+            controls[name] = run()
+        finally:
+            blocks.ssd_decode_step, blocks.slstm_scan = _SSD_DECODE, _SLSTM_SCAN
+    kinds = "+".join(blocks.layer_kinds(cfg))
+    what = f"{cfg.num_layers} x [{kinds}] layers bf16"
+    check(rel <= SERVE_REL_L2 and state <= DECODE_STATE_REL,
+          f"bf16 decode ({what}): logits rel L2 {rel} (limit {SERVE_REL_L2}), first layer's "
+          f"state {state} (limit {DECODE_STATE_REL})")
+    check(controls["state_bf16"][1] > DECODE_STATE_REL
+          and controls["state_dropped"][0] > SERVE_REL_L2,
+          f"bf16 decode ({what}): a planted decode fault reads within its limit: {controls}")
+    del bundle, params
+    free_device()
+    return (f"bf16 decode ({what}, {DECODE_STEPS} steps after a prefill of {prefill_len}) "
+            f"logits rel_l2 {rel:.3g}, first layer's state rel_l2 {state:.3g}; controls "
+            f"state_bf16 state {controls['state_bf16'][1]:.3g}, state_dropped logits "
+            f"{controls['state_dropped'][0]:.3g}")
+
+
+def _recurrent_teacher(prefill_len: int, cuts: tuple, control: int = 0):
+    """Teacher forcing for the recurrent models: at full depth on the
+    weights in float32, TF_STEPS decode steps after a prefill of
+    ``prefill_len`` within TF_F32_REL (and after a prefill of ``control``,
+    if given, a control that must read above it); then the bf16 decode
+    path at each of ``cuts`` (the config cut in depth) through
+    ``_decode_check``."""
+    def teacher(dev, run: dict) -> tuple:
+        cfg32 = dataclasses.replace(run["bundle"].cfg, param_dtype="float32", attn_impl="xla")
+        b32 = build_model(cfg32, dev)
+        p32 = tree_map(lambda x: x.float(), run["params"])
+        prompts = run["prompts"][:TF_PROMPTS]
+        rel, err, last, _ = _teacher_forcing_steps(b32, p32, cfg32, prompts, prefill_len, TF_STEPS)
+        check(rel <= TF_F32_REL, f"teacher forcing (float32): rel L2 {rel} > {TF_F32_REL}")
+        text = (f"float32 weights, {TF_STEPS} decode steps after a prefill of {prefill_len}, "
+                f"{TF_PROMPTS} prompts; last step rel_l2 {last:.3g}")
+        if control:
+            ctl = _teacher_forcing_steps(b32, p32, cfg32, prompts, control, TF_STEPS)[0]
+            check(ctl > TF_F32_REL, f"the control (a prefill of {control}) reads rel L2 {ctl}, "
+                                    f"within {TF_F32_REL}")
+            text += f"; control, a prefill of {control}: rel_l2 {ctl:.3g}"
+        del b32, p32
+        free_device()
+        for cut in cuts:
+            text += "; " + _decode_check(dev, cut, prefill_len)
+        return rel, err, text
+    return teacher
+
+
+def _card_vs_cpu(dev, cfg, seed: int, L: int) -> dict:
+    """The same float32 model (``cfg``, drawn on the card and copied to the
+    host) on the card and on the CPU: a prefill of 1 x L tokens (and, for
+    an encoder-decoder, ``STUB_FRAMES * randn`` frames) and one decode
+    step. The relative L2 of the prefill's and the step's logits, and the
+    largest of the cache's float leaves'; and each side's seconds."""
+    card = build_model(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = card.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, L + 1), generator=gen, device=dev).to(torch.int32)
+    batch = {"tokens": toks[:, :L]}
+    if cfg.encoder_layers:
+        batch["frames"] = STUB_FRAMES * torch.randn(1, cfg.frontend_len, cfg.d_model,
+                                                    generator=gen, device=dev)
+    sides = {"card": (card, params, batch, toks[:, L:])}
+    cpu = build_model(cfg, "cpu")
+    sides["cpu"] = (cpu, tree_map(lambda x: x.cpu(), params),
+                    {k: v.cpu() for k, v in batch.items()}, toks[:, L:].cpu())
+    res = {}
+    for name, (bundle, p, b, nxt) in sides.items():
+        t0 = time.perf_counter()
+        lp, cache = bundle.prefill(p, dict(b), bundle.init_cache(1, L + 1))
+        ls, cache = bundle.serve_step(p, cache, {"token": nxt})
+        res[name] = (lp.cpu(), ls.cpu(),
+                     [x.cpu() for x in tree_leaves(cache) if x.is_floating_point()])
+        res[name + "_s"] = time.perf_counter() - t0
+    (cp, cs, cc), (hp, hs, hc) = res["card"], res["cpu"]
+    cache_rel = max(_rel_l2(a, b) for a, b in zip(cc, hc) if float(b.abs().max()) > 0)
+    return {"prefill_rel": _rel_l2(cp, hp), "step_rel": _rel_l2(cs, hs), "cache_rel": cache_rel,
+            "card_s": res["card_s"], "cpu_s": res["cpu_s"]}
+
+
+def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int) -> dict:
+    """The flash kernel its route picks at one attention shape and dtype:
+    max abs error and relative L2 against the plain version, times of the
+    kernel, the plain version and SDPA (for a window: an explicit boolean
+    mask, K/V repeated to H heads before the timed call, and the backend
+    SDPA's dispatcher picks for it), and the bound (the causal, windowed
+    pairs' two products, bf16 on the tensor cores, float32 on the CUDA
+    cores; q, k, v read and out written once)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, dtype)
+    plain = fref.reference_attention(q, k, v, causal=True, window=window)
+    fkernel.reset_launches()
+    got = flash_attention(q, k, v, causal=True, window=window)
+    route = {name: n for name, n in _route_launches().items() if n}
+    err, rel = float((got.float() - plain.float()).abs().max()), _rel_l2(got, plain)
+    check(err <= FLASH_ATOL[dtype] and rel <= FLASH_REL_L2[dtype],
+          f"flash at (B {B}, S {S}, H {H}/{Hkv}, D {D}, window {window}, {dtype}): max abs err "
+          f"{err}, rel L2 {rel}")
+    del plain, got
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        kt, vt = (x.repeat_interleave(H // Hkv, dim=1) for x in (kt, vt))
+        sdpa_kw = {"attn_mask": mask}
+        pairs = window * (window + 1) // 2 + (S - window) * window
+    else:
+        sdpa_kw = {"is_causal": True, "enable_gqa": Hkv != H}
+        pairs = S * (S + 1) // 2
+    try:
+        from torch.nn.attention import SDPBackend
+        backend = SDPBackend(torch._fused_sdp_choice(qt, kt, vt, **sdpa_kw)).name
+    except Exception as e:  # noqa: BLE001 - a private dispatcher call, reported
+        backend = f"unknown ({type(e).__name__})"
+    nbytes = q.element_size() * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    peak = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    timing = dict(
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window), reps=10),
+        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v, causal=True, window=window),
+                         reps=2),
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_kw), reps=10),
+        bound=bound(nbytes, 4 * D * B * H * pairs, peak), max_abs_err=err,
+        rel_l2=rel, route=route, sdpa_backend=backend,
+        shape=(f"B {B}, S {S}, H {H}/{Hkv}, D {D}, causal"
+               + (f", window {window}" if window else "")
+               + (", float32" if dtype == torch.float32 else "")))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return timing
+
+
+def _flash_text(f: dict) -> str:
+    return (f"flash at ({f['shape']}) on {list(f['route'])} ms {f['ms']:.3f} max_abs_err "
+            f"{f['max_abs_err']:.3g} rel_l2 {f['rel_l2']:.3g} plain_ms {f['plain_ms']:.3f} sdpa_ms "
+            f"{f['library_ms']:.3f} (backend {f['sdpa_backend']}) bound_ms {f['bound'][0]:.4f} "
+            f"({f['bound'][1]})")
+
+
+def _serve_text(label: str, run: dict, B: int, S: int, T: int) -> str:
+    out = run["out"]
+    return (f"{label} B {B} prompt {S} gen {T}; {run['n_params']} params "
+            f"({run['params_gb']:.2f} GB); flash launches {json.dumps(run['routes'])} (per "
+            f"prefill {json.dumps(run['per_prefill'])}, per decode step "
+            f"{sum(run['per_step'].values())}); decode_ms_per_step "
+            f"{out.decode_s / (T - 1) * 1e3:.3f} decode_tokens_per_s "
+            f"{B * (T - 1) / out.decode_s:.1f} generated_tokens_per_s "
+            f"{B * T / (out.prefill_s + out.decode_s):.1f} (in generate: prefill "
+            f"{out.prefill_s * 1e3:.3f} ms) peak_device_gb {run['peak_gb']:.2f}")
+
+
+def _published(cfg, **want) -> None:
+    got = {k: getattr(cfg, k) for k in want}
+    check(got == want, f"{cfg.arch_id} is not the published config: {got}")
+
+
+def _serve_phase(dev, label: str, cfg, S: int, on_path: dict, *, gate=_plain_gate,
+                 teacher=_tf_one, gate_cfg=None, pieces: dict, step_pieces: dict,
+                 flash_shapes: list = ()) -> dict:
+    """One serving phase: ``_serve_family``'s checks; with attention, the
+    flash prefill within ``gate``'s limit and the planted attention faults
+    above it (``_flash_gate``); ``teacher`` forcing (``_tf_one`` or
+    ``_recurrent_teacher``'s); the prefill's median ms, the plain
+    attention's prefill ms, a profile of a prefill and of a decode step
+    (busy share), the device ms of ``pieces`` inside a prefill and of
+    ``step_pieces`` inside a decode step, the memory held after (under 1
+    MB), then ``gate_cfg`` (float32, cut in depth) on the card against the
+    CPU, and the flash kernel at each of ``flash_shapes`` (B, S, H, Hkv, D,
+    window, dtype). Prints the phase's line and its seconds by stage;
+    returns its numbers and the main path's launches."""
+    B, T = SERVE_BATCH, SERVE_GEN
+    free_device()
+    before = program_bytes(dev)
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        stage_s[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    run = _serve_family(dev, label, cfg, 0, B, S, T, on_path)
+    stage("serve")
+    if run["logits_x"] is not None:
+        flash_text = _flash_gate(label, cfg, run, gate)
+    else:
+        flash_text = "flash vs plain n/a (no attention: one model under both)"
+    tf_rel, tf_err, tf_what = teacher(dev, run)
+    run.pop("logits_f"), run.pop("logits_x")
+    free_device()
+    stage("gates")
+    bundle, plain, params = run["bundle"], run["plain"], run["params"]
+
+    def prefill(which=bundle):
+        return which.prefill(params, dict(run["batch"]), which.init_cache(B, S + T))
+
+    with _RegionTimer(pieces) as in_prefill:  # also the timing's warm-up
+        cache = prefill()[1]
+    with _RegionTimer(step_pieces) as in_step:
+        bundle.serve_step(params, cache, {"token": run["nxt"]})
+    prefill_ms = _median_ms(prefill, warm=False)
+    # the plain bundle ran a prefill of this shape for the gate: warm
+    plain_text = (f" plain_prefill_ms {_median_ms(lambda: prefill(plain), runs=1, warm=False):.3f}"
+                  if plain is not None else "")
+    stage("times")
+    prof_prefill = _kernel_classes(prefill)
+    prof_step = _kernel_classes(lambda: bundle.serve_step(params, cache, {"token": run["nxt"]}))
+    text = _serve_text(label, run, B, S, T)
+    launches = run["routes"]
+    del cache, run, bundle, plain, params
+    free_device()
+    held_mb = check_held(dev, before, 1.0, f"the {label} phase", strict=True)
+    stage("profiles")
+    gate_text = ""
+    if gate_cfg is not None:
+        cvc = _card_vs_cpu(dev, gate_cfg, 3, CARD_CPU_LEN)
+        check(max(cvc["prefill_rel"], cvc["step_rel"], cvc["cache_rel"]) <= CARD_CPU_REL,
+              f"{label} card vs CPU ({gate_cfg.num_layers} layers, float32): {cvc}")
+        free_device()
+        stage("card_vs_cpu")
+        enc = f"{gate_cfg.encoder_layers} + " if gate_cfg.encoder_layers else ""
+        gate_text = (f"; card vs CPU ({enc}{gate_cfg.num_layers} layers, float32, 1 x "
+                     f"{CARD_CPU_LEN} tokens) rel_l2 prefill {cvc['prefill_rel']:.3g} step "
+                     f"{cvc['step_rel']:.3g} cache {cvc['cache_rel']:.3g} (card "
+                     f"{cvc['card_s']:.2f} s, cpu {cvc['cpu_s']:.2f} s)")
+    flashes = [_flash_at(dev, *shape, seed=4) for shape in flash_shapes]
+    stage("flash")
+    print(f"phase serve {label}: {text}; {flash_text}; teacher forcing ({tf_what}) rel_l2 "
+          f"{tf_rel:.3g} max_abs_err {tf_err:.3g}; prefill_ms {prefill_ms:.3f}{plain_text}; held "
+          f"after {held_mb:.1f} MB; prefill pieces device ms {json.dumps(_rounded(in_prefill.ms))} "
+          f"decode step pieces device ms {json.dumps(_rounded(in_step.ms))}; prefill profile "
+          f"{json.dumps(_rounded(prof_prefill))} decode step profile "
+          f"{json.dumps(_rounded(prof_step))}{gate_text}"
+          + "".join(f"; {_flash_text(f)}" for f in flashes) + f"; stage_s {json.dumps(stage_s)}",
+          flush=True)
+    print(f"phase serve {label}: ok", flush=True)
+    return {"launches": launches, "flash": flashes, "prefill_ms": prefill_ms}
+
+
+def phase_serve_hymba(dev: torch.device) -> dict:
+    """6h: Hymba-1.5B at its published widths and full depth, 8 prompts of
+    4096 tokens (past the window of 2048: the window masks and the decode
+    ring wraps), 64 greedy tokens; 32 tensor-core flash launches a
+    prefill. The flash prefill is gated against the float32 model
+    (``_float32_gate``). Teacher forcing decodes 32 steps after a prefill
+    of 2048 (one window), so the ring wraps there too, with a prefill of
+    2304 as its control; the bf16 decode runs at 2 layers. A prefill
+    longer than the window keeps its last W keys at slots 0..W-1 (the JAX
+    package's ``_attn_core_full``), where a decode step writes position p
+    at slot p mod W: the two agree when the prefill is a multiple of W, as
+    4096 and 2048 are; otherwise the first decode steps overwrite live
+    keys, in both packages alike (ROADMAP Queue 3)."""
+    cfg = dataclasses.replace(get_config("hymba_1_5b"), attn_impl="flash")
+    _published(cfg, num_layers=32, d_model=1600, num_heads=25, num_kv_heads=5, head_dim=64,
+               ssm_heads=25, ssm_state=16, ssm_expand=2, d_ff=5504, sliding_window=2048,
+               vocab_size=32001, param_dtype="bfloat16", ssd_chunk=256)
+    gate = dataclasses.replace(cfg, num_layers=CARD_CPU_LAYERS, param_dtype="float32",
+                               attn_impl="xla")
+    return _serve_phase(
+        dev, "Hymba-1.5B", cfg, HYMBA_PROMPT,
+        {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0},
+        gate=_float32_gate,
+        teacher=_recurrent_teacher(cfg.sliding_window, (dataclasses.replace(cfg, num_layers=2),),
+                                   control=HYMBA_TF_CONTROL),
+        gate_cfg=gate,
+        pieces={"ssd_chunked": (blocks, "ssd_chunked"), "flash": (blocks, "flash_attention")},
+        step_pieces={"ssd_decode_step": (blocks, "ssd_decode_step")},
+        flash_shapes=[(SERVE_BATCH, HYMBA_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.sliding_window, torch.bfloat16)])
+
+
+def phase_serve_xlstm(dev: torch.device) -> dict:
+    """6x: xLSTM-1.3B at its published widths and full depth (48 layers, 6
+    of them sLSTM), phase 6's traffic; no flash launch (no attention). The
+    bf16 decode runs at one period (8 layers) and on the sLSTM block alone
+    (one layer, so that its inputs are the same in the decode and the
+    prefill)."""
+    cfg = dataclasses.replace(get_config("xlstm_1_3b"), attn_impl="flash")
+    _published(cfg, num_layers=48, d_model=2048, ssm_heads=4, ssm_state=256, ssm_expand=2,
+               slstm_every=8, vocab_size=50304, param_dtype="bfloat16", ssd_chunk=256)
+    gate = dataclasses.replace(cfg, num_layers=cfg.slstm_every, param_dtype="float32",
+                               attn_impl="xla")
+    cuts = (dataclasses.replace(cfg, num_layers=cfg.slstm_every),
+            dataclasses.replace(cfg, num_layers=1, slstm_every=1))
+    return _serve_phase(
+        dev, "xLSTM-1.3B", cfg, SERVE_PROMPT,
+        {"flash_attention_forward_sm90": 0, "flash_attention_forward": 0},
+        teacher=_recurrent_teacher(SERVE_PROMPT - cfg.ssd_chunk, cuts), gate_cfg=gate,
+        pieces={"slstm_scan": (blocks, "slstm_scan"), "ssd_chunked": (blocks, "ssd_chunked")},
+        step_pieces={"slstm_scan": (blocks, "slstm_scan"),
+                     "ssd_decode_step": (blocks, "ssd_decode_step")})
+
+
+def phase_serve_seamless(dev: torch.device) -> dict:
+    """6s: SeamlessM4T-medium at its published widths (12 encoder and 12
+    decoder layers), 8 utterances of 1024 stub frames (float32, so the
+    encoder and the cross K/V run in float32, as in the JAX package),
+    256-token decoder prompts, 64 greedy tokens; one tensor-core flash
+    launch a decoder layer a prefill (the encoder and the cross-attention
+    are plain), held against the plain version at that shape."""
+    cfg = dataclasses.replace(get_config("seamless_m4t_medium"), attn_impl="flash")
+    _published(cfg, num_layers=12, encoder_layers=12, d_model=1024, num_heads=16,
+               num_kv_heads=16, head_dim=64, d_ff=4096, vocab_size=256206, frontend_len=1024,
+               param_dtype="bfloat16")
+    gate = dataclasses.replace(cfg, num_layers=CARD_CPU_LAYERS, encoder_layers=CARD_CPU_LAYERS,
+                               param_dtype="float32", attn_impl="xla")
+    return _serve_phase(
+        dev, "SeamlessM4T-medium", cfg, SEAMLESS_PROMPT,
+        {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0},
+        gate_cfg=gate,
+        pieces={"encode": (tencdec, "encode"), "flash": (blocks, "flash_attention")},
+        step_pieces={"cross_attend": (tencdec, "_cross_attend")},
+        flash_shapes=[(SERVE_BATCH, SEAMLESS_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, 0, torch.bfloat16)])
+
+
+def phase_serve_gemma(dev: torch.device) -> dict:
+    """6g: Gemma-7B at its published widths and full depth (head dim 256:
+    the flash.cu route), phase 6's traffic; 28 flash.cu launches a prefill."""
+    cfg = dataclasses.replace(get_config("gemma_7b"), attn_impl="flash")
+    _published(cfg, num_layers=28, d_model=3072, num_heads=16, num_kv_heads=16, head_dim=256,
+               d_ff=24576, vocab_size=256000, activation="geglu", tie_embeddings=True,
+               param_dtype="bfloat16")
+    return _serve_phase(
+        dev, "Gemma-7B", cfg, SERVE_PROMPT,
+        {"flash_attention_forward_sm90": 0, "flash_attention_forward": cfg.num_layers},
+        pieces={"flash": (blocks, "flash_attention")},
+        step_pieces={"attention": (blocks, "_attn_core_decode")},
+        flash_shapes=[(SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       0, torch.bfloat16)])
+
+
+# ---------------------------------------------------------------------- #
 # phase 8: the federated train step
 # ---------------------------------------------------------------------- #
 def _all_launches() -> dict:
@@ -3463,7 +4009,7 @@ def phase_train(dev: torch.device, smi: str) -> dict:
     clients: a warm-up round, timed rounds, a profiled round, then one batch
     repeated from a new init; (b)
     ``hierarchical_fl`` over pod 2 x data 2 with a bf16 cross-pod wire at 4
-    layers; (c) the gate: the first round at 2 layers in float32 on the card
+    layers; (c) the gate: the first round at 1 layer in float32 on the card
     against the same round on the CPU."""
     cfg = get_config("qwen2_5_3b")
     check(cfg.num_layers == 36 and cfg.param_dtype == "bfloat16" and cfg.attn_impl == "xla"
@@ -3552,7 +4098,7 @@ def phase_train(dev: torch.device, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the gate: 2 layers, full width, float32, card against CPU
+    # (c) the gate: 1 layer, full width, float32, card against CPU
     gcfg = dataclasses.replace(cfg, num_layers=GATE_LAYERS, param_dtype="float32")
     gmesh = make_virtual_mesh(TRAIN_CLIENTS)
     cbundle, csetup = build_train_step(gcfg, gmesh, fed, device=dev)
@@ -3603,18 +4149,23 @@ def phase_train(dev: torch.device, smi: str) -> dict:
 
 # ---------------------------------------------------------------------- #
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
-                 moe: dict, proc: dict, fault: dict, train: dict) -> str:
+                 moe: dict, proc: dict, fault: dict, train: dict, families: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
-    phase 5's job for the quant kernels, phase 6's serving and phase 6d's
-    MoE serving for flash,
+    phase 5's job for the quant kernels, phase 6's serving, phase 6d's
+    MoE serving and phases 6h, 6x, 6s and 6g's serving (``families``: 6x
+    runs no TPU kernel, 0 launches) for flash,
     phase 7's process job (the hub's launches plus every child's) and
     phase 7c's three faulted jobs (the same) for the agg and quant entries,
     and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
     plain attention)."""
+    # the flash rows' numbers: the tensor-core kernel at phase 6's serving
+    # shape; flash.cu on its path, 6g's (Gemma-7B, bf16, D 256)
+    serve = dict(serve, timings={"flash_attention_forward_sm90": serve["flash"][0],
+                                 "flash_attention_forward": families["6g"]["flash"][0]})
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -3634,7 +4185,8 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
         ("flash_attention_forward_sm90", "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu",
          "src/repro/kernels/flash_attention/kernel.py:76", True, sdpa, serve, "6"),
         ("flash_attention_forward", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
-         "src/repro/kernels/flash_attention/kernel.py:76", False, sdpa, serve, "6"),
+         "src/repro/kernels/flash_attention/kernel.py:76", True,
+         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)", serve, "6"),
     ]
     out = []
     for name, src, replaces, on_path, library, run, phase in rows:
@@ -3647,16 +4199,24 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             by_path["7c"] = fault["launches"].get(name, 0)
         else:
             by_path["6d"] = moe["launches"][name]
+            for phase, res in families.items():
+                by_path[phase] = res["launches"][name]
         by_path["8"] = train["launches"][name]
         launches = sum(by_path.values())
-        at_moe_shape = {}
+        extra = {}
         if name == "flash_attention_forward_sm90":
             f = moe["flash"]
-            at_moe_shape = {"at_moe_shape": {
+            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"], "at_moe_shape": {
                 "shape": "B 8, S 2048, H 64/4, D 128, causal", "ms": f["ms"],
                 "max_abs_err": f["max_abs_err"], "plain_ms": f["plain_ms"],
                 "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
-                "library_ms": f["library_ms"]}}
+                "library_ms": f["library_ms"]},
+                "at_hymba_shape": _shape_entry(families["6h"]["flash"][0]),
+                "at_seamless_shape": _shape_entry(families["6s"]["flash"][0])}
+        elif name == "flash_attention_forward":
+            # phase 6's float32 serving shape beside its path's numbers
+            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"],
+                     "at_f32_serving_shape": _shape_entry(serve["flash"][1])}
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path,
@@ -3667,9 +4227,15 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             **({"library_per_leaf_ms": t["library_per_leaf_ms"],
                 "library_per_leaf_call": "torch.add(acc, d, alpha=w, out=acc) per leaf"}
                if "library_per_leaf_ms" in t else {}),
-            **at_moe_shape,
+            **extra,
         })
     return json.dumps({"kernels": out})
+
+
+def _shape_entry(f: dict) -> dict:
+    return {"shape": f["shape"], "ms": f["ms"], "max_abs_err": f["max_abs_err"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
+            "library_ms": f["library_ms"], "sdpa_backend": f["sdpa_backend"]}
 
 
 def run_phase(phase_s: dict, name: str, fn, *args):
@@ -3727,14 +4293,19 @@ def main() -> int:
     fault = timed("7c", phase_fault_plane, dev, proc)
     # the earlier phases peak at about 46 GB: free them before serving
     free_device()
-    flash_errs = timed("6a", phase_flash_parity, dev)
-    serve = timed("6", phase_serve, dev, flash_errs)
+    timed("6a", phase_flash_parity, dev)
+    serve = timed("6", phase_serve, dev)
     free_device()
     moe = timed("6d", phase_serve_moe, dev)
     free_device()
+    families = {}
+    for name, fn in (("6h", phase_serve_hymba), ("6x", phase_serve_xlstm),
+                     ("6s", phase_serve_seamless), ("6g", phase_serve_gemma)):
+        families[name] = timed(name, fn, dev)
+        free_device()
     train = timed("8", phase_train, dev, smi)
     lines = timed("9", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
-                                            fault, train))
+                                            fault, train, families))
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
     print(lines, flush=True)

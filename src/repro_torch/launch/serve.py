@@ -46,10 +46,15 @@ def generate(
     gen: int,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    frames: Optional[torch.Tensor] = None,
 ) -> Generation:
     """Prefill ``prompts`` (B, S) and decode ``gen`` tokens per row: greedy
     at temperature 0, else sampled from ``softmax(logits / temperature)``
-    with ``generator`` (seeded 0 on the bundle's device when None)."""
+    with ``generator`` (seeded 0 on the bundle's device when None).
+
+    An encoder-decoder (``audio``) model encodes ``frames`` (B, F, d), the
+    stub frontend's embeddings; when None, zeros of (B, ``frontend_len``,
+    d), as the JAX package's serve loop passes."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     device = bundle.device
@@ -72,6 +77,10 @@ def generate(
                                             device=device)
         pos = torch.arange(S, dtype=torch.int32, device=device)
         batch["positions"] = pos[None, None].expand(3, B, S)
+    if cfg.family == "audio":
+        if frames is None:
+            frames = torch.zeros((B, cfg.frontend_len, cfg.d_model), device=device)
+        batch["frames"] = frames
     _sync(device)
     t0 = time.perf_counter()
     logits, cache = bundle.prefill(params, batch, cache)

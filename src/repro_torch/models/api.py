@@ -3,20 +3,21 @@ of ``repro.models.api``).
 
 Batch layouts per family:
 
-* text (dense): ``{"tokens": (B, S) int}``
+* text (dense, moe, ssm, hybrid): ``{"tokens": (B, S) int}``
 * vlm: ``{"tokens", "patch_embeds": (B, P, d), "positions": (3, B, S)}``;
   patch embeddings (stub vision frontend) overwrite the first P token
   slots, and M-RoPE positions carry the three t/h/w streams.
+* audio (encoder-decoder): ``{"tokens", "frames": (B, F, d)}``; stub
+  frontend frames feed the encoder, which runs in the frames' dtype (as in
+  the JAX package: float32 frames give a bfloat16 model a float32 encoder
+  and float32 cross K/V), the decoder computes the logits and the loss.
 
 Serve batches are ``{"token": (B, 1) int}`` against a model cache. The
 bundle holds its device: ``build_model`` puts it on the card unless the
 caller asks for the CPU, and raises where there is no card.
 
-Ported are the decoder-only families whose blocks are dense or
-mixture-of-experts (dense, vlm, moe), for serving and training (``loss_fn``, through ``transformer.lm_loss``; the
-plain attention only: the flash kernel has no backward). The
-encoder-decoder family raises ``NotImplementedError`` (ROADMAP Queue 1 item
-8); so do the other block kinds, when their parameters or caches are made.
+Every family of the JAX package is ported, for serving and training
+(``loss_fn``; the plain attention only: the flash kernel has no backward).
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.convert import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.layers import embed_apply
 
@@ -57,9 +58,18 @@ def _embed_with_patches(params, cfg, tokens, patch_embeds):
 def build_model(cfg: ModelConfig, device: Any = None) -> ModelBundle:
     """The bundle of ``cfg`` on ``device`` (the card when None)."""
     if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the encoder-decoder family is not ported yet (ROADMAP Queue 1 item 8)")
+        return _build_encdec(cfg, resolve_device(device))
     return _build_decoder_only(cfg, resolve_device(device))
+
+
+def _check_generator(gen: torch.Generator, device: torch.device) -> None:
+    if gen.device.type != device.type:
+        raise ValueError(f"the generator is on {gen.device}, the model on {device}")
+
+
+def _refuse_flash_training(cfg: ModelConfig) -> None:
+    if cfg.attn_impl == "flash":
+        raise ValueError("the flash kernel is forward only: train with attn_impl='xla'")
 
 
 # --------------------------------------------------------------------- #
@@ -70,16 +80,14 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     dtype = transformer.param_dtype(cfg)
 
     def init(gen: torch.Generator):
-        if gen.device.type != device.type:
-            raise ValueError(f"the generator is on {gen.device}, the model on {device}")
+        _check_generator(gen, device)
         return transformer.init_params(gen, cfg)
 
     def loss_fn(params, batch, rng):
         """Mean next-token cross-entropy of ``batch`` (a 0-d float32 tensor);
         ``rng`` is unused by these families."""
         del rng
-        if cfg.attn_impl == "flash":
-            raise ValueError("the flash kernel is forward only: train with attn_impl='xla'")
+        _refuse_flash_training(cfg)
         if is_vlm:
             embeds = _embed_with_patches(params, cfg, batch["tokens"], batch["patch_embeds"])
             return transformer.lm_loss(params, cfg, batch["tokens"], embeds=embeds,
@@ -120,6 +128,59 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> ModelBundle:
             specs["patch_embeds"] = spec((B, P, cfg.d_model), dtype)
             specs["positions"] = spec((3, B, S), torch.int32)
         return specs
+
+    return ModelBundle(
+        cfg=cfg,
+        device=device,
+        init=init,
+        loss_fn=loss_fn,
+        init_cache=init_cache,
+        serve_step=serve_step,
+        prefill=prefill,
+        input_specs=input_specs,
+    )
+
+
+# --------------------------------------------------------------------- #
+# encoder-decoder (audio)
+# --------------------------------------------------------------------- #
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+    dtype = transformer.param_dtype(cfg)
+
+    def init(gen: torch.Generator):
+        _check_generator(gen, device)
+        return encdec.init_params(gen, cfg)
+
+    def loss_fn(params, batch, rng):
+        del rng
+        _refuse_flash_training(cfg)
+        return encdec.lm_loss(params, cfg, batch["tokens"], batch["frames"])
+
+    def init_cache(batch_size, max_len):
+        return encdec.init_cache(cfg, batch_size, max_len, device)
+
+    def serve_step(params, cache, batch):
+        logits, new_cache, _ = encdec.decode_forward(
+            params, cfg, batch["token"], memory=None, cache=cache, mode="decode")
+        return logits, new_cache
+
+    def prefill(params, batch, cache):
+        memory = encdec.encode(params, cfg, batch["frames"])
+        h, new_cache, _ = encdec.decode_hidden(params, cfg, batch["tokens"], memory,
+                                               cache=cache, mode="full")
+        # only the last position's logits sample the first token
+        return transformer.logits_of(params, cfg, h[:, -1:]), new_cache
+
+    def input_specs(shape: ShapeConfig):
+        B, S = shape.global_batch, shape.seq_len
+        F = cfg.frontend_len or 1024
+
+        def spec(dims, dt):
+            return torch.empty(dims, dtype=dt, device="meta")
+
+        if shape.kind == "decode":
+            return {"token": spec((B, 1), torch.int32)}
+        return {"tokens": spec((B, S), torch.int32), "frames": spec((B, F, cfg.d_model), dtype)}
 
     return ModelBundle(
         cfg=cfg,

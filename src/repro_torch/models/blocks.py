@@ -16,10 +16,19 @@ cache. The cache is updated in place (the JAX package's serve step donates
 it, so XLA does the same): the returned tree has the JAX package's
 structure and values, and its tensors are the ones passed in.
 
-The ``dense`` and ``moe`` kinds are ported (``moe``: the dense block with
-its MLP replaced by ``models.moe``, whose router aux loss the block
-returns). ``hymba``, ``mlstm`` and ``slstm`` raise ``NotImplementedError``
-(ROADMAP Queue 1 item 8).
+Kinds:
+
+``dense``  pre-norm GQA attention + gated MLP
+``moe``    attention + the expert MLP of ``models.moe`` (its router's aux
+           loss is the block's aux loss)
+``hymba``  parallel attention heads + SSD (Mamba-2) heads, each path
+           normed and the two averaged, then the MLP
+``mlstm``  matrix-memory LSTM block: the SSD sub-block at expand 2
+``slstm``  scalar-memory LSTM block (``ssd.slstm_scan``)
+
+The recurrent kinds' caches hold float32 state (``ssd``: ``(B, H, N, P)``;
+``slstm``: ``c``, ``n``, ``m`` of ``(B, d)``), written in place like the
+attention caches.
 """
 from __future__ import annotations
 
@@ -34,23 +43,16 @@ from repro_torch.models.layers import (
     apply_mrope,
     apply_rope,
     dense_apply,
+    dense_init,
     mlp_apply,
     mlp_init,
     rmsnorm_apply,
     rmsnorm_init,
 )
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssd import slstm_scan, softplus, ssd_chunked, ssd_decode_step
 
 Tree = Dict[str, torch.Tensor]
-
-
-_PORTED = ("dense", "moe")
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: only 'dense' and 'moe' are "
-        "(ROADMAP Queue 1 item 8)")
 
 
 # ===================================================================== #
@@ -153,29 +155,138 @@ def _attn_core_decode(
 
 
 # ===================================================================== #
+# SSD (Mamba-2) sub-block: hymba's parallel SSM path and the mlstm block
+# ===================================================================== #
+def _ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    d_i = cfg.d_model * cfg.ssm_expand
+    H = cfg.ssm_heads or max(1, d_i // 64)
+    return d_i, H, cfg.ssm_state
+
+
+def ssd_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tree:
+    d = cfg.d_model
+    d_i, H, N = _ssd_dims(cfg)
+    dev = gen.device
+    return {
+        "in_xz": dense_init(gen, d, 2 * d_i, dtype),  # value path + gate z
+        "in_bc": dense_init(gen, d, 2 * H * N, dtype),  # k (B) and q (C), per head
+        "in_dt": dense_init(gen, d, H, dtype),
+        "a_log": torch.zeros((H,), dtype=torch.float32, device=dev),
+        "d_skip": torch.ones((H,), dtype=torch.float32, device=dev),
+        "out": dense_init(gen, d_i, d, dtype),
+    }
+
+
+def ssd_state_init(cfg: ModelConfig, batch: int, device: torch.device) -> Tree:
+    d_i, H, N = _ssd_dims(cfg)
+    return {"state": torch.zeros((batch, H, N, d_i // H), dtype=torch.float32, device=device)}
+
+
+def _ssd_project(p: Tree, h: torch.Tensor, cfg: ModelConfig):
+    B, S, _ = h.shape
+    d_i, H, N = _ssd_dims(cfg)
+    xv, z = torch.chunk(dense_apply(p["in_xz"], h), 2, dim=-1)  # (B, S, d_i) each
+    # (B, S, H, 2N) before the split: k and q interleave per head
+    kk, qq = torch.chunk(dense_apply(p["in_bc"], h).reshape(B, S, H, 2 * N), 2, dim=-1)
+    dt = softplus(dense_apply(p["in_dt"], h).to(torch.float32))  # (B, S, H) > 0
+    a = -torch.exp(p["a_log"])  # (H,) < 0
+    log_decay = a * dt  # (B, S, H) < 0
+    v = xv.reshape(B, S, H, d_i // H)
+    return qq, kk, v, log_decay, dt, z, xv
+
+
+def _ssd_output(p: Tree, y: torch.Tensor, xv: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The skip term and the gate on y (..., H, P), in y's dtype."""
+    H, P = y.shape[-2:]
+    y = y + xv.reshape(y.shape) * p["d_skip"][:, None].to(y.dtype)
+    y = y.reshape(*y.shape[:-2], H * P) * torch.nn.functional.silu(z.to(torch.float32)).to(y.dtype)
+    return dense_apply(p["out"], y)
+
+
+def ssd_apply_full(p: Tree, h: torch.Tensor, cache: Optional[Tree],
+                   cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[Tree]]:
+    qq, kk, v, log_decay, dt, z, xv = _ssd_project(p, h, cfg)
+    init = cache["state"] if cache is not None else None
+    y, final = ssd_chunked(qq, kk, v, log_decay, dt, chunk=cfg.ssd_chunk, initial_state=init)
+    out = _ssd_output(p, y, xv, z)
+    if cache is None:
+        return out, None
+    cache["state"].copy_(final)
+    return out, {"state": cache["state"]}
+
+
+def ssd_apply_decode(p: Tree, h: torch.Tensor, cache: Tree,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, Tree]:
+    qq, kk, v, log_decay, dt, z, xv = _ssd_project(p, h, cfg)
+    y, new_state = ssd_decode_step(
+        cache["state"], qq[:, 0], kk[:, 0], v[:, 0], log_decay[:, 0], dt[:, 0])
+    out = _ssd_output(p, y[:, None], xv, z)
+    cache["state"].copy_(new_state)
+    return out, {"state": cache["state"]}
+
+
+# ===================================================================== #
 # block kinds
 # ===================================================================== #
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype: torch.dtype) -> Tree:
-    if kind not in _PORTED:
-        raise _not_ported(kind)
     d = cfg.d_model
-    p = {
-        "ln1": rmsnorm_init(d, dtype, gen.device),
-        "attn": attn.attn_init(gen, cfg, dtype),
-        "ln2": rmsnorm_init(d, dtype, gen.device),
-    }
-    if kind == "moe":
-        p["moe"] = moe_init(gen, cfg, dtype)
-    else:
-        p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype)
-    return p
+    dev = gen.device
+    if kind in ("dense", "moe"):
+        p = {
+            "ln1": rmsnorm_init(d, dtype, dev),
+            "attn": attn.attn_init(gen, cfg, dtype),
+            "ln2": rmsnorm_init(d, dtype, dev),
+        }
+        if kind == "moe":
+            p["moe"] = moe_init(gen, cfg, dtype)
+        else:
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype)
+        return p
+    if kind == "hymba":
+        return {
+            "ln1": rmsnorm_init(d, dtype, dev),
+            "attn": attn.attn_init(gen, cfg, dtype),
+            "ssd": ssd_init(gen, cfg, dtype),
+            "ln_attn": rmsnorm_init(d, dtype, dev),
+            "ln_ssm": rmsnorm_init(d, dtype, dev),
+            "ln2": rmsnorm_init(d, dtype, dev),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
+        }
+    if kind == "mlstm":
+        return {"ln1": rmsnorm_init(d, dtype, dev), "ssd": ssd_init(gen, cfg, dtype)}
+    if kind == "slstm":
+        return {
+            "ln1": rmsnorm_init(d, dtype, dev),
+            "gates": dense_init(gen, d, 4 * d, dtype),
+            "out": dense_init(gen, d, d, dtype),
+        }
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def block_cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype: torch.dtype, device: torch.device) -> Tree:
-    if kind not in _PORTED:
-        raise _not_ported(kind)
-    return {"attn": attn_cache_init(cfg, batch, max_len, dtype, device)}
+    if kind in ("dense", "moe"):
+        return {"attn": attn_cache_init(cfg, batch, max_len, dtype, device)}
+    if kind == "hymba":
+        return {
+            "attn": attn_cache_init(cfg, batch, max_len, dtype, device),
+            "ssd": ssd_state_init(cfg, batch, device),
+        }
+    if kind == "mlstm":
+        return {"ssd": ssd_state_init(cfg, batch, device)}
+    if kind == "slstm":
+        shape = (batch, cfg.d_model)
+        return {"c": torch.zeros(shape, dtype=torch.float32, device=device),
+                "n": torch.zeros(shape, dtype=torch.float32, device=device),
+                "m": torch.full(shape, -1e30, dtype=torch.float32, device=device)}
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _attention(p: Tree, h: torch.Tensor, positions: torch.Tensor, cache: Optional[Tree],
+               decode: bool, cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[Tree]]:
+    if decode:
+        return _attn_core_decode(p, h, positions, cache, cfg)
+    return _attn_core_full(p, h, positions, cache, cfg)
 
 
 def block_apply(
@@ -187,26 +298,64 @@ def block_apply(
     cfg: ModelConfig,
     kind: str,
 ) -> Tuple[torch.Tensor, Optional[Tree], torch.Tensor]:
-    """Returns (y, new_cache, aux_loss); a dense block's aux loss is 0, a
-    moe block's its router's load-balancing loss."""
-    if kind not in _PORTED:
-        raise _not_ported(kind)
+    """Returns (y, new_cache, aux_loss); the aux loss is a moe block's
+    router load-balancing loss, 0 for the other kinds."""
+    decode = mode == "decode"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Optional[Tree] = dict(cache) if cache is not None else None
-    h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
-        a, ac = _attn_core_decode(p["attn"], h, positions, cache["attn"], cfg)
-    else:
-        a, ac = _attn_core_full(p["attn"], h, positions, cache["attn"] if cache else None, cfg)
-    if new_cache is not None:
-        new_cache["attn"] = ac
-    x = x + a
-    h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-    if kind == "moe":
-        m, aux = moe_apply(p["moe"], h, cfg)
-    else:
-        m = mlp_apply(p["mlp"], h, cfg.activation)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + m, new_cache, aux
+    sub = (lambda name: cache[name] if cache else None)
+
+    if kind in ("dense", "moe"):
+        h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        a, ac = _attention(p["attn"], h, positions, sub("attn"), decode, cfg)
+        if new_cache is not None:
+            new_cache["attn"] = ac
+        x = x + a
+        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        if kind == "moe":
+            m, aux = moe_apply(p["moe"], h, cfg)
+        else:
+            m = mlp_apply(p["mlp"], h, cfg.activation)
+        return x + m, new_cache, aux
+
+    if kind == "hymba":
+        h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        a, ac = _attention(p["attn"], h, positions, sub("attn"), decode, cfg)
+        if decode:
+            s, sc = ssd_apply_decode(p["ssd"], h, cache["ssd"], cfg)
+        else:
+            s, sc = ssd_apply_full(p["ssd"], h, sub("ssd"), cfg)
+        if new_cache is not None:
+            new_cache["attn"], new_cache["ssd"] = ac, sc
+        # per-path output norm, averaged fusion (in the model's dtype)
+        fused = 0.5 * (rmsnorm_apply(p["ln_attn"], a, cfg.norm_eps)
+                       + rmsnorm_apply(p["ln_ssm"], s, cfg.norm_eps))
+        x = x + fused
+        h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
+        return x + mlp_apply(p["mlp"], h, cfg.activation), new_cache, aux
+
+    if kind == "mlstm":
+        h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        if decode:
+            s, sc = ssd_apply_decode(p["ssd"], h, cache["ssd"], cfg)
+        else:
+            s, sc = ssd_apply_full(p["ssd"], h, sub("ssd"), cfg)
+        if new_cache is not None:
+            new_cache["ssd"] = sc
+        return x + s, new_cache, aux
+
+    if kind == "slstm":
+        h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        i_g, f_g, z_g, o_g = torch.chunk(dense_apply(p["gates"], h), 4, dim=-1)
+        init = (cache["c"], cache["n"], cache["m"]) if cache else None
+        hs, carry = slstm_scan(i_g, f_g, z_g, o_g, initial=init)
+        if cache is not None:
+            for name, value in zip(("c", "n", "m"), carry):
+                cache[name].copy_(value)
+            new_cache = {"c": cache["c"], "n": cache["n"], "m": cache["m"]}
+        return x + dense_apply(p["out"], hs), new_cache, aux
+
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:

@@ -26,7 +26,13 @@ Tree = Dict[str, torch.Tensor]
 
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out), accumulated in float32, in x's dtype."""
+    """x (..., d_in) @ w (d_in, d_out), accumulated in float32, in x's dtype.
+    Operands of two dtypes are promoted first, as JAX promotes them (float32
+    frames through a bfloat16 encoder: float32 products of the bfloat16
+    weights' values)."""
+    if x.dtype != w.dtype:
+        common = torch.promote_types(x.dtype, w.dtype)
+        return torch.matmul(x.to(common), w.to(common)).to(x.dtype)
     if x.dtype == torch.float32 or x.is_cuda:
         return torch.matmul(x, w)
     return torch.matmul(x.float(), w.float()).to(x.dtype)

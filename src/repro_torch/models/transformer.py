@@ -48,6 +48,21 @@ def _n_groups(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
+def stacked_draws(n: int, draw) -> Tree:
+    """``n`` trees from ``draw()``, drawn in order, stacked leaf by leaf (the
+    JAX package's ``tree_map(stack)``: dicts in sorted-key order). Each tree
+    is copied into the stack and dropped, so the init holds the stack and
+    one tree, not two copies of every layer."""
+    stack = None
+    for i in range(n):
+        one = draw()
+        if stack is None:
+            stack = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), stack, one)
+        del one
+    return stack
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Tree:
     """Parameters on ``gen``'s device, drawn from ``gen`` in order: the
     embedding, the layers (group by group), the unembedding."""
@@ -56,20 +71,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Tree:
     G = _n_groups(cfg)
     params: Dict[str, Tree] = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
     if cfg.scan_layers:
-        # stack per period position: each leaf leads with G. Each group is
-        # drawn, copied into the stack and dropped, so the init holds the
-        # stack and one group, not two copies of every layer.
-        stacked = None
-        for g in range(G):
-            trees = tuple(block_init(gen, cfg, kind, dtype) for kind in kinds)
-            if stacked is None:
-                stacked = tuple(tree_map(lambda x: x.new_empty((G,) + tuple(x.shape)), t)
-                                for t in trees)
-            for dst, src in zip(stacked, trees):
-                for a, b in zip(tree_flatten(dst)[0], tree_flatten(src)[0]):
-                    a[g].copy_(b)
-            del trees
-        params["groups"] = stacked
+        # stack per period position: each leaf leads with G
+        params["groups"] = stacked_draws(
+            G, lambda: tuple(block_init(gen, cfg, kind, dtype) for kind in kinds))
     else:
         params["layers"] = tuple(
             block_init(gen, cfg, kinds[i % len(kinds)], dtype) for i in range(cfg.num_layers))

@@ -775,3 +775,67 @@ def test_float32_logits_of_bf16_have_a_gradient(cuda_device):
         assert bool(((a - b).abs() <= 2.0**-7 * b.abs() + 2.0**-16 * b.abs().max()).all())
         off = float((a != b.bfloat16().float()).float().mean())
         assert off <= 0.01, off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "xlstm_1_3b", "seamless_m4t_medium", "gemma_7b"])
+def test_family_prefill_and_step_on_card_equal_cpu(cuda_device, arch):
+    """Each family's reduced config (float32) on the card against the CPU
+    from the same weights: the prefill's and a decode step's logits within
+    2e-4 (float32 products in other orders), the flash route on the card
+    (flash.cu at float32 D 32) against the plain attention on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.api import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, reduced=True), attn_impl="flash")
+    card, cpu = build_model(cfg, cuda_device), build_model(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :32]}
+    if cfg.encoder_layers:
+        batch["frames"] = 0.1 * torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                            generator=torch.Generator().manual_seed(2))
+    out = {}
+    for name, bundle, dev in (("cpu", cpu, "cpu"), ("card", card, cuda_device)):
+        p = tree_map(lambda x: x.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        fkernel.reset_launches()
+        logits, cache = bundle.prefill(p, b, bundle.init_cache(2, 40))
+        step, _ = bundle.serve_step(p, cache, {"token": toks[:, 32:].to(dev)})
+        out[name] = (logits.cpu(), step.cpu(), fkernel.flash_attention_bhsd.launches)
+    for a, b in zip(out["card"][:2], out["cpu"][:2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-4, rtol=0)
+    attention_layers = 0 if arch == "xlstm_1_3b" else cfg.num_layers
+    assert out["card"][2] == attention_layers and out["cpu"][2] == 0
+
+
+@pytest.mark.gpu
+def test_ssd_recurrences_on_card_equal_cpu(cuda_device):
+    """ssd_chunked, ssd_decode_step and slstm_scan on the card against the
+    CPU, float32, within 1e-5 (the CPU twins' bound against the JAX
+    package)."""
+    from repro_torch.models import ssd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(0)
+    q, k = torch.randn(2, 64, 3, 8, generator=g), 0.3 * torch.randn(2, 64, 3, 8, generator=g)
+    v = torch.randn(2, 64, 3, 16, generator=g)
+    ld = -torch.nn.functional.softplus(torch.randn(2, 64, 3, generator=g))
+    gate = torch.sigmoid(torch.randn(2, 64, 3, generator=g))
+    s0 = torch.randn(2, 3, 8, 16, generator=g)
+    gates = [3 * torch.randn(2, 24, 16, generator=g) for _ in range(4)]
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        to = [x.to(dev) for x in (q, k, v, ld, gate, s0)]
+        y, final = ssd.ssd_chunked(*to[:5], chunk=16, initial_state=to[5])
+        y1, s1 = ssd.ssd_decode_step(to[5], to[0][:, 0], to[1][:, 0], to[2][:, 0], to[3][:, 0],
+                                     to[4][:, 0])
+        h, carry = ssd.slstm_scan(*[x.to(dev) for x in gates])
+        runs[str(dev)] = [t.cpu() for t in (y, final, y1, s1, h, *carry)]
+    for a, b in zip(runs[str(cuda_device)], runs["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0)

@@ -107,8 +107,12 @@ FAULT_PLANE_MODULES = ["core/channels.py", "core/runtime.py", "launch/spawn.py",
 # the MoE block's modules
 MOE_MODULES = ["models/shard_ctx.py", "models/moe.py", "models/blocks.py"]
 
+# the recurrent and encoder-decoder families' modules
+FAMILY_MODULES = ["models/ssd.py", "models/encdec.py", "launch/serve.py"]
 
-@pytest.mark.parametrize("module", TRAINING_MODULES + FAULT_PLANE_MODULES + MOE_MODULES)
+
+@pytest.mark.parametrize("module",
+                         TRAINING_MODULES + FAULT_PLANE_MODULES + MOE_MODULES + FAMILY_MODULES)
 def test_training_modules_are_held_to_the_import_rule(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES

@@ -3,7 +3,9 @@
 ``main`` runs the JAX CLI's loop with ``--device cpu``; ``generate`` on the
 JAX package's weights and prompts gives, at float32 and greedy, the token
 ids of the JAX package's own loop (``repro.launch.serve``: ``prefill``,
-argmax, ``serve_step``), under both attention implementations.
+argmax, ``serve_step``), under both attention implementations, for the
+dense config and for the recurrent and encoder-decoder families (the audio
+model on the loop's stub frames, zeros of (B, ``frontend_len``, d)).
 """
 import dataclasses
 
@@ -33,7 +35,10 @@ def _jax_greedy(bundle, params, prompts, gen):
     """The JAX package's serve loop (``repro.launch.serve.main``), greedy."""
     B, S = prompts.shape
     cache = bundle.init_cache(B, S + gen)
-    logits, cache = bundle.prefill(params, {"tokens": jnp.asarray(prompts)}, cache)
+    batch = {"tokens": jnp.asarray(prompts)}
+    if bundle.cfg.family == "audio":
+        batch["frames"] = jnp.zeros((B, bundle.cfg.frontend_len, bundle.cfg.d_model))
+    logits, cache = bundle.prefill(params, batch, cache)
     tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     out = [tok]
     for _ in range(gen - 1):
@@ -58,10 +63,42 @@ def test_greedy_tokens_equal_the_jax_loop(attn_impl):
     assert out.prefill_s >= 0 and out.decode_s >= 0
 
 
+@pytest.mark.parametrize("arch,prompt", [("hymba_1_5b", 32), ("xlstm_1_3b", 32),
+                                         ("seamless_m4t_medium", 24)])
+def test_recurrent_and_encdec_greedy_tokens_equal_the_jax_loop(arch, prompt):
+    """Prompts of two SSD chunks for the recurrent families; the audio
+    model on the loop's zero frames, and on given frames against the
+    JAX package's prefill of the same frames."""
+    jcfg = dataclasses.replace(jax_get_config(arch, reduced=True), attn_impl="flash")
+    tcfg = dataclasses.replace(get_config(arch, reduced=True), attn_impl="flash")
+    jb, tb = jax_build_model(jcfg), build_model(tcfg, "cpu")
+    jparams = jb.init(jax.random.key(1))
+    tparams = params_from_jax(_host(jparams), "cpu")
+    prompts = np.random.default_rng(1).integers(0, jcfg.vocab_size, size=(2, prompt))
+    prompts = prompts.astype(np.int32)
+    want = _jax_greedy(jb, jparams, prompts, gen=6)
+    out = serve.generate(tb, tparams, torch.from_numpy(prompts), 6)
+    np.testing.assert_array_equal(out.tokens.numpy(), want)
+    assert out.all_finite
+    if jcfg.family == "audio":
+        frames = (0.1 * np.random.default_rng(2).normal(
+            size=(2, jcfg.frontend_len, jcfg.d_model))).astype(np.float32)
+        jbatch = {"tokens": jnp.asarray(prompts), "frames": jnp.asarray(frames)}
+        logits, _ = jb.prefill(jparams, jbatch, jb.init_cache(2, prompt + 1))
+        got = serve.generate(tb, tparams, torch.from_numpy(prompts), 1,
+                             frames=torch.from_numpy(frames))
+        want = np.asarray(jnp.argmax(logits[:, -1:], -1))
+        np.testing.assert_array_equal(got.tokens.numpy(), want)
+
+
 @pytest.mark.parametrize("argv", [
     ["--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "12", "--gen", "4"],
     ["--arch", "qwen2_vl_2b", "--reduced", "--device", "cpu", "--attn-impl", "flash",
      "--batch", "2", "--prompt-len", "20", "--gen", "3", "--temperature", "0.8"],
+    ["--arch", "xlstm_1_3b", "--reduced", "--device", "cpu", "--batch", "2", "--prompt-len", "16",
+     "--gen", "3"],
+    ["--arch", "seamless_m4t_medium", "--reduced", "--device", "cpu", "--attn-impl", "flash",
+     "--batch", "2", "--prompt-len", "10", "--gen", "3"],
 ])
 def test_main_runs_on_the_cpu(argv, capsys):
     assert serve.main(argv) == 0

@@ -22,6 +22,17 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads for this file's torch work: the suite runs six
+    files at once on the CPU, and eight threads in each slowed the 4 s
+    decode-check case to 200 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _boom():
     raise chip_smoke.PhaseFailed("9.2 MB of device memory held after the MoE phase")
 
@@ -136,3 +147,123 @@ def test_no_result_without_a_card_or_a_checkout(tmp_path, alone):
                           text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+SERVING_PHASES = [("6h", "phase_serve_hymba"), ("6x", "phase_serve_xlstm"),
+                  ("6s", "phase_serve_seamless"), ("6g", "phase_serve_gemma")]
+
+
+@pytest.mark.parametrize("phase,fn", SERVING_PHASES, ids=[p for p, _ in SERVING_PHASES])
+def test_serving_phase_failure_names_its_id(monkeypatch, capsys, phase, fn):
+    """``main`` runs the four family serving phases after 6d, in order,
+    each under its own id: every phase before the failing one ran, none
+    after it, and the failure line names it."""
+    ran = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke, "free_device", lambda: None)
+    earlier = ["phase_environment", "phase_parity", "phase_small_jobs", "phase_small_topologies",
+               "phase_small_policies", "phase_full_width", "phase_full_width_topologies",
+               "phase_full_width_policies", "phase_codec_parity", "phase_codec_job",
+               "phase_process_plane", "phase_fault_plane", "phase_flash_parity", "phase_serve",
+               "phase_serve_moe"]
+    for name in earlier:
+        monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name: ran.append(_n) or {})
+    for _, name in SERVING_PHASES:
+        if name == fn:
+            monkeypatch.setattr(chip_smoke, name, lambda dev: _boom())
+        else:
+            monkeypatch.setattr(chip_smoke, name, lambda dev, _n=name: ran.append(_n) or {})
+    monkeypatch.setattr(chip_smoke, "phase_train", lambda *a: ran.append("phase_train"))
+    with pytest.raises(SystemExit) as exc:
+        chip_smoke.main()
+    assert exc.value.code == 1
+    order = [name for _, name in SERVING_PHASES]
+    assert ran == earlier + order[:order.index(fn)]
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith(f"phase {phase} FAILED: PhaseFailed: ")
+    assert list(json.loads(lines[1][len("phase_s "):]))[-1] == phase
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "xlstm_1_3b", "seamless_m4t_medium", "gemma_7b",
+                                  "qwen2_5_3b"])
+@pytest.mark.parametrize("scan_layers", [False, True])
+def test_tree_param_count_counts_the_jax_packages_tree(arch, scan_layers):
+    """The serving phases hold the port's parameter count against
+    ``_tree_param_count``, worked out from the shapes: it counts the JAX
+    package's init tree (reduced configs, both stackings)."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models.api import build_model as jax_build_model
+
+    cfg = dataclasses.replace(jax_get_config(arch, reduced=True), scan_layers=scan_layers)
+    shapes = jax.eval_shape(jax_build_model(cfg).init, jax.random.key(0))
+    want = sum(int(x.size) for x in jax.tree_util.tree_leaves(shapes))
+    assert chip_smoke._tree_param_count(cfg) == want
+
+
+def _reduced(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, reduced=True), scan_layers=True, **kw)
+
+
+DECODE_CUTS = {"hymba_2_layers": ("hymba_1_5b", {"num_layers": 2}),
+               "xlstm_period": ("xlstm_1_3b", {"num_layers": 8}),
+               "slstm_alone": ("xlstm_1_3b", {"num_layers": 1, "slstm_every": 1})}
+
+
+@pytest.mark.parametrize("cut", list(DECODE_CUTS))
+def test_decode_check_holds_and_sees_its_planted_faults(cut):
+    """The serving phases' bf16 decode check on the reduced models, on the
+    CPU: the decode's logits and first-layer state hold their limits, and
+    each planted decode fault (the state rounded to bf16, a fresh state
+    each step) reads above its own; a failing gate raises."""
+    arch, kw = DECODE_CUTS[cut]
+    cfg = _reduced(arch, param_dtype="bfloat16", attn_impl="flash", **kw)
+    text = chip_smoke._decode_check(torch.device("cpu"), cfg, 2 * cfg.ssd_chunk)
+    assert f"{chip_smoke.DECODE_STEPS} steps after a prefill of {2 * cfg.ssd_chunk}" in text
+    # the patched recurrences are put back
+    from repro_torch.models import blocks, ssd
+
+    assert blocks.ssd_decode_step is ssd.ssd_decode_step and blocks.slstm_scan is ssd.slstm_scan
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "gemma_7b", "seamless_m4t_medium"])
+def test_flash_gate_sees_the_planted_attention_faults(arch):
+    """``_flash_gate`` on a reduced float32 model, on the CPU: the flash
+    prefill within the plain gate and every planted attention fault above
+    it; with as many kv heads as query heads the wrong-kv-head fault is no
+    fault and is left out."""
+    from repro_torch.models import blocks
+    from repro_torch.models.api import build_model
+
+    cfg = _reduced(arch, attn_impl="flash")
+    bundle = build_model(cfg, "cpu")
+    plain = build_model(cfg.__class__(**{**cfg.__dict__, "attn_impl": "xla"}), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = bundle.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    batch = {"tokens": prompts}
+    if cfg.encoder_layers:
+        batch["frames"] = chip_smoke.STUB_FRAMES * torch.randn(
+            2, cfg.frontend_len, cfg.d_model, generator=gen)
+    run = {"bundle": bundle, "params": params, "prompts": prompts, "batch": batch,
+           "logits_f": bundle.prefill(params, dict(batch), bundle.init_cache(2, 33))[0],
+           "logits_x": plain.prefill(params, dict(batch), plain.init_cache(2, 33))[0]}
+    text = chip_smoke._flash_gate(arch, cfg, run, chip_smoke._plain_gate)
+    controls = json.loads(text.split("planted attention faults) ", 1)[1])
+    want = {"tile_dropped", "not_causal"}
+    if cfg.num_kv_heads < cfg.num_heads:
+        want.add("wrong_kv_head")
+    assert set(controls) == want
+    assert min(controls.values()) > chip_smoke.SERVE_REL_L2
+    assert blocks.flash_attention is chip_smoke.flash_attention
+    # a prefill far from the plain one fails the gate
+    run["logits_f"] = run["logits_f"] + run["logits_f"].abs().mean()
+    with pytest.raises(chip_smoke.PhaseFailed, match="flash prefill"):
+        chip_smoke._flash_gate(arch, cfg, run, chip_smoke._plain_gate)
