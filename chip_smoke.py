@@ -72,14 +72,16 @@ parts), each printing its lines:
    decodes them at once), every round's weights byte-equal (sha256) to the
    pooled run's, both runs' round times; (c) the quant kernels' times at
    full width;
-6. serve: (a) both flash kernels against their plain version on the same
-   CUDA tensors: every case through the wrapper, which picks the route by
-   dtype and head dim (bf16 at D 64 and 128: the tensor-core kernel of
-   ``flash_sm90.cu``; the rest: ``flash.cu``), with one launch on the
-   expected route, and each bf16 D 64 / 128 case also on ``flash.cu``
+6. serve: (a) the three flash kernels against their plain version on the
+   same CUDA tensors: every case through the wrapper, which picks the route
+   by dtype and head dim (bf16 at D 64 and 128: the tensor-core kernel of
+   ``flash_sm90.cu``; bf16 at D 256: the tensor-core kernel of
+   ``flash_sm90_d256.cu``; the rest: ``flash.cu``), with one launch on the
+   expected route, and each bf16 D 64 / 128 / 256 case also on ``flash.cu``
    directly, which takes it too (the five shapes of the JAX package's
    kernel test and its bf16 case, head dims 32 to 256, causal, not, sliding
-   windows, GQA 8:1 and 16:1, ragged S, the serving shape); (b)
+   windows, GQA 8:1 and 16:1, ragged S, Gemma's prefill, the serving
+   shape); (b)
    ``serve.generate`` on Qwen2.5-3B at full width and depth (36 layers,
    bf16, random weights from a seeded generator), 8 prompts of 2048 tokens
    and 64 greedy tokens, with the flash kernel, through the serving checks
@@ -128,9 +130,10 @@ parts), each printing its lines:
    prefill, the decoder's self-attention only), then 2 + 2 layers in
    float32 card against CPU and the tensor-core kernel at the decoder's
    attention shape (B 8, S 256, H 16/16, D 64); 6g Gemma-7B (28 layers,
-   head dim 256: 28 ``flash.cu`` launches a prefill, the route's first
-   path), then ``flash.cu`` at Gemma's attention shape against the plain
-   version, SDPA and its bound;
+   head dim 256: 28 launches of ``flash_sm90_d256.cu`` a prefill, none of
+   ``flash.cu``), then the D 256 tensor-core kernel at Gemma's attention
+   shape (B 8, S 2048, H 16/16, D 256, causal) against the plain version,
+   SDPA and its bound, and ``flash.cu`` called directly at the same shape;
 7. the process plane (run after phase 5, before phase 6): (a) phase 5's job
    (the same tree, seeds, 4 trainers, 2 rounds, ``int8_blocks``) through
    ``run_job_multiproc`` with ``reduce_plan`` 1: 5 worker processes and the
@@ -479,7 +482,8 @@ def bound(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
 # ---------------------------------------------------------------------- #
 # phase 1
 # ---------------------------------------------------------------------- #
-LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY, fkernel.SM90_LIBRARY)
+LIBRARIES = (kernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY, fkernel.SM90_LIBRARY,
+             fkernel.SM90_D256_LIBRARY)
 
 
 def phase_environment() -> str:
@@ -2914,12 +2918,12 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
 # phase 6
 # ---------------------------------------------------------------------- #
 # (B, S, H, Hkv, D, causal, window, dtype): the five shapes and the bf16
-# case of tests/test_kernels.py, the bf16 shapes the tensor-core kernel
-# takes (D 64 and 128: causal, not, a window whose rows' first visited
-# tiles are all masked, a non-causal window, GQA 8:1, ragged S), float32
-# at D 128 and bf16 at D 32 and 256 (flash.cu only), Hymba-1.5B's heads
-# and window and Gemma-7B's prefill (flash.cu's path), and the serving
-# prefill's shape last
+# case of tests/test_kernels.py, the bf16 shapes the tensor-core kernels
+# take (D 64 and 128: causal, not, a window whose rows' first visited
+# tiles are all masked, a non-causal window, GQA 8:1, ragged S; D 256:
+# causal GQA, not, such a window, ragged S with GQA 8:1), float32 at D 128
+# and bf16 at D 32 (flash.cu only), Hymba-1.5B's heads and window and
+# Gemma-7B's prefill, and the serving prefill's shape last
 FLASH_CASES = (
     (2, 128, 4, 2, 64, True, 0, torch.float32),
     (1, 256, 4, 4, 32, True, 0, torch.float32),
@@ -2935,6 +2939,9 @@ FLASH_CASES = (
     (2, 512, 8, 2, 128, True, 0, torch.float32),
     (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
     (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
+    (1, 192, 4, 4, 256, False, 0, torch.bfloat16),
+    (1, 400, 4, 1, 256, True, 100, torch.bfloat16),
+    (1, 300, 8, 1, 256, True, 0, torch.bfloat16),
     (1, 2049, 16, 2, 128, True, 0, torch.bfloat16),
     (1, 512, 64, 4, 128, True, 0, torch.bfloat16),  # Qwen3-MoE's heads: GQA 16:1
     (1, 4096, 25, 5, 64, True, 2048, torch.bfloat16),  # Hymba's: GQA 5:1, odd heads, window
@@ -2943,7 +2950,16 @@ FLASH_CASES = (
 )
 # the routes' counters and the C entries they launch
 ROUTE_ENTRIES = {"flash_forward": "flash_attention_forward",
-                 "flash_forward_sm90": "flash_attention_forward_sm90"}
+                 "flash_forward_sm90": "flash_attention_forward_sm90",
+                 "flash_forward_sm90_d256": "flash_attention_forward_sm90_d256"}
+ROUTE_TAGS = {"flash_forward": "simt", "flash_forward_sm90": "sm90",
+              "flash_forward_sm90_d256": "sm90_d256"}
+
+
+def on_entry(entry: str = "", n: int = 0) -> dict:
+    """The launches a path expects on each C entry: ``n`` on ``entry``, 0
+    on the others."""
+    return {e: n * (e == entry) for e in ROUTE_ENTRIES.values()}
 
 
 def _qkv(dev, gen, B, S, H, Hkv, D, dtype):
@@ -2993,10 +3009,10 @@ PLANTED_FAULTS = {"tile_dropped": _attention_without_tile, "wrong_kv_head": _att
 
 
 def phase_flash_parity(dev: torch.device) -> None:
-    """(a) both flash kernels against their plain version on the same
+    """(a) the flash kernels against their plain version on the same
     tensors, by max abs error and by relative L2: each case through the
     wrapper (one launch, on the route its dtype and head dim pick), and the
-    cases of the tensor-core route also on flash.cu directly; then the
+    cases of the tensor-core routes also on flash.cu directly; then the
     plain version with one KV tile dropped against it at the serving shape
     (a control that the relative limit must see)."""
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -3012,7 +3028,7 @@ def phase_flash_parity(dev: torch.device) -> None:
         check(counts == {name: int(name == route) for name in ROUTE_ENTRIES}
               and fkernel.flash_attention_bhsd.launches == 1,
               f"{case}: launches {counts}, expected one on {route}")
-        if route == "flash_forward_sm90":  # flash.cu takes these too
+        if route != "flash_forward":  # flash.cu takes these too
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             runs.append(("flash_forward", fkernel.flash_forward(
                 qt, kt, vt, causal=causal, window=window).transpose(1, 2)))
@@ -3025,7 +3041,7 @@ def phase_flash_parity(dev: torch.device) -> None:
             check(rel <= FLASH_REL_L2[dtype], f"{case} {name}: rel L2 {rel} > {FLASH_REL_L2[dtype]}")
             errs.append(err)
             rels.append(rel)
-            routes.append("sm90" if name == "flash_forward_sm90" else "simt")
+            routes.append(ROUTE_TAGS[name])
         del runs
     # the last case is the serving shape: a dropped tile must show
     control = _attention_without_tile(q, k, v)
@@ -3035,7 +3051,7 @@ def phase_flash_parity(dev: torch.device) -> None:
           f"one dropped KV tile reads rel L2 {control_rel}, within the limit {FLASH_REL_L2[dtype]}")
     del q, k, v, plain, control
     torch.cuda.synchronize()
-    print(f"phase serve parity: ok both flash kernels within atol 2e-5 / 3e-2 and rel L2 1e-5 / "
+    print(f"phase serve parity: ok the three flash kernels within atol 2e-5 / 3e-2 and rel L2 1e-5 / "
           f"5e-3 (f32 / bf16) of their plain version in {len(errs)} runs of {len(FLASH_CASES)} "
           f"cases, one launch on the route of each; route {routes} max_abs_err "
           f"{[f'{e:.3g}' for e in errs]} rel_l2 {[f'{r:.3g}' for r in rels]}; control (plain with "
@@ -3102,7 +3118,7 @@ def phase_serve(dev: torch.device) -> dict:
     shape = (SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0)
     return _serve_phase(
         dev, "Qwen2.5-3B", cfg, SERVE_PROMPT,
-        {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0},
+        on_entry("flash_attention_forward_sm90", cfg.num_layers),
         pieces={"flash": (blocks, "flash_attention")},
         step_pieces={"attention": (blocks, "_attn_core_decode")},
         flash_shapes=[shape + (torch.bfloat16,), shape + (torch.float32,)])
@@ -3221,7 +3237,7 @@ def phase_serve_moe(dev: torch.device) -> dict:
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     check(out.all_finite, "non-finite logits while serving the MoE model")
     check(out.tokens.shape == (B, T), f"tokens {tuple(out.tokens.shape)}")
-    on_path = {"flash_attention_forward_sm90": MOE_LAYERS, "flash_attention_forward": 0}
+    on_path = on_entry("flash_attention_forward_sm90", MOE_LAYERS)
     check(launches == MOE_LAYERS and routes == on_path,
           f"{launches} flash launches ({routes}) in a prefill and {T - 1} decode steps, "
           f"not {on_path}")
@@ -3713,14 +3729,17 @@ def _card_vs_cpu(dev, cfg, seed: int, L: int) -> dict:
             "card_s": res["card_s"], "cpu_s": res["cpu_s"]}
 
 
-def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int) -> dict:
+def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int,
+              direct: bool = False) -> dict:
     """The flash kernel its route picks at one attention shape and dtype:
     max abs error and relative L2 against the plain version, times of the
     kernel, the plain version and SDPA (for a window: an explicit boolean
     mask, K/V repeated to H heads before the timed call, and the backend
     SDPA's dispatcher picks for it), and the bound (the causal, windowed
     pairs' two products, bf16 on the tensor cores, float32 on the CUDA
-    cores; q, k, v read and out written once)."""
+    cores; q, k, v read and out written once). With ``direct``, flash.cu
+    called directly on the same tensors too (``timing["direct"]``: its
+    error against the same plain output and its time)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, dtype)
     plain = fref.reference_attention(q, k, v, causal=True, window=window)
@@ -3731,8 +3750,20 @@ def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int) 
     check(err <= FLASH_ATOL[dtype] and rel <= FLASH_REL_L2[dtype],
           f"flash at (B {B}, S {S}, H {H}/{Hkv}, D {D}, window {window}, {dtype}): max abs err "
           f"{err}, rel L2 {rel}")
-    del plain, got
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    simt = None
+    if direct:
+        def run_simt():
+            return fkernel.flash_forward(qt, kt, vt, causal=True, window=window)
+
+        out = run_simt().transpose(1, 2)
+        d_err, d_rel = float((out.float() - plain.float()).abs().max()), _rel_l2(out, plain)
+        check(d_err <= FLASH_ATOL[dtype] and d_rel <= FLASH_REL_L2[dtype],
+              f"flash.cu at (B {B}, S {S}, H {H}/{Hkv}, D {D}, {dtype}): max abs err {d_err}, "
+              f"rel L2 {d_rel}")
+        simt = {"ms": cuda_ms(run_simt, reps=3), "max_abs_err": d_err, "rel_l2": d_rel}
+        del out
+    del plain, got
     if window:
         pos = torch.arange(S, device=dev)
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
@@ -3756,7 +3787,7 @@ def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int) 
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, **sdpa_kw), reps=10),
         bound=bound(nbytes, 4 * D * B * H * pairs, peak), max_abs_err=err,
-        rel_l2=rel, route=route, sdpa_backend=backend,
+        rel_l2=rel, route=route, sdpa_backend=backend, direct=simt,
         shape=(f"B {B}, S {S}, H {H}/{Hkv}, D {D}, causal"
                + (f", window {window}" if window else "")
                + (", float32" if dtype == torch.float32 else "")))
@@ -3766,10 +3797,13 @@ def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int) 
 
 
 def _flash_text(f: dict) -> str:
+    d = f["direct"]
     return (f"flash at ({f['shape']}) on {list(f['route'])} ms {f['ms']:.3f} max_abs_err "
             f"{f['max_abs_err']:.3g} rel_l2 {f['rel_l2']:.3g} plain_ms {f['plain_ms']:.3f} sdpa_ms "
             f"{f['library_ms']:.3f} (backend {f['sdpa_backend']}) bound_ms {f['bound'][0]:.4f} "
-            f"({f['bound'][1]})")
+            f"({f['bound'][1]})"
+            + (f"; flash.cu directly ms {d['ms']:.3f} max_abs_err {d['max_abs_err']:.3g} rel_l2 "
+               f"{d['rel_l2']:.3g}" if d else ""))
 
 
 def _serve_text(label: str, run: dict, B: int, S: int, T: int) -> str:
@@ -3791,7 +3825,7 @@ def _published(cfg, **want) -> None:
 
 def _serve_phase(dev, label: str, cfg, S: int, on_path: dict, *, gate=_plain_gate,
                  teacher=_tf_one, gate_cfg=None, pieces: dict, step_pieces: dict,
-                 flash_shapes: list = ()) -> dict:
+                 flash_shapes: list = (), direct: bool = False) -> dict:
     """One serving phase: ``_serve_family``'s checks; with attention, the
     flash prefill within ``gate``'s limit and the planted attention faults
     above it (``_flash_gate``); ``teacher`` forcing (``_tf_one`` or
@@ -3801,7 +3835,7 @@ def _serve_phase(dev, label: str, cfg, S: int, on_path: dict, *, gate=_plain_gat
     ``step_pieces`` inside a decode step, the memory held after (under 1
     MB), then ``gate_cfg`` (float32, cut in depth) on the card against the
     CPU, and the flash kernel at each of ``flash_shapes`` (B, S, H, Hkv, D,
-    window, dtype). Prints the phase's line and its seconds by stage;
+    window, dtype), with ``direct``: and flash.cu there too. Prints the phase's line and its seconds by stage;
     returns its numbers and the main path's launches."""
     B, T = SERVE_BATCH, SERVE_GEN
     free_device()
@@ -3857,7 +3891,7 @@ def _serve_phase(dev, label: str, cfg, S: int, on_path: dict, *, gate=_plain_gat
                      f"{CARD_CPU_LEN} tokens) rel_l2 prefill {cvc['prefill_rel']:.3g} step "
                      f"{cvc['step_rel']:.3g} cache {cvc['cache_rel']:.3g} (card "
                      f"{cvc['card_s']:.2f} s, cpu {cvc['cpu_s']:.2f} s)")
-    flashes = [_flash_at(dev, *shape, seed=4) for shape in flash_shapes]
+    flashes = [_flash_at(dev, *shape, seed=4, direct=direct) for shape in flash_shapes]
     stage("flash")
     print(f"phase serve {label}: {text}; {flash_text}; teacher forcing ({tf_what}) rel_l2 "
           f"{tf_rel:.3g} max_abs_err {tf_err:.3g}; prefill_ms {prefill_ms:.3f}{plain_text}; held "
@@ -3892,7 +3926,7 @@ def phase_serve_hymba(dev: torch.device) -> dict:
                                attn_impl="xla")
     return _serve_phase(
         dev, "Hymba-1.5B", cfg, HYMBA_PROMPT,
-        {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0},
+        on_entry("flash_attention_forward_sm90", cfg.num_layers),
         gate=_float32_gate,
         teacher=_recurrent_teacher(cfg.sliding_window, (dataclasses.replace(cfg, num_layers=2),),
                                    control=HYMBA_TF_CONTROL),
@@ -3918,7 +3952,7 @@ def phase_serve_xlstm(dev: torch.device) -> dict:
             dataclasses.replace(cfg, num_layers=1, slstm_every=1))
     return _serve_phase(
         dev, "xLSTM-1.3B", cfg, SERVE_PROMPT,
-        {"flash_attention_forward_sm90": 0, "flash_attention_forward": 0},
+        on_entry(),
         teacher=_recurrent_teacher(SERVE_PROMPT - cfg.ssd_chunk, cuts), gate_cfg=gate,
         pieces={"slstm_scan": (blocks, "slstm_scan"), "ssd_chunked": (blocks, "ssd_chunked")},
         step_pieces={"slstm_scan": (blocks, "slstm_scan"),
@@ -3940,7 +3974,7 @@ def phase_serve_seamless(dev: torch.device) -> dict:
                                param_dtype="float32", attn_impl="xla")
     return _serve_phase(
         dev, "SeamlessM4T-medium", cfg, SEAMLESS_PROMPT,
-        {"flash_attention_forward_sm90": cfg.num_layers, "flash_attention_forward": 0},
+        on_entry("flash_attention_forward_sm90", cfg.num_layers),
         gate_cfg=gate,
         pieces={"encode": (tencdec, "encode"), "flash": (blocks, "flash_attention")},
         step_pieces={"cross_attend": (tencdec, "_cross_attend")},
@@ -3950,18 +3984,20 @@ def phase_serve_seamless(dev: torch.device) -> dict:
 
 def phase_serve_gemma(dev: torch.device) -> dict:
     """6g: Gemma-7B at its published widths and full depth (head dim 256:
-    the flash.cu route), phase 6's traffic; 28 flash.cu launches a prefill."""
+    the route of flash_sm90_d256.cu), phase 6's traffic; 28 launches of it
+    a prefill and none of flash.cu; then the D 256 kernel at Gemma's
+    attention shape, with flash.cu timed directly beside it."""
     cfg = dataclasses.replace(get_config("gemma_7b"), attn_impl="flash")
     _published(cfg, num_layers=28, d_model=3072, num_heads=16, num_kv_heads=16, head_dim=256,
                d_ff=24576, vocab_size=256000, activation="geglu", tie_embeddings=True,
                param_dtype="bfloat16")
     return _serve_phase(
         dev, "Gemma-7B", cfg, SERVE_PROMPT,
-        {"flash_attention_forward_sm90": 0, "flash_attention_forward": cfg.num_layers},
+        on_entry("flash_attention_forward_sm90_d256", cfg.num_layers),
         pieces={"flash": (blocks, "flash_attention")},
         step_pieces={"attention": (blocks, "_attn_core_decode")},
         flash_shapes=[(SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                       0, torch.bfloat16)])
+                       0, torch.bfloat16)], direct=True)
 
 
 # ---------------------------------------------------------------------- #
@@ -4162,10 +4198,14 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
     plain attention)."""
-    # the flash rows' numbers: the tensor-core kernel at phase 6's serving
-    # shape; flash.cu on its path, 6g's (Gemma-7B, bf16, D 256)
+    # the flash rows' numbers: the D 64/128 tensor-core kernel at phase 6's
+    # serving shape; the D 256 one on its path, 6g's (Gemma-7B, bf16);
+    # flash.cu, on no path, at phase 6's serving shape in float32 (and at
+    # Gemma's, called directly, below)
+    gemma = families["6g"]["flash"][0]
     serve = dict(serve, timings={"flash_attention_forward_sm90": serve["flash"][0],
-                                 "flash_attention_forward": families["6g"]["flash"][0]})
+                                 "flash_attention_forward_sm90_d256": gemma,
+                                 "flash_attention_forward": serve["flash"][1]})
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -4184,8 +4224,12 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
          "torch.mul(q, scale)", codec, "5"),
         ("flash_attention_forward_sm90", "src/repro_torch/kernels/flash_attention/csrc/flash_sm90.cu",
          "src/repro/kernels/flash_attention/kernel.py:76", True, sdpa, serve, "6"),
-        ("flash_attention_forward", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+        ("flash_attention_forward_sm90_d256",
+         "src/repro_torch/kernels/flash_attention/csrc/flash_sm90_d256.cu",
          "src/repro/kernels/flash_attention/kernel.py:76", True,
+         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)", serve, "6"),
+        ("flash_attention_forward", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
+         "src/repro/kernels/flash_attention/kernel.py:76", False,
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)", serve, "6"),
     ]
     out = []
@@ -4213,10 +4257,16 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
                 "library_ms": f["library_ms"]},
                 "at_hymba_shape": _shape_entry(families["6h"]["flash"][0]),
                 "at_seamless_shape": _shape_entry(families["6s"]["flash"][0])}
+        elif name == "flash_attention_forward_sm90_d256":
+            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"]}
         elif name == "flash_attention_forward":
-            # phase 6's float32 serving shape beside its path's numbers
-            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"],
-                     "at_f32_serving_shape": _shape_entry(serve["flash"][1])}
+            # on no path since the D 256 route; timed at phase 6's float32
+            # serving shape, and called directly at Gemma's beside the
+            # D 256 kernel (the same tensors, plain, SDPA and bound)
+            d = gemma["direct"]
+            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"], "at_gemma_shape": {
+                **_shape_entry(gemma), "ms": d["ms"], "max_abs_err": d["max_abs_err"],
+                "rel_l2": d["rel_l2"]}}
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path,

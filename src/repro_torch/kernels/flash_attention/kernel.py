@@ -1,32 +1,38 @@
-"""Wrappers of the two flash-attention kernels, and the table that picks one.
+"""Wrappers of the three flash-attention kernels, and the table that picks one.
 
 ``flash_attention_bhsd`` has the JAX kernel's (B, H, S, D) indexing, but
 takes any strides with a contiguous last dimension, so the model's
 (B, S, H, D) tensors come in as transposed views, without a copy. A tensor
 on the CPU goes to the plain version in ``ref.py``. A CUDA tensor goes to
-one of two kernels, chosen by dtype and head dim alone (never by the mask):
+one of three kernels, chosen by dtype and head dim alone (never by the mask):
 
 =========  ==========  ======================================================
 dtype      head dim    kernel (route)
 =========  ==========  ======================================================
 bfloat16   64, 128     ``csrc/flash_sm90.cu``: TMA loads and ``wgmma`` on the
                        tensor cores (``flash_forward_sm90``)
-bfloat16   32, 256     ``csrc/flash.cu``: float32 CUDA cores (``flash_forward``)
+bfloat16   256         ``csrc/flash_sm90_d256.cu``: TMA loads and ``wgmma``
+                       on the tensor cores, a register budget and KV tile of
+                       its own (``flash_forward_sm90_d256``)
+bfloat16   32          ``csrc/flash.cu``: float32 CUDA cores (``flash_forward``)
 float32    32 to 256   ``csrc/flash.cu`` (``flash_forward``)
 =========  ==========  ======================================================
 
 Each route checks device, dtypes, shapes, ``D`` and the grid limits and
-raises on what its kernel does not take. The tensor-core route also needs
+raises on what its kernel does not take. The tensor-core routes also need
 what TMA needs: q, k and v at 16-byte-aligned addresses with strides that
-are multiples of 16 bytes; it raises for a tensor that is not, and nothing
-sends such a tensor to the other kernel. A failed build or launch raises
-too: no route falls back to the other or to the plain version. The output
+are multiples of 16 bytes; they raise for a tensor that is not, and nothing
+sends such a tensor to another kernel. A failed build or launch raises
+too: no route falls back to another or to the plain version. The output
 is allocated here, (B, Sq, H, D) contiguous, and returned as its
 (B, H, Sq, D) view; the kernels allocate nothing and launch on the current
 stream. ``flash_attention_bhsd.launches`` counts every kernel launch, and
-``flash_forward.launches`` and ``flash_forward_sm90.launches`` count each
-route's (CPU calls count nowhere). The libraries are built at first use by
-``repro_torch.kernels.build``.
+each route's function (``flash_forward.launches``,
+``flash_forward_sm90.launches``, ``flash_forward_sm90_d256.launches``)
+counts its own (CPU calls count nowhere). ``flash_forward`` also takes
+bfloat16 at D 64 to 256 when called directly, as ``chip_smoke.py`` does to
+hold and time it beside the tensor-core kernels. The libraries are built at
+first use by ``repro_torch.kernels.build``.
 """
 from __future__ import annotations
 
@@ -41,11 +47,12 @@ from repro_torch.kernels.flash_attention import ref
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEAD_DIMS = (32, 64, 128, 256)
 SM90_HEAD_DIMS = (64, 128)
+SM90_D256 = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65_535  # gridDim.y (heads) and gridDim.z (batch) of flash.cu
 _MAX_INT = 2**31 - 1
 _TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
-_SM90_TILE = 128  # q rows per block of flash_sm90.cu
+_SM90_TILE = 128  # q rows per block of flash_sm90.cu and flash_sm90_d256.cu
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -57,17 +64,22 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_forward.restype = i32
 
 
-def _bind_sm90(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_forward_sm90.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-        ctypes.c_float, ptr,
-    ]
-    lib.flash_attention_forward_sm90.restype = i32
+def _bind_tma(entry: str):
+    """The binder of a tensor-core entry: both take the same arguments."""
+    def bind(lib: ctypes.CDLL) -> None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn = getattr(lib, entry)
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                       ctypes.c_float, ptr]
+        fn.restype = i32
+    return bind
 
 
 LIBRARY = CudaLibrary("flash", CSRC / "flash.cu", _bind)
-SM90_LIBRARY = CudaLibrary("flash_sm90", CSRC / "flash_sm90.cu", _bind_sm90)
+SM90_LIBRARY = CudaLibrary("flash_sm90", CSRC / "flash_sm90.cu",
+                           _bind_tma("flash_attention_forward_sm90"))
+SM90_D256_LIBRARY = CudaLibrary("flash_sm90_d256", CSRC / "flash_sm90_d256.cu",
+                                _bind_tma("flash_attention_forward_sm90_d256"))
 
 
 def reset_launches() -> None:
@@ -119,6 +131,8 @@ def route_of(dtype: torch.dtype, head_dim: int) -> str:
     that launches the kernel for CUDA tensors of this dtype and head dim."""
     if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
         return "flash_forward_sm90"
+    if dtype == torch.bfloat16 and head_dim == SM90_D256:
+        return "flash_forward_sm90_d256"
     return "flash_forward"
 
 
@@ -176,15 +190,15 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.transpose(1, 2)
 
 
-def flash_forward_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       causal: bool = True, window: int = 0) -> torch.Tensor:
-    """``csrc/flash_sm90.cu`` on CUDA tensors, (B, H, S, D) -> (B, H, Sq, D):
-    bfloat16 at head dims 64 and 128, q, k and v readable by TMA."""
+def _forward_tma(q, k, v, causal: bool, window: int, fn, head_dims: tuple,
+                 library: CudaLibrary, entry: str) -> torch.Tensor:
+    """What both tensor-core routes do around their launch: the checks,
+    TMA's strides, the output, the call and the count on ``fn``."""
     if not _check(q, k, v, window):
-        raise ValueError("flash_forward_sm90 launches a CUDA kernel: got CPU tensors")
+        raise ValueError(f"{fn.__name__} launches a CUDA kernel: got CPU tensors")
     B, H, Sq, D = q.shape
-    if q.dtype != torch.bfloat16 or D not in SM90_HEAD_DIMS:
-        raise ValueError(f"the tensor-core kernel takes bfloat16 at head dims {SM90_HEAD_DIMS}, "
+    if q.dtype != torch.bfloat16 or D not in head_dims:
+        raise ValueError(f"the tensor-core kernel takes bfloat16 at head dims {head_dims}, "
                          f"got {q.dtype} at {D}")
     if B * H * -(-Sq // _SM90_TILE) > _MAX_INT:
         raise ValueError(f"batch {B} x heads {H} x q tiles must fit in a 32-bit grid")
@@ -193,18 +207,35 @@ def flash_forward_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Sq == 0:
         return o.transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*qs, *ks, *vs, o.stride(0), o.stride(2), o.stride(1))
-    lib = SM90_LIBRARY.load()
+    lib = library.load()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_forward_sm90(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
             B, H, k.shape[1], Sq, k.shape[2], D, k.shape[2],
             int(causal), window, D**-0.5, stream_of(q.device),
         )
-    count_launch(flash_forward_sm90, err, "flash_attention_forward_sm90")
+    count_launch(fn, err, entry)
     return o.transpose(1, 2)
 
 
-ROUTES = {"flash_forward": flash_forward, "flash_forward_sm90": flash_forward_sm90}
+def flash_forward_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``csrc/flash_sm90.cu`` on CUDA tensors, (B, H, S, D) -> (B, H, Sq, D):
+    bfloat16 at head dims 64 and 128, q, k and v readable by TMA."""
+    return _forward_tma(q, k, v, causal, window, flash_forward_sm90, SM90_HEAD_DIMS,
+                        SM90_LIBRARY, "flash_attention_forward_sm90")
+
+
+def flash_forward_sm90_d256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``csrc/flash_sm90_d256.cu`` on CUDA tensors, (B, H, S, D) -> (B, H, Sq, D):
+    bfloat16 at head dim 256, q, k and v readable by TMA."""
+    return _forward_tma(q, k, v, causal, window, flash_forward_sm90_d256, (SM90_D256,),
+                        SM90_D256_LIBRARY, "flash_attention_forward_sm90_d256")
+
+
+ROUTES = {"flash_forward": flash_forward, "flash_forward_sm90": flash_forward_sm90,
+          "flash_forward_sm90_d256": flash_forward_sm90_d256}
 
 
 def flash_attention_bhsd(
@@ -228,7 +259,7 @@ def flash_attention_bhsd(
     return out
 
 
-KERNELS = (flash_attention_bhsd, flash_forward, flash_forward_sm90)
+KERNELS = (flash_attention_bhsd, flash_forward, flash_forward_sm90, flash_forward_sm90_d256)
 for _fn in KERNELS:
     _fn.launches = 0
 del _fn

@@ -888,9 +888,16 @@ def run_conformance(
 class SeededSGDTrainer(Trainer):
     """Deterministic softmax-regression trainer, seeded by the worker's
     dataset name: one gradient step per round, as the JAX package's numpy
-    trainer takes. Its products are plain ``torch.matmul`` on the job's
-    device, so against the JAX package it agrees within float32 rounding,
-    not bit for bit."""
+    trainer takes. Against the JAX package it agrees within float32
+    rounding, not bit for bit.
+
+    Its two products are float32 elementwise products summed by torch's
+    reductions over one dimension, whose order depends on the shapes alone,
+    not BLAS calls: a BLAS picks its summation order at run time (MKL
+    promises the same bits from run to run only in its reproducibility
+    mode), and ``x.T @ g`` sums terms that cancel, so another order moves
+    the weights by tens of ulps and a seeded job would not repeat its
+    bytes."""
 
     def load_data(self) -> None:
         d = synthetic_classification(self.ctx.worker.dataset or "d0")
@@ -903,13 +910,13 @@ class SeededSGDTrainer(Trainer):
             return
         w = self.weights["w"].to(torch.float32).clone()
         b = self.weights["b"].to(torch.float32).clone()
-        z = self.x @ w + b
+        z = (self.x.unsqueeze(2) * w).sum(dim=1) + b  # x @ w
         z = z - z.amax(dim=1, keepdim=True)
         e = torch.exp(z)
         p = e / e.sum(dim=1, keepdim=True)
         onehot = torch.eye(w.shape[1], dtype=torch.float32, device=w.device)[self.y]
         rows = torch.tensor(float(self.x.shape[0]), dtype=torch.float32, device=w.device)
         g = (p - onehot) / rows
-        w -= 0.2 * (self.x.T @ g)
+        w -= 0.2 * (self.x.unsqueeze(2) * g.unsqueeze(1)).sum(dim=0)  # x.T @ g
         b -= 0.2 * g.sum(dim=0)
         self.weights = {"w": w, "b": b}

@@ -9,9 +9,10 @@ bfloat16. The CUDA kernels' tiling cannot run here. The schedule of
 ``csrc/flash.cu`` (which KV tiles a q tile visits, and the online softmax
 over them) is replayed in numpy by ``_tiled_online_softmax`` and held to the
 same tolerance, so its tile-skipping argument is tested on the CPU too; the
-schedule and numerics of the tensor-core kernel ``csrc/flash_sm90.cu``
-(two 64-row warpgroups per 128-row q tile, exp2, P rounded to bf16) by
-``_sm90_replay``, held to the bf16 limits its output meets on the card
+schedule and numerics of the tensor-core kernels ``csrc/flash_sm90.cu`` and
+``csrc/flash_sm90_d256.cu`` (two 64-row warpgroups per 128-row q tile,
+128- or 64-key tiles, exp2, P rounded to bf16) by ``_sm90_replay`` at each
+kernel's tiles, held to the bf16 limits their output meets on the card
 (atol 3e-2, relative L2 5e-3). The wrapper's route table is tested here
 with the launches replaced by recorders. The kernels themselves are held
 against the plain version on the card by ``test_torch_gpu.py`` and
@@ -160,7 +161,9 @@ def test_kernel_schedule_matches_jax(B, S, H, Hkv, D, causal, window):
 # ------------------------------------------------------------------ #
 # the tensor-core kernel's schedule and numerics, replayed in numpy
 # ------------------------------------------------------------------ #
-SM90_BQ, SM90_BK, SM90_HALF = 128, 128, 64  # csrc/flash_sm90.cu: kBQ, kBK, a warpgroup's rows
+# (q tile, KV tile, a warpgroup's rows) per head dim: kBQ, kBK and 64 of
+# csrc/flash_sm90.cu (D 64, 128) and csrc/flash_sm90_d256.cu (D 256)
+SM90_TILES = {64: (128, 128, 64), 128: (128, 128, 64), 256: (128, 64, 64)}
 BF16_REL_L2 = 5e-3  # chip_smoke.py's FLASH_REL_L2 for bfloat16
 
 
@@ -168,10 +171,12 @@ def _bf16(x):
     return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().float().numpy()
 
 
-def _sm90_replay(q, k, v, *, causal, window):
+def _sm90_replay(q, k, v, *, causal, window, tiles=None):
     """(B, S, H, D) float32 holding bf16 values -> (B, S, H, D) float32
-    holding bf16 values: what csrc/flash_sm90.cu computes. 128-row q tiles
-    split into two 64-row warpgroups that visit the same 128-key tiles; the
+    holding bf16 values: what the tensor-core kernels compute at ``tiles``
+    = (q tile, KV tile, a warpgroup's rows), by default the kernel of q's
+    head dim (``SM90_TILES``). The q tiles split into 64-row warpgroups
+    that visit the same KV tiles; the
     mask applied only on a tile that crosses the diagonal, the window's edge
     or kv_len for some row of the warpgroup; scores in log2 units (the scale
     times log2 e, rounded to float32, as the host computes it) and exp2;
@@ -179,35 +184,36 @@ def _sm90_replay(q, k, v, *, causal, window):
     per lane of the quad (the columns 2 (l % 4) + {0, 1} of each 8), summed
     over the quad at the end as the two shuffles do."""
     B, Sq, H, D = q.shape
+    BQ, BK, HALF = SM90_TILES[D] if tiles is None else tiles
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     c = np.float32(float(np.float32(D**-0.5)) * np.log2(np.e))
     neg = np.float32(-1e30)
-    lane_of_col = (np.arange(SM90_BK) % 8) // 2
+    lane_of_col = (np.arange(BK) % 8) // 2
     out = np.zeros_like(q)
-    for q0 in range(0, Sq, SM90_BQ):
-        k_end = min(Skv, q0 + SM90_BQ) if causal else Skv
+    for q0 in range(0, Sq, BQ):
+        k_end = min(Skv, q0 + BQ) if causal else Skv
         k_begin = max(0, q0 - window + 1) if window > 0 else 0
-        k_begin -= k_begin % SM90_BK
-        for lo in (q0, q0 + SM90_HALF):
-            rows = np.arange(lo, min(lo + SM90_HALF, Sq))
+        k_begin -= k_begin % BK
+        for lo in range(q0, q0 + BQ, HALF):
+            rows = np.arange(lo, min(lo + HALF, Sq))
             if rows.size == 0:
                 continue
-            hi = lo + SM90_HALF - 1
+            hi = lo + HALF - 1
             for h in range(H):
                 qt = q[:, rows, h]
                 m = np.full((B, rows.size), neg, np.float32)
                 l4 = np.zeros((B, rows.size, 4), np.float32)
                 acc = np.zeros((B, rows.size, D), np.float32)
-                for k0 in range(k_begin, k_end, SM90_BK):
-                    keys = np.arange(k0, k0 + SM90_BK)
-                    kt = np.zeros((B, SM90_BK, D), np.float32)  # TMA fills past Skv with zeros
-                    vt = np.zeros((B, SM90_BK, D), np.float32)
+                for k0 in range(k_begin, k_end, BK):
+                    keys = np.arange(k0, k0 + BK)
+                    kt = np.zeros((B, BK, D), np.float32)  # TMA fills past Skv with zeros
+                    vt = np.zeros((B, BK, D), np.float32)
                     live = keys < Skv
                     kt[:, live] = k[:, keys[live], h // G]
                     vt[:, live] = v[:, keys[live], h // G]
                     s = np.einsum("brd,bkd->brk", qt, kt).astype(np.float32) * c
-                    if (k0 + SM90_BK > Skv or (causal and k0 + SM90_BK - 1 > lo)
+                    if (k0 + BK > Skv or (causal and k0 + BK - 1 > lo)
                             or (window > 0 and k0 <= hi - window)):
                         ok = keys[None, :] < Skv
                         if causal:
@@ -240,12 +246,18 @@ def _rel_l2(a, b):
     (2, 300, 4, 2, 64, True, 0),     # ragged S: the last q tile and KV tile run past it
     (1, 97, 2, 1, 64, False, 40),    # non-causal window, one ragged tile
     (1, 512, 8, 1, 128, True, 0),    # S 512, GQA 8:1
+    # csrc/flash_sm90_d256.cu's tiles: 128-row q tiles, 64-key tiles
+    (1, 256, 2, 2, 256, True, 0),    # D 256, causal
+    (1, 192, 2, 1, 256, False, 0),   # non-causal
+    (1, 320, 2, 1, 256, True, 100),  # window rows whose first visited tiles are all masked
+    (2, 200, 2, 2, 256, True, 0),    # ragged S: the last q tile and KV tile run past it
+    (1, 256, 8, 1, 256, True, 0),    # GQA 8:1
 ])
 def test_sm90_kernel_replay_matches_jax(B, S, H, Hkv, D, causal, window):
-    """The tensor-core kernel's schedule and numerics against the JAX
-    package's reference and its Pallas kernel (interpret mode) on the same
-    bf16 inputs: bf16 atol 3e-2 and relative L2 5e-3, the limits its
-    output is held to on the card."""
+    """The tensor-core kernels' schedule and numerics (at the tiles of the
+    kernel that takes D) against the JAX package's reference and its
+    Pallas kernel (interpret mode) on the same bf16 inputs: bf16 atol 3e-2
+    and relative L2 5e-3, the limits their output is held to on the card."""
     q, k, v = (_bf16(x) for x in _inputs(11 * S + D + window, B, S, H, Hkv, D))
     replay = _sm90_replay(q, k, v, causal=causal, window=window)
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
@@ -256,18 +268,28 @@ def test_sm90_kernel_replay_matches_jax(B, S, H, Hkv, D, causal, window):
         assert _rel_l2(replay, want) <= BF16_REL_L2
 
 
-@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
-def test_sm90_replay_with_other_key_lengths(Sq, Skv, causal):
-    """Queries and keys of different lengths (the wrapper passes kv_len =
-    Skv): the replay against the JAX package's reference, bf16 limits."""
+def _other_key_lengths(Sq, Skv, causal, D):
     rng = np.random.default_rng(Sq + Skv)
-    q = _bf16(rng.normal(size=(1, Sq, 4, 128)))
-    k, v = (_bf16(rng.normal(size=(1, Skv, 2, 128))) for _ in range(2))
+    q = _bf16(rng.normal(size=(1, Sq, 4, D)))
+    k, v = (_bf16(rng.normal(size=(1, Skv, 2, D))) for _ in range(2))
     replay = _sm90_replay(q, k, v, causal=causal, window=0)
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
     oracle = np.asarray(jax_reference(jq, jk, jv, causal=causal), np.float32)
     np.testing.assert_allclose(replay, oracle, atol=BF16_ATOL)
     assert _rel_l2(replay, oracle) <= BF16_REL_L2
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
+def test_sm90_replay_with_other_key_lengths(Sq, Skv, causal):
+    """Queries and keys of different lengths (the wrapper passes kv_len =
+    Skv): the replay against the JAX package's reference, bf16 limits."""
+    _other_key_lengths(Sq, Skv, causal, 128)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
+def test_sm90_d256_replay_with_other_key_lengths(Sq, Skv, causal):
+    """The same at D 256, at csrc/flash_sm90_d256.cu's tiles."""
+    _other_key_lengths(Sq, Skv, causal, 256)
 
 
 def test_sm90_replay_sees_a_dropped_tile():
@@ -288,7 +310,7 @@ def test_sm90_replay_sees_a_dropped_tile():
     (torch.bfloat16, 64, "flash_forward_sm90"),
     (torch.bfloat16, 128, "flash_forward_sm90"),
     (torch.bfloat16, 32, "flash_forward"),
-    (torch.bfloat16, 256, "flash_forward"),
+    (torch.bfloat16, 256, "flash_forward_sm90_d256"),
     (torch.float32, 64, "flash_forward"),
     (torch.float32, 128, "flash_forward"),
 ])
@@ -308,34 +330,39 @@ def test_route_table(monkeypatch, dtype, D, route):
 
 
 def test_tma_refuses_misaligned_bf16_and_does_not_reroute(monkeypatch):
-    """A bf16 D-128 tensor that TMA cannot read raises on the tensor-core
-    route; it is not sent to flash.cu."""
-    B, S, H, D = 1, 16, 2, 128
+    """A bf16 D-128 or D-256 tensor that TMA cannot read raises on its
+    tensor-core route; it is not sent to flash.cu."""
+    B, S, H = 1, 16, 2
     monkeypatch.setattr(kernel, "_check", lambda *a: True)
     monkeypatch.setattr(kernel, "flash_forward", lambda *a, **kw: pytest.fail("rerouted"))
     monkeypatch.setitem(kernel.ROUTES, "flash_forward", kernel.flash_forward)
-    flat = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)
-    shifted = flat[1:].view(B, S, H, D).transpose(1, 2)  # starts 2 bytes into a granule
-    padded = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16)[..., :D].transpose(1, 2)  # 264-byte rows
-    good = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
-    assert kernel.tma_strides(good) == (S * H * D, D, H * D)
-    with pytest.raises(ValueError, match="16-byte-aligned"):
-        kernel.flash_attention_bhsd(shifted, good, good)
-    with pytest.raises(ValueError, match="multiples of 16 bytes"):
-        kernel.flash_attention_bhsd(good, padded, good)
+    for D in (128, 256):
+        flat = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)
+        shifted = flat[1:].view(B, S, H, D).transpose(1, 2)  # starts 2 bytes into a granule
+        padded = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16)[..., :D].transpose(1, 2)
+        good = torch.zeros(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+        assert kernel.tma_strides(good) == (S * H * D, D, H * D)
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            kernel.flash_attention_bhsd(shifted, good, good)
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):  # rows of D + 4 elements
+            kernel.flash_attention_bhsd(good, padded, good)
     # a dimension of one element is never stepped: its stride is rounded up, not refused
     single = torch.zeros(S * D, dtype=torch.bfloat16).as_strided((1, 1, S, D), (3, 5, D, 1))
     assert kernel.tma_strides(single) == (8, 8, D)
 
 
 def test_routes_refuse_cpu_tensors_and_count_nothing():
-    q, k, v = (torch.from_numpy(x).bfloat16().transpose(1, 2) for x in _inputs(3, 1, 16, 2, 1, 64))
     kernel.reset_launches()
-    for fn in (kernel.flash_forward, kernel.flash_forward_sm90):
-        with pytest.raises(ValueError, match="launches a CUDA kernel"):
-            fn(q, k, v)
-    kernel.flash_attention_bhsd(q, k, v)
-    assert [fn.launches for fn in kernel.KERNELS] == [0, 0, 0]
+    for D in (64, 256):
+        q, k, v = (torch.from_numpy(x).bfloat16().transpose(1, 2)
+                   for x in _inputs(3, 1, 16, 2, 1, D))
+        for fn in (kernel.flash_forward, kernel.flash_forward_sm90, kernel.flash_forward_sm90_d256):
+            with pytest.raises(ValueError, match="launches a CUDA kernel"):
+                fn(q, k, v)
+        kernel.flash_attention_bhsd(q, k, v)
+    assert [fn.launches for fn in kernel.KERNELS] == [0, 0, 0, 0]
+
+
 def test_wrapper_on_cpu_is_the_plain_version_and_does_not_count():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 40, 4, 2, 32))
     kernel.reset_launches()

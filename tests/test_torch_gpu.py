@@ -8,8 +8,8 @@ the JAX package, so they run on a machine that has only torch:
 Each kernel is held against its plain version on the same CUDA tensors:
 bytes equal for the exact entries and the quant kernels, and for the fused
 weighted sum within 1e-6 of the summed magnitudes of its terms (it may
-contract into FMAs); both flash kernels within atol 2e-5 (float32) and 3e-2
-(bfloat16), the JAX package's tolerances, as it sums in another order.
+contract into FMAs); the flash kernels within atol 2e-5 (float32) and 3e-2
+(bfloat16), the JAX package's tolerances, as they sum in another order.
 """
 import numpy as np
 import pytest
@@ -314,9 +314,13 @@ def test_codec_job_on_card_equals_cpu(cuda_device):
     (1, 256, 4, 4, 128, False, 0, torch.bfloat16),  # bidirectional
     (1, 400, 4, 1, 128, True, 100, torch.bfloat16),  # window rows with wholly masked first tiles
     (1, 512, 8, 1, 128, True, 0, torch.bfloat16),   # GQA 8:1
-    # flash.cu only: bf16 at the head dims the tensor-core kernel does not take
+    # flash.cu only: bf16 at the head dim no tensor-core kernel takes
     (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
-    (1, 257, 4, 2, 256, True, 0, torch.bfloat16),
+    # the D 256 tensor-core kernel (Gemma's head dim); flash.cu takes them too
+    (1, 257, 4, 2, 256, True, 0, torch.bfloat16),   # ragged, GQA
+    (2, 384, 8, 8, 256, True, 0, torch.bfloat16),   # MHA, three q tiles
+    (1, 300, 8, 1, 256, False, 0, torch.bfloat16),  # bidirectional, GQA 8:1
+    (1, 400, 4, 2, 256, True, 100, torch.bfloat16),  # window rows with wholly masked first tiles
 ])
 def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal, window, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(S + D)
@@ -324,14 +328,14 @@ def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal
     k = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
     route = fkernel.route_of(dtype, D)
-    assert route == ("flash_forward_sm90" if dtype == torch.bfloat16 and D in (64, 128)
-                     else "flash_forward")
+    assert route == ("flash_forward" if dtype == torch.float32 or D == 32 else
+                     "flash_forward_sm90_d256" if D == 256 else "flash_forward_sm90")
     fkernel.reset_launches()
     outs = {route: flash_attention(q, k, v, causal=causal, window=window)}
     assert fkernel.flash_attention_bhsd.launches == 1
     assert {name: fn.launches for name, fn in fkernel.ROUTES.items()} == {
         name: int(name == route) for name in fkernel.ROUTES}
-    if route == "flash_forward_sm90":
+    if route != "flash_forward":  # flash.cu takes the tensor-core routes' inputs too
         outs["flash_forward"] = fkernel.flash_forward(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
@@ -351,7 +355,7 @@ def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal
 @pytest.mark.gpu
 @pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                                     (torch.float32, 128)])
+                                     (torch.bfloat16, 256), (torch.float32, 128)])
 def test_flash_kernels_with_other_key_lengths(cuda_device, Sq, Skv, causal, dtype, D):
     """Queries and keys of different lengths, on the route the wrapper
     picks and, for the tensor-core kernel's inputs, on flash.cu too."""
@@ -361,7 +365,7 @@ def test_flash_kernels_with_other_key_lengths(cuda_device, Sq, Skv, causal, dtyp
     v = torch.randn(1, Skv, 2, D, generator=gen, device=cuda_device).to(dtype)
     plain = fref.reference_attention(q, k, v, causal=causal)
     outs = [flash_attention(q, k, v, causal=causal)]
-    if fkernel.route_of(dtype, D) == "flash_forward_sm90":
+    if fkernel.route_of(dtype, D) != "flash_forward":
         outs.append(fkernel.flash_forward(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                           causal=causal).transpose(1, 2))
     atol, rel_l2 = (2e-5, 1e-5) if dtype == torch.float32 else (3e-2, 5e-3)
@@ -391,7 +395,15 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fkernel.flash_attention_bhsd(shifted, good, good)
     with pytest.raises(ValueError, match="tensor-core kernel takes bfloat16"):
         fkernel.flash_forward_sm90(good.float(), good.float(), good.float())
-    assert [fn.launches for fn in fkernel.KERNELS] == [0, 0, 0]
+    # and the same at D 256
+    good = torch.randn(1, 16, 2, 256, device=cuda_device).bfloat16().transpose(1, 2)
+    shifted = torch.randn(1 + 16 * 2 * 256, device=cuda_device).bfloat16()[1:].view(
+        1, 16, 2, 256).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fkernel.flash_attention_bhsd(good, shifted, good)
+    with pytest.raises(ValueError, match="tensor-core kernel takes bfloat16"):
+        fkernel.flash_forward_sm90_d256(good[..., :128], good[..., :128], good[..., :128])
+    assert [fn.launches for fn in fkernel.KERNELS] == [0, 0, 0, 0]
 
 
 @pytest.mark.gpu

@@ -418,6 +418,21 @@ def test_seeded_job_fused_switch_changes_no_bits(mode):
                                    rtol=SGD_RTOL, atol=SGD_ATOL)
 
 
+def test_seeded_job_repeats_its_bytes_at_any_thread_count():
+    """The port's seeded SGD job gives the same bytes at 1, 2 and 8 intra-op
+    threads: its trainer sums with torch's reductions, whose order depends
+    on the shapes, not with a BLAS that picks its order at run time."""
+    n = torch.get_num_threads()
+    runs = []
+    try:
+        for threads in (1, 2, 8):
+            torch.set_num_threads(threads)
+            runs.append(_bytes(_run(PORT, _sgd_job(PORT), trainer="sgd").global_weights()))
+    finally:
+        torch.set_num_threads(n)
+    assert runs[0] == runs[1] == runs[2]
+
+
 # ---------------------------------------------------------------------- #
 # test_hier_policy.py
 # ---------------------------------------------------------------------- #
