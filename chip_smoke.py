@@ -7,7 +7,7 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs nine phases (phase 6 in seven
+source, started together), then runs ten phases (phase 6 in seven
 parts), each printing its lines:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
@@ -45,8 +45,9 @@ parts), each printing its lines:
    and none of the streaming fold, the stacked folds of a round timed
    beside ``torch.mv``; and ``distributed_fl`` with 4 trainers, 2 rounds,
    on the tree cut to 1 layer (to make room for phases 7 and 8),
-   the consensus byte-equal across trainers and to a float64 numpy fold of
-   the same updates on the host, leaf by leaf; each job's peak memory;
+   the consensus byte-equal across trainers and, in the last round (to
+   make room for phase 9), to a float64 numpy fold of the same updates on
+   the host, leaf by leaf; each job's peak memory;
    4c. the runtime policies on the same tree: (a) a deadline job, 8
    trainers, 3 rounds, one straggler past the deadline excluded every
    round, every round byte-equal to the plain streaming fold of the
@@ -196,11 +197,37 @@ parts), each printing its lines:
    on the card against the same round on the CPU from the same parameters
    and batch: loss, ``delta_norm`` and every new parameter within the
    stated tolerances;
-9. a ``kernels`` JSON line: launches on each path (phase 4 for the
+9. tensor parallelism on the one card (run after phase 8): a ``model``
+   axis of 2 as two processes on ``cuda:0`` (``launch.tensor_parallel``,
+   gloo), each holding its blocks of every leaf by the JAX package's rules:
+   (a) an all-reduce of a float32 and a bf16 CUDA tensor byte-equal to
+   the local sum of the two ranks' tensors (gloo takes the CUDA tensors;
+   a refusal raises and fails the phase); (b) Qwen2.5-3B at its published widths, 4
+   layers, bf16, through ``build_serve_step`` at (data 1, model 2): phase
+   6's 8 prompts of 2048, then 8 teacher-forced decode steps, against the
+   one-process model on the same seeded draws on the card (relative L2 of
+   the prefill's and the steps' logits within 5e-2), the same at 2 layers
+   in float32 on prompts of 256 (within 1e-4), a planted fault (the last
+   rank keeps its own partial sum of ``wo``) above 5e-2, 0 leaves gathered
+   at use, each rank's parameter bytes at most 0.55 of the one-process
+   tree's, 4 launches of the tensor-core flash kernel a prefill per rank
+   at H 8/1 and none per decode step; (c) Qwen3-MoE-235B-A22B at its
+   published widths, 2 layers, the same traffic under the (data 1, model
+   2) profile, the same gates (H 32/2: 2 launches a prefill; float32 at 1
+   layer), the gated drive replaying the one-process run's expert picks
+   (phase 6d's reason) and the unpinned drive reported; (d) one fed-step
+   round of Qwen2.5-3B at full width, 2 layers, float32, on (data 2, model
+   2) against the one-process round on (data 2, model 1): loss,
+   ``delta_norm`` and every parameter within phase 8's card-vs-CPU
+   tolerances; each rank's peak memory, all-reduces (count, bytes) per
+   prefill and per decode step, and wall times (information only: both
+   ranks share the card); the tensor-core kernel at both ranks' attention
+   shapes against the plain version, SDPA and its bound;
+10. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
-   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's and 6g's serving
-   runs for the flash kernels, phase
+   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's and phase
+   9's (both ranks') serving runs for the flash kernels, phase
    7's process job and phase 7c's faulted jobs for the agg and quant
    entries, phase 8's rounds for
    every kernel), time, plain version's time, bound and a library call's
@@ -217,6 +244,7 @@ synchronize with cuBLAS's workspaces released, on both sides
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -269,8 +297,10 @@ from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.launch.spawn import run_job_multiproc  # noqa: E402
+from repro_torch.models import attention as tattention  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import encdec as tencdec  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -279,6 +309,10 @@ from repro_torch.data.datasets import synthetic_lm_batches  # noqa: E402
 from repro_torch.fl.fedstep import FedStepConfig  # noqa: E402
 from repro_torch.launch.mesh import make_virtual_mesh  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
+from repro_torch.core.mesh_lowering import Mesh  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
+from repro_torch.launch import tensor_parallel as tp  # noqa: E402
+from repro_torch.launch.steps import _with_moe_profile, build_serve_step  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -302,6 +336,10 @@ DIST_TRAINERS, DIST_ROUNDS = 4, 2
 # float64 check was the script's largest piece, cut from 4 layers to 2 to
 # make room for phase 7 and to 1 for phase 8
 DIST_LAYERS = 1
+# ... and its host float64 fold checks the last round only (to make
+# room for phase 9; the first round's consensus is still the base of the
+# last round's updates and byte-equal across trainers)
+DIST_HOST_ROUNDS = (DIST_ROUNDS,)
 # phase 4c: the deadline and async policies on the same tree: 8 trainers,
 # 3 rounds (versions); one straggler past the deadline; FedBuff's buffer; a
 # wall-clock grace no on-time update of 2.48 GB comes near (the rounds print
@@ -1378,7 +1416,7 @@ def phase_full_width_topologies(dev: torch.device) -> dict:
     # the host's float64 fold of the same updates, leaf by leaf
     host_s = time.perf_counter()
     with ThreadPoolExecutor(HOST_THREADS) as pool:
-        for rnd in range(1, DIST_ROUNDS + 1):
+        for rnd in DIST_HOST_ROUNDS:
             updates = [tree_leaves(noisy(d_history[rnd - 1], ds_of[wid], rnd)) for wid in ids]
             samples = [float(samples_of(ds_of[wid])) for wid in ids]
             for j, got in enumerate(tree_leaves(d_history[rnd])):
@@ -1403,7 +1441,7 @@ def phase_full_width_topologies(dev: torch.device) -> dict:
           f"{[round(t, 4) for t in mv_ms]}, plain ms "
           f"{[round(t, 4) for t in plain_ms]}; distributed_fl {DIST_TRAINERS} trainers, "
           f"{DIST_ROUNDS} rounds on the tree at {DIST_LAYERS} layers ({ring_n} params): consensus byte-equal across trainers and to the host's float64 "
-          f"fold (host check {host_s:.1f} s); job_s {dist_s:.3f} peak_device_gb "
+          f"fold of round(s) {list(DIST_HOST_ROUNDS)} (host check {host_s:.1f} s); job_s {dist_s:.3f} peak_device_gb "
           f"{dist_peak_gb:.2f}", flush=True)
     return {"launches": {"exact_fold": launches["exact_fold"]}, "timings": timings}
 
@@ -2935,7 +2973,7 @@ FLASH_CASES = (
     (1, 97, 2, 1, 64, False, 40, torch.bfloat16),
     (1, 256, 4, 4, 128, False, 0, torch.bfloat16),
     (1, 400, 4, 1, 128, True, 100, torch.bfloat16),
-    (1, 512, 8, 1, 128, True, 0, torch.bfloat16),
+    (1, 512, 8, 1, 128, True, 0, torch.bfloat16),  # a rank's of Qwen2.5-3B's at model 2
     (2, 512, 8, 2, 128, True, 0, torch.float32),
     (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
     (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
@@ -2944,6 +2982,7 @@ FLASH_CASES = (
     (1, 300, 8, 1, 256, True, 0, torch.bfloat16),
     (1, 2049, 16, 2, 128, True, 0, torch.bfloat16),
     (1, 512, 64, 4, 128, True, 0, torch.bfloat16),  # Qwen3-MoE's heads: GQA 16:1
+    (1, 512, 32, 2, 128, True, 0, torch.bfloat16),  # a rank's of them at model 2 (phase 9)
     (1, 4096, 25, 5, 64, True, 2048, torch.bfloat16),  # Hymba's: GQA 5:1, odd heads, window
     (SERVE_BATCH, SERVE_PROMPT, 16, 16, 256, True, 0, torch.bfloat16),  # Gemma-7B's prefill
     (SERVE_BATCH, SERVE_PROMPT, 16, 2, 128, True, 0, torch.bfloat16),
@@ -4184,8 +4223,433 @@ def phase_train(dev: torch.device, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# ---------------------------------------------------------------------- #
+# phase 9: tensor parallelism on the one card
+# ---------------------------------------------------------------------- #
+# a model axis of 2: two processes on cuda:0 (gloo: NCCL refuses two ranks
+# on one device); (b) Qwen2.5-3B at its published widths, depth cut to 4
+# layers, phase 6's traffic (8 prompts of 2048), 8 teacher-forced decode
+# steps; (c) Qwen3-MoE-235B-A22B at its published widths, 2 layers, the
+# same traffic (phase 6d's), under the (data 1, model 2) profile; (d) one
+# fed-step round of Qwen2.5-3B at full width, 2 layers, float32, on a mesh
+# (data 2, model 2): 2 ranks x 2 virtual clients, phase 8's traffic
+TP_RANKS, TP_STEPS = 2, 8
+TP_QWEN_LAYERS, TP_MOE_LAYERS, TP_TRAIN_LAYERS = 4, 2, 2
+# the float32 runs: Qwen2.5-3B at 2 layers, Qwen3-MoE at 1 (each rank draws
+# the whole float32 tree before it keeps its blocks: 15 GB for one layer),
+# on 8 prompts of 256. The split run sums each row-parallel product (wo at
+# K = 2048, down at K = 11 008) as two half sums, and cuBLAS picks its own
+# order for the vocab block's logits: float32 sums in other orders, about
+# sqrt(K) * 2**-24 = 6e-6 relative at K = 11 008 per product; through 2
+# layers and the logits, 1e-4 leaves more than 10x
+TP_F32_LAYERS, TP_F32_MOE_LAYERS, TP_F32_PROMPT, TP_F32_REL = 2, 1, 256, 1e-4
+# a rank holds its blocks of every leaf split by the rule: at most this
+# share of the one-process parameter bytes (the replicated norms, biases of
+# row-parallel leaves and the router stay whole)
+TP_PARAM_SHARE = 0.55
+# (d): float32 sums in other orders, as phase 8's card-vs-CPU gate reasons
+TP_TRAIN_RTOL, TP_TRAIN_ATOL = GATE_LOSS_RTOL, GATE_PARAM_ATOL
+TP_FAULT = "skip_wo_all_reduce"
+
+
+@contextlib.contextmanager
+def _skipped_wo_all_reduce(group):
+    """The planted fault ``TP_FAULT``: the last rank keeps its own partial
+    sum of attention's ``wo`` (the all-reduce still runs, so the ranks stay
+    in step)."""
+    whole = tattention.attn_output
+
+    def attn_output(p, out, cfg, hs=None):
+        y = whole(p, out, cfg, hs)
+        if group.rank < group.size - 1 or hs is None or not hs.split:
+            return y
+        return tlayers.dense_apply(p["wo"], out.reshape(*out.shape[:2], -1))
+
+    tattention.attn_output = attn_output
+    try:
+        yield
+    finally:
+        tattention.attn_output = whole
+TP_CALL_S = 900
+
+
+def _tp_mesh(data: int = 1) -> Mesh:
+    return Mesh((("data", data), ("model", TP_RANKS)))
+
+
+def _tp_draw(bundle, cfg, seed: int, B: int, S: int, steps: int):
+    """Parameters (the rank's blocks of the one-process draw), prompts and
+    the teacher-forced tokens, all from one seeded generator on the card."""
+    gen = torch.Generator(device=bundle.device).manual_seed(seed)
+    params = bundle.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=bundle.device)
+    forced = torch.randint(0, cfg.vocab_size, (B, steps), generator=gen, device=bundle.device)
+    return params, prompts, forced
+
+
+def _tp_drive(prefill, serve_step, bundle, params, prompts, forced, steps: int,
+              group=None) -> dict:
+    """A prefill, then ``steps`` teacher-forced decode steps: the float32
+    logits (the rank's vocabulary block) on the host, the wall times (both
+    ranks share the card: information only), and per prefill and per
+    decode step the all-reduces and the flash launches."""
+    dev = bundle.device
+    B, S = prompts.shape
+    out = {}
+    fkernel.reset_launches()
+    if group is not None:
+        group.reset_counters()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    cache = bundle.init_cache(B, S + max(steps, 1))
+    logits, cache = prefill(params, {"tokens": prompts}, cache)
+    torch.cuda.synchronize(dev)
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_launches"] = _route_launches()
+    out["prefill_bhsd"] = fkernel.flash_attention_bhsd.launches
+    out["prefill_counters"] = group.counters() if group is not None else {}
+    got = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        if group is not None and i == 0:
+            group.reset_counters()
+            fkernel.reset_launches()
+        logits, cache = serve_step(params, cache, {"token": forced[:, i:i + 1]})
+        if i == 0:
+            out["step_counters"] = group.counters() if group is not None else {}
+            out["step_launches"] = fkernel.flash_attention_bhsd.launches
+        got.append(logits.float().cpu())
+    torch.cuda.synchronize(dev)
+    out["decode_ms"] = (time.perf_counter() - t0) / max(steps, 1) * 1e3
+    out["logits"] = torch.cat(got, dim=1)  # (B, 1 + steps, V or the rank's block)
+    del cache
+    return out
+
+
+def _tp_serve_rank(group, runs: list) -> list:
+    """Each run's drives on the rank's blocks: ``runs`` of (cfg, seed, B, S,
+    steps, drives), a drive a dict of ``fault`` (None or ``TP_FAULT``),
+    ``picks`` (the one-process run's expert picks to replay, or None) and
+    ``steps``. Per run: the rank's parameter bytes, peak memory, and each
+    drive's ``_tp_drive`` result with its gathers."""
+    dev = group.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    results = []
+    for cfg, seed, B, S, steps, drives in runs:
+        free_device()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bundle, setup = build_serve_step(cfg, _tp_mesh(), S + max(steps, 1), B, dev, group)
+        params, prompts, forced = _tp_draw(bundle, cfg, seed, B, S, steps)
+        res = {"param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
+               "drives": []}
+        for drive in drives:
+            pin = _PinnedRouting()
+            planted = (_skipped_wo_all_reduce(group) if drive.get("fault") == TP_FAULT
+                       else contextlib.nullcontext())
+            with pin, planted:
+                if drive.get("picks") is not None:
+                    pin.picks = [p.to(dev) for p in drive["picks"]]
+                    pin.replay()
+                with torch.no_grad():
+                    d = _tp_drive(setup.prefill, setup.serve_step, bundle, params, prompts,
+                                  forced, drive["steps"], group)
+            d["pinned_calls"] = pin.calls if drive.get("picks") is not None else 0
+            d["gathered"] = group.gathered_leaves
+            res["drives"].append(d)
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del params, prompts, forced, bundle, setup
+        results.append(res)
+    free_device()
+    return results
+
+
+def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool) -> dict:
+    """The one-process run of the same draws under the split run's
+    profile; with ``record``, the expert picks of every routing call."""
+    bundle = build_model(cfg, dev)
+    prefill = _with_moe_profile(bundle.prefill, cfg, _tp_mesh())
+    serve_step = _with_moe_profile(bundle.serve_step, cfg, _tp_mesh())
+    params, prompts, forced = _tp_draw(bundle, cfg, seed, B, S, steps)
+    pin = _PinnedRouting()
+    with pin, torch.no_grad():
+        out = _tp_drive(prefill, serve_step, bundle, params, prompts, forced, steps)
+    out["param_bytes"] = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    out["picks"] = [p.cpu() for p in pin.picks] if record else None
+    del params, prompts, forced, bundle, pin
+    free_device()
+    return out
+
+
+def _tp_whole(drives: list) -> torch.Tensor:
+    """The ranks' vocabulary blocks of one drive's logits, side by side."""
+    return torch.cat([d["logits"] for d in drives], dim=-1)
+
+
+def _tp_comm_rank(group) -> dict:
+    """(a) an all-reduce sum of a float32 and a bfloat16 CUDA tensor against
+    the sum of the two ranks' tensors made here (two terms: the order does
+    not matter), byte for byte."""
+    dev = group.device
+    out = {"backend": group.backend}
+    for dt in (torch.float32, torch.bfloat16):
+        xs = [torch.randn(1 << 20, generator=torch.Generator(device=dev).manual_seed(90 + r),
+                          device=dev).to(dt) for r in range(group.size)]
+        got = tp.all_reduce_sum(xs[group.rank], group)
+        want = xs[0] + xs[1]
+        out[str(dt)] = bool(torch.equal(got.view(torch.int16 if dt == torch.bfloat16
+                                                 else torch.int32),
+                                        want.view(torch.int16 if dt == torch.bfloat16
+                                                  else torch.int32)))
+    return out
+
+
+def _tp_train_rank(group, cfg, seed: int, batch: dict, round_seed: int, ref_path: str) -> dict:
+    """(d) one fed-step round on the (data 2, model 2) mesh: the metrics,
+    the largest distance of the rank's new blocks from the same blocks of
+    the one-process round's parameters (``ref_path``, read in place: a
+    rank sends back a number, not a gigabyte), its all-reduces and peak
+    memory."""
+    dev = group.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_device()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fed = FedStepConfig(local_steps=TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    bundle, setup = build_train_step(cfg, _tp_mesh(data=TRAIN_CLIENTS), fed, device=dev,
+                                     group=group)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    state = setup.init_state(params)
+    group.reset_counters()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    params, state, metrics = setup.step(params, state, batch, round_seed)
+    torch.cuda.synchronize(dev)
+    round_s = time.perf_counter() - t0
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    blocks = shd.shard_tree(ref, shd.param_specs(ref, cfg, group.mesh), group.mesh,
+                            group.coords)
+    worst = max(float((got - want.to(dev)).abs().max())
+                for got, want in zip(tree_leaves(params), tree_leaves(blocks)))
+    out = {"round_s": round_s, "counters": group.counters(), "max_abs": worst,
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del params, state, bundle, setup, ref, blocks
+    free_device()
+    return out
+
+
+def _tp_gate(name: str, rel: float, limit: float) -> str:
+    check(rel <= limit, f"{name}: rel L2 {rel} > {limit}")
+    return f"{name} rel L2 {rel:.3e} <= {limit}"
+
+
+def _tp_serving_checks(label: str, ref: dict, f32_ref: dict, res: list, f32_res: list,
+                       layers: int, heads: str, pinned: bool, smi: str = "") -> dict:
+    """The gates of (b) and (c) on one model's rank results."""
+    main = [r["drives"][0] for r in res]
+    whole = _tp_whole(main)
+    check(whole.shape == ref["logits"].shape, f"{label}: logits {tuple(whole.shape)} "
+          f"against {tuple(ref['logits'].shape)}")
+    check(bool(torch.isfinite(whole).all()), f"{label}: non-finite split logits")
+    lines = []
+    rels = {"unpinned": _rel_l2(whole, ref["logits"])}
+    gate_drive = 1 if pinned else 0
+    gated = _tp_whole([r["drives"][gate_drive] for r in res])
+    rels["gate"] = _rel_l2(gated, ref["logits"])
+    lines.append(_tp_gate(f"{label} bf16 prefill + {TP_STEPS} steps"
+                          + (" (routing pinned)" if pinned else ""), rels["gate"], SERVE_REL_L2))
+    fault = _tp_whole([r["drives"][-1] for r in res])
+    rels["fault"] = _rel_l2(fault, ref["logits"][:, :1])
+    check(rels["fault"] > SERVE_REL_L2, f"{label}: the planted fault ({TP_FAULT}) reads "
+          f"{rels['fault']}, not above {SERVE_REL_L2}")
+    lines.append(f"fault {TP_FAULT} rel L2 {rels['fault']:.3e} > {SERVE_REL_L2}")
+    f32_whole = _tp_whole([r["drives"][-1] for r in f32_res])
+    rels["f32"] = _rel_l2(f32_whole, f32_ref["logits"])
+    lines.append(_tp_gate(f"{label} float32", rels["f32"], TP_F32_REL))
+    for r in res:
+        check(all(d["gathered"] == 0 for d in r["drives"]),
+              f"{label}: leaves gathered at use: {[d['gathered'] for d in r['drives']]}")
+        check(r["param_bytes"] <= TP_PARAM_SHARE * ref["param_bytes"],
+              f"{label}: a rank holds {r['param_bytes']} of {ref['param_bytes']} parameter bytes")
+    want = on_entry("flash_attention_forward_sm90", layers)
+    for r, d in enumerate(main):
+        check(d["prefill_launches"] == want and d["prefill_bhsd"] == layers
+              and d["step_launches"] == 0,
+              f"{label} rank {r}: flash launches per prefill {d['prefill_launches']} "
+              f"({d['prefill_bhsd']} calls), per decode step {d['step_launches']}; want {want}")
+    lines.append(f"{layers} flash_sm90 launches a prefill per rank at H {heads}, 0 gathered, "
+                 f"param bytes per rank {[r['param_bytes'] for r in res]} of "
+                 f"{ref['param_bytes']} (<= {TP_PARAM_SHARE})")
+    info = {"rel_l2": rels, "launches_per_rank": [
+        sum(d["prefill_launches"].values()) + d["step_launches"] * TP_STEPS for d in main],
+        "param_bytes": [r["param_bytes"] for r in res], "ref_param_bytes": ref["param_bytes"],
+        "peak_gb": [r["peak_gb"] for r in res],
+        "prefill_all_reduce": [(d["prefill_counters"]["all_reduces"],
+                                d["prefill_counters"]["all_reduce_bytes"]) for d in main],
+        "step_all_reduce": [(d["step_counters"]["all_reduces"],
+                             d["step_counters"]["all_reduce_bytes"]) for d in main],
+        "prefill_s": [d["prefill_s"] for d in main], "decode_ms": [d["decode_ms"] for d in main],
+        "ref_prefill_s": ref["prefill_s"], "ref_decode_ms": ref["decode_ms"]}
+    print(f"phase 9{'b' if not pinned else 'c'} {label}: " + "; ".join(lines)
+          + f"; per rank: peak GB {[round(x, 2) for x in info['peak_gb']]}, all-reduces "
+          f"(count, bytes) per prefill {info['prefill_all_reduce']} per decode step "
+          f"{info['step_all_reduce']}; wall (one card, both ranks: "
+          f"information only) prefill s {[round(x, 3) for x in info['prefill_s']]} vs one "
+          f"process {ref['prefill_s']:.3f}, decode ms a step "
+          f"{[round(x, 2) for x in info['decode_ms']]} vs {ref['decode_ms']:.2f} (card {smi})"
+          + (f"; unpinned rel L2 {rels['unpinned']:.3e}" if pinned else ""), flush=True)
+    return info
+
+
+def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
+    """(a) the communicator, (b) Qwen2.5-3B and (c) Qwen3-MoE-235B-A22B
+    split over two ranks on the card against the one-process model on the
+    same draws, (d) one fed-step round over (data 2, model 2) against the
+    one-process round over (data 2, model 1); the flash kernel at the
+    ranks' attention shapes."""
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    qwen = dataclasses.replace(get_config("qwen2_5_3b"), num_layers=TP_QWEN_LAYERS,
+                               attn_impl="flash")
+    moe = dataclasses.replace(get_config("qwen3_moe_235b_a22b"), num_layers=TP_MOE_LAYERS,
+                              attn_impl="flash")
+    check((qwen.d_model, qwen.num_heads, qwen.num_kv_heads, qwen.head_dim, qwen.d_ff,
+           qwen.vocab_size) == (2048, 16, 2, 128, 11008, 151936), "qwen2_5_3b's widths")
+    check((moe.d_model, moe.num_heads, moe.num_kv_heads, moe.num_experts) == (4096, 64, 4, 128),
+          "qwen3_moe_235b_a22b's widths")
+    f32 = dict(param_dtype="float32", attn_impl="xla")
+    qwen32 = dataclasses.replace(qwen, num_layers=TP_F32_LAYERS, **f32)
+    moe32 = dataclasses.replace(moe, num_layers=TP_F32_MOE_LAYERS, **f32)
+    out = {}
+    free_device()
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):  # seconds of each part of the phase, for the record
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    with tp.GroupPool([str(dev)] * TP_RANKS, timeout_s=TP_CALL_S) as pool:
+        part("spawn")
+        spawn_s = parts["spawn"]
+        # (a)
+        comm = [r.value for r in pool.run(_tp_comm_rank)]
+        check(all(c[str(dt)] for c in comm for dt in (torch.float32, torch.bfloat16)),
+              f"an all-reduce of two ranks' CUDA tensors is not their sum: {comm}")
+        print(f"phase 9a: {TP_RANKS} ranks on {dev}, backend {pool.backend}, "
+              f"gloo took the CUDA tensors; "
+              f"float32 and bf16 all-reduce sums byte-equal to the local sums; "
+              f"spawn {spawn_s:.1f} s", flush=True)
+        out["backend"] = pool.backend
+        part("9a")
+
+        # (b) Qwen2.5-3B
+        drives = [{"steps": TP_STEPS}, {"steps": 0, "fault": TP_FAULT}]
+        ref = _tp_reference(dev, qwen, 7, B, S, TP_STEPS, record=False)
+        ref32 = _tp_reference(dev, qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, record=False)
+        part("9b one process")
+        res = pool.run(_tp_serve_rank, [
+            (qwen, 7, B, S, TP_STEPS, drives),
+            (qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, [{"steps": TP_STEPS}])])
+        out["qwen"] = _tp_serving_checks(
+            "Qwen2.5-3B", ref, ref32, [r.value[0] for r in res], [r.value[1] for r in res],
+            TP_QWEN_LAYERS, "8/1", pinned=False, smi=smi)
+        del ref, ref32, res
+        part("9b ranks")
+
+        # (c) Qwen3-MoE-235B-A22B: the main drive routes itself; the gate
+        # replays the one-process run's picks (phase 6d's reason)
+        ref = _tp_reference(dev, moe, 9, B, S, TP_STEPS, record=True)
+        ref32 = _tp_reference(dev, moe32, 10, B, TP_F32_PROMPT, TP_STEPS, record=True)
+        part("9c one process")
+        n_calls = TP_MOE_LAYERS * (1 + TP_STEPS)
+        check(len(ref["picks"]) == n_calls, f"{len(ref['picks'])} routing calls recorded")
+        drives = [{"steps": TP_STEPS}, {"steps": TP_STEPS, "picks": ref["picks"]},
+                  {"steps": 0, "picks": ref["picks"][:TP_MOE_LAYERS], "fault": TP_FAULT}]
+        res = pool.run(_tp_serve_rank, [
+            (moe, 9, B, S, TP_STEPS, drives),
+            (moe32, 10, B, TP_F32_PROMPT, TP_STEPS,
+             [{"steps": TP_STEPS, "picks": ref32["picks"]}])])
+        for r in res:
+            check(r.value[0]["drives"][1]["pinned_calls"] == n_calls,
+                  f"rank {r.rank} replayed {r.value[0]['drives'][1]['pinned_calls']} picks")
+        out["moe"] = _tp_serving_checks(
+            "Qwen3-MoE-235B-A22B", ref, ref32, [r.value[0] for r in res],
+            [r.value[1] for r in res], TP_MOE_LAYERS, "32/2", pinned=True, smi=smi)
+        del ref, ref32, res
+        free_device()
+        part("9c ranks")
+
+        # (d) one fed-step round
+        cfg = dataclasses.replace(get_config("qwen2_5_3b"), num_layers=TP_TRAIN_LAYERS,
+                                  param_dtype="float32")
+        batch = {"tokens": next(synthetic_lm_batches(vocab=cfg.vocab_size, batch=TRAIN_BATCH,
+                                                     seq=TRAIN_SEQ, seed=0))}
+        fed = FedStepConfig(local_steps=TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+        bundle, setup = build_train_step(cfg, make_virtual_mesh(TRAIN_CLIENTS), fed, device=dev)
+        params = bundle.init(torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        new, _, metrics = setup.step(params, setup.init_state(params), batch, 5)
+        torch.cuda.synchronize(dev)
+        ref_round_s = time.perf_counter() - t0
+        ref_metrics = {k: float(v) for k, v in metrics.items()}
+        ref_dir = tempfile.mkdtemp(prefix="tp_round_")
+        ref_path = os.path.join(ref_dir, "params.pt")
+        torch.save(tree_map(lambda x: x.cpu(), new), ref_path)
+        del bundle, setup, params, new, metrics
+        free_device()
+        part("9d one process")
+        try:
+            res = pool.run(_tp_train_rank, cfg, 11, batch, 5, ref_path)
+        finally:
+            shutil.rmtree(ref_dir, ignore_errors=True)
+        part("9d ranks")
+        for r in res:
+            check(r.value["metrics"]["participants"] == ref_metrics["participants"],
+                  "participants")
+            for k, tol in (("loss", TP_TRAIN_RTOL), ("delta_norm", TP_TRAIN_RTOL)):
+                a, b = r.value["metrics"][k], ref_metrics[k]
+                check(abs(a - b) <= tol * abs(b), f"(d) rank {r.rank} {k} {a} against {b}")
+        worst = max(r.value["max_abs"] for r in res)
+        check(worst <= TP_TRAIN_ATOL, f"(d) parameters {worst} from the one-process round")
+        out["train"] = {"max_abs": worst, "metrics": [r.value["metrics"] for r in res],
+                        "ref_metrics": ref_metrics, "counters": [r.value["counters"] for r in res],
+                        "peak_gb": [r.value["peak_gb"] for r in res],
+                        "round_s": [r.value["round_s"] for r in res], "ref_round_s": ref_round_s}
+        print(f"phase 9d: one fed-step round, Qwen2.5-3B 2 layers float32, (data 2, model 2) "
+              f"against (data 2, model 1): loss {[m['loss'] for m in out['train']['metrics']]} vs "
+              f"{ref_metrics['loss']}, delta_norm "
+              f"{[m['delta_norm'] for m in out['train']['metrics']]} vs "
+              f"{ref_metrics['delta_norm']} (rtol {TP_TRAIN_RTOL}); parameters max abs {worst:.3e} "
+              f"<= {TP_TRAIN_ATOL}; per rank all-reduces "
+              f"{[(c['all_reduces'], c['all_reduce_bytes']) for c in out['train']['counters']]}, "
+              f"gathered {[c['gathered_leaves'] for c in out['train']['counters']]}, peak GB "
+              f"{[round(x, 2) for x in out['train']['peak_gb']]}; wall s "
+              f"{[round(x, 2) for x in out['train']['round_s']]} vs {ref_round_s:.2f} "
+              f"(information only; card {smi})", flush=True)
+        del res
+    # the tensor-core kernel at the ranks' attention shapes
+    out["flash"] = {
+        "qwen": _flash_at(dev, B, S, qwen.num_heads // TP_RANKS,
+                          qwen.num_kv_heads // TP_RANKS, 128, 0, torch.bfloat16, 91),
+        "moe": _flash_at(dev, B, S, moe.num_heads // TP_RANKS,
+                         moe.num_kv_heads // TP_RANKS, 128, 0, torch.bfloat16, 92)}
+    part("flash timings")
+    out["parts_s"] = parts
+    print(f"phase 9 parts s {json.dumps(parts)}", flush=True)
+    for name, f in out["flash"].items():
+        print(f"phase 9 flash_sm90 at {f['shape']}: {f['ms']:.3f} ms, plain "
+              f"{f['plain_ms']:.3f} ms, SDPA {f['library_ms']:.3f} ms, bound "
+              f"{f['bound'][0]:.3f} ms ({f['bound'][1]}), max abs err {f['max_abs_err']:.3e}, "
+              f"rel L2 {f['rel_l2']:.3e} (card {smi})", flush=True)
+    return out
+
+
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
-                 moe: dict, proc: dict, fault: dict, train: dict, families: dict) -> str:
+                 moe: dict, proc: dict, fault: dict, train: dict, families: dict,
+                 tpar: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
@@ -4197,7 +4661,8 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     phase 7c's three faulted jobs (the same) for the agg and quant entries,
     and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
-    plain attention)."""
+    plain attention), and phase 9's split serving, both ranks' launches
+    (the tensor-core flash kernel at each rank's heads)."""
     # the flash rows' numbers: the D 64/128 tensor-core kernel at phase 6's
     # serving shape; the D 256 one on its path, 6g's (Gemma-7B, bf16);
     # flash.cu, on no path, at phase 6's serving shape in float32 (and at
@@ -4246,6 +4711,11 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             for phase, res in families.items():
                 by_path[phase] = res["launches"][name]
         by_path["8"] = train["launches"][name]
+        tp_ranks = [0] * TP_RANKS
+        if name == "flash_attention_forward_sm90":
+            tp_ranks = [a + b for a, b in zip(tpar["qwen"]["launches_per_rank"],
+                                              tpar["moe"]["launches_per_rank"])]
+        by_path["9"] = sum(tp_ranks)
         launches = sum(by_path.values())
         extra = {}
         if name == "flash_attention_forward_sm90":
@@ -4256,7 +4726,10 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
                 "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
                 "library_ms": f["library_ms"]},
                 "at_hymba_shape": _shape_entry(families["6h"]["flash"][0]),
-                "at_seamless_shape": _shape_entry(families["6s"]["flash"][0])}
+                "at_seamless_shape": _shape_entry(families["6s"]["flash"][0]),
+                "phase9_launches_per_rank": tp_ranks,
+                "at_tp_qwen_rank_shape": _shape_entry(tpar["flash"]["qwen"]),
+                "at_tp_moe_rank_shape": _shape_entry(tpar["flash"]["moe"])}
         elif name == "flash_attention_forward_sm90_d256":
             extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"]}
         elif name == "flash_attention_forward":
@@ -4354,8 +4827,10 @@ def main() -> int:
         families[name] = timed(name, fn, dev)
         free_device()
     train = timed("8", phase_train, dev, smi)
-    lines = timed("9", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
-                                            fault, train, families))
+    free_device()
+    tpar = timed("9", phase_tensor_parallel, dev, smi)
+    lines = timed("line", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
+                                               fault, train, families, tpar))
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
     print(lines, flush=True)

@@ -95,3 +95,24 @@ def resolve_device(device: Any = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def shard_tree_from_numpy(tree: Any, cfg: Any, mesh: Any, rank: int, device: Any) -> Any:
+    """The block of every leaf of a parameter tree (numpy arrays, the JAX
+    package's parameters) that the ``model`` rank ``rank`` of ``mesh``
+    holds (``launch.sharding.param_pspec``), as tensors on ``device``."""
+    from repro_torch.launch import sharding
+
+    specs = sharding.param_specs(tree, cfg, mesh)
+    blocks = sharding.shard_tree(tree, specs, mesh, {"model": rank})
+    return tree_from_numpy(blocks, device)
+
+
+def unshard_tree(trees: Any, cfg: Any, mesh: Any) -> Any:
+    """The whole parameter tree (numpy) from the ``model`` ranks' trees
+    (``trees[r]``, numpy or tensors), in rank order; the ranks of the other
+    axes hold the same blocks."""
+    from repro_torch.launch import sharding
+
+    host = [tree_to_numpy(t) for t in trees]
+    return sharding.unshard_tree(host, sharding.param_specs(host[0], cfg, mesh), mesh)

@@ -136,12 +136,33 @@ def local_round(loss_fn: LossFn, leaves: List[torch.Tensor], treedef: Any, batch
     return leaves, loss
 
 
+def sum_of_squares(leaves: Sequence[torch.Tensor],
+                   sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The sum of the squares of every leaf's elements. Under a model group
+    (``sharded[i]``: the ranks hold blocks of leaf i), the blocks' sums are
+    summed over the group and the replicated leaves counted once."""
+    from repro_torch.launch import tensor_parallel as tp
+
+    own = rep = None
+    for i, x in enumerate(leaves):
+        s = torch.sum(torch.square(x))
+        if sharded is not None and sharded[i]:
+            own = s if own is None else own + s
+        else:
+            rep = s if rep is None else rep + s
+    if own is not None:
+        own = tp.all_reduce_sum(own)
+        return own if rep is None else own + rep
+    return rep
+
+
 def make_fl_train_step(
     loss_fn: LossFn,
     strategy: ServerStrategy,
     plan: AggregationPlan,
     mesh: Mesh,
     config: FedStepConfig = FedStepConfig(),
+    sharded: Optional[Sequence[bool]] = None,
 ) -> Callable[..., Tuple[Tree, Tree, Dict[str, torch.Tensor]]]:
     """Build ``step(params, server_state, batch, seed, *, made_it=None,
     noise=None, on_segment=None) -> (params, server_state, metrics)``.
@@ -153,6 +174,8 @@ def make_fl_train_step(
     standard-normal array per parameter leaf) its DP noise draw.
     ``metrics``: ``loss`` (the clients' mean last-step loss), ``delta_norm``
     (of the aggregate) and ``participants``, 0-d float32 tensors.
+    ``sharded`` (one flag per parameter leaf) marks the leaves a model
+    group's ranks hold blocks of, for ``delta_norm`` (``sum_of_squares``).
     """
     if config.exchange not in ("delta", "grad"):
         raise ValueError(f"unknown exchange {config.exchange!r}")
@@ -227,11 +250,7 @@ def make_fl_train_step(
             n_part = torch.tensor(float(n_total), dtype=torch.float32, device=device)
         d_leaves = tree_leaves(tree)
         del tree
-        sq = None
-        for x in d_leaves:
-            s = torch.sum(torch.square(x))
-            sq = s if sq is None else sq + s
-        delta_norm = torch.sqrt(sq)
+        delta_norm = torch.sqrt(sum_of_squares(d_leaves, sharded))
         # the aggregate in the parameters' dtypes, float32 leaves freed as
         # they are cast
         cast = []

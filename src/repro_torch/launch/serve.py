@@ -4,14 +4,21 @@
 The loop is the JAX package's: ``init_cache(B, S + gen)``, ``prefill``,
 argmax (or temperature sampling), then ``serve_step`` ``gen - 1`` times.
 ``generate`` is the loop as a function; ``main`` wraps it with the JAX
-CLI's flags and two more: ``--device`` (the card unless ``cpu`` is asked
-for; raises without a card) and ``--attn-impl`` (the config's
-``attn_impl``: ``flash`` runs the prefill's attention in the flash kernel).
+CLI's flags and three more: ``--device`` (the card unless ``cpu`` is asked
+for; raises without a card), ``--attn-impl`` (the config's ``attn_impl``:
+``flash`` runs the prefill's attention in the flash kernel) and
+``--ranks N``: the model split over N processes (``launch.tensor_parallel``,
+the mesh of ``launch.mesh.make_mesh_for_devices(N)``, which must put all N
+on the ``model`` axis), each on the card, or on the CPU with ``--device
+cpu``; every rank draws the one-process model's parameters from the same
+seed and keeps its blocks, and greedy tokens are the argmax over the ranks'
+vocabulary blocks.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \\
       --batch 8 --prompt-len 2048 --gen 64 --attn-impl flash
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --ranks 2 --device cpu --reduced
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.mesh import make_mesh_for_devices
+from repro_torch.models import transformer
 from repro_torch.models.api import ModelBundle, build_model
 
 
@@ -54,21 +64,35 @@ def generate(
 
     An encoder-decoder (``audio``) model encodes ``frames`` (B, F, d), the
     stub frontend's embeddings; when None, zeros of (B, ``frontend_len``,
-    d), as the JAX package's serve loop passes."""
+    d), as the JAX package's serve loop passes.
+
+    A rank's bundle (``build_model(..., group)``) decodes greedily on the
+    argmax over the ranks' vocabulary blocks (lowest index on ties);
+    sampling would need the whole logits and is not ported there."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     device = bundle.device
+    group = bundle.group if bundle.group is not None and bundle.group.size > 1 else None
+    if group is not None and temperature > 0:
+        raise NotImplementedError("sampling over vocabulary blocks is not ported (ROADMAP "
+                                  "Queue 1): decode greedily")
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    cfg = bundle.cfg
+    offset = 0
+    if group is not None:
+        with tp.use_group(group):
+            offset = transformer.vocab_offset(params, cfg)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
         last = logits[:, -1]
         if temperature > 0:
             probs = torch.softmax(last / temperature, dim=-1)
             return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
+        if group is not None:
+            return tp.global_argmax(last, offset, cfg.vocab_size, group)[:, None].to(torch.int32)
         return torch.argmax(last, dim=-1, keepdim=True).to(torch.int32)
 
-    cfg = bundle.cfg
     B, S = prompts.shape
     cache = bundle.init_cache(B, S + gen)
     batch = {"tokens": prompts}
@@ -101,6 +125,28 @@ def generate(
     return Generation(torch.cat(generated, dim=1), prefill_s, decode_s, bool(finite))
 
 
+def _serve(group: Optional[tp.ModelGroup], args: argparse.Namespace) -> dict:
+    """One process's serving run (the whole model, or one rank's blocks)."""
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    device = args.device if group is None else group.device
+    bundle = build_model(cfg, device, group)
+    # bf16 products reduce split-K partial sums in float32, as the JAX
+    # package's float32 accumulation does (models/layers.py)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    gen = torch.Generator(device=bundle.device).manual_seed(0)
+    params = bundle.init(gen)
+    B, S = args.batch, args.prompt_len
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=bundle.device)
+    out = generate(bundle, params, prompts, args.gen, args.temperature)
+    if not out.all_finite:
+        raise RuntimeError("non-finite logits")
+    return {"tokens": out.tokens.cpu(), "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+            "device": str(bundle.device), "attn": cfg.attn_impl,
+            "counters": group.counters() if group is not None else {}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_5_3b")
@@ -112,27 +158,46 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--attn-impl", choices=("xla", "flash"), default=None,
                     help="attention of the prefill (default: the config's)")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="processes the model is split over (its model axis)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, reduced=args.reduced)
-    if args.attn_impl:
-        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    bundle = build_model(cfg, args.device)
-    # bf16 products reduce split-K partial sums in float32, as the JAX
-    # package's float32 accumulation does (models/layers.py)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    gen = torch.Generator(device=bundle.device).manual_seed(0)
-    params = bundle.init(gen)
-    B, S = args.batch, args.prompt_len
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=bundle.device)
-    out = generate(bundle, params, prompts, args.gen, args.temperature)
-    print(f"[serve] prefill {B}x{S} in {out.prefill_s:.2f}s ({bundle.device}, attn {cfg.attn_impl})")
-    print(f"[serve] generated {args.gen} tokens/seq x {B} seqs in {out.decode_s:.2f}s "
-          f"({B * args.gen / max(out.decode_s, 1e-9):.1f} tok/s)")
-    print("[serve] sample token ids:", out.tokens[0][:12].tolist())
-    if not out.all_finite:
-        raise RuntimeError("non-finite logits")
+    B = args.batch
+    if args.ranks == 1:
+        out = _serve(None, args)
+    else:
+        mesh = make_mesh_for_devices(args.ranks)
+        if mesh.shape["model"] != args.ranks:
+            raise ValueError(f"{args.ranks} ranks make the mesh {mesh.shape}: serving takes a "
+                             "model axis of all of them (2, 4 or 8)")
+        devices = _rank_devices(args.device, args.ranks)
+        with tp.GroupPool(devices) as pool:
+            print(f"[serve] {args.ranks} ranks on {devices}: backend {pool.backend}")
+            outs = [r.value for r in pool.run(_serve, args)]
+        if any(not torch.equal(o["tokens"], outs[0]["tokens"]) for o in outs):
+            raise RuntimeError("the ranks decoded different tokens")
+        out = outs[0]
+        print(f"[serve] per-rank all-reduces {out['counters']['all_reduces']} "
+              f"({out['counters']['all_reduce_bytes']} bytes), gathered leaves "
+              f"{out['counters']['gathered_leaves']}")
+    print(f"[serve] prefill {B}x{args.prompt_len} in {out['prefill_s']:.2f}s "
+          f"({out['device']}, attn {out['attn']})")
+    print(f"[serve] generated {args.gen} tokens/seq x {B} seqs in {out['decode_s']:.2f}s "
+          f"({B * args.gen / max(out['decode_s'], 1e-9):.1f} tok/s)")
+    print("[serve] sample token ids:", out["tokens"][0][:12].tolist())
     return 0
+
+
+def _rank_devices(device: Optional[str], ranks: int) -> list:
+    """One device per rank: the CPU with ``--device cpu``, else the cards in
+    turn (ranks share a card when there are fewer cards than ranks)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return ["cpu"] * ranks
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by default; pass "
+                           "--device cpu to run on the CPU")
+    n = torch.cuda.device_count()
+    return [f"cuda:{r % n}" for r in range(ranks)]
 
 
 if __name__ == "__main__":

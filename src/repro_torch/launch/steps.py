@@ -1,7 +1,6 @@
-"""Train-step builders: (arch config × mesh × TAG) → a train step (the port
-of ``repro.launch.steps``, training half; the serving half is
-``launch/serve.py``, which runs without a profile, as the JAX package's
-``launch/serve.py`` does).
+"""Step builders: (arch config × mesh × TAG) → train and serve steps (the
+port of ``repro.launch.steps``; ``launch/serve.py`` runs without a profile,
+as the JAX package's ``launch/serve.py`` does).
 
 ``build_train_step`` lowers the FL topology (a TAG) to an
 ``AggregationPlan`` over the mesh's client axes and runs it inside the
@@ -10,6 +9,18 @@ the bundle's device, and each stage a float32 sum with its channel's wire
 policy. Architectures whose FL clients live on the pod axis
 (``fl_axes=("pod",)``) degrade to a plain single-client local-SGD step on a
 mesh without a pod axis.
+
+A ``model`` axis of m > 1 is m processes (``launch.tensor_parallel``): the
+builders take the rank's ``group`` and return that rank's bundle and steps.
+Every rank runs every virtual client in turn on its blocks of the
+parameters; each stage's mean is taken block by block, which is
+elementwise, so each rank's block of the mean is the block of the
+one-process mean; ``delta_norm`` sums the squares of the sharded leaves
+over the group and counts the replicated leaves once. Not ported (ROADMAP
+Queue 1): an FSDP config on a mesh whose ``data`` axis is larger than 1
+(its ``data``-dim blocks), serving on a mesh with client axes larger than
+1, DP and the int8 wire at model > 1 (a clip norm and block scales over
+whole leaves).
 """
 from __future__ import annotations
 
@@ -23,23 +34,16 @@ from repro_torch.core.tag import TAG
 from repro_torch.core.topologies import classical_fl, hierarchical_fl
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.fl.fedstep import (FedStepConfig, batch_to_device, client_generator,
-                                   init_server_state, local_round, make_fl_train_step)
+                                   init_server_state, local_round, make_fl_train_step,
+                                   sum_of_squares)
 from repro_torch.fl.strategies import get_strategy
-from repro_torch.models.api import ModelBundle, build_model
+from repro_torch.launch import sharding as shd
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.models.api import ModelBundle, build_model, cache_shapes, param_shapes
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.shard_ctx import shard_profile
 
 Tree = Any
-
-
-def _batch_axes(cfg: ModelConfig, mesh: Mesh) -> Tuple[str, ...]:
-    """Mesh axes the global token set is split over (the flat MoE block
-    dim): pod and data, and model for the FSDP configs (sequence
-    parallelism); ``repro.launch.sharding.batch_axes``."""
-    axes = [a for a in ("pod", "data") if a in mesh.axis_names]
-    if cfg.param_sharding == "fsdp" and "model" in mesh.axis_names:
-        axes.append("model")
-    return tuple(axes)
 
 
 def _with_moe_profile(fn: Callable, cfg: ModelConfig, mesh: Mesh,
@@ -47,17 +51,60 @@ def _with_moe_profile(fn: Callable, cfg: ModelConfig, mesh: Mesh,
     """``fn`` run under the mesh's sharding profile, as the JAX package
     traces its steps. The profile's batch axes are the mesh's batch axes
     less the client (manual) axes; its ``min_blocks``, their size, decides
-    the MoE routing blocks."""
-    auto_batch = tuple(a for a in _batch_axes(cfg, mesh) if a not in manual_axes)
+    the MoE routing blocks. ``act``, ``stash`` and ``axis_sizes`` are the
+    JAX package's layouts (the port pins none: ``models.shard_ctx``)."""
+    auto_batch = tuple(a for a in shd.batch_axes(cfg, mesh) if a not in manual_axes)
+    act = (auto_batch or None, None)
+    if cfg.param_sharding == "fsdp":
+        stash = (tuple(a for a in auto_batch if a != "model") or None,
+                 ("model",) if "model" in auto_batch else None)
+    else:
+        stash = act
     min_blocks = 1
     for a in auto_batch:
         min_blocks *= mesh.shape[a]
+    axis_sizes = dict(mesh.axes)
 
     def wrapped(*a, **k):
-        with shard_profile(auto_batch, "model", min_blocks=min_blocks):
+        with shard_profile(auto_batch, "model", min_blocks=min_blocks, act=act, stash=stash,
+                           axis_sizes=axis_sizes):
             return fn(*a, **k)
 
     return wrapped
+
+
+def _model_group(cfg: ModelConfig, mesh: Mesh, group: Optional[tp.ModelGroup],
+                 what: str) -> Optional[tp.ModelGroup]:
+    """The group the mesh's ``model`` axis asks for (None at model 1)."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return None
+    if group is None or group.size != m:
+        raise ValueError(f"a model axis of {m} runs as {m} processes: pass the rank's group "
+                         f"(launch.tensor_parallel.run_model_group), got {group}")
+    clients = 1
+    for a in ("pod", "data"):
+        clients *= mesh.shape.get(a, 1)
+    if what == "train" and cfg.param_sharding == "fsdp" and mesh.shape.get("data", 1) > 1:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: FSDP's data-dim blocks on a data axis of {mesh.shape['data']} "
+            "are not ported (ROADMAP Queue 1, FSDP with data > 1)")
+    if what == "serve" and clients > 1:
+        raise NotImplementedError(
+            f"serving on client axes of {clients} devices beside a model axis is not ported "
+            "(ROADMAP Queue 1)")
+    return group
+
+
+def _sharded_leaves(cfg: ModelConfig, group: Optional[tp.ModelGroup]) -> Optional[list]:
+    """For each parameter leaf (in ``tree_flatten`` order), whether the
+    group's ranks hold blocks of it (None without a group)."""
+    if group is None:
+        return None
+    flags = shd.map_with_path(
+        lambda path, leaf: shd.is_sharded(shd.param_pspec(path, leaf, cfg, group.mesh)),
+        param_shapes(cfg))
+    return tree_flatten(flags)[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +135,18 @@ def build_train_step(
     cross_pod_wire: str = "f32",
     strategy_name: Optional[str] = None,
     device: Any = None,
+    group: Optional[tp.ModelGroup] = None,
 ) -> Tuple[ModelBundle, TrainSetup]:
     """The bundle on ``device`` (the card when None; raises without one) and
     the step ``step(params, state, batch, seed) -> (params, state,
-    metrics)``."""
-    if mesh.shape.get("model", 1) != 1:
-        raise NotImplementedError(
-            "tensor parallelism (a model axis over several cards) is not ported (ROADMAP Queue 1)")
-    bundle = build_model(cfg, device)
+    metrics)``. With a ``model`` axis of m > 1, the rank's bundle and step
+    (``group``: the rank's ``ModelGroup`` of m)."""
+    group = _model_group(cfg, mesh, group, "train")
+    if group is not None and (fed.dp is not None or cross_pod_wire == "int8"):
+        raise NotImplementedError("DP and the int8 wire at model > 1 are not ported (ROADMAP "
+                                  "Queue 1): their clip norm and block scales span whole leaves")
+    bundle = build_model(cfg, device, group)
+    sharded = _sharded_leaves(cfg, group)
     client_axes = tuple(a for a in cfg.fl_axes if a in mesh.axis_names)
     if cfg.param_sharding == "fsdp" and len(mesh.axes) > 2:
         # the JAX package's FSDP giants train as one client across pods
@@ -107,13 +158,14 @@ def build_train_step(
         # order axes fast->slow: data (within a pod) first, pod last
         ordered = tuple(a for a in ("data", "pod") if a in client_axes) or client_axes
         plan = lower_tag_to_mesh(tag, ordered)
-        step = _with_moe_profile(make_fl_train_step(bundle.loss_fn, strategy, plan, mesh, fed),
-                                 cfg, mesh, manual_axes=client_axes)
+        step = _with_moe_profile(
+            make_fl_train_step(bundle.loss_fn, strategy, plan, mesh, fed, sharded=sharded),
+            cfg, mesh, manual_axes=client_axes)
 
         def init_state(params):
             return init_server_state(strategy, plan, params)
 
-        return bundle, TrainSetup(step, init_state, client_axes, tag)
+        return bundle, TrainSetup(tp.bind(step, group), init_state, client_axes, tag)
 
     # ---- one client: local SGD over local_steps microbatches --------------
     def step(params, state, batch, seed):
@@ -122,13 +174,41 @@ def build_train_step(
         gen = client_generator(seed, 0, "loss", leaves[0].device)
         new, loss = local_round(bundle.loss_fn, leaves, treedef, batch, gen,
                                 fed.local_steps, fed.local_lr)
-        sq = None
-        for a, b in zip(new, leaves):
-            s = torch.sum(torch.square((a - b).to(torch.float32)))
-            sq = s if sq is None else sq + s
+        sq = sum_of_squares([(a - b).to(torch.float32) for a, b in zip(new, leaves)], sharded)
         return tree_unflatten(treedef, new), state, {"loss": loss, "delta_norm": torch.sqrt(sq)}
 
     def init_state(params):
         return ()
 
-    return bundle, TrainSetup(_with_moe_profile(step, cfg, mesh), init_state, (), None)
+    return bundle, TrainSetup(tp.bind(_with_moe_profile(step, cfg, mesh), group), init_state,
+                              (), None)
+
+
+# --------------------------------------------------------------------- #
+# serving
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ServeSetup:
+    serve_step: Callable
+    prefill: Callable
+    param_shardings: Tree  # the parameters' specs (launch.sharding.param_pspec)
+    cache_shardings: Tree  # the cache's specs (launch.sharding.cache_pspec)
+
+
+def build_serve_step(cfg: ModelConfig, mesh: Mesh, max_len: int, batch: int,
+                     device: Any = None,
+                     group: Optional[tp.ModelGroup] = None) -> Tuple[ModelBundle, ServeSetup]:
+    """The bundle on ``device`` and the serving steps under the mesh's
+    profile: ``prefill(params, batch, cache)`` and ``serve_step(params,
+    cache, batch)``, and the specs the parameters and the cache of
+    ``batch`` x ``max_len`` are stored by. With a ``model`` axis of m > 1,
+    the rank's (``group``)."""
+    group = _model_group(cfg, mesh, group, "serve")
+    bundle = build_model(cfg, device, group)
+    p_specs = shd.param_specs(param_shapes(cfg), cfg, mesh)
+    c_specs = shd.cache_specs(cache_shapes(cfg, batch, max_len), cfg, mesh)
+    serve = _with_moe_profile(
+        lambda params, cache, batch_in: bundle.serve_step(params, cache, batch_in), cfg, mesh)
+    prefill = _with_moe_profile(
+        lambda params, batch_in, cache: bundle.prefill(params, batch_in, cache), cfg, mesh)
+    return bundle, ServeSetup(serve, prefill, p_specs, c_specs)

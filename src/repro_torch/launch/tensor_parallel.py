@@ -1,0 +1,457 @@
+"""Tensor parallelism over a ``model`` axis of processes: the port's stand-in
+for GSPMD's collectives.
+
+The JAX package stores each leaf by its ``PartitionSpec`` and lets the
+partitioner insert the collectives. Here a ``model`` axis of size m is m
+processes, each holding its block of every leaf (``launch.sharding``), and
+the model code (``repro_torch.models``) computes on its own block and calls
+the collectives below itself:
+
+* column-parallel layers take a replicated input through ``copy_to_group``
+  (Megatron's f: identity forward, all-reduce backward);
+* row-parallel layers hand their partial output to ``reduce_from_group``
+  (Megatron's g: all-reduce forward, identity backward);
+* a leaf whose block does not match the compute's split is gathered at use
+  (``gather_at_use``: an all-reduce of the zero-padded block, exact, since
+  one term of each sum is nonzero), and each such gather is counted.
+
+Only all-reduce is used, with sum and max, since gloo does not take every
+collective on CUDA tensors. The backend is chosen by rule: ``nccl`` when the
+ranks are on distinct cards, ``gloo`` when ranks share a card or run on the
+CPU (NCCL refuses two ranks on one device). Gloo takes CUDA tensors for
+all-reduce; a backend that refuses them raises, nothing is rerouted.
+
+The model code finds the group of the call in a context variable
+(``use_group``), which ``models.api.build_model(cfg, device, group)`` sets
+around every call of its bundle; no group, or a group of one, is the
+one-process model.
+
+``GroupPool`` spawns one process per entry of ``devices`` with a
+``file://`` rendezvous in a temp directory and runs functions on all of
+them; ``run_model_group`` is a pool for one call. A pool on the cards
+builds the kernel libraries first, in the parent, so a compile error shows
+once. A rank's error, a dead rank or a timeout ends the pool and raises
+with the rank's traceback: a call never hangs.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import datetime
+import os
+import pickle
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+import torch.utils.checkpoint
+
+_GROUP: contextvars.ContextVar = contextvars.ContextVar("model_group", default=None)
+
+
+@dataclasses.dataclass
+class ModelGroup:
+    """One rank's view of the ``model`` axis: its rank and the axis size,
+    the process group (``None`` for a group of one), the backend, the
+    rank's device, and the rank's counters: all-reduces (calls, bytes) and
+    leaves gathered at use (leaves, bytes of the whole leaves)."""
+
+    rank: int
+    size: int
+    pg: Any = None
+    backend: str = "none"
+    device: torch.device = torch.device("cpu")
+    all_reduces: int = 0
+    all_reduce_bytes: int = 0
+    gathered_leaves: int = 0
+    gathered_bytes: int = 0
+
+    @property
+    def mesh(self):
+        """The mesh the rank's parameters and caches are stored by."""
+        from repro_torch.core.mesh_lowering import Mesh
+
+        return Mesh((("data", 1), ("model", self.size)))
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {"data": 0, "model": self.rank}
+
+    def counters(self) -> Dict[str, int]:
+        return {k: getattr(self, k) for k in (
+            "all_reduces", "all_reduce_bytes", "gathered_leaves", "gathered_bytes")}
+
+    def reset_counters(self) -> None:
+        for k in self.counters():
+            setattr(self, k, 0)
+
+
+def current_group() -> Optional[ModelGroup]:
+    """The group of the running call, or ``None`` (one process)."""
+    g = _GROUP.get()
+    return g if g is not None and g.size > 1 else None
+
+
+@contextlib.contextmanager
+def use_group(group: Optional[ModelGroup]) -> Iterator[None]:
+    token = _GROUP.set(group)
+    try:
+        yield
+    finally:
+        _GROUP.reset(token)
+
+
+def bind(fn: Callable, group: Optional[ModelGroup]) -> Callable:
+    """``fn`` run under ``group`` (``fn`` itself without one)."""
+    if group is None or group.size == 1:
+        return fn
+
+    def run(*a, **k):
+        with use_group(group):
+            return fn(*a, **k)
+
+    return run
+
+
+def is_block(local: int, full: int) -> bool:
+    """Whether a dim of ``local`` is this rank's block of one of ``full``
+    (``False``: the dim is whole). Raises for any other size."""
+    if local == full:
+        return False
+    group = current_group()
+    if group is None or local * group.size != full:
+        raise ValueError(f"a dim of {local} is neither whole ({full}) nor a block of it over "
+                         f"{group.size if group else 1} ranks")
+    return True
+
+
+def checkpoint(fn: Callable, *args: Any) -> Any:
+    """``torch.utils.checkpoint`` of ``fn`` whose recompute in the backward
+    runs under the group of the forward (the backward may run outside the
+    call that set it)."""
+    group = _GROUP.get()
+
+    def run(*a):
+        with use_group(group):
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+
+
+# --------------------------------------------------------------------- #
+# collectives
+# --------------------------------------------------------------------- #
+def _all_reduce_(x: torch.Tensor, op, group: ModelGroup) -> torch.Tensor:
+    """All-reduce ``x`` in place over the group (counted)."""
+    group.all_reduces += 1
+    group.all_reduce_bytes += x.numel() * x.element_size()
+    dist.all_reduce(x, op=op, group=group.pg)
+    return x
+
+
+def all_reduce_sum(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over the group, a new tensor (no autograd)."""
+    group = group or current_group()
+    if group is None:
+        return x
+    return _all_reduce_(x.detach().clone(), dist.ReduceOp.SUM, group)
+
+
+def all_reduce_max(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group, a new tensor (no
+    autograd: a max is used as a constant shift)."""
+    group = group or current_group()
+    if group is None:
+        return x
+    return _all_reduce_(x.detach().clone(), dist.ReduceOp.MAX, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.contiguous().clone(), dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor) -> torch.Tensor:
+    """A replicated input entering a split computation (f)."""
+    group = current_group()
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the group of the partial outputs ``x`` (g)."""
+    group = current_group()
+    return x if group is None else _ReduceFromGroup.apply(x, group)
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """The whole leaf from every rank's block along ``dim``; the gradient
+    of the whole leaf is the same on every rank (a replicated computation),
+    so the block's gradient is its slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n = x.shape[dim]
+        ctx.dim, ctx.lo, ctx.n = dim, group.rank * n, n
+        shape = list(x.shape)
+        shape[dim] = n * group.size
+        full = x.new_zeros(shape)
+        full.narrow(dim, ctx.lo, n).copy_(x)
+        group.gathered_leaves += 1
+        group.gathered_bytes += full.numel() * full.element_size()
+        return _all_reduce_(full, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+def gather_at_use(x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` (``full`` long): itself where it already
+    is, else gathered from the group's blocks (counted)."""
+    if not is_block(x.shape[dim], full):
+        return x
+    return _GatherAtUse.apply(x, dim, current_group())
+
+
+def gather_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim``, in rank
+    order (no autograd; counted as a gather): a leaf's whole from blocks
+    that a computation produced, such as a recurrent state's."""
+    group = current_group()
+    if group is None:
+        return x
+    with torch.no_grad():
+        return _GatherAtUse.apply(x.detach(), dim, group)
+
+
+def block_of(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of a replicated ``x`` along ``dim``."""
+    group = current_group()
+    if group is None:
+        return x
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n)
+
+
+def global_argmax(x: torch.Tensor, offset: int, width: int,
+                  group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The argmax over the group's vocab blocks along the last dim: ``x``
+    holds the columns ``[offset, offset + x.shape[-1])`` of ``width``. Ties
+    go to the lowest index, as ``jnp.argmax`` breaks them: the global max
+    by an all-reduce max, then the least index holding it by an all-reduce
+    max of the negated indices."""
+    group = group or current_group()
+    local = torch.argmax(x, dim=-1) + offset
+    if group is None:
+        return local
+    vals = torch.amax(x, dim=-1)
+    top = all_reduce_max(vals.to(torch.float32), group)
+    hit = vals.to(torch.float32) == top
+    neg = torch.where(hit, -local, torch.full_like(local, -width))
+    return -all_reduce_max(neg, group)
+
+
+# --------------------------------------------------------------------- #
+# processes
+# --------------------------------------------------------------------- #
+def choose_backend(devices: Sequence[Any]) -> str:
+    """``nccl`` for ranks on distinct cards, ``gloo`` for ranks that share a
+    card or run on the CPU."""
+    devs = [torch.device(d) for d in devices]
+    if all(d.type == "cuda" for d in devs) and len({d.index for d in devs}) == len(devs):
+        return "nccl"
+    if any(d.type == "cuda" for d in devs) and not all(d.type == "cuda" for d in devs):
+        raise ValueError(f"a group mixes the CPU and cards: {devices}")
+    return "gloo"
+
+
+def build_kernels() -> None:
+    """Compile every kernel library of the port (one ``nvcc`` per source,
+    started together) unless it is built already."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.agg import kernel as agg_kernel
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.quant import kernel as qkernel
+
+    libraries = (agg_kernel.LIBRARY, qkernel.LIBRARY, fkernel.LIBRARY, fkernel.SM90_LIBRARY,
+                 fkernel.SM90_D256_LIBRARY)
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(lib.compile) for lib in libraries]:
+            fut.result()
+
+
+def _worker(rank: int, devices: List[str], backend: str, init_file: str, timeout_s: float,
+            tasks, results) -> None:
+    size = len(devices)
+    try:
+        device = torch.device(devices[rank])
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        torch.set_num_threads(1)
+        dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=size,
+                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        group = ModelGroup(rank=rank, size=size, pg=dist.group.WORLD, backend=backend,
+                           device=device)
+        results.put((rank, "ready", None))
+    except Exception:  # noqa: BLE001 - reported to the parent
+        results.put((rank, "error", traceback.format_exc()))
+        return
+    while True:
+        task = tasks.get()
+        if task is None:
+            break
+        fn, args = pickle.loads(task)
+        try:
+            group.reset_counters()
+            results.put((rank, "ok", pickle.dumps(fn(group, *args))))
+        except Exception:  # noqa: BLE001 - reported to the parent
+            results.put((rank, "error", traceback.format_exc()))
+            break
+    dist.destroy_process_group()
+
+
+@dataclasses.dataclass
+class RankResult:
+    rank: int
+    value: Any
+
+
+class GroupError(RuntimeError):
+    """A rank failed, died or timed out; the message holds its traceback."""
+
+
+class GroupPool:
+    """One process per entry of ``devices``, joined in a process group,
+    running functions ``fn(group, *args)`` on every rank at once. ``fn``
+    must be importable by name (a module-level function) and return host
+    objects. Any rank's failure closes the pool and raises ``GroupError``."""
+
+    def __init__(self, devices: Sequence[Any], *, timeout_s: float = 300.0):
+        self.devices = [str(torch.device(d)) for d in devices]
+        self.backend = choose_backend(self.devices)
+        if any(torch.device(d).type == "cuda" for d in self.devices):
+            build_kernels()  # here, once, so that a compile error shows before any rank
+        self.timeout_s = timeout_s
+        self._dir = tempfile.mkdtemp(prefix="model_group_")
+        ctx = mp.get_context("spawn")
+        self._results = ctx.Queue()
+        self._tasks = [ctx.Queue() for _ in self.devices]
+        self._procs = []
+        saved = os.environ.get("OMP_NUM_THREADS")
+        os.environ["OMP_NUM_THREADS"] = "1"
+        try:
+            for rank in range(len(self.devices)):
+                p = ctx.Process(target=_worker, args=(
+                    rank, self.devices, self.backend, os.path.join(self._dir, "rendezvous"),
+                    timeout_s, self._tasks[rank], self._results), daemon=True)
+                p.start()
+                self._procs.append(p)
+        finally:
+            if saved is None:
+                os.environ.pop("OMP_NUM_THREADS", None)
+            else:
+                os.environ["OMP_NUM_THREADS"] = saved
+        self._collect(timeout_s)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def _collect(self, timeout_s: float) -> List[RankResult]:
+        deadline = time.monotonic() + timeout_s
+        got: Dict[int, RankResult] = {}
+        while len(got) < self.size:
+            try:
+                rank, status, payload = self._results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [i for i, p in enumerate(self._procs) if p.exitcode is not None]
+                if dead:
+                    self.close()
+                    raise GroupError(f"rank {dead[0]} exited with code "
+                                     f"{self._procs[dead[0]].exitcode} and no result")
+                if time.monotonic() > deadline:
+                    self.close()
+                    raise GroupError(f"ranks {sorted(set(range(self.size)) - set(got))} gave "
+                                     f"no result within {timeout_s} s")
+                continue
+            if status == "error":
+                self.close()
+                raise GroupError(f"rank {rank} failed:\n{payload}")
+            got[rank] = RankResult(rank, payload)
+        return [got[r] for r in range(self.size)]
+
+    def run(self, fn: Callable, *args: Any, timeout_s: Optional[float] = None) -> List[RankResult]:
+        """``fn(group, *args)`` on every rank; each rank's value, in rank
+        order."""
+        if not self._procs:
+            raise GroupError("the pool is closed")
+        task = pickle.dumps((fn, args))
+        for q in self._tasks:
+            q.put(task)
+        results = self._collect(timeout_s or self.timeout_s)
+        for r in results:
+            r.value = pickle.loads(r.value)
+        return results
+
+    def close(self) -> None:
+        procs, self._procs = self._procs, []
+        for q in self._tasks:
+            try:
+                q.put(None)
+            except (OSError, ValueError):
+                pass
+        deadline = time.monotonic() + 5
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            try:  # drain what the ranks still send, so that none blocks in its exit
+                self._results.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        for p in procs:
+            p.join(timeout=5)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __enter__(self) -> "GroupPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def run_model_group(fn: Callable, devices: Sequence[Any], *args: Any,
+                    timeout_s: float = 300.0) -> List[RankResult]:
+    """``fn(group, *args)`` on one process per entry of ``devices``; each
+    rank's value, in rank order."""
+    with GroupPool(devices, timeout_s=timeout_s) as pool:
+        return pool.run(fn, *args, timeout_s=timeout_s)

@@ -18,18 +18,30 @@ caller asks for the CPU, and raises where there is no card.
 
 Every family of the JAX package is ported, for serving and training
 (``loss_fn``; the plain attention only: the flash kernel has no backward).
+
+``build_model(cfg, device, group)`` with a model group of m ranks
+(``launch.tensor_parallel``) is one rank's bundle: ``init`` draws the tree
+as the one-process bundle does, in the same order, and cuts each part to
+the rank's block of every leaf (``launch.sharding.param_pspec``) as it is
+drawn, so no more than one layer is ever whole; ``init_cache`` allocates
+the rank's block of every cache leaf (``cache_pspec``), and every call runs
+under the group, so the model code computes on the blocks and meets the
+other ranks in the collectives. Logits come back as the rank's vocabulary block
+(``transformer.vocab_offset``). ``group=None`` is the one-process model.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.convert import resolve_device
+from repro_torch.launch import sharding
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.models.layers import embed_apply
+from repro_torch.models.layers import MetaGenerator, embed_apply
 
 Tree = Any
 
@@ -44,22 +56,98 @@ class ModelBundle:
     serve_step: Callable[[Tree, Tree, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Tree]]
     prefill: Callable[[Tree, Dict[str, torch.Tensor], Tree], Tuple[torch.Tensor, Tree]]
     input_specs: Callable[[ShapeConfig], Dict[str, torch.Tensor]]
+    group: Optional[tp.ModelGroup] = None
+
+
+def param_shapes(cfg: ModelConfig) -> Tree:
+    """The parameter tree of ``cfg`` on the meta device: shapes and dtypes,
+    no data (the JAX package's ``jax.eval_shape(bundle.init, key)``)."""
+    init = encdec.init_params if cfg.encoder_layers else transformer.init_params
+    return init(MetaGenerator(), cfg)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int) -> Tree:
+    """The cache tree of ``cfg`` on the meta device."""
+    init = encdec.init_cache if cfg.encoder_layers else transformer.init_cache
+    return init(cfg, batch, max_len, torch.device("meta"))
+
+
+# a cache leaf's initial value, by name: the slot positions start empty
+# (-1), the sLSTM stabilizer at -1e30, everything else at zero
+_CACHE_FILL = {"pos": -1, "m": -1e30}
+
+
+def _rank_keep(cfg: ModelConfig, group: tp.ModelGroup):
+    """An init's ``keep`` (``transformer.init_params``) that cuts each part
+    to the rank's block of every leaf, by the spec of the leaf in the whole
+    tree: a stacked leaf's spec leads with ``None``, so layer ``i``'s block
+    is slot ``i`` of the stack's block."""
+    mesh, coords = group.mesh, group.coords
+
+    def keep(path, tree, stack=None):
+        def leaf(p, x):
+            if stack is None:
+                return sharding.shard(x, sharding.param_pspec(p, x, cfg, mesh), mesh, coords)
+            whole = torch.empty((stack,) + tuple(x.shape), dtype=x.dtype, device="meta")
+            spec = sharding.param_pspec(p, whole, cfg, mesh)
+            if spec[0] is not None:
+                raise ValueError(f"{p}: a stacked layer dim is split ({spec})")
+            return sharding.shard(x, spec[1:], mesh, coords)
+
+        return sharding.map_with_path(leaf, tree, path)
+
+    return keep
+
+
+def _rank_cache(cfg: ModelConfig, batch: int, max_len: int, group: tp.ModelGroup,
+                device: torch.device) -> Tree:
+    """The rank's block of every cache leaf, allocated at its block shape."""
+    full = cache_shapes(cfg, batch, max_len)
+    mesh = group.mesh
+
+    def leaf(path, x):
+        spec = sharding.cache_pspec(path, x, cfg, mesh)
+        return torch.full(sharding.shard_shape(x.shape, spec, mesh),
+                          _CACHE_FILL.get(path[-1], 0),
+                          dtype=x.dtype, device=device)
+
+    return sharding.map_with_path(leaf, full)
+
+
+def _on_group(bundle: "ModelBundle") -> "ModelBundle":
+    """``bundle`` whose every call runs under its group, with the group's
+    blocks for parameters and caches."""
+    group, cfg = bundle.group, bundle.cfg
+    if group is None or group.size == 1:
+        return bundle
+
+    def init(gen):
+        return bundle.init(gen, _rank_keep(cfg, group))
+
+    def init_cache(batch_size, max_len):
+        return _rank_cache(cfg, batch_size, max_len, group, bundle.device)
+
+    return dataclasses.replace(
+        bundle, init=init, init_cache=init_cache, loss_fn=tp.bind(bundle.loss_fn, group),
+        serve_step=tp.bind(bundle.serve_step, group), prefill=tp.bind(bundle.prefill, group))
 
 
 def _embed_with_patches(params, cfg, tokens, patch_embeds):
     """Vision tokens (stub patch embeddings) occupy the first P slots (the
     token embeddings of those slots get no gradient, as in the JAX
     package's ``.at[:, :P].set``)."""
-    h = embed_apply(params["embed"], tokens)
+    h = embed_apply(params["embed"], tokens, cfg.padded_vocab)
     P = patch_embeds.shape[1]
     return torch.cat([patch_embeds.to(h.dtype), h[:, P:]], dim=1)
 
 
-def build_model(cfg: ModelConfig, device: Any = None) -> ModelBundle:
-    """The bundle of ``cfg`` on ``device`` (the card when None)."""
-    if cfg.encoder_layers:
-        return _build_encdec(cfg, resolve_device(device))
-    return _build_decoder_only(cfg, resolve_device(device))
+def build_model(cfg: ModelConfig, device: Any = None,
+                group: Optional[tp.ModelGroup] = None) -> ModelBundle:
+    """The bundle of ``cfg`` on ``device`` (the card when None); with a
+    model ``group``, that rank's bundle."""
+    build = _build_encdec if cfg.encoder_layers else _build_decoder_only
+    bundle = build(cfg, resolve_device(device))
+    return _on_group(dataclasses.replace(bundle, group=group))
 
 
 def _check_generator(gen: torch.Generator, device: torch.device) -> None:
@@ -79,9 +167,9 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     is_vlm = cfg.family == "vlm"
     dtype = transformer.param_dtype(cfg)
 
-    def init(gen: torch.Generator):
+    def init(gen: torch.Generator, keep=transformer.keep_whole):
         _check_generator(gen, device)
-        return transformer.init_params(gen, cfg)
+        return transformer.init_params(gen, cfg, keep)
 
     def loss_fn(params, batch, rng):
         """Mean next-token cross-entropy of ``batch`` (a 0-d float32 tensor);
@@ -147,9 +235,9 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> ModelBundle:
 def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     dtype = transformer.param_dtype(cfg)
 
-    def init(gen: torch.Generator):
+    def init(gen: torch.Generator, keep=transformer.keep_whole):
         _check_generator(gen, device)
-        return encdec.init_params(gen, cfg)
+        return encdec.init_params(gen, cfg, keep)
 
     def loss_fn(params, batch, rng):
         del rng

@@ -16,14 +16,27 @@ Scores and the products with V accumulate in float32, as the JAX einsums do
 with ``preferred_element_type``: bfloat16 operands are widened to float32
 (exactly) before the product, since a bfloat16 einsum here would round its
 output to bfloat16.
+
+Under a model group (``launch.tensor_parallel``) whose size divides the
+query heads, each rank computes its block of heads: ``wq`` column-parallel
+over whole heads, ``wo`` row-parallel with its output summed over the
+group. Each rank's query heads read the KV heads the GQA map gives them:
+its own block of ``wk`` / ``wv`` where the KV heads divide the group, else
+the whole leaves (gathered at use where the rule cut them into part-heads)
+and the heads sliced out. Where the group does not divide the query heads
+(Hymba's 25), attention computes replicated on whole, gathered leaves. A KV
+cache is stored by ``launch.sharding.cache_pspec``: its block of heads
+where the KV heads divide the group, else its block of the sequence
+(written by position, read whole through a gather) or whole.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_apply, dense_init
 
@@ -41,16 +54,115 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tre
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """The query heads a rank computes and the KV heads they read."""
+
+    split: bool  # the query heads are split over the group
+    n_q: int  # the rank's query heads
+    kv_lo: int  # the first KV head they read
+    n_kv: int  # the KV heads they read
+    kv_whole: bool  # K/V are projected for every KV head (then sliced)
+
+
+def head_split(cfg: ModelConfig) -> HeadSplit:
+    """The rank's heads under the running group (all of them without one)."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    group = tp.current_group()
+    if group is None or H % group.size:
+        return HeadSplit(False, H, 0, Hkv, group is not None)
+    n_q = H // group.size
+    q_lo, G = group.rank * n_q, H // Hkv
+    if (n_q % G) if n_q >= G else (G % n_q):
+        raise NotImplementedError(
+            f"{n_q} query heads a rank with groups of {G} straddle KV heads (ROADMAP Queue 1)")
+    kv_lo = q_lo // G
+    n_kv = max(1, n_q // G)
+    return HeadSplit(True, n_q, kv_lo, n_kv, Hkv % group.size != 0)
+
+
+def rank_weights(p: Tree, cfg: ModelConfig, hs: HeadSplit) -> Tree:
+    """The attention leaves as the rank computes with them: its own blocks
+    where they match its heads; whole leaves (gathered at use where the
+    rule cut them) where they do not. A whole leaf inside a split
+    computation passes ``copy_to_group``, so its gradient sums the ranks'."""
+    if tp.current_group() is None:
+        return p
+    out = dict(p)
+
+    def whole(name, dim_of, full, split):
+        leaf = {k: tp.gather_at_use(x, dim_of(k), full) for k, x in p[name].items()}
+        out[name] = {k: tp.copy_to_group(x) for k, x in leaf.items()} if split else leaf
+
+    if hs.kv_whole:
+        for name in ("wk", "wv"):
+            whole(name, lambda k: -1, cfg.kv_dim, hs.split)
+    if not hs.split:
+        whole("wq", lambda k: -1, cfg.q_dim, False)
+        whole("wo", lambda k: 0, cfg.q_dim, False)
+    return out
+
+
+def enter(x: torch.Tensor, hs: HeadSplit) -> torch.Tensor:
+    """The replicated input of a head-split attention (f)."""
+    return tp.copy_to_group(x) if hs.split else x
+
+
+def kv_heads(k: torch.Tensor, hs: HeadSplit) -> torch.Tensor:
+    """The KV heads the rank's query heads read, from K/V of whole heads."""
+    return k if k.shape[2] == hs.n_kv else k[:, :, hs.kv_lo:hs.kv_lo + hs.n_kv]
+
+
 def project_q(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S, _ = x.shape
-    return dense_apply(p["wq"], x).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    return dense_apply(p["wq"], x).reshape(B, S, -1, cfg.head_dim)
 
 
 def project_kv(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
-    k = dense_apply(p["wk"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = dense_apply(p["wv"], x).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = dense_apply(p["wk"], x).reshape(B, S, -1, cfg.head_dim)
+    v = dense_apply(p["wv"], x).reshape(B, S, -1, cfg.head_dim)
     return k, v
+
+
+# --------------------------------------------------------------------- #
+# KV caches stored by the sharding rule
+# --------------------------------------------------------------------- #
+def _seq_block(leaf: torch.Tensor, W: int) -> int:
+    """The first position of a cache leaf's block of the sequence (0 when
+    the leaf holds every position)."""
+    if not tp.is_block(leaf.shape[1], W):
+        return 0
+    return tp.current_group().rank * leaf.shape[1]
+
+
+def cache_fill(leaf: torch.Tensor, src: torch.Tensor, W: int) -> None:
+    """Write ``src`` (B, n, Hkv, Dh), the values of slots [0, n) of a cache
+    of ``W`` slots, into the rank's block of it."""
+    lo = _seq_block(leaf, W)
+    n = max(0, min(leaf.shape[1], src.shape[1] - lo))
+    if n == leaf.shape[1] and n == src.shape[1]:
+        leaf.copy_(src)
+    elif n:
+        leaf[:, :n] = src[:, lo:lo + n]
+
+
+def cache_write_slot(leaf: torch.Tensor, slot: torch.Tensor, x: torch.Tensor, W: int) -> None:
+    """Write ``x`` (B, 1, Hkv, Dh) at ``slot`` (a (1,) device tensor) of a
+    cache of ``W`` slots, where the rank's block holds that slot."""
+    if not tp.is_block(leaf.shape[1], W):
+        leaf.index_copy_(1, slot, x)
+        return
+    local = slot - _seq_block(leaf, W)
+    inside = (local >= 0) & (local < leaf.shape[1])
+    idx = torch.clamp(local, 0, leaf.shape[1] - 1)
+    leaf.index_copy_(1, idx, torch.where(inside, x, leaf.index_select(1, idx)))
+
+
+def cache_read(leaf: torch.Tensor, W: int) -> torch.Tensor:
+    """The cache's every slot: the rank's leaf, or the ranks' blocks of the
+    sequence gathered."""
+    return tp.gather_block(leaf, 1) if tp.is_block(leaf.shape[1], W) else leaf
 
 
 def _grouped_scores(qc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -125,7 +237,7 @@ def chunked_attention(
         cq = min(chunk, Sq - lo)
         qc = q[:, lo:lo + cq].reshape(B, cq, Hkv, G, Dh)
         qpos = q_offset + lo + torch.arange(cq, device=q.device)
-        outs.append(checkpoint(attend, qc, k, v, qpos, use_reentrant=False) if recompute
+        outs.append(tp.checkpoint(attend, qc, k, v, qpos) if recompute
                     else attend(qc, k, v, qpos))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
@@ -160,6 +272,10 @@ def decode_attention(
     return out.reshape(B, 1, H, Dh).to(q.dtype)
 
 
-def attn_output(p: Tree, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def attn_output(p: Tree, out: torch.Tensor, cfg: ModelConfig,
+                hs: HeadSplit = None) -> torch.Tensor:
+    """``wo`` of the heads' outputs; summed over the group where the heads
+    are split (row-parallel)."""
     B, S = out.shape[:2]
-    return dense_apply(p["wo"], out.reshape(B, S, cfg.q_dim))
+    y = dense_apply(p["wo"], out.reshape(B, S, -1))
+    return tp.reduce_from_group(y) if hs is not None and hs.split else y

@@ -29,6 +29,11 @@ Kinds:
 The recurrent kinds' caches hold float32 state (``ssd``: ``(B, H, N, P)``;
 ``slstm``: ``c``, ``n``, ``m`` of ``(B, d)``), written in place like the
 attention caches.
+
+Under a model group (``launch.tensor_parallel``) attention splits by heads
+(``models.attention``), the MLP and the MoE experts by their blocks, and
+the recurrent sub-blocks (SSD, sLSTM) compute replicated on their leaves
+and states gathered at use, each rank storing back its block of the state.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -91,31 +97,35 @@ def _attn_core_full(
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Optional[Tree]]:
     """Full-sequence causal attention; optionally fills the cache (prefill)."""
+    hs = attn.head_split(cfg)
+    p = attn.rank_weights(p, cfg, hs)
+    h = attn.enter(h, hs)
     q = attn.project_q(p, h, cfg)
     k, v = attn.project_kv(p, h, cfg)
     q = _rotate(q, positions, cfg)
     k = _rotate(k, positions, cfg)
+    ka, va = attn.kv_heads(k, hs), attn.kv_heads(v, hs)
     if cfg.attn_impl == "flash":
-        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        out = flash_attention(q, ka, va, causal=True, window=cfg.sliding_window)
     else:
         out = attn.chunked_attention(
-            q, k, v, causal=True, window=cfg.sliding_window, q_chunk=cfg.q_chunk,
+            q, ka, va, causal=True, window=cfg.sliding_window, q_chunk=cfg.q_chunk,
             recompute=cfg.scan_attn_chunks)
     new_cache = None
     if cache is not None:
         S = h.shape[1]
-        W = cache["k"].shape[1]
+        W = cache["pos"].shape[0]
         tpos = _text_positions(positions, cfg)
         if W >= S:
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            attn.cache_fill(cache["k"], k, W)
+            attn.cache_fill(cache["v"], v, W)
             cache["pos"][:S] = tpos[0]
         else:  # ring buffer smaller than the prefill: keep the last W
-            cache["k"].copy_(k[:, -W:])
-            cache["v"].copy_(v[:, -W:])
+            attn.cache_fill(cache["k"], k[:, -W:], W)
+            attn.cache_fill(cache["v"], v[:, -W:], W)
             cache["pos"].copy_(tpos[0, -W:])
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
-    return attn.attn_output(p, out, cfg), new_cache
+    return attn.attn_output(p, out, cfg, hs), new_cache
 
 
 def _attn_core_decode(
@@ -126,6 +136,9 @@ def _attn_core_decode(
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Tree]:
     """One-token attention against the (ring) cache. h: (B, 1, d)."""
+    hs = attn.head_split(cfg)
+    p = attn.rank_weights(p, cfg, hs)
+    h = attn.enter(h, hs)
     q = attn.project_q(p, h, cfg)
     k, v = attn.project_kv(p, h, cfg)
     q = _rotate(q, positions, cfg)
@@ -133,10 +146,11 @@ def _attn_core_decode(
     tpos = _text_positions(positions, cfg)
     cur = tpos[0, :1].to(torch.int32)  # absolute position of the new token, (1,)
     k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
+    W = pos.shape[0]
     # the slot as a device tensor: the step never waits for the card
-    slot = torch.remainder(cur, k_cache.shape[1]).to(torch.long)
-    k_cache.index_copy_(1, slot, k)
-    v_cache.index_copy_(1, slot, v)
+    slot = torch.remainder(cur, W).to(torch.long)
+    attn.cache_write_slot(k_cache, slot, k, W)
+    attn.cache_write_slot(v_cache, slot, v, W)
     pos.index_copy_(0, slot, cur)
     # mask: slots holding positions in (cur - window, cur] (ring semantics)
     valid = (pos >= 0) & (pos <= cur)
@@ -144,14 +158,16 @@ def _attn_core_decode(
         valid &= pos > cur - cfg.sliding_window
     scale = cfg.head_dim**-0.5
     B = h.shape[0]
-    qc = q.reshape(B, 1, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, -1)
-    scores = attn._grouped_scores(qc, k_cache) * scale  # (B, Hkv, G, 1, W) f32
+    kc = attn.kv_heads(attn.cache_read(k_cache, W), hs)
+    vc = attn.kv_heads(attn.cache_read(v_cache, W), hs)
+    qc = q.reshape(B, 1, hs.n_kv, hs.n_q // hs.n_kv, -1)
+    scores = attn._grouped_scores(qc, kc) * scale  # (B, Hkv, G, 1, W) f32
     scores = torch.where(valid[None, None, None, None, :], scores, attn.NEG_INF)
     w = torch.softmax(scores, dim=-1)
     # probabilities in the value dtype before the product, as in the JAX package
-    out = attn._grouped_out(w.to(v_cache.dtype), v_cache)
-    out = out.reshape(B, 1, cfg.q_dim).to(h.dtype)
-    return dense_apply(p["wo"], out), {"k": k_cache, "v": v_cache, "pos": pos}
+    out = attn._grouped_out(w.to(vc.dtype), vc)
+    out = out.reshape(B, 1, -1).to(h.dtype)
+    return attn.attn_output(p, out, cfg, hs), {"k": k_cache, "v": v_cache, "pos": pos}
 
 
 # ===================================================================== #
@@ -203,25 +219,50 @@ def _ssd_output(p: Tree, y: torch.Tensor, xv: torch.Tensor, z: torch.Tensor) -> 
     return dense_apply(p["out"], y)
 
 
+def _ssd_whole(p: Tree, cfg: ModelConfig) -> Tree:
+    """The SSD leaves whole: under a model group the sub-block computes
+    replicated, on its leaves gathered at use where the rule cut them."""
+    d_i, H, N = _ssd_dims(cfg)
+    cols = {"in_xz": 2 * d_i, "in_bc": 2 * H * N, "in_dt": H}
+    out = {name: {"w": tp.gather_at_use(p[name]["w"], 1, n)} for name, n in cols.items()}
+    out["out"] = {"w": tp.gather_at_use(p["out"]["w"], 0, d_i)}
+    return dict(p, **out)
+
+
+def _state_whole(state: torch.Tensor, full: int) -> torch.Tensor:
+    """A recurrent state whole along its last dim (the rank's block of it
+    gathered where the cache rule cut it)."""
+    return tp.gather_block(state, -1) if tp.is_block(state.shape[-1], full) else state
+
+
+def _state_store(leaf: torch.Tensor, value: torch.Tensor) -> None:
+    """Store the whole ``value`` into the rank's ``leaf`` (its block of the
+    last dim where the cache rule cut it)."""
+    leaf.copy_(tp.block_of(value, -1) if leaf.shape[-1] != value.shape[-1] else value)
+
+
 def ssd_apply_full(p: Tree, h: torch.Tensor, cache: Optional[Tree],
                    cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[Tree]]:
+    p = _ssd_whole(p, cfg)
     qq, kk, v, log_decay, dt, z, xv = _ssd_project(p, h, cfg)
-    init = cache["state"] if cache is not None else None
+    init = _state_whole(cache["state"], v.shape[-1]) if cache is not None else None
     y, final = ssd_chunked(qq, kk, v, log_decay, dt, chunk=cfg.ssd_chunk, initial_state=init)
     out = _ssd_output(p, y, xv, z)
     if cache is None:
         return out, None
-    cache["state"].copy_(final)
+    _state_store(cache["state"], final)
     return out, {"state": cache["state"]}
 
 
 def ssd_apply_decode(p: Tree, h: torch.Tensor, cache: Tree,
                      cfg: ModelConfig) -> Tuple[torch.Tensor, Tree]:
+    p = _ssd_whole(p, cfg)
     qq, kk, v, log_decay, dt, z, xv = _ssd_project(p, h, cfg)
     y, new_state = ssd_decode_step(
-        cache["state"], qq[:, 0], kk[:, 0], v[:, 0], log_decay[:, 0], dt[:, 0])
+        _state_whole(cache["state"], v.shape[-1]), qq[:, 0], kk[:, 0], v[:, 0],
+        log_decay[:, 0], dt[:, 0])
     out = _ssd_output(p, y[:, None], xv, z)
-    cache["state"].copy_(new_state)
+    _state_store(cache["state"], new_state)
     return out, {"state": cache["state"]}
 
 
@@ -315,7 +356,7 @@ def block_apply(
         if kind == "moe":
             m, aux = moe_apply(p["moe"], h, cfg)
         else:
-            m = mlp_apply(p["mlp"], h, cfg.activation)
+            m = mlp_apply(p["mlp"], h, cfg.activation, cfg.d_ff)
         return x + m, new_cache, aux
 
     if kind == "hymba":
@@ -332,7 +373,7 @@ def block_apply(
                        + rmsnorm_apply(p["ln_ssm"], s, cfg.norm_eps))
         x = x + fused
         h = rmsnorm_apply(p["ln2"], x, cfg.norm_eps)
-        return x + mlp_apply(p["mlp"], h, cfg.activation), new_cache, aux
+        return x + mlp_apply(p["mlp"], h, cfg.activation, cfg.d_ff), new_cache, aux
 
     if kind == "mlstm":
         h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
@@ -345,15 +386,19 @@ def block_apply(
         return x + s, new_cache, aux
 
     if kind == "slstm":
+        # replicated under a model group, on leaves gathered at use
+        d = cfg.d_model
+        gates = {"w": tp.gather_at_use(p["gates"]["w"], 1, 4 * d)}
         h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
-        i_g, f_g, z_g, o_g = torch.chunk(dense_apply(p["gates"], h), 4, dim=-1)
-        init = (cache["c"], cache["n"], cache["m"]) if cache else None
+        i_g, f_g, z_g, o_g = torch.chunk(dense_apply(gates, h), 4, dim=-1)
+        init = tuple(_state_whole(cache[n], d) for n in ("c", "n", "m")) if cache else None
         hs, carry = slstm_scan(i_g, f_g, z_g, o_g, initial=init)
         if cache is not None:
             for name, value in zip(("c", "n", "m"), carry):
-                cache[name].copy_(value)
+                _state_store(cache[name], value)
             new_cache = {"c": cache["c"], "n": cache["n"], "m": cache["m"]}
-        return x + dense_apply(p["out"], hs), new_cache, aux
+        out = {"w": tp.gather_at_use(p["out"]["w"], 0, d)}
+        return x + dense_apply(out, hs), new_cache, aux
 
     raise ValueError(f"unknown block kind {kind!r}")
 

@@ -18,15 +18,20 @@ attention and the cross-attention are the plain chunked attention, as in
 the JAX package; only the decoder's causal self-attention goes through
 ``blocks._attn_core_full``, so only it reaches the flash kernel under
 ``attn_impl="flash"``.
+
+Under a model group (``launch.tensor_parallel``) the encoder's, the
+decoder's and the cross-attention split by heads as ``models.attention``
+does, and the MLPs by their blocks; the cross K/V cache is stored by the
+sharding rule like the self-attention cache.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_map
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models.blocks import _attn_core_decode, _attn_core_full, attn_cache_init
 from repro_torch.models.config import ModelConfig
@@ -42,6 +47,7 @@ from repro_torch.models.transformer import (
     _unstack,
     chunked_ce,
     default_positions,
+    keep_whole,
     logits_of,
     param_dtype,
     stacked_draws,
@@ -72,18 +78,23 @@ def _dec_block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) 
     }
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Tree:
+def init_params(gen: torch.Generator, cfg: ModelConfig, keep=keep_whole) -> Tree:
     """Parameters on ``gen``'s device, drawn in order: the embedding, the
-    encoder layers, the decoder layers, the unembedding."""
+    encoder layers, the decoder layers, the unembedding; each part cut to
+    ``keep`` as it is drawn (``transformer.init_params``)."""
     dtype = param_dtype(cfg)
     dev = gen.device
-    params = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
-    params["encoder"] = stacked_draws(cfg.encoder_layers, lambda: _enc_block_init(gen, cfg, dtype))
-    params["decoder"] = stacked_draws(cfg.num_layers, lambda: _dec_block_init(gen, cfg, dtype))
-    params["ln_enc"] = rmsnorm_init(cfg.d_model, dtype, dev)
-    params["ln_f"] = rmsnorm_init(cfg.d_model, dtype, dev)
+    E, L = cfg.encoder_layers, cfg.num_layers
+    params = {"embed": keep(("embed",), embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))}
+    params["encoder"] = stacked_draws(E, lambda: _enc_block_init(gen, cfg, dtype),
+                                      lambda one: keep(("encoder",), one, E))
+    params["decoder"] = stacked_draws(L, lambda: _dec_block_init(gen, cfg, dtype),
+                                      lambda one: keep(("decoder",), one, L))
+    params["ln_enc"] = keep(("ln_enc",), rmsnorm_init(cfg.d_model, dtype, dev))
+    params["ln_f"] = keep(("ln_f",), rmsnorm_init(cfg.d_model, dtype, dev))
     if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)
+        params["unembed"] = keep(("unembed",),
+                                 embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))
     return params
 
 
@@ -96,26 +107,32 @@ def encode(params: Tree, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
 
     def body(h, p):
         a = rmsnorm_apply(p["ln1"], h, cfg.norm_eps)
-        q = attn.project_q(p["attn"], a, cfg)  # no rope in the encoder
-        k, v = attn.project_kv(p["attn"], a, cfg)
-        out = attn.chunked_attention(q, k, v, causal=False, q_chunk=cfg.q_chunk,
+        hs = attn.head_split(cfg)
+        pa = attn.rank_weights(p["attn"], cfg, hs)
+        a = attn.enter(a, hs)
+        q = attn.project_q(pa, a, cfg)  # no rope in the encoder
+        k, v = attn.project_kv(pa, a, cfg)
+        out = attn.chunked_attention(q, attn.kv_heads(k, hs), attn.kv_heads(v, hs),
+                                     causal=False, q_chunk=cfg.q_chunk,
                                      recompute=cfg.scan_attn_chunks)
-        h = h + attn.attn_output(p["attn"], out, cfg)
+        h = h + attn.attn_output(pa, out, cfg, hs)
         m = rmsnorm_apply(p["ln2"], h, cfg.norm_eps)
-        return h + mlp_apply(p["mlp"], m, cfg.activation)
+        return h + mlp_apply(p["mlp"], m, cfg.activation, cfg.d_ff)
 
     h = frames
     for p in _unstack(params["encoder"], cfg.encoder_layers):
-        h = checkpoint(body, h, p, use_reentrant=False) if _remat(cfg) else body(h, p)
+        h = tp.checkpoint(body, h, p) if _remat(cfg) else body(h, p)
     return rmsnorm_apply(params["ln_enc"], h, cfg.norm_eps)
 
 
 def _cross_attend(p: Tree, h: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    q = attn.project_q(p, h, cfg)  # no rope on cross-attention
+                  cfg: ModelConfig, hs: attn.HeadSplit) -> torch.Tensor:
+    """``p``: the rank's weights (``attn.rank_weights``); ``mem_k`` /
+    ``mem_v``: the cross K/V the rank's heads read."""
+    q = attn.project_q(p, attn.enter(h, hs), cfg)  # no rope on cross-attention
     out = attn.chunked_attention(q, mem_k, mem_v, causal=False, q_chunk=cfg.q_chunk,
                                  recompute=cfg.scan_attn_chunks)
-    return attn.attn_output(p, out, cfg)
+    return attn.attn_output(p, out, cfg, hs)
 
 
 def decode_hidden(
@@ -129,7 +146,7 @@ def decode_hidden(
     """Causal decoder over ``tokens`` attending to encoder ``memory`` (None
     in decode mode: the cache holds the cross K/V). Returns (final-norm
     hidden, new cache, a 0-d float32 aux loss of 0)."""
-    h = embed_apply(params["embed"], tokens)
+    h = embed_apply(params["embed"], tokens, cfg.padded_vocab)
     B, S = h.shape[:2]
     decode = mode == "decode"
     offset = cache["len"] if (cache is not None and decode) else 0
@@ -143,16 +160,21 @@ def decode_hidden(
             s, _ = _attn_core_full(p["self"], a, positions, c["self"] if c else None, cfg)
         h = h + s
         xh = rmsnorm_apply(p["ln_x"], h, cfg.norm_eps)
+        hs = attn.head_split(cfg)
+        pc = attn.rank_weights(p["cross"], cfg, hs)
         if c is not None and decode:
-            mem_k, mem_v = c["cross_k"], c["cross_v"]
+            F = cfg.frontend_len
+            mem_k, mem_v = attn.cache_read(c["cross_k"], F), attn.cache_read(c["cross_v"], F)
         else:
-            mem_k, mem_v = attn.project_kv(p["cross"], memory, cfg)
+            mem = attn.enter(memory, hs)
+            mem_k, mem_v = attn.project_kv(pc, mem, cfg)
             if c is not None:
-                c["cross_k"].copy_(mem_k)
-                c["cross_v"].copy_(mem_v)
-        h = h + _cross_attend(p["cross"], xh, mem_k, mem_v, cfg)
+                attn.cache_fill(c["cross_k"], mem_k, mem_k.shape[1])
+                attn.cache_fill(c["cross_v"], mem_v, mem_v.shape[1])
+        mem_k, mem_v = attn.kv_heads(mem_k, hs), attn.kv_heads(mem_v, hs)
+        h = h + _cross_attend(pc, xh, mem_k, mem_v, cfg, hs)
         m = rmsnorm_apply(p["ln2"], h, cfg.norm_eps)
-        return h + mlp_apply(p["mlp"], m, cfg.activation)
+        return h + mlp_apply(p["mlp"], m, cfg.activation, cfg.d_ff)
 
     layers = cache["layers"] if cache is not None else None
     if layers is not None and not decode and layers["cross_k"].dtype != memory.dtype:
@@ -163,7 +185,7 @@ def decode_hidden(
     remat = _remat(cfg) and cache is None
     for i, p in enumerate(_unstack(params["decoder"], cfg.num_layers)):
         c = tree_map(lambda x: x[i], layers) if layers is not None else None
-        h = checkpoint(body, h, p, c, use_reentrant=False) if remat else body(h, p, c)
+        h = tp.checkpoint(body, h, p, c) if remat else body(h, p, c)
     new_cache = None
     if cache is not None:
         new_cache = {"layers": layers, "len": cache["len"] + S}
@@ -207,4 +229,5 @@ def lm_loss(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
     memory = encode(params, cfg, frames)
     h, _, _ = decode_hidden(params, cfg, tokens, memory)
     unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return chunked_ce(h[:, :-1], unemb, tokens[:, 1:], use_scan=cfg.scan_attn_chunks)
+    return chunked_ce(h[:, :-1], unemb, tokens[:, 1:], use_scan=cfg.scan_attn_chunks,
+                      vocab=cfg.padded_vocab)

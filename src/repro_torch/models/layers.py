@@ -14,6 +14,13 @@ reduce split-K partial sums in bfloat16 is the process's
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
 which this module leaves as the caller set it (the entry points turn it
 off). On the CPU a bfloat16 product is computed in float32 and rounded once.
+
+Under a model group (``launch.tensor_parallel``) the embedding and
+unembedding hold a block of the (padded) vocabulary and the MLP's ``gate``
+/ ``up`` a block of columns, ``down`` the same block of rows: the lookup is
+masked to the block and summed over the group (exact: one term of each sum
+is nonzero), the logits stay a vocabulary block, and the MLP is column-
+then row-parallel with its output summed over the group.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch import tensor_parallel as tp
 
 Tree = Dict[str, torch.Tensor]
 
@@ -41,7 +50,16 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` to build a tree's shapes and
+    dtypes on the meta device, with no data (a full config's tree)."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
 
 
@@ -64,8 +82,19 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> 
     return {"emb": _normal(gen, (vocab, d)).to(dtype) * 0.02}
 
 
-def embed_apply(p: Tree, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["emb"])
+def embed_apply(p: Tree, tokens: torch.Tensor, vocab: int = 0) -> torch.Tensor:
+    """The rows of ``tokens``; under a model group whose ``emb`` is a block
+    of the ``vocab`` rows, each rank looks up the tokens of its block
+    (zeros for the others) and the ranks' rows are summed."""
+    emb = p["emb"]
+    if not vocab or not tp.is_block(emb.shape[0], vocab):
+        return F.embedding(tokens, emb)
+    lo = tp.current_group().rank * emb.shape[0]
+    local = tokens - lo
+    inside = (local >= 0) & (local < emb.shape[0])
+    rows = F.embedding(torch.where(inside, local, 0), emb)
+    rows = rows * inside[..., None].to(rows.dtype)
+    return tp.reduce_from_group(rows)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -195,11 +224,18 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype) -> Tre
     }
 
 
-def mlp_apply(p: Tree, x: torch.Tensor, activation: str = "swiglu") -> torch.Tensor:
+def mlp_apply(p: Tree, x: torch.Tensor, activation: str = "swiglu",
+              d_ff: int = 0) -> torch.Tensor:
+    """The gated MLP; under a model group whose ``gate`` holds a block of
+    the ``d_ff`` columns, column- then row-parallel."""
+    split = bool(d_ff) and tp.is_block(p["gate"]["w"].shape[1], d_ff)
+    if split:
+        x = tp.copy_to_group(x)
     g = dense_apply(p["gate"], x)
     u = dense_apply(p["up"], x)
     if activation == "geglu":  # jax.nn.gelu's default is the tanh form
         h = F.gelu(g.to(torch.float32), approximate="tanh").to(x.dtype) * u
     else:  # swiglu
         h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    return dense_apply(p["down"], h)
+    y = dense_apply(p["down"], h)
+    return tp.reduce_from_group(y) if split else y

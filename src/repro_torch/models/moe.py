@@ -23,17 +23,28 @@ JAX package's custom VJP does, and keeps nothing else.
 Router aux loss: the load-balancing loss ``E * sum_e f_e * P_e`` per block
 (f the routed-token fraction, P the mean router probability), averaged over
 the blocks.
+
+Under a model group (``launch.tensor_parallel``) whose size divides the
+experts, each rank holds a block of them (``(E/m, d, ff)``). The router is
+replicated: every rank routes every token alike. Each rank dispatches the
+full token set to its own experts only, runs them, and combines their rows
+in float32; the ranks' combines are summed over the group, then rounded
+once. The dispatch input and the combine weights pass ``copy_to_group``,
+so their gradients, partial on each rank, are summed. A shared expert
+splits as the MLP does. Where the group does not divide the experts, they
+compute replicated.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _normal, dense_init, mlp_apply, mlp_init
-from repro_torch.models.shard_ctx import get_profile
+from repro_torch.models.shard_ctx import constrain, get_profile
 
 Tree = Dict[str, torch.Tensor]
 
@@ -90,10 +101,14 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _route(p: Tree, xb: torch.Tensor, cfg: ModelConfig, C: int):
+def _route(p: Tree, xb: torch.Tensor, cfg: ModelConfig, C: int,
+           experts: Optional[Tuple[int, int]] = None, rows: Optional[torch.Tensor] = None):
     """Route every block of xb (nb, N, d): the expert-major buffer
     (E, nb, C, d) and the combine metadata (expert ids, ranks, slot
-    weights, each (nb, N·k), and the per-block aux loss (nb,))."""
+    weights, each (nb, N·k), and the per-block aux loss (nb,)).
+    ``experts`` = (lo, n) keeps the buffer of experts [lo, lo + n) only:
+    the other experts' slots take zero weight and add zeros into row 0.
+    ``rows`` (xb's values) are the rows scattered, when not xb itself."""
     nb, N, d = xb.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     probs = router_probs(p, xb)  # (nb, N, E)
@@ -111,17 +126,24 @@ def _route(p: Tree, xb: torch.Tensor, cfg: ModelConfig, C: int):
     rank = torch.gather(cum, 2, ids[..., None])[..., 0] - 1
     del oh, cum
     keep = rank < C
+    w_flat = (top_w.reshape(nb, N * k) * keep).to(torch.float32)
+    lo, n_e = experts or (0, E)
+    if n_e != E:  # this rank's experts only
+        keep = keep & (ids >= lo) & (ids < lo + n_e)
     safe_rank = torch.where(keep, rank, 0).to(torch.long)
-    safe_ids = torch.where(keep, ids, 0)
+    safe_ids = torch.where(keep, ids - lo, 0)
 
-    xf_rep = torch.repeat_interleave(xb, k, dim=1)  # (nb, N·k, d): slot -> token
+    xf_rep = torch.repeat_interleave(xb if rows is None else rows, k, dim=1)  # slot -> token
     contrib = torch.where(keep[..., None], xf_rep, torch.zeros((), dtype=xb.dtype,
                                                                  device=xb.device))
     del xf_rep
     blk = torch.arange(nb, device=xb.device)[:, None].expand(nb, N * k)
-    buf = torch.zeros((E, nb, C, d), dtype=xb.dtype, device=xb.device).index_put(
+    buf = torch.zeros((n_e, nb, C, d), dtype=xb.dtype, device=xb.device).index_put(
         (safe_ids, blk, safe_rank), contrib, accumulate=True)
-    w_flat = (top_w.reshape(nb, N * k) * keep).to(torch.float32)
+    if n_e != E:
+        # the slot weights pass f before the mask of this rank's experts:
+        # the router's gradient then sums every rank's slots
+        w_flat = tp.copy_to_group(w_flat) * keep
     return buf, (safe_ids, safe_rank, w_flat, aux)
 
 
@@ -204,10 +226,23 @@ def moe_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     nb = route_blocks(N)
     block = N // nb
     C = _capacity(block, cfg)
-    buf, meta = _route(p, x.reshape(nb, block, d), cfg, C)
-    out = expert_ffn(buf.view(E, nb * C, d), p["gate"], p["up"], p["down"])
+    n_e = p["gate"].shape[0]
+    split = tp.is_block(n_e, E)
+    experts = rows = None
+    if split:  # this rank's experts; the dispatch rows pass f
+        experts = (tp.current_group().rank * n_e, n_e)
+        rows = tp.copy_to_group(x).reshape(nb, block, d)
+    buf, meta = _route(p, x.reshape(nb, block, d), cfg, C, experts, rows)
+    prof = get_profile()
+    if prof is not None:  # the JAX package's dispatch-layout pin
+        buf = constrain(buf, (prof["batch"] or None, None, None, None))
+    out = expert_ffn(buf.view(n_e, nb * C, d), p["gate"], p["up"], p["down"])
     del buf
-    y = _combine(out.view(E, nb, C, d), meta, k, x.dtype).reshape(B, S, d)
+    # split: the ranks' float32 combines are summed, then rounded once
+    y = _combine(out.view(n_e, nb, C, d), meta, k, torch.float32 if split else x.dtype)
+    y = y.reshape(B, S, d)
+    if split:
+        y = tp.reduce_from_group(y).to(x.dtype)
     if cfg.shared_expert:
-        y = y + mlp_apply(p["shared"], x, cfg.activation)
+        y = y + mlp_apply(p["shared"], x, cfg.activation, cfg.d_ff)
     return y, torch.mean(meta[3])

@@ -17,19 +17,27 @@ chunk of ``chunked_ce``'s scan), the port runs the same piece under
 are recomputed in the backward instead of kept.
 
 The JAX package pins activations to a sharding profile (``shard_ctx``);
-on one device that is a no-op, so the port pins none.
+the port calls the same pins, which return their input.
+
+Under a model group (``launch.tensor_parallel``) the embedding is a block
+of the padded vocabulary: ``logits_of`` gives the rank's block of the
+logits (its columns below ``vocab_size``, from ``vocab_offset``), and
+``chunked_ce`` takes a distributed log-sum-exp over the blocks (an
+all-reduce of the row maxima, of the sums of exponentials and of the
+target logits).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init, layer_kinds
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_apply, embed_init, rmsnorm_apply, rmsnorm_init, unembed_apply
+from repro_torch.models.shard_ctx import pin_activation, pin_stash
 
 Tree = Any
 
@@ -48,14 +56,21 @@ def _n_groups(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
-def stacked_draws(n: int, draw) -> Tree:
+def keep_whole(path: Tuple[Any, ...], tree: Tree, stack: Optional[int] = None) -> Tree:
+    """An init's ``keep`` that keeps every part whole (the one-process
+    model)."""
+    return tree
+
+
+def stacked_draws(n: int, draw, keep=None) -> Tree:
     """``n`` trees from ``draw()``, drawn in order, stacked leaf by leaf (the
     JAX package's ``tree_map(stack)``: dicts in sorted-key order). Each tree
-    is copied into the stack and dropped, so the init holds the stack and
-    one tree, not two copies of every layer."""
+    is cut to ``keep(tree)`` (itself when None), copied into the stack and
+    dropped, so the init holds the stack and one tree, not two copies of
+    every layer."""
     stack = None
     for i in range(n):
-        one = draw()
+        one = draw() if keep is None else keep(draw())
         if stack is None:
             stack = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), one)
         tree_map(lambda dst, src: dst[i].copy_(src), stack, one)
@@ -63,23 +78,30 @@ def stacked_draws(n: int, draw) -> Tree:
     return stack
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Tree:
+def init_params(gen: torch.Generator, cfg: ModelConfig, keep=keep_whole) -> Tree:
     """Parameters on ``gen``'s device, drawn from ``gen`` in order: the
-    embedding, the layers (group by group), the unembedding."""
+    embedding, the layers (group by group), the unembedding. Each part is
+    cut to ``keep(path, part, stack)`` as it is drawn (``stack``: the number
+    of layers stacked in the part's leaves, else None), so a model-group
+    rank (``models.api``) never holds more than one layer whole."""
     dtype = param_dtype(cfg)
     kinds = layer_kinds(cfg)
     G = _n_groups(cfg)
-    params: Dict[str, Tree] = {"embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)}
+    params: Dict[str, Tree] = {
+        "embed": keep(("embed",), embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))}
     if cfg.scan_layers:
         # stack per period position: each leaf leads with G
         params["groups"] = stacked_draws(
-            G, lambda: tuple(block_init(gen, cfg, kind, dtype) for kind in kinds))
+            G, lambda: tuple(block_init(gen, cfg, kind, dtype) for kind in kinds),
+            lambda one: keep(("groups",), one, G))
     else:
         params["layers"] = tuple(
-            block_init(gen, cfg, kinds[i % len(kinds)], dtype) for i in range(cfg.num_layers))
-    params["ln_f"] = rmsnorm_init(cfg.d_model, dtype, gen.device)
+            keep(("layers", i), block_init(gen, cfg, kinds[i % len(kinds)], dtype))
+            for i in range(cfg.num_layers))
+    params["ln_f"] = keep(("ln_f",), rmsnorm_init(cfg.d_model, dtype, gen.device))
     if not cfg.tie_embeddings:
-        params["unembed"] = embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype)
+        params["unembed"] = keep(("unembed",),
+                                 embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))
     return params
 
 
@@ -143,16 +165,17 @@ def apply_stack(
         layers = [_unstack(params["groups"][j], G) for j in range(len(kinds))]
 
         def group(g, h, aux):
+            h = pin_activation(h)  # the JAX package's scan-carry pin
             for j, kind in enumerate(kinds):
                 c = tree_map(lambda x: x[g], cache["groups"][j]) if cache is not None else None
                 h, _, a = block_apply(layers[j][g], h, positions, c, mode, cfg, kind)
                 aux = aux + a
-            return h, aux
+            return pin_stash(h), aux
 
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for g in range(G):
             if remat:
-                h, aux = checkpoint(group, g, h, aux, use_reentrant=False)
+                h, aux = tp.checkpoint(group, g, h, aux)
             else:
                 h, aux = group(g, h, aux)
         return h, new_cache, aux
@@ -181,9 +204,10 @@ def forward_hidden(
     if embeds is None:
         if tokens is None:
             raise ValueError("forward needs tokens or embeds")
-        h = embed_apply(params["embed"], tokens)
+        h = embed_apply(params["embed"], tokens, cfg.padded_vocab)
     else:
         h = embeds
+    h = pin_activation(h)
     B, S = h.shape[:2]
     if positions is None:
         offset = cache["len"] if (cache is not None and mode == "decode") else 0
@@ -195,11 +219,27 @@ def forward_hidden(
     return h, new_cache, aux
 
 
+def _unembedding(params: Tree, cfg: ModelConfig) -> Tree:
+    return params["embed"] if cfg.tie_embeddings else params["unembed"]
+
+
+def vocab_offset(params: Tree, cfg: ModelConfig) -> int:
+    """The first vocabulary column of the rank's logits (0 unless the
+    unembedding is a block of the vocabulary)."""
+    rows = _unembedding(params, cfg)["emb"].shape[0]
+    return tp.current_group().rank * rows if tp.is_block(rows, cfg.padded_vocab) else 0
+
+
 def logits_of(params: Tree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     """float32 logits (..., vocab_size) of final hidden states: the vocab
-    padding rows (``cfg.padded_vocab``) are dropped at this boundary."""
-    unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed_apply(unemb, h)[..., : cfg.vocab_size]
+    padding rows (``cfg.padded_vocab``) are dropped at this boundary. Under
+    a model group with a vocab-sharded unembedding, the rank's columns
+    ``[vocab_offset, ...)`` below ``vocab_size``."""
+    unemb = _unembedding(params, cfg)
+    lo = vocab_offset(params, cfg)
+    if unemb["emb"].shape[0] != cfg.padded_vocab:
+        h = tp.copy_to_group(h)
+    return unembed_apply(unemb, h)[..., : max(0, cfg.vocab_size - lo)]
 
 
 def forward(
@@ -226,6 +266,7 @@ def chunked_ce(
     *,
     n_chunks: int = 16,
     use_scan: bool = True,
+    vocab: int = 0,
 ) -> torch.Tensor:
     """Mean cross-entropy without materializing the full (B*S, V) float32
     logits.
@@ -234,7 +275,9 @@ def chunked_ce(
     divide evenly): each block computes its (chunk, V) logits, a
     log-sum-exp and the target gather, and the blocks' sums add up in
     order. With ``use_scan`` (the JAX package's scan) each block's logits
-    are recomputed in the backward instead of kept."""
+    are recomputed in the backward instead of kept. Under a model group
+    whose ``unemb`` is a block of the ``vocab`` (padded) rows, each block's
+    log-sum-exp and target logit are taken over the ranks' columns."""
     B, S, d = h.shape
     N = B * S
     hf = h.reshape(N, d)
@@ -242,9 +285,14 @@ def chunked_ce(
     if N % n_chunks:
         n_chunks = 1
     chunk = N // n_chunks
+    split = bool(vocab) and tp.is_block(unemb["emb"].shape[0], vocab)
+    if split:
+        hf = tp.copy_to_group(hf)
 
     def chunk_nll(hc, tc):
         logits = unembed_apply(unemb, hc)  # (chunk, V) f32
+        if split:
+            return _split_nll(logits, tc)
         lse = torch.logsumexp(logits, dim=-1)
         picked = torch.gather(logits, 1, tc[:, None])[:, 0]
         return torch.sum(lse - picked)
@@ -254,12 +302,27 @@ def chunked_ce(
         recompute = torch.is_grad_enabled()
         for i in range(n_chunks):
             hc, tc = hf[i * chunk:(i + 1) * chunk], tf[i * chunk:(i + 1) * chunk]
-            nll = (checkpoint(chunk_nll, hc, tc, use_reentrant=False) if recompute
-                   else chunk_nll(hc, tc))
+            nll = tp.checkpoint(chunk_nll, hc, tc) if recompute else chunk_nll(hc, tc)
             total = total + nll
     else:
         total = chunk_nll(hf, tf)
     return total / N
+
+
+def _split_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The summed negative log-likelihood of ``targets`` from the rank's
+    block of the logits: the row maxima all-reduced (max, a constant
+    shift), the sums of exponentials and the target logits (each nonzero
+    on one rank) all-reduced (sum)."""
+    n = logits.shape[-1]
+    lo = tp.current_group().rank * n
+    top = tp.all_reduce_max(torch.amax(logits, dim=-1).detach())
+    sum_exp = tp.reduce_from_group(torch.sum(torch.exp(logits - top[:, None]), dim=-1))
+    local = targets - lo
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(logits, 1, torch.where(inside, local, 0)[:, None])[:, 0]
+    picked = tp.reduce_from_group(picked * inside.to(picked.dtype))
+    return torch.sum(torch.log(sum_exp) + top - picked)
 
 
 # --------------------------------------------------------------------- #
@@ -277,8 +340,8 @@ def lm_loss(
     Uses ``chunked_ce``'s recomputed blocks when the config is in
     deployment mode (``scan_attn_chunks``), as the JAX package does."""
     h, _, aux = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, positions=positions)
-    unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    loss = chunked_ce(h[:, :-1], unemb, tokens[:, 1:], use_scan=cfg.scan_attn_chunks)
+    loss = chunked_ce(h[:, :-1], _unembedding(params, cfg), tokens[:, 1:],
+                      use_scan=cfg.scan_attn_chunks, vocab=cfg.padded_vocab)
     return loss + cfg.router_aux_weight * aux
 
 

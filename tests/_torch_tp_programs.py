@@ -1,0 +1,228 @@
+"""Rank functions of the port's tensor-parallel tests.
+
+``launch.tensor_parallel.GroupPool`` runs a function by its module's name
+in spawned ranks, so these live in a module that imports the port alone
+(a rank that re-imported a test file would import JAX too). Every function
+takes the rank's ``ModelGroup`` first and returns host objects.
+"""
+import contextlib
+from unittest import mock
+
+import numpy as np
+import torch
+
+from repro_torch.convert import shard_tree_from_numpy, tree_to_numpy
+from repro_torch.core.mesh_lowering import Mesh
+from repro_torch.fl.fedstep import FedStepConfig
+from repro_torch.launch import steps
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.steps import _with_moe_profile, build_serve_step, build_train_step
+from repro_torch.models import attention, transformer
+from repro_torch.models.layers import dense_apply
+from repro_torch.models.api import build_model
+
+
+def serve_batch(cfg, tokens: np.ndarray, frames=None, device="cpu") -> dict:
+    """The prefill batch of ``tokens`` for ``cfg``'s family on ``device``:
+    zero patch embeddings and text positions for a VLM, ``frames`` for
+    audio."""
+    batch = {"tokens": torch.from_numpy(tokens)}
+    B, S = tokens.shape
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros((B, cfg.vision_patches, cfg.d_model))
+        batch["positions"] = torch.arange(S, dtype=torch.int32)[None, None].expand(3, B, S)
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(frames)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def greedy(prefill, serve_step, bundle, params, batch, steps: int, group=None) -> dict:
+    """Prefill, then ``steps`` greedy serve steps: every step's float32
+    logits (the rank's vocabulary block) and tokens."""
+    B, S = batch["tokens"].shape
+    cache = bundle.init_cache(B, S + steps + 1)
+    offset = 0
+    if group is not None:
+        with tp.use_group(group):
+            offset = transformer.vocab_offset(params, bundle.cfg)
+    logits, cache = prefill(params, batch, cache)
+    out, toks = [logits], []
+    for _ in range(steps):
+        tok = tp.global_argmax(logits[:, -1], offset, bundle.cfg.vocab_size, group)
+        toks.append(tok)
+        logits, cache = serve_step(params, cache, {"token": tok[:, None].to(torch.int32)})
+        out.append(logits)
+    toks.append(tp.global_argmax(logits[:, -1], offset, bundle.cfg.vocab_size, group))
+    return {"logits": [x.detach().float().cpu().numpy() for x in out],
+            "tokens": torch.stack(toks, 1).cpu().numpy()}
+
+
+def skipped_wo_all_reduce(group):
+    """A planted fault: the last rank keeps its own partial sum of
+    attention's ``wo`` (the all-reduce still runs, so the ranks stay in
+    step)."""
+    whole = attention.attn_output
+
+    def attn_output(p, out, cfg, hs=None):
+        y = whole(p, out, cfg, hs)
+        if group.rank < group.size - 1 or hs is None or not hs.split:
+            return y
+        return dense_apply(p["wo"], out.reshape(*out.shape[:2], -1))
+
+    return mock.patch.object(attention, "attn_output", attn_output)
+
+
+def serve_rank(group, cfg, mesh_axes, params_np, tokens, frames, steps, fault=False):
+    """The rank's greedy serving through ``build_serve_step`` on the mesh,
+    on the rank's device; with ``fault``, under ``skipped_wo_all_reduce``."""
+    torch.set_num_threads(1)
+    B, S = tokens.shape
+    dev = group.device
+    bundle, setup = build_serve_step(cfg, Mesh(mesh_axes), S + steps + 1, B, dev, group)
+    params = _params_on(bundle, cfg, params_np, dev, group)
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+
+    fkernel.reset_launches()
+    planted = skipped_wo_all_reduce(group) if fault else contextlib.nullcontext()
+    with torch.no_grad(), planted:
+        out = greedy(setup.prefill, setup.serve_step, bundle, params,
+                     serve_batch(cfg, tokens, frames, dev), steps, group)
+    out["flash_launches"] = {name: fn.launches for name, fn in fkernel.ROUTES.items()}
+    out["counters"] = group.counters()
+    out["param_bytes"] = sum(x.numel() * x.element_size()
+                             for x in _leaves(params) if isinstance(x, torch.Tensor))
+    return out
+
+
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op thread, as each rank runs: CPU products change their
+    bits with the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _params_on(bundle, cfg, params_np, device, group=None):
+    """The rank's blocks (or the whole tree) of ``params_np``; an int there
+    is a seed: the bundle draws its parameters on ``device`` (bfloat16
+    trees, which numpy cannot hold)."""
+    if isinstance(params_np, int):
+        return bundle.init(torch.Generator(device=device).manual_seed(params_np))
+    if group is None:
+        from repro_torch.convert import tree_from_numpy
+
+        return tree_from_numpy(params_np, device)
+    return shard_tree_from_numpy(params_np, cfg, group.mesh, group.rank, device)
+
+
+def serve_one_process(cfg, mesh_axes, params_np, tokens, frames, steps, device="cpu"):
+    """The one-process run of ``serve_rank`` under the same mesh profile."""
+    with one_thread():
+        return _serve_one_process(cfg, mesh_axes, params_np, tokens, frames, steps, device)
+
+
+def _serve_one_process(cfg, mesh_axes, params_np, tokens, frames, steps, device):
+    bundle = build_model(cfg, device)
+    params = _params_on(bundle, cfg, params_np, device)
+    prefill = _with_moe_profile(bundle.prefill, cfg, Mesh(mesh_axes))
+    serve_step = _with_moe_profile(bundle.serve_step, cfg, Mesh(mesh_axes))
+    with torch.no_grad():
+        out = greedy(prefill, serve_step, bundle, params,
+                     serve_batch(cfg, tokens, frames, device), steps)
+    out["param_bytes"] = sum(x.numel() * x.element_size() for x in _leaves(params))
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.core.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def train_batch(cfg, tokens: np.ndarray, frames=None) -> dict:
+    batch = {"tokens": tokens}
+    B, S = tokens.shape
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = np.zeros((B, cfg.vision_patches, cfg.d_model), np.float32)
+        batch["positions"] = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+    if cfg.family == "audio":
+        batch["frames"] = frames
+    return batch
+
+
+def train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy=None):
+    """One step of ``build_train_step`` on the mesh: the rank's new blocks
+    and the metrics. ``group=None``: the one-process step, on the mesh with
+    a model axis of 1, under the profile of ``mesh_axes`` (the MoE routing
+    blocks of the split run)."""
+    with one_thread():
+        return _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy)
+
+
+def _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy):
+    mesh = Mesh(mesh_axes)
+    fed = FedStepConfig(**fed_kwargs)
+    if group is None:
+        one = Mesh(tuple((a, 1 if a == "model" else n) for a, n in mesh_axes))
+        profile = steps._with_moe_profile
+        with mock.patch.object(steps, "_with_moe_profile",
+                               lambda fn, cfg, _, manual_axes=(): profile(fn, cfg, mesh,
+                                                                          manual_axes)):
+            bundle, setup = build_train_step(cfg, one, fed, device="cpu", strategy_name=strategy)
+    else:
+        bundle, setup = build_train_step(cfg, mesh, fed, device="cpu", strategy_name=strategy,
+                                         group=group)
+    if group is None:
+        from repro_torch.convert import tree_from_numpy
+
+        params = tree_from_numpy(params_np, "cpu")
+    else:
+        params = shard_tree_from_numpy(params_np, cfg, group.mesh, group.rank, "cpu")
+    state = setup.init_state(params)
+    params, state, metrics = setup.step(params, state, batch, seed)
+    return {"params": tree_to_numpy(params),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "counters": group.counters() if group is not None else {}}
+
+
+def adjoint_rank(group, x_np, w_np, v_np):
+    """y = g(f(x) @ W_r) @ V for the rank's column block W_r of W: the
+    value and the gradients of x, W_r and V (each rank's V is whole)."""
+    torch.set_num_threads(1)
+    n = w_np.shape[1] // group.size
+    x = torch.from_numpy(x_np).requires_grad_(True)
+    w = torch.from_numpy(w_np[:, group.rank * n:(group.rank + 1) * n].copy()).requires_grad_(True)
+    vr = torch.from_numpy(v_np[group.rank * n:(group.rank + 1) * n].copy()).requires_grad_(True)
+    with tp.use_group(group):
+        h = torch.tanh(tp.copy_to_group(x) @ w)  # column-parallel
+        y = tp.reduce_from_group(h @ vr)  # row-parallel
+        loss = torch.sum(y * y)
+        loss.backward()
+        wg = tp.gather_at_use(w.detach(), 1, w_np.shape[1])
+    return {"y": y.detach().numpy(), "gx": x.grad.numpy(), "gw": w.grad.numpy(),
+            "gv": vr.grad.numpy(), "w_whole": wg.numpy(), "counters": group.counters()}
+
+
+def collectives_rank(group, dtype_name):
+    """An all-reduce sum of the rank's float32 or bfloat16 tensor, and the
+    lowest-index argmax over vocabulary blocks with a tie across ranks."""
+    dtype = getattr(torch, dtype_name)
+    x = (torch.arange(6, dtype=torch.float32) * 0.375 + group.rank).to(dtype)
+    s = tp.all_reduce_sum(x, group)
+    logits = torch.zeros((2, 3))
+    logits[0, 1] = 5.0  # row 0: 5.0 at column 1 of every rank: the tie goes to rank 0's
+    logits[1, 2 if group.rank == group.size - 1 else 0] = 1.0 + group.rank  # row 1: the last
+    arg = tp.global_argmax(logits, group.rank * 3, 3 * group.size, group)
+    return {"sum": s.float().numpy(), "argmax": arg.numpy()}
+
+
+def failing_rank(group):
+    """Rank 1 raises while the others wait in a collective."""
+    if group.rank == 1:
+        raise RuntimeError("planted rank failure")
+    tp.all_reduce_sum(torch.ones(2), group)
+    return {}

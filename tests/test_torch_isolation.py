@@ -8,8 +8,10 @@
   device raise where there is no CUDA device.
 * The training slice's modules (mesh lowering, DP, the fed step, the data
   pipeline, the train launchers), the fault plane's (channels, runtime,
-  launcher, hub and conformance), client and sample selection and the MoE
-  block's (``shard_ctx``, ``moe``, ``blocks``) are among the files walked.
+  launcher, hub and conformance), client and sample selection, the MoE
+  block's (``shard_ctx``, ``moe``, ``blocks``) and tensor parallelism's
+  (the sharding rules, the meshes, the model group, the rank programs of
+  the tests) are among the files walked.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card and
   outside a checkout.
 """
@@ -110,13 +112,37 @@ MOE_MODULES = ["models/shard_ctx.py", "models/moe.py", "models/blocks.py"]
 # the recurrent and encoder-decoder families' modules
 FAMILY_MODULES = ["models/ssd.py", "models/encdec.py", "launch/serve.py"]
 
+# tensor parallelism's modules
+TP_MODULES = ["launch/sharding.py", "launch/tensor_parallel.py", "launch/mesh.py",
+              "models/attention.py", "models/layers.py"]
 
-@pytest.mark.parametrize("module",
-                         TRAINING_MODULES + FAULT_PLANE_MODULES + MOE_MODULES + FAMILY_MODULES)
+
+@pytest.mark.parametrize("module", TRAINING_MODULES + FAULT_PLANE_MODULES + MOE_MODULES
+                         + FAMILY_MODULES + TP_MODULES)
 def test_training_modules_are_held_to_the_import_rule(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES
     assert not [m for m in _imported_modules(path) if _banned(m)]
+
+
+def test_tp_rank_programs_import_the_port_alone():
+    """The tests' rank functions run in spawned ranks: their module imports
+    neither jax nor the JAX package (a rank would import JAX for nothing)."""
+    bad = [m for m in _imported_modules(ROOT / "tests" / "_torch_tp_programs.py") if _banned(m)]
+    assert not bad
+
+
+def test_tp_launchers_default_to_cuda_and_raise_without_it(monkeypatch):
+    """``--ranks`` runs its ranks on the cards unless ``--device cpu`` is
+    asked for; without a card it raises before it spawns anything."""
+    from repro_torch.launch import serve, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--ranks", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--ranks", "2", "--steps", "1"])
+    assert serve._rank_devices("cpu", 2) == ["cpu", "cpu"]
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

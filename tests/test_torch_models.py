@@ -502,16 +502,23 @@ def test_init_draws_from_the_generator():
 
 
 def test_what_is_not_ported_raises():
-    """Every family of the JAX package builds, serves and trains; what the
-    port still lacks is tensor parallelism: ``build_train_step`` refuses a
-    mesh with a model axis over more than one card."""
+    """Every family of the JAX package builds, serves and trains, over a
+    model axis too (tests/test_torch_tensor_parallel.py); what the port
+    still lacks is FSDP's data-dim blocks: ``build_train_step`` refuses an
+    FSDP config on a mesh whose data axis is larger than 1 (and any model
+    axis > 1 without the rank's group)."""
     from repro_torch.core.mesh_lowering import Mesh
     from repro_torch.launch.steps import build_train_step
+    from repro_torch.launch.tensor_parallel import ModelGroup
 
     for arch in ("hymba_1_5b", "xlstm_1_3b", "seamless_m4t_medium"):
         bundle = build_model(get_config(arch, reduced=True), "cpu")
         assert bundle.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(NotImplementedError, match="FSDP"):
+        build_train_step(get_config("qwen3_moe_235b_a22b", reduced=True),
+                         Mesh((("data", 2), ("model", 2))), device="cpu",
+                         group=ModelGroup(rank=0, size=2))
+    with pytest.raises(ValueError, match="runs as 2 processes"):
         build_train_step(get_config("qwen2_5_3b", reduced=True),
                          Mesh((("data", 1), ("model", 2))), device="cpu")
     # training is ported (tests/test_torch_train.py): the loss is a 0-d

@@ -267,3 +267,112 @@ def test_flash_gate_sees_the_planted_attention_faults(arch):
     run["logits_f"] = run["logits_f"] + run["logits_f"].abs().mean()
     with pytest.raises(chip_smoke.PhaseFailed, match="flash prefill"):
         chip_smoke._flash_gate(arch, cfg, run, chip_smoke._plain_gate)
+
+
+# ---------------------------------------------------------------------- #
+# phase 9: tensor parallelism
+# ---------------------------------------------------------------------- #
+def _tp_results(layers, V=12, fault_rel=1.0, gathered=0, share=0.5, launches=None):
+    """Synthetic rank results of one model for ``_tp_serving_checks``: two
+    ranks' vocabulary blocks that put back the one-process logits, a fault
+    drive off by ``fault_rel``, and the float32 run's."""
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn(2, 1 + chip_smoke.TP_STEPS, V, generator=gen)
+    ref = {"logits": logits, "param_bytes": 1000, "prefill_s": 0.5, "decode_ms": 3.0}
+    ref32 = {"logits": logits * 2}
+    counters = {"all_reduces": 9, "all_reduce_bytes": 9 << 20}
+    want = chip_smoke.on_entry("flash_attention_forward_sm90", layers)
+
+    def drive(x, rank):
+        return {"logits": x[..., rank * V // 2:(rank + 1) * V // 2], "gathered": gathered,
+                "prefill_launches": launches or want, "prefill_bhsd": layers,
+                "step_launches": 0, "prefill_counters": counters, "step_counters": counters,
+                "prefill_s": 0.6, "decode_ms": 4.0}
+
+    res = [{"param_bytes": int(share * 1000), "peak_gb": 1.0,
+            "drives": [drive(logits, r), drive(logits[:, :1] * (1 + fault_rel), r)]}
+           for r in range(2)]
+    res32 = [{"drives": [drive(logits * 2, r)]} for r in range(2)]
+    return ref, ref32, res, res32
+
+
+def test_phase9_report_names_its_gates_and_limits(capsys):
+    ref, ref32, res, res32 = _tp_results(4)
+    info = chip_smoke._tp_serving_checks("Qwen2.5-3B", ref, ref32, res, res32, 4, "8/1",
+                                         pinned=False)
+    line = capsys.readouterr().out
+    assert line.startswith("phase 9b Qwen2.5-3B: ")
+    assert f"<= {chip_smoke.SERVE_REL_L2}" in line and f"<= {chip_smoke.TP_F32_REL}" in line
+    assert "fault skip_wo_all_reduce rel L2" in line and "0 gathered" in line
+    assert "4 flash_sm90 launches a prefill per rank at H 8/1" in line
+    assert "all-reduces (count, bytes) per prefill" in line and "information only" in line
+    assert info["rel_l2"]["gate"] == 0.0 and info["launches_per_rank"] == [4, 4]
+
+
+@pytest.mark.parametrize("fault", ["weak_fault", "gathered", "param_share", "fallback"])
+def test_phase9_gates_fail(fault):
+    kw = {"weak_fault": dict(fault_rel=1e-3), "gathered": dict(gathered=2),
+          "param_share": dict(share=0.6),
+          "fallback": dict(launches=chip_smoke.on_entry("flash_attention_forward", 4))}[fault]
+    ref, ref32, res, res32 = _tp_results(4, **kw)
+    with pytest.raises(chip_smoke.PhaseFailed):
+        chip_smoke._tp_serving_checks("Qwen2.5-3B", ref, ref32, res, res32, 4, "8/1",
+                                      pinned=False)
+
+
+_REHEARSAL = r'''
+"""Phase 9 of chip_smoke.py on the CPU at tiny widths: spawned ranks re-run
+this top level, so they take the same stand-ins."""
+import dataclasses, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config as real_get
+from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
+
+def tiny(arch):
+    cfg = real_get(arch)
+    if arch == "qwen2_5_3b":
+        return dataclasses.replace(cfg, d_model=64, d_ff=256, vocab_size=1000)
+    return dataclasses.replace(cfg, d_model=64, moe_d_ff=32, vocab_size=1000)
+
+cs.get_config = tiny
+real_check = cs.check
+cs.check = lambda cond, what: None if "widths" in what else real_check(cond, what)
+for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+    setattr(torch.cuda, name, lambda *a, **k: None)
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+cs.cuda_ms = lambda fn, reps=5: (fn(), 0.1)[1]
+fk._check = lambda *a: True
+
+def plain_sm90(q, k, v, *, causal=True, window=0):
+    plain_sm90.launches += 1
+    return fref.reference_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    causal=causal, window=window).transpose(1, 2)
+
+plain_sm90.launches = 0
+plain_sm90.__name__ = "flash_forward_sm90"
+fk.ROUTES["flash_forward_sm90"] = plain_sm90
+fk.KERNELS = (fk.flash_attention_bhsd, fk.flash_forward, plain_sm90, fk.flash_forward_sm90_d256)
+cs.SERVE_BATCH, cs.SERVE_PROMPT, cs.TP_F32_PROMPT, cs.TRAIN_SEQ = 2, 64, 32, 32
+
+if __name__ == "__main__":
+    out = cs.phase_tensor_parallel(torch.device("cpu"), "no card")
+    print("LAUNCHES", out["qwen"]["launches_per_rank"], out["moe"]["launches_per_rank"])
+'''
+
+
+def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
+    """The whole phase, every gate, over two gloo ranks on the CPU (the
+    flash route a counting plain version, the CUDA calls no-ops)."""
+    driver = tmp_path / "rehearse_phase9.py"
+    driver.write_text(_REHEARSAL)
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, str(driver), str(ROOT)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = proc.stdout
+    for part in ("phase 9a:", "phase 9b Qwen2.5-3B:", "phase 9c Qwen3-MoE-235B-A22B:",
+                 "phase 9d:", "phase 9 flash_sm90 at"):
+        assert part in out
+    assert "LAUNCHES [4, 4] [2, 2]" in out

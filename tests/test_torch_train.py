@@ -491,7 +491,9 @@ def test_train_launcher_checkpoint(tmp_path):
 
 def test_model_axis_and_flash_training_refused():
     cfg = get_config("qwen2_5_3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    # a model axis of 2 is 2 processes (tests/test_torch_tensor_parallel.py):
+    # without the rank's group the builder refuses
+    with pytest.raises(ValueError, match="runs as 2 processes"):
         build_train_step(cfg, Mesh((("data", 1), ("model", 2))), device="cpu")
     bundle = build_model(dataclasses.replace(cfg, attn_impl="flash"), "cpu")
     params = bundle.init(torch.Generator().manual_seed(0))
