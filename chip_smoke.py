@@ -8,7 +8,7 @@ the CUDA toolkit:
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
 source, started together), then runs ten phases (phase 6 in seven
-parts), each printing its lines:
+parts), each printing its lines, and the kernels line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -95,7 +95,8 @@ parts), each printing its lines:
    S + 1); (c) prefill, plain prefill and decode times, a kernel-time
    breakdown of each from ``torch.profiler``, and both flash kernels'
    times at the serving shape: the tensor-core kernel at bf16, ``flash.cu``
-   on its own route, float32 (checked against the plain version there too);
+   on its own routes, float32 and bf16 at head dim 32 (checked against the
+   plain version there too);
    6d. serving Qwen3-MoE-235B-A22B at its published widths (128 experts
    top-8, 64/4 heads of 128), depth cut from 94 layers to 8, bf16, random
    weights from a seeded generator, through ``serve.generate`` with the
@@ -116,7 +117,8 @@ parts), each printing its lines:
    shapes), through phase 6's checks, no memory held after:
    6h Hymba-1.5B (prompts of 4096, twice its window of 2048; 32 tensor-core
    flash launches a prefill, gated against the same weights in float32;
-   teacher forcing: 32 decode steps after a prefill of 2048, in float32, and
+   teacher forcing: 32 decode steps after a prefill of 2048 and after one of
+   2304, which the window does not divide (the ring cache), in float32, and
    256 bf16 decode steps at 2 layers whose first-layer SSD state must match
    a prefill's, with planted decode faults), then 2 layers in float32 on the
    card against the CPU and the tensor-core kernel at Hymba's attention
@@ -219,11 +221,26 @@ parts), each printing its lines:
    round of Qwen2.5-3B at full width, 2 layers, float32, on (data 2, model
    2) against the one-process round on (data 2, model 1): loss,
    ``delta_norm`` and every parameter within phase 8's card-vs-CPU
-   tolerances; each rank's peak memory, all-reduces (count, bytes) per
-   prefill and per decode step, and wall times (information only: both
-   ranks share the card); the tensor-core kernel at both ranks' attention
-   shapes against the plain version, SDPA and its bound;
-10. a ``kernels`` JSON line: launches on each path (phase 4 for the
+   tolerances; (e) the same round on (pod 2, data 1, model 2) with DP
+   (clip and noise over whole leaves) and the int8 cross-pod wire (the
+   whole leaf's scale) against the one-process round on (pod 2, data 1,
+   model 1): (d)'s gates, each rank's int8 codes against its blocks of the
+   one-process codes (at most 1e-4 of them differ, by one), its
+   all-reduces equal to what the dry run's counting group predicts; (b)'s
+   float32 cut also samples 16 tokens at temperature 1 (the vocabulary
+   blocks gathered whole) on both sides, the tokens equal; each rank's
+   peak memory, all-reduces (count, bytes) per prefill and per decode
+   step, and wall times (information only: both ranks share the card);
+   the tensor-core kernel at both ranks' attention shapes against the
+   plain version, SDPA and its bound;
+10. the dry run (``launch.dryrun``: fake tensors on the host) against the
+   card: its memory constant against ``total_memory``; the parameter bytes
+   a device against phase 9's ranks' and the one-process tree's; the
+   counting group's all-reduces a prefill and a decode step against phase
+   9b's and 9c's; the roofline of phase 6's prefill on the H100's
+   datasheet figures, whose compute term the measured prefill may not
+   beat (the terms, the dominant one and compute / measured printed);
+11. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
    the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's and phase
@@ -313,6 +330,12 @@ from repro_torch.core.mesh_lowering import Mesh  # noqa: E402
 from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import tensor_parallel as tp  # noqa: E402
 from repro_torch.launch.steps import _with_moe_profile, build_serve_step  # noqa: E402
+from repro_torch.core import mesh_lowering  # noqa: E402
+from repro_torch.fl.privacy import DPConfig  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as hw  # noqa: E402
+from repro_torch.models.api import param_shapes  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -405,9 +428,11 @@ STUB_FRAMES = 0.1
 # teacher forcing reads 0.39, its float32 one 3.5e-4), while in float32 a
 # 1e-7 relative change of the embeddings moves the logits by 2.5e-4 (xLSTM)
 # and 1.4e-5 (Hymba) (H100 80GB HBM3, 700 W): the limit is about 6x xLSTM's
-# reading, and Hymba's control, a prefill of 2304 (past the window, not a
-# multiple of it: the ring fault of ROADMAP Queue 3), reads 0.354
-TF_F32_REL, HYMBA_TF_CONTROL = 2e-3, 2304
+# reading. Hymba's teacher forcing also runs after a prefill of 2304, past
+# the window and not a multiple of it, which the ring cache keeps at the
+# slots its decode steps read (position p at slot p mod W), held to the
+# same limit
+TF_F32_REL, HYMBA_TF_RING = 2e-3, 2304
 # The bf16 decode path, at cut depth (Hymba 2 layers; xLSTM one period of 8
 # and its sLSTM block alone), seeded weights: DECODE_STEPS teacher-forced
 # steps (one SSD chunk, so that the prompt and the steps are whole chunks)
@@ -3148,7 +3173,8 @@ def phase_serve(dev: torch.device) -> dict:
     flash kernel, with the checks of every serving phase
     (``_serve_phase``); (c) its times, the tensor-core kernel at the
     serving shape and flash.cu at the same shape in float32 (CUDA cores:
-    TF32 would miss the 2e-5 limit)."""
+    TF32 would miss the 2e-5 limit) and in bf16 at head dim 32 (the other
+    case of its route)."""
     cfg = dataclasses.replace(get_config("qwen2_5_3b"), attn_impl="flash")
     _published(cfg, num_layers=36, d_model=2048, num_heads=16, num_kv_heads=2, head_dim=128,
                scan_layers=True, param_dtype="bfloat16")
@@ -3160,7 +3186,8 @@ def phase_serve(dev: torch.device) -> dict:
         on_entry("flash_attention_forward_sm90", cfg.num_layers),
         pieces={"flash": (blocks, "flash_attention")},
         step_pieces={"attention": (blocks, "_attn_core_decode")},
-        flash_shapes=[shape + (torch.bfloat16,), shape + (torch.float32,)])
+        flash_shapes=[shape + (torch.bfloat16,), shape + (torch.float32,),
+                      shape[:4] + (32, 0, torch.bfloat16)])
 
 
 # ---------------------------------------------------------------------- #
@@ -3707,13 +3734,13 @@ def _decode_check(dev, cfg, prefill_len: int) -> str:
             f"{controls['state_dropped'][0]:.3g}")
 
 
-def _recurrent_teacher(prefill_len: int, cuts: tuple, control: int = 0):
+def _recurrent_teacher(prefill_len: int, cuts: tuple, ring: int = 0):
     """Teacher forcing for the recurrent models: at full depth on the
     weights in float32, TF_STEPS decode steps after a prefill of
-    ``prefill_len`` within TF_F32_REL (and after a prefill of ``control``,
-    if given, a control that must read above it); then the bf16 decode
-    path at each of ``cuts`` (the config cut in depth) through
-    ``_decode_check``."""
+    ``prefill_len`` within TF_F32_REL (and after a prefill of ``ring``, if
+    given: past the window, not a multiple of it, within the same limit);
+    then the bf16 decode path at each of ``cuts`` (the config cut in depth)
+    through ``_decode_check``."""
     def teacher(dev, run: dict) -> tuple:
         cfg32 = dataclasses.replace(run["bundle"].cfg, param_dtype="float32", attn_impl="xla")
         b32 = build_model(cfg32, dev)
@@ -3723,11 +3750,11 @@ def _recurrent_teacher(prefill_len: int, cuts: tuple, control: int = 0):
         check(rel <= TF_F32_REL, f"teacher forcing (float32): rel L2 {rel} > {TF_F32_REL}")
         text = (f"float32 weights, {TF_STEPS} decode steps after a prefill of {prefill_len}, "
                 f"{TF_PROMPTS} prompts; last step rel_l2 {last:.3g}")
-        if control:
-            ctl = _teacher_forcing_steps(b32, p32, cfg32, prompts, control, TF_STEPS)[0]
-            check(ctl > TF_F32_REL, f"the control (a prefill of {control}) reads rel L2 {ctl}, "
-                                    f"within {TF_F32_REL}")
-            text += f"; control, a prefill of {control}: rel_l2 {ctl:.3g}"
+        if ring:
+            wrapped = _teacher_forcing_steps(b32, p32, cfg32, prompts, ring, TF_STEPS)[0]
+            check(wrapped <= TF_F32_REL, f"teacher forcing after a prefill of {ring} (the ring "
+                                         f"cache): rel L2 {wrapped} > {TF_F32_REL}")
+            text += f"; after a prefill of {ring} (ring slots p mod W): rel_l2 {wrapped:.3g}"
         del b32, p32
         free_device()
         for cut in cuts:
@@ -3950,13 +3977,10 @@ def phase_serve_hymba(dev: torch.device) -> dict:
     ring wraps), 64 greedy tokens; 32 tensor-core flash launches a
     prefill. The flash prefill is gated against the float32 model
     (``_float32_gate``). Teacher forcing decodes 32 steps after a prefill
-    of 2048 (one window), so the ring wraps there too, with a prefill of
-    2304 as its control; the bf16 decode runs at 2 layers. A prefill
-    longer than the window keeps its last W keys at slots 0..W-1 (the JAX
-    package's ``_attn_core_full``), where a decode step writes position p
-    at slot p mod W: the two agree when the prefill is a multiple of W, as
-    4096 and 2048 are; otherwise the first decode steps overwrite live
-    keys, in both packages alike (ROADMAP Queue 3)."""
+    of 2048 (one window), so the ring wraps there too, and after a prefill
+    of 2304, which the window does not divide: the prefill writes its last
+    W keys at the slots a decode step reads them from (position p at slot
+    p mod W); the bf16 decode runs at 2 layers."""
     cfg = dataclasses.replace(get_config("hymba_1_5b"), attn_impl="flash")
     _published(cfg, num_layers=32, d_model=1600, num_heads=25, num_kv_heads=5, head_dim=64,
                ssm_heads=25, ssm_state=16, ssm_expand=2, d_ff=5504, sliding_window=2048,
@@ -3968,7 +3992,7 @@ def phase_serve_hymba(dev: torch.device) -> dict:
         on_entry("flash_attention_forward_sm90", cfg.num_layers),
         gate=_float32_gate,
         teacher=_recurrent_teacher(cfg.sliding_window, (dataclasses.replace(cfg, num_layers=2),),
-                                   control=HYMBA_TF_CONTROL),
+                                   ring=HYMBA_TF_RING),
         gate_cfg=gate,
         pieces={"ssd_chunked": (blocks, "ssd_chunked"), "flash": (blocks, "flash_attention")},
         step_pieces={"ssd_decode_step": (blocks, "ssd_decode_step")},
@@ -4234,6 +4258,8 @@ def phase_train(dev: torch.device, smi: str) -> dict:
 # fed-step round of Qwen2.5-3B at full width, 2 layers, float32, on a mesh
 # (data 2, model 2): 2 ranks x 2 virtual clients, phase 8's traffic
 TP_RANKS, TP_STEPS = 2, 8
+# (b) the float32 cut also samples this many tokens at temperature 1
+TP_SAMPLE = 16
 TP_QWEN_LAYERS, TP_MOE_LAYERS, TP_TRAIN_LAYERS = 4, 2, 2
 # the float32 runs: Qwen2.5-3B at 2 layers, Qwen3-MoE at 1 (each rank draws
 # the whole float32 tree before it keeps its blocks: 15 GB for one layer),
@@ -4250,6 +4276,13 @@ TP_PARAM_SHARE = 0.55
 # (d): float32 sums in other orders, as phase 8's card-vs-CPU gate reasons
 TP_TRAIN_RTOL, TP_TRAIN_ATOL = GATE_LOSS_RTOL, GATE_PARAM_ATOL
 TP_FAULT = "skip_wo_all_reduce"
+# (e): (d)'s round on (pod 2, data 1, model 2) with DP and the int8
+# cross-pod wire, whose clip norm, noise and per-tensor scales span whole
+# leaves. A small clip and noise keep each int8 code step (a leaf's absmax
+# / 127, about 1e-6 at these settings) far below (d)'s parameter gate, so
+# a code one off from a float32 sum in another order stays inside it; at
+# most TP_CODE_SHARE of the codes may differ, by one
+TP_PODS, TP_DP, TP_CODE_SHARE = 2, dict(clip_norm=0.05, noise_multiplier=1e-3), 1e-4
 
 
 @contextlib.contextmanager
@@ -4328,16 +4361,18 @@ def _tp_drive(prefill, serve_step, bundle, params, prompts, forced, steps: int,
 
 def _tp_serve_rank(group, runs: list) -> list:
     """Each run's drives on the rank's blocks: ``runs`` of (cfg, seed, B, S,
-    steps, drives), a drive a dict of ``fault`` (None or ``TP_FAULT``),
-    ``picks`` (the one-process run's expert picks to replay, or None) and
-    ``steps``. Per run: the rank's parameter bytes, peak memory, and each
-    drive's ``_tp_drive`` result with its gathers."""
+    steps, drives, sample), a drive a dict of ``fault`` (None or
+    ``TP_FAULT``), ``picks`` (the one-process run's expert picks to replay,
+    or None) and ``steps``. Per run: the rank's parameter bytes, peak
+    memory, and each drive's ``_tp_drive`` result with its gathers; with
+    ``sample`` > 0, that many tokens sampled by ``serve.generate`` at
+    temperature 1 from its default seed 0 (``sampled``)."""
     dev = group.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     results = []
-    for cfg, seed, B, S, steps, drives in runs:
+    for cfg, seed, B, S, steps, drives, sample in runs:
         free_device()
         torch.cuda.reset_peak_memory_stats(dev)
         bundle, setup = build_serve_step(cfg, _tp_mesh(), S + max(steps, 1), B, dev, group)
@@ -4358,6 +4393,9 @@ def _tp_serve_rank(group, runs: list) -> list:
             d["pinned_calls"] = pin.calls if drive.get("picks") is not None else 0
             d["gathered"] = group.gathered_leaves
             res["drives"].append(d)
+        if sample:
+            with torch.no_grad():
+                res["sampled"] = generate(bundle, params, prompts, sample, 1.0).tokens.cpu()
         res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         del params, prompts, forced, bundle, setup
         results.append(res)
@@ -4365,9 +4403,11 @@ def _tp_serve_rank(group, runs: list) -> list:
     return results
 
 
-def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool) -> dict:
+def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool,
+                  sample: int = 0) -> dict:
     """The one-process run of the same draws under the split run's
-    profile; with ``record``, the expert picks of every routing call."""
+    profile; with ``record``, the expert picks of every routing call; with
+    ``sample``, that many tokens sampled as ``_tp_serve_rank`` samples."""
     bundle = build_model(cfg, dev)
     prefill = _with_moe_profile(bundle.prefill, cfg, _tp_mesh())
     serve_step = _with_moe_profile(bundle.serve_step, cfg, _tp_mesh())
@@ -4377,6 +4417,9 @@ def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool)
         out = _tp_drive(prefill, serve_step, bundle, params, prompts, forced, steps)
     out["param_bytes"] = sum(x.numel() * x.element_size() for x in tree_leaves(params))
     out["picks"] = [p.cpu() for p in pin.picks] if record else None
+    if sample:
+        with torch.no_grad():
+            out["sampled"] = generate(bundle, params, prompts, sample, 1.0).tokens.cpu()
     del params, prompts, forced, bundle, pin
     free_device()
     return out
@@ -4438,6 +4481,150 @@ def _tp_train_rank(group, cfg, seed: int, batch: dict, round_seed: int, ref_path
     del params, state, bundle, setup, ref, blocks
     free_device()
     return out
+
+
+def _tp_sampling_check(ref: dict, res: list) -> int:
+    """Every rank's sampled tokens equal the one-process run's (the same
+    seeded generator on the vocabulary gathered whole)."""
+    for r, got in enumerate(res):
+        check(torch.equal(got["sampled"], ref["sampled"]),
+              f"rank {r} sampled other tokens than one process: "
+              f"{int((got['sampled'] != ref['sampled']).sum())} of {ref['sampled'].numel()}")
+    n = ref["sampled"].numel()
+    print(f"phase 9b sampling: {TP_SAMPLE} tokens at temperature 1 from seed 0 on "
+          f"{ref['sampled'].shape[0]} prompts of {TP_F32_PROMPT} (float32 cut), both ranks' "
+          f"{n} tokens equal to one process's", flush=True)
+    return n
+
+
+@contextlib.contextmanager
+def _recorded_codes(codes: list):
+    """Every int8 quantization of the fed step's wire appends its codes to
+    ``codes`` (kept where they were made)."""
+    quantize = mesh_lowering.quantize_int8
+
+    def recording(x, whole=True):
+        q, scale = quantize(x, whole)
+        codes.append(q)
+        return q, scale
+
+    mesh_lowering.quantize_int8 = recording
+    try:
+        yield codes
+    finally:
+        mesh_lowering.quantize_int8 = quantize
+
+
+def _tp_dp_fed() -> FedStepConfig:
+    return FedStepConfig(local_steps=TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR, dp=DPConfig(**TP_DP))
+
+
+def _tp_whole_leaf_rank(group, cfg, seed: int, batch: dict, round_seed: int, ref_path: str,
+                        codes_path: str) -> dict:
+    """(e) one round with DP and the int8 cross-pod wire on (pod 2, data 1,
+    model 2): as ``_tp_train_rank``, and the rank's int8 codes against its
+    blocks of the one-process round's (``codes_path``): how many differ, and
+    by how much at most."""
+    dev = group.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    free_device()
+    bundle, setup = build_train_step(cfg, Mesh((("pod", TP_PODS), ("data", 1),
+                                                ("model", TP_RANKS))),
+                                     _tp_dp_fed(), cross_pod_wire="int8", device=dev,
+                                     group=group)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+    state = setup.init_state(params)
+    group.reset_counters()
+    with _recorded_codes([]) as codes:
+        params, state, metrics = setup.step(params, state, batch, round_seed)
+    counters = group.counters()
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    blocks = shd.shard_tree(ref, shd.param_specs(ref, cfg, group.mesh), group.mesh,
+                            group.coords)
+    worst = max(float((got - want.to(dev)).abs().max())
+                for got, want in zip(tree_leaves(params), tree_leaves(blocks)))
+    ref_codes = torch.load(codes_path, mmap=True, weights_only=True)
+    cut = shd.LeafBlocks.of_params(param_shapes(cfg), cfg, group.mesh, group.coords)
+    n = len(cut.shapes)
+    differ = total = 0
+    step = 0
+    for k, (mine, whole) in enumerate(zip(codes, ref_codes)):
+        gap = (mine.to(torch.int16) - cut.cut(k % n, whole.to(dev)).to(torch.int16)).abs()
+        differ += int((gap > 0).sum())
+        step = max(step, int(gap.max()))
+        total += gap.numel()
+    out = {"counters": counters, "max_abs": worst, "calls": (len(codes), len(ref_codes)),
+           "codes_differ": differ, "codes_total": total, "codes_max_gap": step,
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    del params, state, bundle, setup, ref, blocks, ref_codes, codes
+    free_device()
+    return out
+
+
+def _tp_whole_leaf_round(pool, dev, cfg, batch: dict, smi: str) -> dict:
+    """(e): the one-process round on (pod 2, data 1, model 1) with its
+    codes, then the ranks' (``_tp_whole_leaf_rank``), their all-reduces
+    against what the dry run's counting group predicts
+    (``dryrun.train_counts`` on a counting group)."""
+    parts, t0 = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        parts[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    bundle, setup = build_train_step(cfg, make_virtual_mesh(1, pods=TP_PODS), _tp_dp_fed(),
+                                     cross_pod_wire="int8", device=dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(11))
+    with _recorded_codes([]) as codes:
+        new, _, metrics = setup.step(params, setup.init_state(params), batch, 5)
+    ref_metrics = {k: float(v) for k, v in metrics.items()}
+    part("one process")
+    ref_dir = tempfile.mkdtemp(prefix="tp_whole_leaf_")
+    ref_path, codes_path = (os.path.join(ref_dir, n) for n in ("params.pt", "codes.pt"))
+    torch.save(tree_map(lambda x: x.cpu(), new), ref_path)
+    torch.save([c.cpu() for c in codes], codes_path)
+    del bundle, setup, params, new, metrics, codes
+    free_device()
+    part("save")
+    try:
+        res = [r.value for r in pool.run(_tp_whole_leaf_rank, cfg, 11, batch, 5, ref_path,
+                                         codes_path)]
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    part("ranks")
+    rows = TRAIN_BATCH, TRAIN_SEQ
+    mesh = Mesh((("pod", TP_PODS), ("data", 1), ("model", TP_RANKS)))
+    predicted = [dryrun.count_collectives(dryrun.train_counts, TP_RANKS, r, cfg, mesh,
+                                          _tp_dp_fed(), rows, "int8") for r in range(TP_RANKS)]
+    part("counting group")
+    for r, v in enumerate(res):
+        check(v["calls"][0] == v["calls"][1] > 0, f"(e) rank {r} quantized {v['calls']}")
+        for k in ("loss", "delta_norm"):
+            a, b = v["metrics"][k], ref_metrics[k]
+            check(abs(a - b) <= TP_TRAIN_RTOL * abs(b), f"(e) rank {r} {k} {a} against {b}")
+        check(v["max_abs"] <= TP_TRAIN_ATOL, f"(e) rank {r} parameters {v['max_abs']} from the "
+                                             "one-process round")
+        check(v["codes_max_gap"] <= 1 and v["codes_differ"] <= TP_CODE_SHARE * v["codes_total"],
+              f"(e) rank {r}: {v['codes_differ']} of {v['codes_total']} int8 codes differ, by up "
+              f"to {v['codes_max_gap']}")
+        got = (v["counters"]["all_reduces"], v["counters"]["all_reduce_bytes"])
+        check(got == predicted[r], f"(e) rank {r} all-reduces {got}, the counting group "
+                                   f"predicts {predicted[r]}")
+    print(f"phase 9e: one round of Qwen2.5-3B at {cfg.num_layers} layers, float32, on (pod "
+          f"{TP_PODS}, data 1, model {TP_RANKS}) with DP {TP_DP} and the int8 cross-pod wire "
+          f"against (pod {TP_PODS}, data 1, model 1): loss "
+          f"{[v['metrics']['loss'] for v in res]} vs {ref_metrics['loss']}, delta_norm "
+          f"{[v['metrics']['delta_norm'] for v in res]} vs {ref_metrics['delta_norm']} (rtol "
+          f"{TP_TRAIN_RTOL}); parameters max abs {[v['max_abs'] for v in res]} <= "
+          f"{TP_TRAIN_ATOL}; int8 codes differing {[v['codes_differ'] for v in res]} of "
+          f"{[v['codes_total'] for v in res]} (at most {TP_CODE_SHARE} of them), by at most "
+          f"{[v['codes_max_gap'] for v in res]}; all-reduces (count, bytes) "
+          f"{[(v['counters']['all_reduces'], v['counters']['all_reduce_bytes']) for v in res]}, "
+          f"the counting group predicts {predicted}; parts s {json.dumps(parts)} (card {smi})",
+          flush=True)
+    return {"ranks": res, "ref_metrics": ref_metrics, "predicted": predicted, "parts_s": parts}
 
 
 def _tp_gate(name: str, rel: float, limit: float) -> str:
@@ -4547,14 +4734,16 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
         # (b) Qwen2.5-3B
         drives = [{"steps": TP_STEPS}, {"steps": 0, "fault": TP_FAULT}]
         ref = _tp_reference(dev, qwen, 7, B, S, TP_STEPS, record=False)
-        ref32 = _tp_reference(dev, qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, record=False)
+        ref32 = _tp_reference(dev, qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, record=False,
+                              sample=TP_SAMPLE)
         part("9b one process")
         res = pool.run(_tp_serve_rank, [
-            (qwen, 7, B, S, TP_STEPS, drives),
-            (qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, [{"steps": TP_STEPS}])])
+            (qwen, 7, B, S, TP_STEPS, drives, 0),
+            (qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, [{"steps": TP_STEPS}], TP_SAMPLE)])
         out["qwen"] = _tp_serving_checks(
             "Qwen2.5-3B", ref, ref32, [r.value[0] for r in res], [r.value[1] for r in res],
             TP_QWEN_LAYERS, "8/1", pinned=False, smi=smi)
+        out["qwen"]["sampled"] = _tp_sampling_check(ref32, [r.value[1] for r in res])
         del ref, ref32, res
         part("9b ranks")
 
@@ -4568,9 +4757,9 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
         drives = [{"steps": TP_STEPS}, {"steps": TP_STEPS, "picks": ref["picks"]},
                   {"steps": 0, "picks": ref["picks"][:TP_MOE_LAYERS], "fault": TP_FAULT}]
         res = pool.run(_tp_serve_rank, [
-            (moe, 9, B, S, TP_STEPS, drives),
+            (moe, 9, B, S, TP_STEPS, drives, 0),
             (moe32, 10, B, TP_F32_PROMPT, TP_STEPS,
-             [{"steps": TP_STEPS, "picks": ref32["picks"]}])])
+             [{"steps": TP_STEPS, "picks": ref32["picks"]}], 0)])
         for r in res:
             check(r.value[0]["drives"][1]["pinned_calls"] == n_calls,
                   f"rank {r.rank} replayed {r.value[0]['drives'][1]['pinned_calls']} picks")
@@ -4630,6 +4819,11 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
               f"{[round(x, 2) for x in out['train']['round_s']]} vs {ref_round_s:.2f} "
               f"(information only; card {smi})", flush=True)
         del res
+        free_device()
+
+        # (e) DP and the int8 cross-pod wire at model 2
+        out["whole_leaf"] = _tp_whole_leaf_round(pool, dev, cfg, batch, smi)
+        part("9e")
     # the tensor-core kernel at the ranks' attention shapes
     out["flash"] = {
         "qwen": _flash_at(dev, B, S, qwen.num_heads // TP_RANKS,
@@ -4645,6 +4839,67 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
               f"{f['bound'][0]:.3f} ms ({f['bound'][1]}), max abs err {f['max_abs_err']:.3e}, "
               f"rel L2 {f['rel_l2']:.3e} (card {smi})", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------- #
+# phase 10: the dry run against the card
+# ---------------------------------------------------------------------- #
+def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str) -> dict:
+    """10: the dry run (``launch.dryrun``, ``launch.analysis``; fake tensors
+    on the host, nothing on the card) against what phases 6 and 9 measured
+    on it: the card-memory constant against the device's; the parameter
+    bytes a device against phase 9's ranks' (Qwen2.5-3B at 4 layers, model
+    2) and the one-process tree's (model 1); the counting group's
+    all-reduces a prefill and a decode step against phase 9b's and 9c's, rank
+    by rank; and the roofline of phase 6's prefill (Qwen2.5-3B, 36 layers,
+    bf16, 8 x 2048) on the card's figures: the measured prefill may not be
+    faster than its compute term."""
+    total = torch.cuda.get_device_properties(dev).total_memory
+    check(hw.HBM_PER_CARD == total, f"the card-memory constant {hw.HBM_PER_CARD} is not the "
+                                    f"device's {total}")
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    shape = ShapeConfig("prefill", S, B, "prefill")
+    one = Mesh((("data", 1), ("model", 1)))
+    qwen = dataclasses.replace(get_config("qwen2_5_3b"), num_layers=TP_QWEN_LAYERS,
+                               attn_impl="flash")
+    moe = dataclasses.replace(get_config("qwen3_moe_235b_a22b"), num_layers=TP_MOE_LAYERS,
+                              attn_impl="flash")
+    split = dryrun.device_bytes(qwen, shape, _tp_mesh())["param_bytes"]
+    whole = dryrun.device_bytes(qwen, shape, one)["param_bytes"]
+    measured = tpar["qwen"]["param_bytes"]
+    check(all(b == split for b in measured) and whole == tpar["qwen"]["ref_param_bytes"],
+          f"the dry run's parameter bytes a device {split} (model {TP_RANKS}) and {whole} (model "
+          f"1); phase 9 measured {measured} and {tpar['qwen']['ref_param_bytes']}")
+    counts = {}
+    for label, cfg, info in (("Qwen2.5-3B", qwen, tpar["qwen"]),
+                             ("Qwen3-MoE-235B-A22B", moe, tpar["moe"])):
+        counts[label] = []
+        for r in range(TP_RANKS):
+            got = dryrun.count_collectives(dryrun.serve_counts, TP_RANKS, r, cfg, B, S)
+            want = {"prefill": tuple(info["prefill_all_reduce"][r]),
+                    "step": tuple(info["step_all_reduce"][r])}
+            check(got == want, f"{label} rank {r}: the counting group counts {got}, phase 9 "
+                               f"measured {want}")
+            counts[label].append(got)
+    full = get_config("qwen2_5_3b")
+    cost = dryrun.cost_pair(full, shape, one)
+    roof = dryrun.roofline_of(full, shape, one, cost)
+    ms = serve["prefill_ms"]
+    check(ms / 1e3 >= roof.compute_s, f"phase 6's prefill {ms} ms beats its compute term "
+                                      f"{roof.compute_s * 1e3} ms")
+    print(f"phase 10: card memory {total} bytes = launch.mesh.HBM_PER_CARD; parameter bytes a "
+          f"device {split} at model {TP_RANKS} (phase 9: {measured}) and {whole} at model 1; "
+          f"all-reduces (count, bytes) a prefill / decode step by the counting group "
+          f"{json.dumps(counts)} equal phase 9b's and 9c's; phase 6's prefill (Qwen2.5-3B, "
+          f"{full.num_layers} layers, bf16, {B} x {S}): {roof.hlo_flops:.6g} FLOPs, "
+          f"{roof.hlo_bytes:.6g} bytes (eager, unfused), model FLOPs {roof.model_flops:.6g}; "
+          f"compute term {roof.compute_s * 1e3:.3f} ms, memory term {roof.memory_s * 1e3:.3f} "
+          f"ms, collective term {roof.collective_s * 1e3:.3f} ms, dominant {roof.dominant}; "
+          f"measured {ms:.3f} ms >= the compute term, compute / measured "
+          f"{roof.compute_s * 1e3 / ms:.4f}, model FLOPs / (measured x peak) "
+          f"{roof.model_flops / (ms / 1e3 * hw.PEAK_FLOPS_BF16):.4f} (card {smi})", flush=True)
+    return {"roofline": roof.to_dict(), "prefill_ms": ms, "param_bytes": (split, whole),
+            "collectives": counts}
 
 
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
@@ -4739,7 +4994,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             d = gemma["direct"]
             extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"], "at_gemma_shape": {
                 **_shape_entry(gemma), "ms": d["ms"], "max_abs_err": d["max_abs_err"],
-                "rel_l2": d["rel_l2"]}}
+                "rel_l2": d["rel_l2"]}, "at_bf16_d32_shape": _shape_entry(serve["flash"][2])}
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path,
@@ -4829,6 +5084,7 @@ def main() -> int:
     train = timed("8", phase_train, dev, smi)
     free_device()
     tpar = timed("9", phase_tensor_parallel, dev, smi)
+    timed("10", phase_dry_run, dev, serve, tpar, smi)
     lines = timed("line", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
                                                fault, train, families, tpar))
     print(f"phase_s {json.dumps(phase_s)}", flush=True)

@@ -9,7 +9,9 @@ convert to numpy (``np.asarray``: a JAX array on the host); the port's hold
 dtypes; Python scalars and ``None`` pass through unchanged. A server state
 (``fl.fedstep.init_server_state``: ``{"stages": {"root": ...}}``, FedAdam's
 ``m`` and ``v``, FedBuff's accumulator and 0-d count) carries with
-``tree_from_numpy``, as parameters do.
+``tree_from_numpy``, as parameters do; a local optimizer's state
+(``repro.optim``: ``adamw``'s ``step``, ``m`` and ``v``, ``sgd``'s ``step``
+and ``mom``) with ``optimizer_state_from_numpy``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 def _to_tensor(leaf: Any, device: torch.device) -> Any:
@@ -70,6 +72,22 @@ def params_from_jax(tree: Any, device: Any) -> Any:
     leaves included. (``jax.device_get`` gives such arrays, with its dicts
     rebuilt in sorted key order, as a jitted JAX function returns them.)"""
     return tree_from_numpy(tree, device)
+
+
+def optimizer_state_from_numpy(state: Any, device: Any) -> Any:
+    """A ``repro.optim`` optimizer state given as numpy arrays (``step``, a
+    0-d int32, and ``adamw``'s float32 ``m`` and ``v`` trees or ``sgd``'s
+    ``mom`` tree or None) as the port's ``repro_torch.optim`` state on
+    ``device``."""
+    out = tree_from_numpy(state, device)
+    step = out.get("step") if isinstance(out, dict) else None
+    if not isinstance(step, torch.Tensor) or step.dim() != 0 or step.dtype != torch.int32:
+        raise ValueError(f"an optimizer state's step is a 0-d int32 array, got {step!r}")
+    for key in ("m", "v"):
+        for x in tree_leaves(out.get(key)):
+            if x.dtype != torch.float32:
+                raise ValueError(f"adamw's {key} is float32, got {x.dtype}")
+    return out
 
 
 def tree_to_numpy(tree: Any) -> Any:

@@ -162,11 +162,13 @@ def lower_tag_to_mesh(
     return AggregationPlan(tag_name=tag.name, stages=tuple(stages))
 
 
-def _on_wire(x: torch.Tensor, wire: str) -> torch.Tensor:
-    """One member's float32 leaf as it arrives from the wire, in float32."""
+def _on_wire(x: torch.Tensor, wire: str, whole: bool = True) -> torch.Tensor:
+    """One member's float32 leaf as it arrives from the wire, in float32
+    (``whole=False``: ``x`` is a model rank's block of the leaf, and an int8
+    scale is the whole leaf's)."""
     if wire in _CAST_DTYPES:
         return x if wire in ("", "f32") else x.to(_CAST_DTYPES[wire]).to(torch.float32)
-    q, scale = quantize_int8(x)  # "int8"
+    q, scale = quantize_int8(x, whole)  # "int8"
     return dequantize_int8(q, scale)
 
 
@@ -178,9 +180,11 @@ class StageSum:
     frees each leaf as it goes folds them one by one with ``add_leaf``, then
     calls ``end_member``. ``mean`` divides by the member count, or by the
     summed weights, and casts each leaf back to the dtype its members had.
+    ``sharded[i]``: leaf i is a model rank's block (its int8 scale is the
+    whole leaf's).
     """
 
-    def __init__(self, stage: AggregationStage):
+    def __init__(self, stage: AggregationStage, sharded: Optional[Sequence[bool]] = None):
         if stage.wire_dtype not in _CAST_DTYPES and stage.wire_dtype != "int8":
             raise ValueError(f"unknown wire dtype {stage.wire_dtype!r}")
         self.stage = stage
@@ -189,6 +193,7 @@ class StageSum:
         self.members = 0
         self.weight_sum: Optional[torch.Tensor] = None
         self.treedef: Any = None
+        self.sharded = sharded
 
     def add_leaf(self, i: int, leaf: torch.Tensor,
                  weight: Optional[torch.Tensor] = None, donate: bool = False) -> None:
@@ -197,7 +202,7 @@ class StageSum:
         x = leaf.to(torch.float32)
         if weight is not None:
             x = x * weight.to(device=x.device, dtype=torch.float32)
-        x = _on_wire(x, self.stage.wire_dtype)
+        x = _on_wire(x, self.stage.wire_dtype, not (self.sharded and self.sharded[i]))
         if i == len(self.sums):  # the first member: the sum owns its storage
             self.sums.append(x.clone() if x is leaf and not donate else x)
             self.dtypes.append(leaf.dtype)
@@ -257,28 +262,30 @@ def _coords_of(axes: Sequence[str], axis_sizes: Dict[str, int]) -> List[Dict[str
 Fold = Callable[[StageSum, Dict[str, int]], None]
 
 
-def fold_plan(fold: Fold, plan: AggregationPlan, axis_sizes: Dict[str, int]) -> Tree:
+def fold_plan(fold: Fold, plan: AggregationPlan, axis_sizes: Dict[str, int],
+              sharded: Optional[Sequence[bool]] = None) -> Tree:
     """Run every stage of the plan, the clients taking turns.
 
     ``fold(acc, coords)`` folds the client at ``coords`` (its index on each
     client axis) into the first stage's running sum ``acc``; it is called
     once per client. The last stage's mean is returned; each of its members
     is the mean of the stage before over the group at that coordinate.
-    Groups are reduced one at a time, so one running sum per stage is live."""
-    return _reduce(plan.stages, {}, fold, axis_sizes)
+    Groups are reduced one at a time, so one running sum per stage is live.
+    ``sharded``: which leaves are a model rank's blocks (``StageSum``)."""
+    return _reduce(plan.stages, {}, fold, axis_sizes, sharded)
 
 
 def _reduce(stages: Sequence[AggregationStage], outer: Dict[str, int], fold: Fold,
-            axis_sizes: Dict[str, int]) -> Tree:
+            axis_sizes: Dict[str, int], sharded: Optional[Sequence[bool]]) -> Tree:
     # a module function, not a closure calling itself: such a closure is a
     # reference cycle that would keep ``fold`` (and the caller's trees) alive
     # until the garbage collector's next full pass
     stage = stages[-1]
-    acc = StageSum(stage)
+    acc = StageSum(stage, sharded)
     for coords in _coords_of(stage.axes, axis_sizes):
         at = dict(outer, **coords)
         if len(stages) > 1:
-            acc.add(_reduce(stages[:-1], at, fold, axis_sizes))
+            acc.add(_reduce(stages[:-1], at, fold, axis_sizes, sharded))
         else:
             fold(acc, at)
     return acc.mean()

@@ -13,12 +13,19 @@ from typing import Tuple
 import torch
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor,
+                  whole: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8 quantization. Returns (q, 0-d scale).
 
-    Both divides are by tensors (IEEE on every device)."""
+    Both divides are by tensors (IEEE on every device). ``whole=False``:
+    ``x`` is a model rank's block of the tensor, and the scale is the whole
+    tensor's (the blocks' absmax, maxed over the group)."""
     xf = x.to(torch.float32)
     absmax = xf.abs().amax()
+    if not whole:
+        from repro_torch.launch import tensor_parallel as tp
+
+        absmax = tp.all_reduce_max(absmax)
     one = torch.ones((), dtype=torch.float32, device=x.device)
     scale = torch.where(absmax > 0, absmax / torch.tensor(127.0, device=x.device), one)
     q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)

@@ -162,7 +162,7 @@ def make_fl_train_step(
     plan: AggregationPlan,
     mesh: Mesh,
     config: FedStepConfig = FedStepConfig(),
-    sharded: Optional[Sequence[bool]] = None,
+    blocks: Any = None,
 ) -> Callable[..., Tuple[Tree, Tree, Dict[str, torch.Tensor]]]:
     """Build ``step(params, server_state, batch, seed, *, made_it=None,
     noise=None, on_segment=None) -> (params, server_state, metrics)``.
@@ -174,9 +174,13 @@ def make_fl_train_step(
     standard-normal array per parameter leaf) its DP noise draw.
     ``metrics``: ``loss`` (the clients' mean last-step loss), ``delta_norm``
     (of the aggregate) and ``participants``, 0-d float32 tensors.
-    ``sharded`` (one flag per parameter leaf) marks the leaves a model
-    group's ranks hold blocks of, for ``delta_norm`` (``sum_of_squares``).
+    ``blocks`` (a ``launch.sharding.LeafBlocks``: a model rank's step) says
+    which parameter leaves the rank holds blocks of and how, for
+    ``delta_norm`` (``sum_of_squares``), the DP clip norm and noise
+    (``clip_and_noise``) and the int8 wire's scales (``StageSum``), which
+    are the whole leaves'.
     """
+    sharded = None if blocks is None else blocks.sharded
     if config.exchange not in ("delta", "grad"):
         raise ValueError(f"unknown exchange {config.exchange!r}")
     client_axes = plan.all_axes
@@ -224,7 +228,7 @@ def make_fl_train_step(
                 deltas = tree_leaves(clip_and_noise(
                     tree_unflatten(treedef, list(deltas)), config.dp,
                     client_generator(seed, c, "dp", device), n_eff,
-                    noise=None if noise is None else noise[c]))
+                    noise=None if noise is None else noise[c], blocks=blocks))
             m = None
             if config.participation < 1.0:
                 if made_it is not None:
@@ -238,7 +242,7 @@ def make_fl_train_step(
                 acc.add_leaf(i, d if m is None else d * m, donate=True)
             acc.end_member(treedef)
 
-        tree = fold_plan(fold, plan, sizes)
+        tree = fold_plan(fold, plan, sizes, sharded)
         if config.participation < 1.0:
             n_part = torch.stack(drawn).sum()
             # the stage means divide by all N clients: renormalize to the

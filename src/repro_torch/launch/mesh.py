@@ -3,13 +3,24 @@
 A mesh here is a ``Mesh``: named axis sizes, no devices. The client axes
 (``data``, ``pod``) are virtual clients that the federated step runs in
 turn; the ``model`` axis is one process per block of the sharded leaves
-(``launch.tensor_parallel``), whatever cards those processes run on. The
-JAX module's roofline constants are TPU figures and have no counterpart
-here.
+(``launch.tensor_parallel``), whatever cards those processes run on.
+
+The roofline constants (``launch.analysis.Roofline``) are the card's:
+datasheet figures of the NVIDIA H100 80GB HBM3 (SXM), not measurements,
+and the card's memory as ``torch.cuda.get_device_properties(0)
+.total_memory`` reports it there.
 """
 from __future__ import annotations
 
 from repro_torch.core.mesh_lowering import Mesh
+
+# NVIDIA H100 80GB HBM3 (SXM) datasheet figures, per card (not measured)
+PEAK_FLOPS_BF16 = 989e12  # dense bf16 on the tensor cores, FLOP/s
+PEAK_FLOPS_F32 = 67e12  # float32 on the CUDA cores (no TF32), FLOP/s
+HBM_BW = 3.35e12  # HBM3, bytes/s
+LINK_BW = 450e9  # NVLink 4, one direction, bytes/s
+# the card's memory, as torch reports it on that card (bytes)
+HBM_PER_CARD = 85_017_493_504
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -12,7 +12,9 @@ the mesh of ``launch.mesh.make_mesh_for_devices(N)``, which must put all N
 on the ``model`` axis), each on the card, or on the CPU with ``--device
 cpu``; every rank draws the one-process model's parameters from the same
 seed and keeps its blocks, and greedy tokens are the argmax over the ranks'
-vocabulary blocks.
+vocabulary blocks; sampled tokens draw from the ranks' blocks gathered
+whole (``tensor_parallel.gather_columns``), with the same seeded generator
+on every rank, so they are the one-process run's draws.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \\
@@ -67,15 +69,13 @@ def generate(
     d), as the JAX package's serve loop passes.
 
     A rank's bundle (``build_model(..., group)``) decodes greedily on the
-    argmax over the ranks' vocabulary blocks (lowest index on ties);
-    sampling would need the whole logits and is not ported there."""
+    argmax over the ranks' vocabulary blocks (lowest index on ties), and
+    samples from the last position's logits gathered whole over the ranks'
+    blocks (``generator`` seeded alike on every rank: the same draws)."""
     if gen < 1:
         raise ValueError(f"gen must be >= 1, got {gen}")
     device = bundle.device
     group = bundle.group if bundle.group is not None and bundle.group.size > 1 else None
-    if group is not None and temperature > 0:
-        raise NotImplementedError("sampling over vocabulary blocks is not ported (ROADMAP "
-                                  "Queue 1): decode greedily")
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     cfg = bundle.cfg
@@ -87,6 +87,8 @@ def generate(
     def pick(logits: torch.Tensor) -> torch.Tensor:
         last = logits[:, -1]
         if temperature > 0:
+            if group is not None:
+                last = tp.gather_columns(last, offset, cfg.vocab_size, group)
             probs = torch.softmax(last / temperature, dim=-1)
             return torch.multinomial(probs, 1, generator=generator).to(torch.int32)
         if group is not None:

@@ -23,6 +23,7 @@ axis, one process per block.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -268,3 +269,43 @@ def _zip_map(fn, tree: Tree, *others: Tree) -> Tree:
 
 def is_sharded(spec: Optional[Spec], axis: str = "model") -> bool:
     return spec is not None and any(axis in _entry_axes(e) for e in spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    shape: Tuple[int, ...]
+    spec: Spec
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafBlocks:
+    """How one device holds the leaves of a parameter tree, in
+    ``tree_flatten`` order: each leaf's whole shape and spec on ``mesh``,
+    and the device's coordinates. A computation over whole leaves (a clip
+    norm, a draw of noise, an absmax) runs on a device's blocks through it."""
+
+    shapes: Tuple[Tuple[int, ...], ...]
+    specs: Tuple[Spec, ...]
+    mesh: Mesh
+    coords: Dict[str, int]
+
+    @classmethod
+    def of_params(cls, params: Tree, cfg: ModelConfig, mesh: Mesh,
+                  coords: Dict[str, int]) -> "LeafBlocks":
+        """The blocks of ``params`` (whole leaves: tensors, meta tensors or
+        arrays) by ``param_pspec``."""
+        from repro_torch.core.tree import tree_leaves
+
+        leaves = tree_leaves(map_with_path(
+            lambda path, x: _Leaf(tuple(x.shape), param_pspec(path, x, cfg, mesh)), params))
+        return cls(tuple(x.shape for x in leaves), tuple(x.spec for x in leaves), mesh,
+                   dict(coords))
+
+    @property
+    def sharded(self) -> List[bool]:
+        """Whether the ``model`` ranks hold blocks of each leaf."""
+        return [is_sharded(s) for s in self.specs]
+
+    def cut(self, i: int, x):
+        """The device's block of leaf ``i`` given whole (``x``)."""
+        return shard(x, self.specs[i], self.mesh, self.coords)

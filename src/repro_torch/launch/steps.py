@@ -15,12 +15,14 @@ builders take the rank's ``group`` and return that rank's bundle and steps.
 Every rank runs every virtual client in turn on its blocks of the
 parameters; each stage's mean is taken block by block, which is
 elementwise, so each rank's block of the mean is the block of the
-one-process mean; ``delta_norm`` sums the squares of the sharded leaves
-over the group and counts the replicated leaves once. Not ported (ROADMAP
-Queue 1): an FSDP config on a mesh whose ``data`` axis is larger than 1
-(its ``data``-dim blocks), serving on a mesh with client axes larger than
-1, DP and the int8 wire at model > 1 (a clip norm and block scales over
-whole leaves).
+one-process mean. What spans whole leaves is taken over the group:
+``delta_norm`` and the DP clip norm sum the squares of the sharded leaves
+over the group and count the replicated leaves once; DP noise is drawn for
+the whole leaf and cut to the rank's block; the int8 wire's per-tensor
+scale is the whole leaf's absmax (``launch.sharding.LeafBlocks``). Not
+ported (ROADMAP Queue 1): an FSDP config on a mesh whose ``data`` axis is
+larger than 1 (its ``data``-dim blocks), serving on a mesh with client
+axes larger than 1.
 """
 from __future__ import annotations
 
@@ -96,15 +98,12 @@ def _model_group(cfg: ModelConfig, mesh: Mesh, group: Optional[tp.ModelGroup],
     return group
 
 
-def _sharded_leaves(cfg: ModelConfig, group: Optional[tp.ModelGroup]) -> Optional[list]:
-    """For each parameter leaf (in ``tree_flatten`` order), whether the
-    group's ranks hold blocks of it (None without a group)."""
+def _leaf_blocks(cfg: ModelConfig, group: Optional[tp.ModelGroup]) -> Optional[shd.LeafBlocks]:
+    """How the group's rank holds each parameter leaf (None without a
+    group)."""
     if group is None:
         return None
-    flags = shd.map_with_path(
-        lambda path, leaf: shd.is_sharded(shd.param_pspec(path, leaf, cfg, group.mesh)),
-        param_shapes(cfg))
-    return tree_flatten(flags)[0]
+    return shd.LeafBlocks.of_params(param_shapes(cfg), cfg, group.mesh, group.coords)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,11 +141,8 @@ def build_train_step(
     metrics)``. With a ``model`` axis of m > 1, the rank's bundle and step
     (``group``: the rank's ``ModelGroup`` of m)."""
     group = _model_group(cfg, mesh, group, "train")
-    if group is not None and (fed.dp is not None or cross_pod_wire == "int8"):
-        raise NotImplementedError("DP and the int8 wire at model > 1 are not ported (ROADMAP "
-                                  "Queue 1): their clip norm and block scales span whole leaves")
     bundle = build_model(cfg, device, group)
-    sharded = _sharded_leaves(cfg, group)
+    blocks = _leaf_blocks(cfg, group)
     client_axes = tuple(a for a in cfg.fl_axes if a in mesh.axis_names)
     if cfg.param_sharding == "fsdp" and len(mesh.axes) > 2:
         # the JAX package's FSDP giants train as one client across pods
@@ -159,7 +155,7 @@ def build_train_step(
         ordered = tuple(a for a in ("data", "pod") if a in client_axes) or client_axes
         plan = lower_tag_to_mesh(tag, ordered)
         step = _with_moe_profile(
-            make_fl_train_step(bundle.loss_fn, strategy, plan, mesh, fed, sharded=sharded),
+            make_fl_train_step(bundle.loss_fn, strategy, plan, mesh, fed, blocks=blocks),
             cfg, mesh, manual_axes=client_axes)
 
         def init_state(params):
@@ -174,7 +170,8 @@ def build_train_step(
         gen = client_generator(seed, 0, "loss", leaves[0].device)
         new, loss = local_round(bundle.loss_fn, leaves, treedef, batch, gen,
                                 fed.local_steps, fed.local_lr)
-        sq = sum_of_squares([(a - b).to(torch.float32) for a, b in zip(new, leaves)], sharded)
+        sq = sum_of_squares([(a - b).to(torch.float32) for a, b in zip(new, leaves)],
+                            None if blocks is None else blocks.sharded)
         return tree_unflatten(treedef, new), state, {"loss": loss, "delta_norm": torch.sqrt(sq)}
 
     def init_state(params):

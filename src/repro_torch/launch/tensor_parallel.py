@@ -16,9 +16,12 @@ the collectives below itself:
   one term of each sum is nonzero), and each such gather is counted.
 
 Only all-reduce is used, with sum and max, since gloo does not take every
-collective on CUDA tensors. The backend is chosen by rule: ``nccl`` when the
-ranks are on distinct cards, ``gloo`` when ranks share a card or run on the
-CPU (NCCL refuses two ranks on one device). Gloo takes CUDA tensors for
+collective on CUDA tensors. A counting group (``ModelGroup.counting``) has
+no process group behind it: its collectives only advance its counters and
+return their input, so a rank's step runs alone (under fake tensors, as
+``launch.dryrun`` counts a step's collectives). The backend is chosen by
+rule: ``nccl`` when the ranks are on distinct cards, ``gloo`` when ranks
+share a card or run on the CPU (NCCL refuses two ranks on one device). Gloo takes CUDA tensors for
 all-reduce; a backend that refuses them raises, nothing is rerouted.
 
 The model code finds the group of the call in a context variable
@@ -92,6 +95,13 @@ class ModelGroup:
         for k in self.counters():
             setattr(self, k, 0)
 
+    @classmethod
+    def counting(cls, size: int, rank: int = 0, device: Any = "cpu") -> "ModelGroup":
+        """Rank ``rank`` of a group of ``size`` with no processes behind it:
+        each collective is counted, as on a real group, and returns its
+        input unchanged (the values are not the group's)."""
+        return cls(rank=rank, size=size, backend="count", device=torch.device(device))
+
 
 def current_group() -> Optional[ModelGroup]:
     """The group of the running call, or ``None`` (one process)."""
@@ -152,7 +162,8 @@ def _all_reduce_(x: torch.Tensor, op, group: ModelGroup) -> torch.Tensor:
     """All-reduce ``x`` in place over the group (counted)."""
     group.all_reduces += 1
     group.all_reduce_bytes += x.numel() * x.element_size()
-    dist.all_reduce(x, op=op, group=group.pg)
+    if group.backend != "count":
+        dist.all_reduce(x, op=op, group=group.pg)
     return x
 
 
@@ -258,6 +269,20 @@ def block_of(x: torch.Tensor, dim: int) -> torch.Tensor:
         return x
     n = x.shape[dim] // group.size
     return x.narrow(dim, group.rank * n, n)
+
+
+def gather_columns(x: torch.Tensor, offset: int, width: int,
+                   group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The whole last dim (``width`` columns) from the group's blocks: ``x``
+    holds the columns ``[offset, offset + x.shape[-1])``. One all-reduce of
+    the zero-padded whole (exact: one term of each sum is nonzero; no
+    autograd)."""
+    group = group or current_group()
+    if group is None:
+        return x
+    full = x.new_zeros(tuple(x.shape[:-1]) + (width,))
+    full[..., offset:offset + x.shape[-1]] = x.detach()
+    return _all_reduce_(full, dist.ReduceOp.SUM, group)
 
 
 def global_argmax(x: torch.Tensor, offset: int, width: int,

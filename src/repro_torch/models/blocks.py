@@ -120,10 +120,13 @@ def _attn_core_full(
             attn.cache_fill(cache["k"], k, W)
             attn.cache_fill(cache["v"], v, W)
             cache["pos"][:S] = tpos[0]
-        else:  # ring buffer smaller than the prefill: keep the last W
-            attn.cache_fill(cache["k"], k[:, -W:], W)
-            attn.cache_fill(cache["v"], v[:, -W:], W)
-            cache["pos"].copy_(tpos[0, -W:])
+        else:  # ring buffer smaller than the prefill: keep the last W,
+            # position p at slot p mod W, where a decode step writes it
+            # (the JAX package keeps them at slots 0..W-1: ROADMAP fault n)
+            r = S % W
+            attn.cache_fill(cache["k"], torch.roll(k[:, -W:], r, dims=1), W)
+            attn.cache_fill(cache["v"], torch.roll(v[:, -W:], r, dims=1), W)
+            cache["pos"].copy_(torch.roll(tpos[0, -W:], r))
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
     return attn.attn_output(p, out, cfg, hs), new_cache
 

@@ -206,8 +206,8 @@ def apply_mrope(
         raise ValueError(f"mrope sections {sections} must sum to head_dim/2 = {head_dim // 2}")
     freqs = rope_freqs(head_dim, theta, x.device)
     # which position stream drives each frequency band
-    section_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device), torch.tensor(sections, device=x.device))
+    section_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                              device=x.device)
     pos_per_band = positions.to(torch.float32)[section_id]  # (Dh/2, B, S)
     angles = torch.movedim(pos_per_band, 0, -1) * freqs  # (B, S, Dh/2)
     return _rotate_half_pairs(x, angles[..., None, :])

@@ -154,17 +154,29 @@ def train_batch(cfg, tokens: np.ndarray, frames=None) -> dict:
     return batch
 
 
-def train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy=None):
+def train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy=None,
+               wire="f32", noise=None):
     """One step of ``build_train_step`` on the mesh: the rank's new blocks
     and the metrics. ``group=None``: the one-process step, on the mesh with
     a model axis of 1, under the profile of ``mesh_axes`` (the MoE routing
-    blocks of the split run)."""
+    blocks of the split run). ``fed_kwargs["dp"]`` is a ``DPConfig``'s
+    fields; ``wire`` the cross-pod wire; ``noise`` the DP draws to inject
+    (whole leaves, per client). Each int8 quantization of the wire is
+    recorded: its float32 input and its codes (the rank's blocks)."""
     with one_thread():
-        return _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy)
+        return _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy,
+                           wire, noise)
 
 
-def _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy):
+def _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strategy, wire,
+                noise):
+    from repro_torch.core import mesh_lowering
+    from repro_torch.fl.privacy import DPConfig
+
     mesh = Mesh(mesh_axes)
+    fed_kwargs = dict(fed_kwargs)
+    if fed_kwargs.get("dp") is not None:
+        fed_kwargs["dp"] = DPConfig(**fed_kwargs["dp"])
     fed = FedStepConfig(**fed_kwargs)
     if group is None:
         one = Mesh(tuple((a, 1 if a == "model" else n) for a, n in mesh_axes))
@@ -172,10 +184,11 @@ def _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strat
         with mock.patch.object(steps, "_with_moe_profile",
                                lambda fn, cfg, _, manual_axes=(): profile(fn, cfg, mesh,
                                                                           manual_axes)):
-            bundle, setup = build_train_step(cfg, one, fed, device="cpu", strategy_name=strategy)
+            bundle, setup = build_train_step(cfg, one, fed, cross_pod_wire=wire, device="cpu",
+                                             strategy_name=strategy)
     else:
-        bundle, setup = build_train_step(cfg, mesh, fed, device="cpu", strategy_name=strategy,
-                                         group=group)
+        bundle, setup = build_train_step(cfg, mesh, fed, cross_pod_wire=wire, device="cpu",
+                                         strategy_name=strategy, group=group)
     if group is None:
         from repro_torch.convert import tree_from_numpy
 
@@ -183,10 +196,34 @@ def _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strat
     else:
         params = shard_tree_from_numpy(params_np, cfg, group.mesh, group.rank, "cpu")
     state = setup.init_state(params)
-    params, state, metrics = setup.step(params, state, batch, seed)
+    codes = []
+    quantize = mesh_lowering.quantize_int8
+
+    def recording(x, whole=True):
+        q, scale = quantize(x, whole)
+        codes.append((x.numpy().copy(), q.numpy().copy()))
+        return q, scale
+
+    with mock.patch.object(mesh_lowering, "quantize_int8", recording):
+        params, state, metrics = setup.step(params, state, batch, seed,
+                                            **({"noise": noise} if noise is not None else {}))
     return {"params": tree_to_numpy(params),
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "counters": group.counters() if group is not None else {}}
+            "counters": group.counters() if group is not None else {}, "codes": codes}
+
+
+def sample_rank(group, cfg, params_np, tokens, gen, temperature):
+    """``serve.generate`` at ``temperature`` on the rank's blocks of
+    ``params_np`` (``group=None``: the whole model): the tokens."""
+    from repro_torch.launch.serve import generate
+
+    with one_thread():
+        bundle = build_model(cfg, "cpu", group)
+        params = _params_on(bundle, cfg, params_np, "cpu", group)
+        with torch.no_grad():
+            out = generate(bundle, params, torch.from_numpy(tokens), gen, temperature)
+        return {"tokens": out.tokens.numpy(),
+                "counters": group.counters() if group is not None else {}}
 
 
 def adjoint_rank(group, x_np, w_np, v_np):
@@ -226,3 +263,24 @@ def failing_rank(group):
         raise RuntimeError("planted rank failure")
     tp.all_reduce_sum(torch.ones(2), group)
     return {}
+
+
+def serve_counts_rank(group, cfg, batch, prompt):
+    """``launch.dryrun.serve_counts`` on the rank's real group."""
+    from repro_torch.launch import dryrun
+
+    with one_thread():
+        return dryrun.serve_counts(group, cfg, batch, prompt)
+
+
+def train_counts_rank(group, cfg, mesh_axes, fed_kwargs, batch, wire):
+    """``launch.dryrun.train_counts`` on the rank's real group."""
+    from repro_torch.fl.privacy import DPConfig
+    from repro_torch.launch import dryrun
+
+    fed_kwargs = dict(fed_kwargs)
+    if fed_kwargs.get("dp") is not None:
+        fed_kwargs["dp"] = DPConfig(**fed_kwargs["dp"])
+    with one_thread():
+        return dryrun.train_counts(group, cfg, Mesh(mesh_axes), FedStepConfig(**fed_kwargs),
+                                   batch, wire)

@@ -9,9 +9,11 @@
 * The training slice's modules (mesh lowering, DP, the fed step, the data
   pipeline, the train launchers), the fault plane's (channels, runtime,
   launcher, hub and conformance), client and sample selection, the MoE
-  block's (``shard_ctx``, ``moe``, ``blocks``) and tensor parallelism's
+  block's (``shard_ctx``, ``moe``, ``blocks``), tensor parallelism's
   (the sharding rules, the meshes, the model group, the rank programs of
-  the tests) are among the files walked.
+  the tests), the dry run's and its analysis's, and the local optimizers'
+  (``optim/``) are among the files walked; ``python -m
+  repro_torch.launch.dryrun`` runs with them blocked.
 * ``chip_smoke.py`` exits non-zero, printing no result, without a card and
   outside a checkout.
 """
@@ -116,13 +118,34 @@ FAMILY_MODULES = ["models/ssd.py", "models/encdec.py", "launch/serve.py"]
 TP_MODULES = ["launch/sharding.py", "launch/tensor_parallel.py", "launch/mesh.py",
               "models/attention.py", "models/layers.py"]
 
+# the dry run, its analysis and the local optimizers
+DRYRUN_MODULES = ["launch/dryrun.py", "launch/analysis.py", "optim/__init__.py",
+                  "optim/optimizers.py", "optim/schedules.py", "fl/compression.py"]
+
 
 @pytest.mark.parametrize("module", TRAINING_MODULES + FAULT_PLANE_MODULES + MOE_MODULES
-                         + FAMILY_MODULES + TP_MODULES)
+                         + FAMILY_MODULES + TP_MODULES + DRYRUN_MODULES)
 def test_training_modules_are_held_to_the_import_rule(module):
     path = ROOT / "src" / "repro_torch" / module
     assert path in PORT_FILES
     assert not [m for m in _imported_modules(path) if _banned(m)]
+
+
+def test_dryrun_runs_with_jax_and_the_reference_blocked(tmp_path):
+    """The dry run's command line, in a process where importing jax, the
+    JAX package or ml_dtypes fails: one record, counted on the CPU."""
+    out = tmp_path / "rec.json"
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'repro', 'ml_dtypes'):\n"
+            "    sys.modules[name] = None\n"
+            "from repro_torch.launch import dryrun\n"
+            "sys.exit(dryrun.main(['--arch', 'gemma_7b', '--shape', 'long_500k', '--out', "
+            "sys.argv[1]]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code, str(out)], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "roofline: dominant=" in proc.stdout and out.exists()
 
 
 def test_tp_rank_programs_import_the_port_alone():

@@ -351,12 +351,78 @@ def test_recurrent_prefill_and_serve_steps_match_jax(arch, scan_layers):
     assert int(tc["len"]) == 35
 
 
+def _roll_ring(tree, shift):
+    """A JAX cache tree with every ring buffer's slots (the ``k``, ``v`` and
+    ``pos`` of an attention cache; a stacked leaf leads with its layer dim)
+    rolled by ``shift``: the layout of a prefill longer than the window
+    with position p at slot p mod W, which the port writes and the JAX
+    package's decode steps assume (the JAX package's prefill keeps the
+    last W positions at slots 0..W-1: ROADMAP fault n)."""
+    if isinstance(tree, dict):
+        if {"k", "v", "pos"} <= set(tree):
+            return dict(tree, k=jnp.roll(tree["k"], shift, axis=-3),
+                        v=jnp.roll(tree["v"], shift, axis=-3),
+                        pos=jnp.roll(tree["pos"], shift, axis=-1))
+        return {k: _roll_ring(v, shift) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_roll_ring(v, shift) for v in tree)
+    return tree
+
+
+def _serve_ring(jcfg, tcfg, seq, steps, max_len):
+    """``_serve_both``'s calls, with the JAX side's decode steps run from
+    its prefill's cache rolled into the ring layout (``_roll_ring``): the
+    port's prefill cache against the rolled one, and each step's logits
+    and cache against the JAX package's decode from there."""
+    W = tcfg.sliding_window
+    jb, tb = jax_build_model(jcfg), build_model(tcfg, "cpu")
+    jparams = jb.init(jax.random.key(0))
+    tparams = _t(jparams)
+    toks = _tokens(jcfg, 0, seq + steps)
+    jl, jc = jb.prefill(jparams, {"tokens": jnp.asarray(toks[:, :seq])}, jb.init_cache(B, max_len))
+    jc = _roll_ring(jc, seq % W)
+    tl, tc = tb.prefill(tparams, {"tokens": torch.from_numpy(toks[:, :seq])},
+                        tb.init_cache(B, max_len))
+    out = [((tl, _clone(tc)), (jl, jc))]
+    for i in range(steps):
+        tok = toks[:, seq + i:seq + i + 1]
+        jl, jc = jb.serve_step(jparams, jc, {"token": jnp.asarray(tok)})
+        tl, tc = tb.serve_step(tparams, tc, {"token": torch.from_numpy(tok)})
+        out.append(((tl, _clone(tc)), (jl, jc)))
+    return out, (jparams, toks)
+
+
+def _long_decode_cfgs(attn_impl):
+    """The reduced Qwen2.5-3B's long-decode variant (window 64) in both
+    packages."""
+    jcfg = dataclasses.replace(
+        jax_long_decode_variant(jax_get_config("qwen2_5_3b")).reduced(), attn_impl=attn_impl)
+    tcfg = dataclasses.replace(
+        long_decode_variant(get_config("qwen2_5_3b")).reduced(), attn_impl=attn_impl)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg) and tcfg.sliding_window == 64
+    return jcfg, tcfg
+
+
+def _check_against_forward(calls, jcfg, jparams, toks, seq):
+    """Each call's logits (the prefill's last position, then each decode
+    step's) against the JAX package's uncached forward over the whole
+    sequence at the same positions."""
+    from repro.models import transformer as jtransformer
+
+    full, _, _ = jtransformer.forward(jparams, jcfg, tokens=jnp.asarray(toks))
+    for i, ((tl, _), _) in enumerate(calls):
+        np.testing.assert_allclose(_np(tl[:, -1]), _np(full[:, seq - 1 + i]),
+                                   atol=F32_LOGITS_ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("attn_impl", ["xla", "flash"])
 def test_hymba_ring_cache_matches_jax(attn_impl):
     """Hymba's window of 64 with an 80-token prompt (five SSD chunks): the
-    prefill keeps the last 64 keys, and the decode steps wrap the ring."""
+    prefill keeps the last 64 keys at their ring slots (the JAX package's
+    cache rolled by 80 mod 64), and the decode steps wrap the ring: logits
+    and caches against the JAX package's decode from the rolled cache."""
     jcfg, tcfg = _cfg("hymba_1_5b", attn_impl=attn_impl)
-    calls = _serve_both(jcfg, tcfg, seq=80, steps=3, max_len=90)
+    calls, _ = _serve_ring(jcfg, tcfg, seq=80, steps=3, max_len=90)
     (_, tc), _ = calls[-1]
     assert tc["layers"][0]["attn"]["k"].shape[1] == 64
     _check_calls(calls, "float32")
@@ -365,17 +431,36 @@ def test_hymba_ring_cache_matches_jax(attn_impl):
 @pytest.mark.parametrize("attn_impl", ["xla", "flash"])
 def test_long_decode_variant_ring_cache_matches_jax(attn_impl):
     """Window 64 with an 80-token prompt: the prefill keeps the last 64 keys
-    in a ring buffer and the decode steps wrap it under the window mask."""
-    jcfg = dataclasses.replace(
-        jax_long_decode_variant(jax_get_config("qwen2_5_3b")).reduced(), attn_impl=attn_impl)
-    tcfg = dataclasses.replace(
-        long_decode_variant(get_config("qwen2_5_3b")).reduced(), attn_impl=attn_impl)
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg) and tcfg.sliding_window == 64
-    calls = _serve_both(jcfg, tcfg, seq=80, steps=3, max_len=90)
+    in a ring buffer (the JAX package's cache rolled by 80 mod 64) and the
+    decode steps wrap it under the window mask; their logits against the
+    JAX package's uncached forward (its own decode reads the wrong slots
+    here), their caches against its decode from the rolled cache."""
+    jcfg, tcfg = _long_decode_cfgs(attn_impl)
+    calls, (jparams, toks) = _serve_ring(jcfg, tcfg, seq=80, steps=3, max_len=90)
     (_, tc), _ = calls[-1]
     assert tc["layers"][0]["attn"]["k"].shape[1] == 64
     assert int(tc["len"]) == 83
     _check_calls(calls, "float32")
+    _check_against_forward(calls, jcfg, jparams, toks, 80)
+
+
+@pytest.mark.parametrize("seq", [80, 112, 128])
+def test_ring_cache_decode_matches_the_uncached_forward(seq):
+    """A prefill past the window (64) that it does not divide (80, 112) or
+    does (128), then 4 decode steps: the port's logits against the JAX
+    package's uncached forward over the whole sequence (float32)."""
+    jcfg, tcfg = _long_decode_cfgs("xla")
+    tb = build_model(tcfg, "cpu")
+    jparams = jax_build_model(jcfg).init(jax.random.key(seq))
+    tparams = _t(jparams)
+    toks = _tokens(jcfg, seq, seq + 4)
+    tl, tc = tb.prefill(tparams, {"tokens": torch.from_numpy(toks[:, :seq])},
+                        tb.init_cache(B, seq + 4))
+    calls = [((tl, None), None)]
+    for i in range(4):
+        tl, tc = tb.serve_step(tparams, tc, {"token": torch.from_numpy(toks[:, seq + i:seq + i + 1])})
+        calls.append(((tl, None), None))
+    _check_against_forward(calls, jcfg, jparams, toks, seq)
 
 
 def test_qwen2_vl_reduced_matches_jax():

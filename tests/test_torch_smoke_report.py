@@ -357,14 +357,33 @@ fk.KERNELS = (fk.flash_attention_bhsd, fk.flash_forward, plain_sm90, fk.flash_fo
 cs.SERVE_BATCH, cs.SERVE_PROMPT, cs.TP_F32_PROMPT, cs.TRAIN_SEQ = 2, 64, 32, 32
 
 if __name__ == "__main__":
+    import types
+    from repro_torch.launch import mesh as hw
+
     out = cs.phase_tensor_parallel(torch.device("cpu"), "no card")
     print("LAUNCHES", out["qwen"]["launches_per_rank"], out["moe"]["launches_per_rank"])
+    torch.cuda.get_device_properties = lambda dev: types.SimpleNamespace(
+        total_memory=hw.HBM_PER_CARD)
+    ten = cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card")
+    print("DRYRUN", ten["roofline"]["dominant"], ten["param_bytes"])
+    out["qwen"]["prefill_all_reduce"][1] = (8, 0)
+    try:
+        cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card")
+    except cs.PhaseFailed as e:
+        print("MISCOUNT REFUSED", e)
+    out["qwen"]["prefill_all_reduce"][1] = out["qwen"]["prefill_all_reduce"][0]
+    try:
+        cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e-3}, out, "no card")
+    except cs.PhaseFailed as e:
+        print("TOO FAST REFUSED", e)
 '''
 
 
 def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     """The whole phase, every gate, over two gloo ranks on the CPU (the
-    flash route a counting plain version, the CUDA calls no-ops)."""
+    flash route a counting plain version, the CUDA calls no-ops), then
+    phase 10 on its results: it passes, and refuses a miscounted
+    all-reduce and a prefill faster than its compute term."""
     driver = tmp_path / "rehearse_phase9.py"
     driver.write_text(_REHEARSAL)
     env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
@@ -372,7 +391,9 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
-    for part in ("phase 9a:", "phase 9b Qwen2.5-3B:", "phase 9c Qwen3-MoE-235B-A22B:",
-                 "phase 9d:", "phase 9 flash_sm90 at"):
+    for part in ("phase 9a:", "phase 9b Qwen2.5-3B:", "phase 9b sampling:",
+                 "phase 9c Qwen3-MoE-235B-A22B:", "phase 9d:", "phase 9e:",
+                 "phase 9 flash_sm90 at", "phase 10: card memory", "MISCOUNT REFUSED",
+                 "TOO FAST REFUSED"):
         assert part in out
-    assert "LAUNCHES [4, 4] [2, 2]" in out
+    assert "LAUNCHES [4, 4] [2, 2]" in out and "DRYRUN memory" in out

@@ -23,6 +23,13 @@ alone. Checks:
 * a planted fault, the last rank keeping its own partial sum of ``wo``,
   moves the logits far past the limit; a rank that raises fails the call
   with its traceback, and never hangs it;
+* what spans whole leaves at m = 2: a DP round (the clip norm over the
+  group, each rank's block of the whole leaf's noise) on (data 2, model 2)
+  and a DP round with the int8 cross-pod wire (the whole leaf's scale) on
+  (pod 2, data 1, model 2) against the one-process port (codes equal
+  wherever the float32 inputs are) and, on the JAX package's draws,
+  against its round; sampled tokens equal to the one-process run's; the
+  dry run's counting group's all-reduces equal to the gloo group's;
 * the JAX package's sharded ``build_serve_step`` (prefill and serve steps)
   on (1, 2) and (1, 4) meshes for Qwen2.5-3B and on (1, 2) for
   Qwen3-MoE-235B-A22B and SeamlessM4T-medium, and its ``build_train_step``
@@ -361,6 +368,7 @@ import jax, jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.configs import get_config
 from repro.fl.fedstep import FedStepConfig
+from repro.fl.privacy import DPConfig
 from repro.launch.steps import build_serve_step, build_train_step
 
 spec = json.loads(sys.argv[2])
@@ -368,9 +376,9 @@ out = {}
 assert len(jax.devices()) == 4
 
 
-def mesh_of(shape):
-    n = shape[0] * shape[1]
-    return Mesh(np.array(jax.devices()[:n]).reshape(shape), ("data", "model"))
+def mesh_of(shape, names=("data", "model")):
+    n = int(np.prod(shape))
+    return Mesh(np.array(jax.devices()[:n]).reshape(shape), tuple(names))
 
 
 def host(tree):
@@ -412,13 +420,24 @@ for case in spec["serve"]:
 
 for case in spec["train"]:
     cfg = get_config(case["arch"], reduced=True)
-    mesh = mesh_of(tuple(case["mesh"]))
+    names = case.get("names", ["data", "model"])
+    mesh = mesh_of(tuple(case["mesh"]), names)
     inp = dict(np.load(case["inputs"]))
-    fed = FedStepConfig(local_steps=2, local_lr=0.05)
-    bundle, setup = build_train_step(cfg, mesh, fed)
+    dp = DPConfig(**case["dp"]) if case.get("dp") else None
+    fed = FedStepConfig(local_steps=2, local_lr=0.05, dp=dp)
+    bundle, setup = build_train_step(cfg, mesh, fed, cross_pod_wire=case.get("wire", "f32"),
+                                     strategy_name=case.get("strategy"))
     params = bundle.init(jax.random.key(0))
     name = case["name"]
     save_tree(name + "/params0", params)
+    if dp is not None:  # the fed step's draws: client c's leaf j
+        leaves = jax.tree_util.tree_leaves(params)
+        clients = int(np.prod([n for a, n in zip(names, case["mesh"]) if a != "model"]))
+        for c in range(clients):
+            keys = jax.random.split(jax.random.fold_in(jax.random.key(3), c), len(leaves))
+            for j, (k, leaf) in enumerate(zip(keys, leaves)):
+                out[f"{name}/noise/{c}/{j}"] = np.asarray(
+                    jax.random.normal(k, leaf.shape, jnp.float32))
     state = setup.init_state(params)
     params = jax.device_put(params, setup.in_shardings[0])
     state = jax.device_put(state, setup.in_shardings[1])
@@ -435,6 +454,11 @@ np.savez(sys.argv[1], **out)
 JAX_SERVE = [("qwen2_5_3b", (1, 2)), ("qwen2_5_3b", (1, 4)), ("qwen3_moe_235b_a22b", (1, 2)),
              ("seamless_m4t_medium", (1, 2))]
 JAX_TRAIN = [("qwen2_5_3b", (2, 2))]
+# DP (clip and noise) on (data 2, model 2), and DP with the int8 cross-pod
+# wire on (pod 2, data 1, model 2), FedAvg at the root (a linear apply)
+DP = dict(clip_norm=0.5, noise_multiplier=0.3)
+JAX_WHOLE_LEAF = {"dp": dict(mesh=(2, 2), names=("data", "model"), wire="f32"),
+                  "dp_int8": dict(mesh=(2, 1, 2), names=("pod", "data", "model"), wire="int8")}
 
 
 def _case_name(arch, mesh):
@@ -459,6 +483,12 @@ def jax_twins(tmp_path_factory):
         np.savez(path, tokens=tokens.astype(np.int32))
         spec["train"].append(dict(arch=arch, mesh=mesh, inputs=str(path),
                                   name="train/" + _case_name(arch, mesh)))
+    for name, case in JAX_WHOLE_LEAF.items():
+        path = d / f"train_{name}.npz"
+        np.savez(path, tokens=_whole_leaf_batch()["tokens"])
+        spec["train"].append(dict(arch="qwen2_5_3b", mesh=case["mesh"], names=case["names"],
+                                  wire=case["wire"], dp=DP, strategy="fedavg",
+                                  inputs=str(path), name="train/" + name))
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
@@ -516,3 +546,152 @@ def test_sharded_train_step_equals_the_jax_packages(jax_twins, pool2, arch, mesh
     for k in ("loss", "delta_norm"):
         np.testing.assert_allclose(res[0].value["metrics"][k], out[f"{case['name']}/metric/{k}"],
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# what spans whole leaves at m = 2: the DP clip norm and noise, the int8
+# wire's per-tensor scale, sampling over the vocabulary
+# ---------------------------------------------------------------------- #
+def _whole_leaf_batch():
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    rng = np.random.default_rng(4)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)}
+
+
+def _whole_leaf_round(jax_twins, pool2, name):
+    """The DP round ``name`` of ``JAX_WHOLE_LEAF`` from the JAX package's
+    parameters: the port at m = 2 on its own draws, the one-process port
+    on them (the same draws: each rank draws every leaf whole and keeps its
+    block), the port at m = 2 on the JAX package's draws, and the JAX
+    package's round."""
+    spec, out = jax_twins
+    case = JAX_WHOLE_LEAF[name]
+    cfg = get_config("qwen2_5_3b", reduced=True)
+    like = _params(cfg)
+    params = _jax_tree(out, f"train/{name}/params0", like)
+    axes = tuple(zip(case["names"], case["mesh"]))
+    fed = dict(local_steps=2, local_lr=0.05, dp=DP)
+    batch = _whole_leaf_batch()
+    clients = 2
+    n_leaves = len(_leaves(like))
+    noise = [[out[f"train/{name}/noise/{c}/{j}"] for j in range(n_leaves)]
+             for c in range(clients)]
+    own = pool2.run(prog.train_rank, cfg, axes, params, batch, 3, fed, "fedavg", case["wire"])
+    one = prog.train_rank(None, cfg, axes, params, batch, 3, fed, "fedavg", case["wire"])
+    injected = pool2.run(prog.train_rank, cfg, axes, params, batch, 3, fed, "fedavg",
+                         case["wire"], noise)
+    mesh = Mesh((("data", 1), ("model", 2)))
+    want = _jax_tree(out, f"train/{name}/params1", like)
+    return cfg, own, one, injected, want, {k: float(out[f"train/{name}/metric/{k}"])
+                                           for k in ("loss", "delta_norm")}, mesh
+
+
+def _leaves(tree):
+    from repro_torch.core.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def test_dp_round_at_m2_equals_one_process_and_the_jax_packages(jax_twins, pool2):
+    """A DP round (clip 0.5, noise multiplier 0.3) over (data 2, model 2):
+    the clip norm over whole leaves and each rank's block of the whole
+    leaf's noise give the one-process round (float32 bound of this file),
+    and on the JAX package's draws the JAX package's round (its twin's
+    bound, ``test_sharded_train_step_equals_the_jax_packages``)."""
+    cfg, own, one, injected, want, want_m, mesh = _whole_leaf_round(jax_twins, pool2, "dp")
+    _assert_trees_close(unshard_tree([r.value["params"] for r in own], cfg, mesh),
+                        one["params"])
+    for r in own:
+        for k in ("loss", "delta_norm"):
+            np.testing.assert_allclose(r.value["metrics"][k], one["metrics"][k], rtol=STEP_RTOL)
+    got = unshard_tree([r.value["params"] for r in injected], cfg, mesh)
+    for g, w in zip(_leaves(got), _leaves(want)):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=F32_LOGITS_ATOL)
+    for k in ("loss", "delta_norm"):
+        np.testing.assert_allclose(injected[0].value["metrics"][k], want_m[k], rtol=1e-4)
+    # the noise moved the round: the clipped, noised deltas are not the plain ones
+    plain = prog.train_rank(None, cfg, (("data", 2), ("model", 2)), tree_to_numpy(
+        unshard_tree([r.value["params"] for r in own], cfg, mesh)), _whole_leaf_batch(), 3,
+        dict(local_steps=2, local_lr=0.05), "fedavg")
+    assert plain["metrics"]["delta_norm"] != own[0].value["metrics"]["delta_norm"]
+
+
+def test_int8_wire_at_pod2_model2_takes_the_whole_leafs_scale(jax_twins, pool2):
+    """DP and the int8 cross-pod wire over (pod 2, data 1, model 2): each
+    rank's codes equal the one-process codes' block wherever the float32
+    inputs are equal (the scale is the whole leaf's absmax, maxed over the
+    ranks), the parameters within one code step of the one-process round's
+    and, on the JAX package's draws, of the JAX package's round."""
+    from repro_torch.launch import sharding as tshd
+
+    cfg, own, one, injected, want, _, mesh = _whole_leaf_round(jax_twins, pool2, "dp_int8")
+    blocks = [tshd.LeafBlocks.of_params(_params(cfg), cfg, mesh, {"model": r}) for r in range(2)]
+    n_leaves = len(blocks[0].shapes)
+    assert len(one["codes"]) == 2 * n_leaves  # each pod's mean, leaf by leaf
+    equal_inputs = 0
+    for r in own:
+        assert len(r.value["codes"]) == len(one["codes"])
+        for k, ((x, q), (x1, q1)) in enumerate(zip(r.value["codes"], one["codes"])):
+            i = k % n_leaves
+            xb, qb = blocks[r.rank].cut(i, x1), blocks[r.rank].cut(i, q1)
+            same = x == xb
+            equal_inputs += int(same.sum())
+            np.testing.assert_array_equal(q[same], qb[same])
+            assert np.abs(q.astype(np.int32) - qb.astype(np.int32)).max() <= 1
+    assert equal_inputs > 0
+    # one int8 code step of the largest pod member, halved by the mean of 2
+    steps = [max(np.abs(x1).max() for k, (x1, _) in enumerate(one["codes"]) if k % n_leaves == i)
+             / 127 for i in range(n_leaves)]
+    got = unshard_tree([r.value["params"] for r in own], cfg, mesh)
+    for i, (g, w) in enumerate(zip(_leaves(got), _leaves(one["params"]))):
+        np.testing.assert_allclose(g, w, rtol=0, atol=steps[i] / 2 + STEP_ATOL)
+    got = unshard_tree([r.value["params"] for r in injected], cfg, mesh)
+    for i, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        np.testing.assert_allclose(g, w, rtol=0, atol=steps[i] / 2 + F32_LOGITS_ATOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "qwen3_moe_235b_a22b"])
+def test_sampling_at_m2_equals_one_process(pool2, arch):
+    """2 prompts, 8 tokens at temperature 1 from seed 0: every rank gathers
+    the last position's vocabulary blocks and draws with the same seeded
+    generator, so its tokens are the one-process run's (the JAX package's
+    ``jax.random`` draws are another stream, so the twin is the port's)."""
+    cfg = get_config(arch, reduced=True)
+    params = _params(cfg)
+    tokens, _ = _inputs(cfg)
+    res = pool2.run(prog.sample_rank, cfg, params, tokens, 8, 1.0)
+    want = prog.sample_rank(None, cfg, params, tokens, 8, 1.0)
+    for r in res:
+        np.testing.assert_array_equal(r.value["tokens"], want["tokens"])
+    greedy = prog.sample_rank(None, cfg, params, tokens, 8, 0.0)
+    assert not np.array_equal(greedy["tokens"], want["tokens"])  # it sampled
+
+
+# ---------------------------------------------------------------------- #
+# the counting group (launch.dryrun) against the gloo group
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("arch", ["qwen2_5_3b", "qwen3_moe_235b_a22b"])
+def test_counting_group_counts_as_the_gloo_group(pool2, arch):
+    """The dry run's counting group (fake tensors, no process group) at
+    m = 2: the all-reduces (count and bytes) of each rank in a prefill and
+    a decode step, and in a DP round with the int8 cross-pod wire, equal
+    what each rank of the real two-rank group counts in the same call."""
+    from repro_torch.fl.fedstep import FedStepConfig as TFed
+    from repro_torch.fl.privacy import DPConfig as TDP
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(arch, reduced=True)
+    real = pool2.run(prog.serve_counts_rank, cfg, 2, 24)
+    for r in real:
+        assert dryrun.count_collectives(dryrun.serve_counts, 2, r.rank, cfg, 2, 24) == r.value
+        assert r.value["prefill"][0] > 0 and r.value["step"][0] > 0
+    axes = (("pod", 2), ("data", 1), ("model", 2)) if arch == "qwen2_5_3b" else (
+        ("data", 1), ("model", 2))
+    wire = "int8" if arch == "qwen2_5_3b" else "f32"
+    fed = dict(local_steps=1, local_lr=0.05, dp=DP)
+    real = pool2.run(prog.train_counts_rank, cfg, axes, fed, (4, 16), wire)
+    for r in real:
+        got = dryrun.count_collectives(dryrun.train_counts, 2, r.rank, cfg, Mesh(axes),
+                                       TFed(local_steps=1, local_lr=0.05, dp=TDP(**DP)),
+                                       (4, 16), wire)
+        assert got == tuple(r.value) and got[0] > 0
