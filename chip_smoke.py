@@ -7,7 +7,7 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs ten phases (phase 6 in seven
+source, started together), then runs ten phases (phase 6 in eight
 parts), each printing its lines, and the kernels line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
@@ -75,11 +75,11 @@ parts), each printing its lines, and the kernels line:
    full width;
 6. serve: (a) the three flash kernels against their plain version on the
    same CUDA tensors: every case through the wrapper, which picks the route
-   by dtype and head dim (bf16 at D 64 and 128: the tensor-core kernel of
-   ``flash_sm90.cu``; bf16 at D 256: the tensor-core kernel of
-   ``flash_sm90_d256.cu``; the rest: ``flash.cu``), with one launch on the
-   expected route, and each bf16 D 64 / 128 / 256 case also on ``flash.cu``
-   directly, which takes it too (the five shapes of the JAX package's
+   by dtype and head dim (bf16 at D 32, 64 and 128: the tensor-core kernel
+   of ``flash_sm90.cu``; bf16 at D 256: the tensor-core kernel of
+   ``flash_sm90_d256.cu``; float32: ``flash.cu``), with one launch on the
+   expected route, and each bf16 case also on ``flash.cu`` directly, which
+   takes it too (the five shapes of the JAX package's
    kernel test and its bf16 case, head dims 32 to 256, causal, not, sliding
    windows, GQA 8:1 and 16:1, ragged S, Gemma's prefill, the serving
    shape); (b)
@@ -93,10 +93,11 @@ parts), each printing its lines, and the kernels line:
    wrong kv heads, no causal mask) against the same limit, and teacher
    forcing (a decode step after a prefill of S tokens against a prefill of
    S + 1); (c) prefill, plain prefill and decode times, a kernel-time
-   breakdown of each from ``torch.profiler``, and both flash kernels'
-   times at the serving shape: the tensor-core kernel at bf16, ``flash.cu``
-   on its own routes, float32 and bf16 at head dim 32 (checked against the
-   plain version there too);
+   breakdown of each from ``torch.profiler``, and the flash kernels' times
+   at the serving shape, each against the plain version, SDPA and its
+   bound (the largest of its bytes, products and exponentials): the
+   tensor-core kernel at bf16, ``flash.cu`` at float32 and the tensor-core
+   kernel at bf16 and head dim 32, where the exponentials bound it;
    6d. serving Qwen3-MoE-235B-A22B at its published widths (128 experts
    top-8, 64/4 heads of 128), depth cut from 94 layers to 8, bf16, random
    weights from a seeded generator, through ``serve.generate`` with the
@@ -137,6 +138,16 @@ parts), each printing its lines, and the kernels line:
    ``flash.cu``), then the D 256 tensor-core kernel at Gemma's attention
    shape (B 8, S 2048, H 16/16, D 256, causal) against the plain version,
    SDPA and its bound, and ``flash.cu`` called directly at the same shape;
+   6f. Qwen2.5-3B at its published widths and full depth in float32 with
+   the flash kernel, which is ``flash.cu``'s route (run after 6g): phase
+   6's prompts, 16 greedy tokens, seeded weights, phase 6's checks with
+   float32 limits: 36 launches of ``flash.cu`` a prefill, none of the
+   tensor-core kernels and none per decode step, the flash prefill within
+   relative L2 1e-4 of the plain (``attn_impl="xla"``) float32 prefill on
+   the card and each planted attention fault above it, teacher forcing
+   within 2e-3; then ``flash.cu`` at the model's attention shape, at D 32,
+   64 and 256 and at Hymba-1.5B's, all float32, against the plain version,
+   SDPA and its bound;
 7. the process plane (run after phase 5, before phase 6): (a) phase 5's job
    (the same tree, seeds, 4 trainers, 2 rounds, ``int8_blocks``) through
    ``run_job_multiproc`` with ``reduce_plan`` 1: 5 worker processes and the
@@ -243,8 +254,8 @@ parts), each printing its lines, and the kernels line:
 11. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
-   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's and phase
-   9's (both ranks') serving runs for the flash kernels, phase
+   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's, 6f's and
+   phase 9's (both ranks') serving runs for the flash kernels, phase
    7's process job and phase 7c's faulted jobs for the agg and quant
    entries, phase 8's rounds for
    every kernel), time, plain version's time, bound and a library call's
@@ -263,6 +274,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -397,13 +409,24 @@ FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # times the rounding of the output (bf16: 2^-9 at most per value), which a
 # plain version with one 64-key tile dropped must exceed
 FLASH_REL_L2 = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
-# keys a planted fault drops: one KV tile of flash.cu at D 64, half of the
-# tensor-core kernel's 128-key tile, so the stricter control for it
+# keys a planted fault drops: one KV tile of flash.cu (64 keys at every head
+# dim) and of flash_sm90.cu at D 32, half of the tensor-core kernels'
+# 128-key tile, so the stricter control for them
 FAULT_KEYS = 64
 # prefill logits, flash against plain attention and decode against a longer
 # prefill: bf16 rounds at every product through 36 layers, in other orders;
 # prefills with a fault planted in the attention must read above it
 SERVE_REL_L2 = 5e-2
+# the exponentials a clock per SM of compute capability 9.0 (the CUDA C++
+# Programming Guide's table of arithmetic instruction throughput: exp2f,
+# 16 results a clock per multiprocessor), a flash kernel's third bound
+SFU_EXP_PER_CLOCK = 16
+# phase 6f: Qwen2.5-3B served in float32 through flash.cu, phase 6's prompts
+# and 16 greedy tokens; its flash prefill against the plain (attn_impl="xla")
+# float32 prefill on the card: float32 sums in other orders, the limit of
+# the other float32 comparators (CARD_CPU_REL, TP_F32_REL), which each
+# planted attention fault must read above
+F32_SERVE_GEN, F32_SERVE_REL = 16, 1e-4
 # phase 6d: serving Qwen3-MoE-235B-A22B (src/repro/configs/qwen3_moe_235b_a22b.py)
 # at its published widths, depth cut 94 -> 8 layers (42 GB of bf16 weights),
 # the phase 6 traffic; teacher forcing at the JAX package's test capacity
@@ -2982,10 +3005,10 @@ def phase_fault_plane(dev: torch.device, proc: dict) -> dict:
 # ---------------------------------------------------------------------- #
 # (B, S, H, Hkv, D, causal, window, dtype): the five shapes and the bf16
 # case of tests/test_kernels.py, the bf16 shapes the tensor-core kernels
-# take (D 64 and 128: causal, not, a window whose rows' first visited
+# take (D 32, 64 and 128: causal, not, a window whose rows' first visited
 # tiles are all masked, a non-causal window, GQA 8:1, ragged S; D 256:
 # causal GQA, not, such a window, ragged S with GQA 8:1), float32 at D 128
-# and bf16 at D 32 (flash.cu only), Hymba-1.5B's heads and window and
+# and 256 (a window, GQA 16:1, ragged S), Hymba-1.5B's heads and window and
 # Gemma-7B's prefill, and the serving prefill's shape last
 FLASH_CASES = (
     (2, 128, 4, 2, 64, True, 0, torch.float32),
@@ -3001,6 +3024,11 @@ FLASH_CASES = (
     (1, 512, 8, 1, 128, True, 0, torch.bfloat16),  # a rank's of Qwen2.5-3B's at model 2
     (2, 512, 8, 2, 128, True, 0, torch.float32),
     (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
+    (1, 97, 2, 1, 32, False, 40, torch.bfloat16),
+    (1, 300, 8, 1, 32, True, 100, torch.bfloat16),
+    (1, 400, 4, 1, 128, True, 100, torch.float32),
+    (1, 300, 32, 2, 128, True, 0, torch.float32),
+    (1, 257, 4, 2, 256, True, 0, torch.float32),
     (2, 384, 4, 2, 256, True, 0, torch.bfloat16),
     (1, 192, 4, 4, 256, False, 0, torch.bfloat16),
     (1, 400, 4, 1, 256, True, 100, torch.bfloat16),
@@ -3172,9 +3200,9 @@ def phase_serve(dev: torch.device) -> dict:
     """(b) serving the full Qwen2.5-3B through ``serve.generate`` with the
     flash kernel, with the checks of every serving phase
     (``_serve_phase``); (c) its times, the tensor-core kernel at the
-    serving shape and flash.cu at the same shape in float32 (CUDA cores:
-    TF32 would miss the 2e-5 limit) and in bf16 at head dim 32 (the other
-    case of its route)."""
+    serving shape, flash.cu at the same shape in float32 (CUDA cores: TF32
+    would miss the 2e-5 limit) and the tensor-core kernel in bf16 at head
+    dim 32 (bound by its exponentials)."""
     cfg = dataclasses.replace(get_config("qwen2_5_3b"), attn_impl="flash")
     _published(cfg, num_layers=36, d_model=2048, num_heads=16, num_kv_heads=2, head_dim=128,
                scan_layers=True, param_dtype="bfloat16")
@@ -3550,11 +3578,12 @@ def _serve_family(dev, label: str, cfg, seed: int, B: int, S: int, T: int,
                 n_params=n_params, params_gb=params_gb)
 
 
-def _plain_gate(run: dict):
+def _plain_gate(run: dict, limit: float = SERVE_REL_L2):
     """The flash prefill's gate: the relative L2 of a prefill's logits from
-    the plain attention's prefill, within SERVE_REL_L2."""
+    the plain attention's prefill, within ``limit`` (SERVE_REL_L2 in bf16,
+    F32_SERVE_REL in float32)."""
     ref = run["logits_x"]
-    return (lambda logits: _rel_l2(logits, ref)), SERVE_REL_L2, "rel L2 from the plain prefill"
+    return (lambda logits: _rel_l2(logits, ref)), limit, "rel L2 from the plain prefill"
 
 
 def _float32_gate(run: dict):
@@ -3602,10 +3631,11 @@ def _flash_gate(label: str, cfg, run: dict, gate) -> str:
             f"{json.dumps({k: float(f'{v:.4g}') for k, v in controls.items()})}")
 
 
-def _tf_one(dev, run: dict) -> tuple:
+def _tf_one(dev, run: dict, limit: float = SERVE_REL_L2) -> tuple:
     """Teacher forcing: a decode step after a prefill of S tokens against a
-    prefill of S + 1 (the step's token appended), within SERVE_REL_L2.
-    Returns (rel L2, max abs, what was compared)."""
+    prefill of S + 1 (the step's token appended), within ``limit``
+    (SERVE_REL_L2 in bf16, TF_F32_REL in float32). Returns (rel L2, max
+    abs, what was compared)."""
     bundle, params, batch, nxt = run["bundle"], run["params"], run["batch"], run["nxt"]
     B, S = run["prompts"].shape
     _, cache = bundle.prefill(params, dict(batch), bundle.init_cache(B, S + 1))
@@ -3613,7 +3643,7 @@ def _tf_one(dev, run: dict) -> tuple:
     longer = dict(batch, tokens=torch.cat([batch["tokens"], nxt], dim=1))
     logits_s1, _ = bundle.prefill(params, longer, bundle.init_cache(B, S + 1))
     rel, err = _rel_l2(logits_d, logits_s1), float((logits_d - logits_s1).abs().max())
-    check(rel <= SERVE_REL_L2, f"teacher forcing: rel L2 {rel} > {SERVE_REL_L2}")
+    check(rel <= limit, f"teacher forcing: rel L2 {rel} > {limit}")
     return rel, err, f"a decode step after a prefill of {S} against one of {S + 1}"
 
 
@@ -3801,9 +3831,11 @@ def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int,
     max abs error and relative L2 against the plain version, times of the
     kernel, the plain version and SDPA (for a window: an explicit boolean
     mask, K/V repeated to H heads before the timed call, and the backend
-    SDPA's dispatcher picks for it), and the bound (the causal, windowed
-    pairs' two products, bf16 on the tensor cores, float32 on the CUDA
-    cores; q, k, v read and out written once). With ``direct``, flash.cu
+    SDPA's dispatcher picks for it), and the bound: the largest of the
+    bytes (q, k, v read and out written once), the causal, windowed pairs'
+    two products (bf16 on the tensor cores, float32 on the CUDA cores) and
+    their exponentials (one a pair, ``_exp_rate``), each term kept in
+    ``bound_terms``. With ``direct``, flash.cu
     called directly on the same tensors too (``timing["direct"]``: its
     error against the same plain output and its time)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3846,13 +3878,19 @@ def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int,
         backend = f"unknown ({type(e).__name__})"
     nbytes = q.element_size() * (2 * B * S * H * D + 2 * B * S * Hkv * D)
     peak = BF16_TENSOR_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    flops, exps = 4 * D * B * H * pairs, B * H * pairs
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "products_ms": flops / peak * 1e3,
+             "exp_ms": exps / _exp_rate(dev.type) * 1e3}
+    least = bound(nbytes, flops, peak)
+    if terms["exp_ms"] > least[0]:  # the exponentials are operations too, on the SFU
+        least = (terms["exp_ms"], "operations")
     timing = dict(
         ms=cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=window), reps=10),
         plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v, causal=True, window=window),
                          reps=2),
         library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, **sdpa_kw), reps=10),
-        bound=bound(nbytes, 4 * D * B * H * pairs, peak), max_abs_err=err,
+        bound=least, bound_terms=terms, max_abs_err=err,
         rel_l2=rel, route=route, sdpa_backend=backend, direct=simt,
         shape=(f"B {B}, S {S}, H {H}/{Hkv}, D {D}, causal"
                + (f", window {window}" if window else "")
@@ -3862,12 +3900,27 @@ def _flash_at(dev, B, S, H, Hkv, D, window: int, dtype: torch.dtype, seed: int,
     return timing
 
 
+@functools.lru_cache(maxsize=None)
+def _exp_rate(device_type: str = "cuda") -> float:
+    """Exponentials a second on card 0: SFU_EXP_PER_CLOCK a clock on each
+    SM at ``clocks.max.sm`` (``nvidia-smi``). A CPU rehearsal has no SFU
+    term: infinitely many (the term reads 0 and bounds nothing)."""
+    if device_type != "cuda":
+        return float("inf")
+    mhz = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_EXP_PER_CLOCK * sms * float(mhz) * 1e6
+
+
 def _flash_text(f: dict) -> str:
     d = f["direct"]
+    terms = " / ".join(f"{v:.4f}" for v in f["bound_terms"].values())
     return (f"flash at ({f['shape']}) on {list(f['route'])} ms {f['ms']:.3f} max_abs_err "
             f"{f['max_abs_err']:.3g} rel_l2 {f['rel_l2']:.3g} plain_ms {f['plain_ms']:.3f} sdpa_ms "
             f"{f['library_ms']:.3f} (backend {f['sdpa_backend']}) bound_ms {f['bound'][0]:.4f} "
-            f"({f['bound'][1]})"
+            f"({f['bound'][1]}; bytes / products / exponentials {terms})"
             + (f"; flash.cu directly ms {d['ms']:.3f} max_abs_err {d['max_abs_err']:.3g} rel_l2 "
                f"{d['rel_l2']:.3g}" if d else ""))
 
@@ -3891,7 +3944,7 @@ def _published(cfg, **want) -> None:
 
 def _serve_phase(dev, label: str, cfg, S: int, on_path: dict, *, gate=_plain_gate,
                  teacher=_tf_one, gate_cfg=None, pieces: dict, step_pieces: dict,
-                 flash_shapes: list = (), direct: bool = False) -> dict:
+                 flash_shapes: list = (), direct: bool = False, T: int = SERVE_GEN) -> dict:
     """One serving phase: ``_serve_family``'s checks; with attention, the
     flash prefill within ``gate``'s limit and the planted attention faults
     above it (``_flash_gate``); ``teacher`` forcing (``_tf_one`` or
@@ -3901,9 +3954,11 @@ def _serve_phase(dev, label: str, cfg, S: int, on_path: dict, *, gate=_plain_gat
     ``step_pieces`` inside a decode step, the memory held after (under 1
     MB), then ``gate_cfg`` (float32, cut in depth) on the card against the
     CPU, and the flash kernel at each of ``flash_shapes`` (B, S, H, Hkv, D,
-    window, dtype), with ``direct``: and flash.cu there too. Prints the phase's line and its seconds by stage;
-    returns its numbers and the main path's launches."""
-    B, T = SERVE_BATCH, SERVE_GEN
+    window, dtype), with ``direct``: and flash.cu there too. T greedy
+    tokens (phase 6's SERVE_GEN unless given). Prints the phase's line and
+    its seconds by stage; returns its numbers and the main path's
+    launches."""
+    B = SERVE_BATCH
     free_device()
     before = program_bytes(dev)
     stage_s, t0 = {}, time.perf_counter()
@@ -4061,6 +4116,35 @@ def phase_serve_gemma(dev: torch.device) -> dict:
         step_pieces={"attention": (blocks, "_attn_core_decode")},
         flash_shapes=[(SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                        0, torch.bfloat16)], direct=True)
+
+
+def phase_serve_qwen_f32(dev: torch.device) -> dict:
+    """6f: Qwen2.5-3B at its published widths and full depth in float32
+    with ``attn_impl="flash"``, which sends float32 to flash.cu at every
+    head dim: phase 6's 8 prompts of 2048 tokens, F32_SERVE_GEN greedy
+    tokens, seeded weights; 36 launches of flash.cu a prefill and none of
+    the tensor-core kernels, none per decode step; the flash prefill's
+    logits within F32_SERVE_REL of the plain (``attn_impl="xla"``) float32
+    prefill on the card, each planted attention fault above it; teacher
+    forcing within TF_F32_REL; then flash.cu at the model's attention
+    shape (B 8, S 2048, H 16/2, D 128, causal), at D 32, 64 and 256 and at
+    Hymba-1.5B's (S 4096, H 25/5, D 64, window 2048), all float32, beside
+    the plain version, SDPA and the bound."""
+    cfg = dataclasses.replace(get_config("qwen2_5_3b"), param_dtype="float32", attn_impl="flash")
+    _published(cfg, num_layers=36, d_model=2048, num_heads=16, num_kv_heads=2, head_dim=128,
+               d_ff=11008, vocab_size=151936, param_dtype="float32")
+    f32 = torch.float32
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    return _serve_phase(
+        dev, "Qwen2.5-3B float32", cfg, S,
+        on_entry("flash_attention_forward", cfg.num_layers),
+        gate=functools.partial(_plain_gate, limit=F32_SERVE_REL),
+        teacher=functools.partial(_tf_one, limit=TF_F32_REL), T=F32_SERVE_GEN,
+        pieces={"flash": (blocks, "flash_attention")},
+        step_pieces={"attention": (blocks, "_attn_core_decode")},
+        flash_shapes=[(B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0, f32),
+                      (B, S, 16, 2, 32, 0, f32), (B, S, 16, 2, 64, 0, f32),
+                      (B, S, 16, 16, 256, 0, f32), (B, HYMBA_PROMPT, 25, 5, 64, 2048, f32)])
 
 
 # ---------------------------------------------------------------------- #
@@ -4910,22 +4994,24 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
     phase 5's job for the quant kernels, phase 6's serving, phase 6d's
-    MoE serving and phases 6h, 6x, 6s and 6g's serving (``families``: 6x
-    runs no TPU kernel, 0 launches) for flash,
+    MoE serving and phases 6h, 6x, 6s, 6g and 6f's serving (``families``:
+    6x runs no TPU kernel, 0 launches; 6f is the float32 path of flash.cu)
+    for flash,
     phase 7's process job (the hub's launches plus every child's) and
     phase 7c's three faulted jobs (the same) for the agg and quant entries,
     and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
     plain attention), and phase 9's split serving, both ranks' launches
     (the tensor-core flash kernel at each rank's heads)."""
-    # the flash rows' numbers: the D 64/128 tensor-core kernel at phase 6's
-    # serving shape; the D 256 one on its path, 6g's (Gemma-7B, bf16);
-    # flash.cu, on no path, at phase 6's serving shape in float32 (and at
-    # Gemma's, called directly, below)
+    # the flash rows' numbers: the D 32/64/128 tensor-core kernel at phase
+    # 6's serving shape; the D 256 one on its path, 6g's (Gemma-7B, bf16);
+    # flash.cu on its path, 6f's (Qwen2.5-3B in float32; its other float32
+    # shapes and Gemma's, called directly, below)
     gemma = families["6g"]["flash"][0]
+    f32 = families["6f"]["flash"]
     serve = dict(serve, timings={"flash_attention_forward_sm90": serve["flash"][0],
                                  "flash_attention_forward_sm90_d256": gemma,
-                                 "flash_attention_forward": serve["flash"][1]})
+                                 "flash_attention_forward": f32[0]})
     agg_src = "src/repro_torch/kernels/agg/csrc/agg.cu"
     quant_src = "src/repro_torch/kernels/quant/csrc/quant.cu"
     fold = "src/repro/kernels/agg/kernel.py:96"
@@ -4949,8 +5035,9 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
          "src/repro/kernels/flash_attention/kernel.py:76", True,
          "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)", serve, "6"),
         ("flash_attention_forward", "src/repro_torch/kernels/flash_attention/csrc/flash.cu",
-         "src/repro/kernels/flash_attention/kernel.py:76", False,
-         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True)", serve, "6"),
+         "src/repro/kernels/flash_attention/kernel.py:76", True,
+         "torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)"
+         " (float32)", serve, "6"),
     ]
     out = []
     for name, src, replaces, on_path, library, run, phase in rows:
@@ -4982,19 +5069,23 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
                 "library_ms": f["library_ms"]},
                 "at_hymba_shape": _shape_entry(families["6h"]["flash"][0]),
                 "at_seamless_shape": _shape_entry(families["6s"]["flash"][0]),
+                "at_bf16_d32_shape": _shape_entry(serve["flash"][2]),
                 "phase9_launches_per_rank": tp_ranks,
                 "at_tp_qwen_rank_shape": _shape_entry(tpar["flash"]["qwen"]),
                 "at_tp_moe_rank_shape": _shape_entry(tpar["flash"]["moe"])}
         elif name == "flash_attention_forward_sm90_d256":
             extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"]}
         elif name == "flash_attention_forward":
-            # on no path since the D 256 route; timed at phase 6's float32
-            # serving shape, and called directly at Gemma's beside the
-            # D 256 kernel (the same tensors, plain, SDPA and bound)
+            # on 6f's path (float32 Qwen2.5-3B); timed there at the model's
+            # attention shape, at D 32, 64 and 256 and Hymba's in float32,
+            # and called directly in bf16 at Gemma's beside the D 256
+            # kernel (the same tensors, plain, SDPA and bound)
             d = gemma["direct"]
-            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"], "at_gemma_shape": {
-                **_shape_entry(gemma), "ms": d["ms"], "max_abs_err": d["max_abs_err"],
-                "rel_l2": d["rel_l2"]}, "at_bf16_d32_shape": _shape_entry(serve["flash"][2])}
+            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"],
+                     "at_f32_shapes": [_shape_entry(f) for f in f32[1:]],
+                     "at_phase6_f32_shape": _shape_entry(serve["flash"][1]),
+                     "at_gemma_shape": {**_shape_entry(gemma), "ms": d["ms"],
+                                        "max_abs_err": d["max_abs_err"], "rel_l2": d["rel_l2"]}}
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path,
@@ -5002,6 +5093,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": t["library_ms"], "library_call": library,
+            **({"bound_terms_ms": t["bound_terms"]} if "bound_terms" in t else {}),
             **({"library_per_leaf_ms": t["library_per_leaf_ms"],
                 "library_per_leaf_call": "torch.add(acc, d, alpha=w, out=acc) per leaf"}
                if "library_per_leaf_ms" in t else {}),
@@ -5013,7 +5105,8 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
 def _shape_entry(f: dict) -> dict:
     return {"shape": f["shape"], "ms": f["ms"], "max_abs_err": f["max_abs_err"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
-            "library_ms": f["library_ms"], "sdpa_backend": f["sdpa_backend"]}
+            "bound_terms_ms": f["bound_terms"], "library_ms": f["library_ms"],
+            "sdpa_backend": f["sdpa_backend"]}
 
 
 def run_phase(phase_s: dict, name: str, fn, *args):
@@ -5078,7 +5171,8 @@ def main() -> int:
     free_device()
     families = {}
     for name, fn in (("6h", phase_serve_hymba), ("6x", phase_serve_xlstm),
-                     ("6s", phase_serve_seamless), ("6g", phase_serve_gemma)):
+                     ("6s", phase_serve_seamless), ("6g", phase_serve_gemma),
+                     ("6f", phase_serve_qwen_f32)):
         families[name] = timed(name, fn, dev)
         free_device()
     train = timed("8", phase_train, dev, smi)

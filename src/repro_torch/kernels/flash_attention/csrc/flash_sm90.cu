@@ -1,7 +1,8 @@
 // Forward flash attention for Hopper on the tensor cores (sm_90a): bfloat16
-// q, k and v at head dims 64 and 128, TMA loads and wgmma products. Bound to
-// Python with ctypes; the wrapper (kernel.py) sends it bf16 inputs at those
-// head dims and everything else to csrc/flash.cu.
+// q, k and v at head dims 32, 64 and 128, TMA loads and wgmma products. Bound
+// to Python with ctypes; the wrapper (kernel.py) sends it bf16 inputs at those
+// head dims, bf16 at D 256 to csrc/flash_sm90_d256.cu and float32 to
+// csrc/flash.cu.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention/kernel.py:
 //
@@ -33,7 +34,7 @@
 //   exp2f(-1e30 - m) = 0 once m is finite, and exp2f(0) = 1 while it is not.
 //
 // Skipped tiles: the rule of flash.cu with 128-row q tiles and 128-key KV
-// tiles. A block visits the KV tiles from k_begin (the tile holding
+// tiles (64-key at D 32). A block visits the KV tiles from k_begin (the tile holding
 // q0 - window + 1, rounded down to a tile) to k_end (kv_len, or under causal
 // the end of the q tile's diagonal); every skipped tile is wholly masked for
 // all 128 rows. Both warpgroups visit the same tiles (they share the ring),
@@ -49,7 +50,11 @@
 // Bound. For the serving prefill (B 8, H 16, Hkv 2, S 2048, D 128, causal)
 // the two products are 137.5 GFLOP over the causal pairs against 151 MB of
 // q, k, v and output: 0.139 ms at 989 TFLOP/s of dense bf16 on the tensor
-// cores, 0.045 ms at 3.35 TB/s, so operations bound it.
+// cores, 0.045 ms at 3.35 TB/s, so operations bound it. At D 32 (the same
+// B, H and S) the products shrink to 34.4 GFLOP (0.035 ms) and the bytes to
+// 38 MB (0.011 ms), while the exponentials stay one per causal pair, 2.7e8:
+// at the SFU's 16 a clock per SM, 132 SMs and 1.98 GHz (clocks.max.sm),
+// 0.065 ms. There the exponentials bound it.
 //
 // Design (one thread block of 288 threads per 128-row q tile, q head, batch):
 // - Warpgroups 0 and 1 consume, each owning 64 q rows (wgmma's M); warp 8
@@ -67,7 +72,14 @@
 //   [rows][64] in its own 1024-byte-aligned region, and the wgmma descriptors
 //   step between them (Q and K: K-major, 32 bytes per k16 step inside a box,
 //   the next box after 4 steps; V: MN-major, the second box as the leading
-//   byte offset).
+//   byte offset). A D-32 row is 64 bytes: one box of 32 columns under the
+//   64-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_64B, the descriptors' layout
+//   type 2), whose atom is 8 rows of 64 bytes (512 bytes, the stride byte
+//   offset): S is two k16 steps of 32 bytes inside the row, and O += P V is
+//   wgmma m64n32k16, V's 32 columns one atom wide. Its KV tiles hold 64
+//   keys (S is wgmma m64n64k16), so that each warpgroup's short products
+//   come between shorter softmaxes: the other warpgroup's softmax then
+//   covers more of them.
 // - S = Q K^T: wgmma m64n128k16, both operands from shared memory, float32
 //   accumulators. K's rows are D-contiguous, K-major for the B operand, so
 //   no transpose.
@@ -85,7 +97,7 @@
 //   the q heads that share a kv head run side by side and share K and V in
 //   L2.
 // Shared memory at D 128: Q 32 KB and kStages x (K + V) = 2 x 64 KB; one
-// block per SM. No pipelining inside a warpgroup: each waits for its S
+// block per SM (at D 32: 8 KB and 2 x 16 KB). No pipelining inside a warpgroup: each waits for its S
 // product before the softmax and for P V before the next tile, and the two
 // warpgroups overlap one another.
 //
@@ -120,12 +132,11 @@
 namespace {
 
 constexpr int kBQ = 128;  // q rows per block: two consumer warpgroups of 64
-constexpr int kBK = 128;  // keys per KV tile
+constexpr int kBK = 128;  // keys per KV tile at D 64 and 128
+constexpr int kBK32 = 64;  // ... and at D 32 (Layout<32>::kKeys)
 constexpr int kStages = 2;
 constexpr int kThreads = 288;  // two consumer warpgroups + one producer warp
 constexpr int kConsumerWarps = 8;
-constexpr int kBoxCols = 64;    // 128 bytes of bf16: the 128-byte swizzle's width
-constexpr int kBoxRowBytes = 128;
 constexpr float kNegInf = -1e30f;  // the JAX package's NEG_INF
 constexpr int kNoEncoder = -1;
 constexpr int kEncodeFailed = -1000;
@@ -140,8 +151,18 @@ struct Params {
 
 template <int D>
 struct Layout {  // byte offsets into the 1024-aligned dynamic shared memory
+  // a TMA box's columns: 64 (128 bytes of bf16, the 128-byte swizzle's width)
+  // or, at D 32, 32 (64 bytes, the 64-byte swizzle's)
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kBoxRowBytes = 2 * kBoxCols;
+  static constexpr int kAtomBytes = 8 * kBoxRowBytes;  // 8 rows: the swizzle's repeat
+  static constexpr int kSteps = kBoxRowBytes / 32;     // k16 steps inside a box
+  // keys per KV tile: at D 32 a tile of 64 keys keeps the products short
+  // beside the softmax, which there bounds the kernel (0.177 against 0.234
+  // ms at B 8, S 2048, H 16/2: tools/flash_sm90_variants.py)
+  static constexpr int kKeys = D == 32 ? kBK32 : kBK;
   static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;  // one K or one V tile
+  static constexpr int kTileBytes = kKeys * D * 2;  // one K or one V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -197,12 +218,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 }
 
 // ---------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets in 16-byte units, layout type 1 (B128) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Shared-memory matrix descriptor of a swizzled layout: start address,
+// leading and stride byte offsets in 16-byte units, the layout type in bits
+// 62-63: 1 for the 128-byte swizzle (rows of 128 bytes), 2 for the 64-byte one.
+template <int RowBytes>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(RowBytes == 128 || RowBytes == 64, "swizzle width");
+  constexpr uint64_t kType = RowBytes == 128 ? 1 : 2;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
+         (kType << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -284,6 +309,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 32, f32) += A (64 x 16, bf16 registers) * B (16 x 32, smem, N-major: transposed)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F8(0), F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef F8
 
 // the two products at the kernel's shapes: S over kBK keys, O over D columns
@@ -296,6 +332,10 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[64], uint64_t a, uint64_t b,
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<32>(float (&o)[16], const uint32_t* a, uint64_t b) {
+  wgmma_rs_n32(o, a, b);
+}
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a, uint64_t b) {
   wgmma_rs_n64(o, a, b);
@@ -320,6 +360,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_kernel_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, const Params p) {
   using L = Layout<D>;
+  constexpr int kBoxCols = L::kBoxCols, kBoxRowBytes = L::kBoxRowBytes, kSteps = L::kSteps;
+  constexpr int kBK = L::kKeys;
   constexpr int kBoxes = D / kBoxCols;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -398,7 +440,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     float l[2] = {0.0f, 0.0f};  // this thread's partial sums; the quad's sum at the end
 
     // Q rows of this warpgroup inside each 64-column box
-    const uint64_t q_desc = sw128_desc(sq_addr + cw * 64 * kBoxRowBytes, 16, 1024);
+    const uint64_t q_desc = sw_desc<kBoxRowBytes>(sq_addr + cw * 64 * kBoxRowBytes, 16,
+                                                  L::kAtomBytes);
     mbar_wait(q_full, 0);
 
     for (int it = 0; it < n_kv; ++it) {
@@ -406,17 +449,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t phase = static_cast<uint32_t>(it / kStages) & 1u;
       const int k0 = k_begin + it * kBK;
 
-      // S = Q K^T: D / 16 steps of k16; box kk / 4, 32 bytes per step inside it
+      // S = Q K^T: D / 16 steps of k16; box kk / kSteps, 32 bytes per step inside it
       float sc[kBK / 2];
       mbar_wait(k_full(s), phase);
       wgmma_fence();
       uint64_t q_tile = q_desc;  // rebuilt each tile: 8 hoisted descriptors would hold 16 registers
       asm volatile("" : "+l"(q_tile));
-      const uint64_t k_desc = sw128_desc(k_tile(s), 16, 1024);
+      const uint64_t k_desc = sw_desc<kBoxRowBytes>(k_tile(s), 16, L::kAtomBytes);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {  // offsets in the descriptors' 16-byte units
-        const uint32_t off = ((kk / 4) * (kBQ * kBoxRowBytes) + (kk % 4) * 32) >> 4;
-        const uint32_t koff = ((kk / 4) * (kBK * kBoxRowBytes) + (kk % 4) * 32) >> 4;
+        const uint32_t off = ((kk / kSteps) * (kBQ * kBoxRowBytes) + (kk % kSteps) * 32) >> 4;
+        const uint32_t koff = ((kk / kSteps) * (kBK * kBoxRowBytes) + (kk % kSteps) * 32) >> 4;
         wgmma_qk(sc, q_tile + off, k_desc + koff, kk > 0);
       }
       wgmma_commit();
@@ -468,12 +511,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < kBK / 4; ++j) pa[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
 
-      // O += P V: BK / 16 steps of 16 keys, 2048 bytes of V rows each
+      // O += P V: BK / 16 steps of 16 keys, 16 rows of V's boxes each
       mbar_wait(v_full(s), phase);
       fence_regs(o);
       fence_regs(pa);
       wgmma_fence();
-      const uint64_t v_desc = sw128_desc(v_tile(s), kBK * kBoxRowBytes, 1024);
+      const uint64_t v_desc = sw_desc<kBoxRowBytes>(v_tile(s), kBK * kBoxRowBytes, L::kAtomBytes);
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
         wgmma_pv<D>(o, &pa[4 * kk], v_desc + ((kk * 16 * kBoxRowBytes) >> 4));
@@ -532,7 +575,8 @@ EncodeTiled encoder() {
 }
 
 // a 4-D map (D, S, heads, batch) over a bf16 tensor with the given strides in
-// elements; boxes of 64 columns x rows, 128-byte swizzle, zeros out of bounds
+// elements; boxes of 64 columns x rows under the 128-byte swizzle (32 columns
+// under the 64-byte one at D 32), zeros out of bounds
 int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int batch,
              const long long* strides, int rows) {
   const EncodeTiled encode = encoder();
@@ -543,11 +587,13 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int bat
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
                                static_cast<cuuint64_t>(strides[1]) * 2,
                                static_cast<cuuint64_t>(strides[0]) * 2};
-  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t cols = D < 64 ? D : 64;
+  const cuuint32_t box[4] = {cols, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                             bytes, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed - static_cast<int>(r);
 }
@@ -568,8 +614,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv, 
 
 extern "C" {
 
-// bf16 q (B, H, Sq, D), k and v (B, Hkv, Skv, D), o (B, H, Sq, D), D 64 or
-// 128, each given by its data pointer and strides[3 * i .. 3 * i + 2] =
+// bf16 q (B, H, Sq, D), k and v (B, Hkv, Skv, D), o (B, H, Sq, D), D 32, 64
+// or 128, each given by its data pointer and strides[3 * i .. 3 * i + 2] =
 // (batch, head, sequence) in elements, i = 0 (q), 1 (k), 2 (v), 3 (o); the
 // last dimension has stride 1. The wrapper (kernel.py) checks shapes, dtype,
 // D, 16-byte alignment of q, k and v and the grid's size.
@@ -578,11 +624,12 @@ int flash_attention_forward_sm90(const void* q, const void* k, const void* v, vo
                                  int D, int kv_len, int causal, int window, float scale,
                                  void* stream) {
   if (Sq == 0) return 0;
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 32 && D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, D, Sq, H, B, strides, kBQ);
-  if (err == 0) err = make_map(&tk, k, D, Skv, Hkv, B, strides + 3, kBK);
-  if (err == 0) err = make_map(&tv, v, D, Skv, Hkv, B, strides + 6, kBK);
+  const int keys = D == 32 ? Layout<32>::kKeys : kBK;
+  if (err == 0) err = make_map(&tk, k, D, Skv, Hkv, B, strides + 3, keys);
+  if (err == 0) err = make_map(&tv, v, D, Skv, Hkv, B, strides + 6, keys);
   if (err != 0) return err;
   Params p;
   p.o = o;
@@ -599,6 +646,7 @@ int flash_attention_forward_sm90(const void* q, const void* k, const void* v, vo
   p.window = window;
   p.scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch<32>(tq, tk, tv, p, s);
   return D == 64 ? launch<64>(tq, tk, tv, p, s) : launch<128>(tq, tk, tv, p, s);
 }
 

@@ -9,13 +9,13 @@ one of three kernels, chosen by dtype and head dim alone (never by the mask):
 =========  ==========  ======================================================
 dtype      head dim    kernel (route)
 =========  ==========  ======================================================
-bfloat16   64, 128     ``csrc/flash_sm90.cu``: TMA loads and ``wgmma`` on the
-                       tensor cores (``flash_forward_sm90``)
+bfloat16   32, 64,     ``csrc/flash_sm90.cu``: TMA loads and ``wgmma`` on the
+           128         tensor cores (``flash_forward_sm90``)
 bfloat16   256         ``csrc/flash_sm90_d256.cu``: TMA loads and ``wgmma``
                        on the tensor cores, a register budget and KV tile of
                        its own (``flash_forward_sm90_d256``)
-bfloat16   32          ``csrc/flash.cu``: float32 CUDA cores (``flash_forward``)
-float32    32 to 256   ``csrc/flash.cu`` (``flash_forward``)
+float32    32 to 256   ``csrc/flash.cu``: float32 products on the CUDA cores,
+                       K and V through ``cp.async`` (``flash_forward``)
 =========  ==========  ======================================================
 
 Each route checks device, dtypes, shapes, ``D`` and the grid limits and
@@ -30,8 +30,8 @@ stream. ``flash_attention_bhsd.launches`` counts every kernel launch, and
 each route's function (``flash_forward.launches``,
 ``flash_forward_sm90.launches``, ``flash_forward_sm90_d256.launches``)
 counts its own (CPU calls count nowhere). ``flash_forward`` also takes
-bfloat16 at D 64 to 256 when called directly, as ``chip_smoke.py`` does to
-hold and time it beside the tensor-core kernels. The libraries are built at
+bfloat16 at every head dim when called directly, as ``chip_smoke.py`` does
+to hold and time it beside the tensor-core kernels. The libraries are built at
 first use by ``repro_torch.kernels.build``.
 """
 from __future__ import annotations
@@ -46,13 +46,14 @@ from repro_torch.kernels.flash_attention import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEAD_DIMS = (32, 64, 128, 256)
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (32, 64, 128)
 SM90_D256 = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65_535  # gridDim.y (heads) and gridDim.z (batch) of flash.cu
 _MAX_INT = 2**31 - 1
 _TMA_ALIGN = 16  # bytes: TMA's base address and stride granule
 _SM90_TILE = 128  # q rows per block of flash_sm90.cu and flash_sm90_d256.cu
+# q rows per block of flash.cu (``Tile<D>::BQ``): 8 warps of 16 rows, of 8 at D 256
+_SIMT_TILE = {32: 128, 64: 128, 128: 128, 256: 64}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -168,8 +169,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _check(q, k, v, window):
         raise ValueError("flash_forward launches a CUDA kernel: got CPU tensors")
     B, H, Sq, D = q.shape
-    if B > _MAX_GRID_YZ or H > _MAX_GRID_YZ:
-        raise ValueError(f"batch {B} and heads {H} must each be <= {_MAX_GRID_YZ} (grid y, z)")
+    if B * H * -(-Sq // _SIMT_TILE[D]) > _MAX_INT:
+        raise ValueError(f"batch {B} x heads {H} x q tiles must fit in a 32-bit grid")
     o = _output(q)
     if Sq == 0:
         return o.transpose(1, 2)
@@ -221,7 +222,7 @@ def _forward_tma(q, k, v, causal: bool, window: int, fn, head_dims: tuple,
 def flash_forward_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int = 0) -> torch.Tensor:
     """``csrc/flash_sm90.cu`` on CUDA tensors, (B, H, S, D) -> (B, H, Sq, D):
-    bfloat16 at head dims 64 and 128, q, k and v readable by TMA."""
+    bfloat16 at head dims 32, 64 and 128, q, k and v readable by TMA."""
     return _forward_tma(q, k, v, causal, window, flash_forward_sm90, SM90_HEAD_DIMS,
                         SM90_LIBRARY, "flash_attention_forward_sm90")
 

@@ -6,10 +6,11 @@ held against the JAX package's Pallas kernel in interpret mode and its
 ``reference_attention``, on the same numpy inputs, at the JAX package's own
 tolerances (``tests/test_kernels.py``): atol 2e-5 in float32, 3e-2 in
 bfloat16. The CUDA kernels' tiling cannot run here. The schedule of
-``csrc/flash.cu`` (which KV tiles a q tile visits, and the online softmax
-over them) is replayed in numpy by ``_tiled_online_softmax`` and held to the
-same tolerance, so its tile-skipping argument is tested on the CPU too; the
-schedule and numerics of the tensor-core kernels ``csrc/flash_sm90.cu`` and
+``csrc/flash.cu`` (which KV tiles a q tile visits and which of them each
+warp's rows skip, and the online softmax over them in exp2) is replayed in
+numpy by ``_tiled_online_softmax`` and held to the same tolerance, so its
+tile-skipping argument is tested on the CPU too; the schedule and numerics
+of the tensor-core kernels ``csrc/flash_sm90.cu`` and
 ``csrc/flash_sm90_d256.cu`` (two 64-row warpgroups per 128-row q tile,
 128- or 64-key tiles, exp2, P rounded to bf16) by ``_sm90_replay`` at each
 kernel's tiles, held to the bf16 limits their output meets on the card
@@ -38,8 +39,9 @@ CASES = [
     (1, 128, 4, 2, 64, False, 0),  # bidirectional (encoder)
     (1, 200, 2, 2, 32, True, 0),   # unpadded -> padding path
 ]
-# the CUDA kernel's (BQ, BK) per head dim (csrc/flash.cu, dispatch)
-KERNEL_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 32), 256: (32, 32)}
+# the CUDA kernel's (q rows per block, keys per KV tile, q rows per warp)
+# per head dim (csrc/flash.cu, Tile<D>)
+KERNEL_TILES = {32: (128, 64, 16), 64: (128, 64, 16), 128: (128, 64, 16), 256: (64, 64, 8)}
 
 
 def _inputs(seed, B, S, H, Hkv, D, Skv=None):
@@ -105,42 +107,49 @@ def test_bf16_bits_cross_as_in_jax():
 # ------------------------------------------------------------------ #
 # the CUDA kernel's schedule, replayed in numpy
 # ------------------------------------------------------------------ #
-def _tiled_online_softmax(q, k, v, *, causal, window, BQ, BK):
+def _tiled_online_softmax(q, k, v, *, causal, window, BQ, BK, RW):
     """(B, S, H, D) float32 -> (B, S, H, D): the tile ranges and the
-    online-softmax updates of csrc/flash.cu (visit only the KV tiles with a
-    valid key for some row of the q tile), in float32 numpy."""
+    online-softmax updates of csrc/flash.cu, in float32 numpy: a block of
+    BQ rows loads the KV tiles with a valid key for some of its rows; each
+    warp's RW rows skip a loaded tile wholly masked for them; scores in
+    log2 units (the scale times log2 e, rounded to float32 as the host
+    computes it) and exp2."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    scale = np.float32(D**-0.5)
+    c = np.float32(float(np.float32(D**-0.5)) * np.log2(np.e))
     neg = np.float32(-1e30)
     out = np.zeros_like(q)
     for q0 in range(0, Sq, BQ):
-        rows = np.arange(q0, min(q0 + BQ, Sq))
         k_end = min(Skv, q0 + BQ) if causal else Skv
         k_begin = max(0, q0 - window + 1) if window > 0 else 0
         k_begin -= k_begin % BK
-        for h in range(H):
-            qt = q[:, rows, h]  # (B, r, D)
-            m = np.full((B, len(rows)), neg, np.float32)
-            l = np.zeros((B, len(rows)), np.float32)
-            acc = np.zeros((B, len(rows), D), np.float32)
-            for k0 in range(k_begin, k_end, BK):
-                keys = np.arange(k0, min(k0 + BK, Skv))
-                s = np.einsum("brd,bkd->brk", qt, k[:, keys, h // G]) * scale
-                ok = keys[None, :] < Skv
-                if causal:
-                    ok = ok & (keys[None, :] <= rows[:, None])
-                if window:
-                    ok = ok & (keys[None, :] > rows[:, None] - window)
-                s = np.where(ok[None], s, neg).astype(np.float32)
-                m_new = np.maximum(m, s.max(-1))
-                p = np.exp(s - m_new[..., None])
-                alpha = np.exp(m - m_new)
-                l = alpha * l + p.sum(-1)
-                acc = acc * alpha[..., None] + np.einsum("brk,bkd->brd", p, v[:, keys, h // G])
-                m = m_new
-            out[:, rows, h] = acc / np.maximum(l, np.float32(1e-30))[..., None]
+        for w0 in range(q0, min(q0 + BQ, Sq), RW):
+            rows = np.arange(w0, min(w0 + RW, Sq))
+            w1 = w0 + RW - 1
+            for h in range(H):
+                qt = q[:, rows, h]  # (B, r, D)
+                m = np.full((B, len(rows)), neg, np.float32)
+                l = np.zeros((B, len(rows)), np.float32)
+                acc = np.zeros((B, len(rows), D), np.float32)
+                for k0 in range(k_begin, k_end, BK):
+                    if (causal and k0 > w1) or (window > 0 and k0 + BK - 1 <= w0 - window):
+                        continue  # wholly masked for this warp's rows
+                    keys = np.arange(k0, min(k0 + BK, Skv))
+                    s = np.einsum("brd,bkd->brk", qt, k[:, keys, h // G]).astype(np.float32) * c
+                    ok = keys[None, :] < Skv
+                    if causal:
+                        ok = ok & (keys[None, :] <= rows[:, None])
+                    if window:
+                        ok = ok & (keys[None, :] > rows[:, None] - window)
+                    s = np.where(ok[None], s, neg).astype(np.float32)
+                    m_new = np.maximum(m, s.max(-1))
+                    p = np.exp2(s - m_new[..., None])
+                    alpha = np.exp2(m - m_new)
+                    l = alpha * l + p.sum(-1)
+                    acc = acc * alpha[..., None] + np.einsum("brk,bkd->brd", p, v[:, keys, h // G])
+                    m = m_new
+                out[:, rows, h] = acc / np.maximum(l, np.float32(1e-30))[..., None]
     return out
 
 
@@ -151,8 +160,8 @@ def _tiled_online_softmax(q, k, v, *, causal, window, BQ, BK):
 ])
 def test_kernel_schedule_matches_jax(B, S, H, Hkv, D, causal, window):
     q, k, v = _inputs(7 * S + D, B, S, H, Hkv, D)
-    BQ, BK = KERNEL_TILES[D]
-    tiled = _tiled_online_softmax(q, k, v, causal=causal, window=window, BQ=BQ, BK=BK)
+    BQ, BK, RW = KERNEL_TILES[D]
+    tiled = _tiled_online_softmax(q, k, v, causal=causal, window=window, BQ=BQ, BK=BK, RW=RW)
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
     np.testing.assert_allclose(tiled, np.asarray(jax_reference(jq, jk, jv, causal=causal, window=window)),
                                atol=F32_ATOL)
@@ -161,9 +170,9 @@ def test_kernel_schedule_matches_jax(B, S, H, Hkv, D, causal, window):
 # ------------------------------------------------------------------ #
 # the tensor-core kernel's schedule and numerics, replayed in numpy
 # ------------------------------------------------------------------ #
-# (q tile, KV tile, a warpgroup's rows) per head dim: kBQ, kBK and 64 of
-# csrc/flash_sm90.cu (D 64, 128) and csrc/flash_sm90_d256.cu (D 256)
-SM90_TILES = {64: (128, 128, 64), 128: (128, 128, 64), 256: (128, 64, 64)}
+# (q tile, KV tile, a warpgroup's rows) per head dim: kBQ, the KV tile and 64
+# of csrc/flash_sm90.cu (D 32, 64, 128) and csrc/flash_sm90_d256.cu (D 256)
+SM90_TILES = {32: (128, 64, 64), 64: (128, 128, 64), 128: (128, 128, 64), 256: (128, 64, 64)}
 BF16_REL_L2 = 5e-3  # chip_smoke.py's FLASH_REL_L2 for bfloat16
 
 
@@ -246,6 +255,12 @@ def _rel_l2(a, b):
     (2, 300, 4, 2, 64, True, 0),     # ragged S: the last q tile and KV tile run past it
     (1, 97, 2, 1, 64, False, 40),    # non-causal window, one ragged tile
     (1, 512, 8, 1, 128, True, 0),    # S 512, GQA 8:1
+    # D 32: 64-key tiles, the 64-byte swizzle's head dim
+    (1, 256, 4, 4, 32, True, 0),     # causal, MHA
+    (1, 200, 2, 2, 32, True, 0),     # ragged S
+    (1, 97, 2, 1, 32, False, 40),    # non-causal window, one ragged tile
+    (1, 300, 8, 1, 32, True, 100),   # window rows whose first visited tiles are all masked
+    (1, 256, 16, 1, 32, False, 0),   # non-causal, GQA 16:1
     # csrc/flash_sm90_d256.cu's tiles: 128-row q tiles, 64-key tiles
     (1, 256, 2, 2, 256, True, 0),    # D 256, causal
     (1, 192, 2, 1, 256, False, 0),   # non-causal
@@ -287,6 +302,12 @@ def test_sm90_replay_with_other_key_lengths(Sq, Skv, causal):
 
 
 @pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
+def test_sm90_d32_replay_with_other_key_lengths(Sq, Skv, causal):
+    """The same at D 32, at csrc/flash_sm90.cu's 64-key tiles."""
+    _other_key_lengths(Sq, Skv, causal, 32)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
 def test_sm90_d256_replay_with_other_key_lengths(Sq, Skv, causal):
     """The same at D 256, at csrc/flash_sm90_d256.cu's tiles."""
     _other_key_lengths(Sq, Skv, causal, 256)
@@ -309,10 +330,12 @@ def test_sm90_replay_sees_a_dropped_tile():
 @pytest.mark.parametrize("dtype,D,route", [
     (torch.bfloat16, 64, "flash_forward_sm90"),
     (torch.bfloat16, 128, "flash_forward_sm90"),
-    (torch.bfloat16, 32, "flash_forward"),
+    (torch.bfloat16, 32, "flash_forward_sm90"),
     (torch.bfloat16, 256, "flash_forward_sm90_d256"),
     (torch.float32, 64, "flash_forward"),
     (torch.float32, 128, "flash_forward"),
+    (torch.float32, 32, "flash_forward"),
+    (torch.float32, 256, "flash_forward"),
 ])
 def test_route_table(monkeypatch, dtype, D, route):
     """dtype and head dim alone pick the kernel (the table of kernel.py's
@@ -330,13 +353,14 @@ def test_route_table(monkeypatch, dtype, D, route):
 
 
 def test_tma_refuses_misaligned_bf16_and_does_not_reroute(monkeypatch):
-    """A bf16 D-128 or D-256 tensor that TMA cannot read raises on its
-    tensor-core route; it is not sent to flash.cu."""
+    """A bf16 D-32, D-128 or D-256 tensor that TMA cannot read raises on its
+    tensor-core route; it is not sent to flash.cu (which takes such tensors
+    when called directly)."""
     B, S, H = 1, 16, 2
     monkeypatch.setattr(kernel, "_check", lambda *a: True)
     monkeypatch.setattr(kernel, "flash_forward", lambda *a, **kw: pytest.fail("rerouted"))
     monkeypatch.setitem(kernel.ROUTES, "flash_forward", kernel.flash_forward)
-    for D in (128, 256):
+    for D in (32, 128, 256):
         flat = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)
         shifted = flat[1:].view(B, S, H, D).transpose(1, 2)  # starts 2 bytes into a granule
         padded = torch.zeros(B, S, H, D + 4, dtype=torch.bfloat16)[..., :D].transpose(1, 2)

@@ -308,14 +308,26 @@ def test_codec_job_on_card_equals_cpu(cuda_device):
     (2, 300, 8, 2, 128, True, 0, torch.bfloat16),   # Qwen's head dim, ragged
     (1, 257, 4, 2, 256, True, 0, torch.float32),    # Gemma's head dim
     (1, 97, 2, 1, 32, False, 40, torch.float32),    # non-causal window
-    # the tensor-core kernel's shapes (bf16, D 64 and 128); flash.cu takes them too
+    # flash.cu's float32 route at Qwen2.5-3B's head dim and more heads per kv head
+    (1, 2049, 16, 2, 128, True, 0, torch.float32),  # the serving heads, ragged S
+    (1, 512, 16, 1, 128, True, 0, torch.float32),   # GQA 16:1
+    (2, 300, 8, 2, 128, False, 0, torch.float32),   # bidirectional, ragged
+    (1, 400, 4, 1, 128, True, 100, torch.float32),  # window rows with wholly masked first tiles
+    (1, 300, 8, 1, 256, False, 0, torch.float32),   # D 256, GQA 8:1, bidirectional
+    (1, 400, 4, 2, 64, True, 100, torch.float32),   # D 64, window
+    # the tensor-core kernel's shapes (bf16, D 32, 64 and 128); flash.cu takes them too
     (2, 192, 8, 1, 64, True, 64, torch.bfloat16),   # MQA + sliding window
     (1, 97, 2, 1, 64, False, 40, torch.bfloat16),   # non-causal window, ragged
     (1, 256, 4, 4, 128, False, 0, torch.bfloat16),  # bidirectional
     (1, 400, 4, 1, 128, True, 100, torch.bfloat16),  # window rows with wholly masked first tiles
     (1, 512, 8, 1, 128, True, 0, torch.bfloat16),   # GQA 8:1
-    # flash.cu only: bf16 at the head dim no tensor-core kernel takes
-    (1, 200, 2, 2, 32, True, 0, torch.bfloat16),
+    # D 32 on the tensor cores: the 64-byte swizzle, 64-key tiles
+    (1, 200, 2, 2, 32, True, 0, torch.bfloat16),    # ragged
+    (1, 256, 4, 4, 32, True, 0, torch.bfloat16),    # MHA
+    (1, 97, 2, 1, 32, False, 40, torch.bfloat16),   # non-causal window, ragged
+    (1, 300, 8, 1, 32, True, 100, torch.bfloat16),  # window rows with wholly masked first tiles
+    (1, 512, 16, 1, 32, True, 0, torch.bfloat16),   # GQA 16:1
+    (2, 130, 8, 2, 32, False, 0, torch.bfloat16),   # bidirectional, two ragged tiles
     # the D 256 tensor-core kernel (Gemma's head dim); flash.cu takes them too
     (1, 257, 4, 2, 256, True, 0, torch.bfloat16),   # ragged, GQA
     (2, 384, 8, 8, 256, True, 0, torch.bfloat16),   # MHA, three q tiles
@@ -328,7 +340,7 @@ def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal
     k = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=gen, device=cuda_device).to(dtype)
     route = fkernel.route_of(dtype, D)
-    assert route == ("flash_forward" if dtype == torch.float32 or D == 32 else
+    assert route == ("flash_forward" if dtype == torch.float32 else
                      "flash_forward_sm90_d256" if D == 256 else "flash_forward_sm90")
     fkernel.reset_launches()
     outs = {route: flash_attention(q, k, v, causal=causal, window=window)}
@@ -355,7 +367,9 @@ def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, D, causal
 @pytest.mark.gpu
 @pytest.mark.parametrize("Sq,Skv,causal", [(100, 300, False), (100, 300, True), (300, 130, True)])
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 128), (torch.bfloat16, 64),
-                                     (torch.bfloat16, 256), (torch.float32, 128)])
+                                     (torch.bfloat16, 256), (torch.float32, 128),
+                                     (torch.bfloat16, 32), (torch.float32, 32),
+                                     (torch.float32, 256)])
 def test_flash_kernels_with_other_key_lengths(cuda_device, Sq, Skv, causal, dtype, D):
     """Queries and keys of different lengths, on the route the wrapper
     picks and, for the tensor-core kernel's inputs, on flash.cu too."""
@@ -403,13 +417,27 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         fkernel.flash_attention_bhsd(good, shifted, good)
     with pytest.raises(ValueError, match="tensor-core kernel takes bfloat16"):
         fkernel.flash_forward_sm90_d256(good[..., :128], good[..., :128], good[..., :128])
+    # and at D 32, the 64-byte rows of flash_sm90.cu
+    good = torch.randn(1, 16, 2, 32, device=cuda_device).bfloat16().transpose(1, 2)
+    shifted = torch.randn(1 + 16 * 2 * 32, device=cuda_device).bfloat16()[1:].view(
+        1, 16, 2, 32).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fkernel.flash_attention_bhsd(good, good, shifted)
     assert [fn.launches for fn in fkernel.KERNELS] == [0, 0, 0, 0]
+    # flash.cu takes a float32 tensor at any 4-byte offset (its 4-byte copies)
+    q = torch.randn(1 + 40 * 2 * 128, device=cuda_device)[1:].view(1, 40, 2, 128)
+    k = torch.randn(1, 40, 1, 132, device=cuda_device)[..., :128]
+    out = flash_attention(q, k, k)
+    assert fkernel.ROUTES["flash_forward"].launches == 1
+    torch.testing.assert_close(out, fref.reference_attention(q, k, k), atol=2e-5, rtol=0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,head_dim,route", [
     ("float32", None, "flash_forward"),              # the reduced config: f32, D 32
     ("bfloat16", 128, "flash_forward_sm90"),         # the full model's dtype and head dim
+    ("float32", 128, "flash_forward"),               # phase 6f's: float32 at D 128
+    ("bfloat16", None, "flash_forward_sm90"),        # bf16 at D 32: the tensor cores
 ])
 def test_serving_on_card_launches_flash_once_per_layer(cuda_device, dtype, head_dim, route):
     import dataclasses

@@ -126,3 +126,44 @@ def test_main_needs_the_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
+
+
+def _numpy_seeded(tree, seed: int):
+    """The JAX init's tree with every leaf drawn anew from numpy: each
+    leaf's mean plus normal noise at its spread (0.02 where the init's is
+    0: the norm scales and biases)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(x):
+        x = np.asarray(x)
+        spread = max(float(np.std(x)), 0.02)
+        return (float(np.mean(x)) + spread * rng.normal(size=x.shape)).astype(x.dtype)
+
+    return jax.tree_util.tree_map(draw, tree)
+
+
+def test_float32_flash_serving_at_head_dim_128_equals_the_jax_loop():
+    """The float32 flash path at Qwen2.5's head dim and GQA 2:1 (the path
+    ``flash.cu`` serves on the card): a reduced Qwen2.5 (2 layers, d_model
+    256, 4/2 heads of 128), numpy-seeded weights, through the JAX package's
+    serve loop (its Pallas kernel in interpret mode) and the port's (the
+    plain version). Prefill logits within relative L2 1e-5 (float32 sums in
+    other orders: they read 1.3e-6) and the greedy tokens equal."""
+    over = dict(head_dim=128, num_heads=4, num_kv_heads=2, param_dtype="float32", attn_impl="flash")
+    jcfg = dataclasses.replace(jax_get_config("qwen2_5_3b", reduced=True), **over)
+    tcfg = dataclasses.replace(get_config("qwen2_5_3b", reduced=True), **over)
+    jb, tb = jax_build_model(jcfg), build_model(tcfg, "cpu")
+    host = _numpy_seeded(_host(jb.init(jax.random.key(0))), 27)
+    jparams = jax.tree_util.tree_map(jnp.asarray, host)
+    tparams = params_from_jax(host, "cpu")
+    prompts = np.random.default_rng(3).integers(0, jcfg.vocab_size, size=(2, 40)).astype(np.int32)
+    want_logits, _ = jb.prefill(jparams, {"tokens": jnp.asarray(prompts)}, jb.init_cache(2, 41))
+    got_logits, _ = tb.prefill(tparams, {"tokens": torch.from_numpy(prompts)}, tb.init_cache(2, 41))
+    want_logits = np.asarray(want_logits, np.float64)
+    got = got_logits.double().numpy()
+    assert got.shape == want_logits.shape
+    assert np.linalg.norm(got - want_logits) / np.linalg.norm(want_logits) <= 1e-5
+    want = _jax_greedy(jb, jparams, prompts, gen=6)
+    out = serve.generate(tb, tparams, torch.from_numpy(prompts), 6)
+    np.testing.assert_array_equal(out.tokens.numpy(), want)
+    assert out.all_finite

@@ -150,12 +150,13 @@ def test_no_result_without_a_card_or_a_checkout(tmp_path, alone):
 
 
 SERVING_PHASES = [("6h", "phase_serve_hymba"), ("6x", "phase_serve_xlstm"),
-                  ("6s", "phase_serve_seamless"), ("6g", "phase_serve_gemma")]
+                  ("6s", "phase_serve_seamless"), ("6g", "phase_serve_gemma"),
+                  ("6f", "phase_serve_qwen_f32")]
 
 
 @pytest.mark.parametrize("phase,fn", SERVING_PHASES, ids=[p for p, _ in SERVING_PHASES])
 def test_serving_phase_failure_names_its_id(monkeypatch, capsys, phase, fn):
-    """``main`` runs the four family serving phases after 6d, in order,
+    """``main`` runs the five later serving phases after 6d, in order,
     each under its own id: every phase before the failing one ran, none
     after it, and the failure line names it."""
     ran = []
@@ -397,3 +398,34 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
                  "TOO FAST REFUSED"):
         assert part in out
     assert "LAUNCHES [4, 4] [2, 2]" in out and "DRYRUN memory" in out
+
+
+def test_float32_flash_gate_sees_the_planted_attention_faults():
+    """Phase 6f's gate on the CPU, on a reduced float32 Qwen2.5 at its head
+    dim (128) and GQA 2:1: the flash prefill within F32_SERVE_REL of the
+    plain prefill, each planted attention fault above it, and a prefill
+    moved by 1e-3 of its magnitude refused."""
+    import dataclasses
+    import functools
+
+    from repro_torch.models.api import build_model
+
+    cfg = _reduced("qwen2_5_3b", attn_impl="flash", head_dim=128, num_heads=4, num_kv_heads=2)
+    bundle = build_model(cfg, "cpu")
+    plain = build_model(dataclasses.replace(cfg, attn_impl="xla"), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = bundle.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen)
+    batch = {"tokens": prompts}
+    run = {"bundle": bundle, "params": params, "prompts": prompts, "batch": batch,
+           "logits_f": bundle.prefill(params, dict(batch), bundle.init_cache(2, 49))[0],
+           "logits_x": plain.prefill(params, dict(batch), plain.init_cache(2, 49))[0]}
+    gate = functools.partial(chip_smoke._plain_gate, limit=chip_smoke.F32_SERVE_REL)
+    text = chip_smoke._flash_gate("Qwen2.5 float32", cfg, run, gate)
+    assert f"<= {chip_smoke.F32_SERVE_REL}" in text
+    controls = json.loads(text.split("planted attention faults) ", 1)[1])
+    assert set(controls) == {"tile_dropped", "wrong_kv_head", "not_causal"}
+    assert min(controls.values()) > chip_smoke.F32_SERVE_REL
+    run["logits_f"] = run["logits_f"] * (1 + 1e-3)
+    with pytest.raises(chip_smoke.PhaseFailed, match="flash prefill"):
+        chip_smoke._flash_gate("Qwen2.5 float32", cfg, run, gate)

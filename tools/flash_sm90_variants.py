@@ -1,19 +1,26 @@
-"""Build and time variants of a tensor-core flash kernel on one CUDA card.
+"""Build and time variants of a flash kernel on one CUDA card.
 
 Each variant is a kernel source with a few lines replaced. ``--source``
 picks the source (default ``flash_sm90.cu``):
 
 - ``flash_sm90.cu`` (D 64 and 128): the KV tile width, the ring's depth, a
   producer warpgroup with ``setmaxnreg``, turns between the consumer
-  warpgroups, the exp2 instruction; timed by default at phase 6's serving
-  shape (B 8, S 2048, H 16/2, D 128);
+  warpgroups, the exp2 instruction, D 32's KV tile; timed by default at
+  phase 6's serving shape (B 8, S 2048, H 16/2, D 128);
 - ``flash_sm90_d256.cu`` (D 256): the wait's watchdog as a trap, setmaxnreg
   24/240 (as built) or 40/232, a producer warp instead of a producer
   warpgroup (with the launch bound's registers or ``__maxnreg__``), the
   fallback of one 64-row consumer warpgroup, KV tiles of 32, 64 (as built)
   or 80 keys, flash_sm90.cu's grid order, warpgroup 0 on the causal
   diagonal's last tile, ``exp2f`` for ``ex2.approx.ftz``, FA3's ping-pong; timed
-  by default at Gemma-7B's prefill (B 8, S 2048, H 16/16, D 256).
+  by default at Gemma-7B's prefill (B 8, S 2048, H 16/16, D 256);
+- ``flash.cu`` (float32 on the CUDA cores): the S product as an 8 x 8 tile
+  a thread over half of D (D split across lane pairs), ``expf`` for
+  ``exp2f``, no warp-level tile skipping, unroll depths; and two
+  diagnostics whose outputs are wrong by design (their relative L2 says
+  so), timing the kernel without its P V product or without its S
+  product; timed in float32 at Qwen2.5-3B's prefill (B 8, S 2048, H 16/2,
+  D 128).
 
 ``--shape B,S,H,Hkv,D`` sets the timed shape. All variants are compiled at
 once with the port's nvcc flags into ``build/flash_sm90_variants/<source>/``;
@@ -21,12 +28,13 @@ for each the script prints ptxas's registers, spills and wgmma warnings and,
 from ``cuobjdump -sass``, the highest register each kernel names and its
 local-memory loads and stores (``LDL``/``STL``); then, in a child process
 with a time limit, its relative L2 error against the plain version on four
-small shapes and its time at the timed shape (bf16, causal and not), beside
-``scaled_dot_product_attention``'s in the same process. Run from the root
-of a checkout:
+small shapes and its time at the timed shape (the source's dtype, causal
+and not), beside ``scaled_dot_product_attention``'s in the same process.
+Run from the root of a checkout:
 
     python3 tools/flash_sm90_variants.py
     python3 tools/flash_sm90_variants.py --source flash_sm90_d256.cu
+    python3 tools/flash_sm90_variants.py --source flash.cu
 """
 from __future__ import annotations
 
@@ -90,6 +98,15 @@ VARIANTS = {
     ],
 }
 VARIANTS["pingpong_three_stages"] = VARIANTS["pingpong"] + VARIANTS["three_stages"]
+# D 32 on the 128-key tiles of D 64 and 128
+VARIANTS["d32_bk128"] = [("static constexpr int kKeys = D == 32 ? kBK32 : kBK;",
+                          "static constexpr int kKeys = kBK;")]
+# two blocks an SM (ptxas then keeps a thread within 112 registers): four
+# consumer warpgroups to overlap one another's softmax and products
+VARIANTS["two_blocks"] = [("__launch_bounds__(kThreads, 1)\n    flash_kernel_sm90(",
+                           "__launch_bounds__(kThreads, 2)\n    flash_kernel_sm90(")]
+VARIANTS["two_blocks_bk64"] = VARIANTS["two_blocks"] + VARIANTS["bk64"]
+VARIANTS["two_blocks_ex2_ftz"] = VARIANTS["two_blocks"] + VARIANTS["ex2_ftz"]
 D256_VARIANTS = {
     "as_built": [],
     # the wait's watchdog as a trap block, as flash_sm90.cu has it: ptxas
@@ -154,11 +171,145 @@ D256_VARIANTS["pingpong"] = D256_VARIANTS["no_causal_stop"] + [
      "      if (cw == 0 || it + 1 < n_mine)\n"
      '        asm volatile("bar.arrive %0, 256;" ::"r"(2 - cw) : "memory");\n'),
 ]
-# per source: its variants, C entry, library, wrapper, parity shapes
-# (B, S, H, Hkv, D, causal, window) and default timed shape (B, S, H, Hkv, D)
+# flash.cu's S product as built: an 8 x 4 tile a thread over all of D
+_S_8X4 = """      // S = Q K^T: 8 (4) rows x 4 keys a thread, float4 steps along D
+      float s[RT][KPT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+      for (int d = 0; d < D; d += 4) {
+        float4 qv[RT], kv[KPT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) qv[i] = *reinterpret_cast<const float4*>(qrow + 2 * i * LDQ + d);
+#pragma unroll
+        for (int j = 0; j < KPT; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(krow + kColGroups * j * LDK + d);
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < KPT; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
+
+"""
+# ... and with D split across lane pairs: an 8 x 8 tile a thread over half
+# of D (the float4 steps dh, dh + 2, ...), the halves added across the pair,
+# each lane keeping 4 of its 8 keys (key0 + 8 j)
+_S_SPLIT = """      // S = Q K^T: 8 (4) rows x 8 keys a thread over half of D (the float4
+      // steps dh, dh + 2, ...), then the two halves added across the lane
+      // pair: each lane keeps 4 of the 8 keys and sends the other 4
+      float s2[RT][2 * KPT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * KPT; ++j) s2[i][j] = 0.0f;
+#pragma unroll 2
+      for (int d = 4 * dh; d < D; d += 8) {
+        float4 qv[RT], kv[2 * KPT];
+#pragma unroll
+        for (int i = 0; i < RT; ++i) qv[i] = *reinterpret_cast<const float4*>(qrow + 2 * i * LDQ + d);
+#pragma unroll
+        for (int j = 0; j < 2 * KPT; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(krow + kKeyGroups * j * LDK + d);
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < 2 * KPT; ++j) {
+            s2[i][j] = fmaf(qv[i].x, kv[j].x, s2[i][j]);
+            s2[i][j] = fmaf(qv[i].y, kv[j].y, s2[i][j]);
+            s2[i][j] = fmaf(qv[i].z, kv[j].z, s2[i][j]);
+            s2[i][j] = fmaf(qv[i].w, kv[j].w, s2[i][j]);
+          }
+      }
+      float s[RT][KPT];  // keys key0 + 8 j
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          const float mine = dh ? s2[i][KPT + j] : s2[i][j];
+          const float theirs = dh ? s2[i][j] : s2[i][KPT + j];
+          s[i][j] = mine + __shfl_xor_sync(0xffffffffu, theirs, kKeyGroups);
+        }
+
+"""
+SIMT_VARIANTS = {
+    "as_built": [],
+    "s_8x8_split_d": [
+        (_S_8X4, _S_SPLIT),
+        ("constexpr int kColGroups = 16;  // lanes of a half-warp: keys of S, columns of O\n",
+         "constexpr int kColGroups = 16;\nconstexpr int kKeyGroups = 8;\n"),
+        ("  const int cg = lane % kColGroups;  // keys cg + 16 j of S, columns VW (cg + 16 g) + e of O\n",
+         "  const int cg = lane % kColGroups;\n  const int kq = cg % kKeyGroups;\n"
+         "  const int dh = cg / kKeyGroups;\n  const int key0 = kq + 8 * KPT * dh;\n"),
+        ("  const float* const krow = ks + cg * LDK; ", "  const float* const krow = ks + kq * LDK; "),
+        ("            const int kpos = k0 + cg + kColGroups * j;",
+         "            const int kpos = k0 + key0 + kKeyGroups * j;"),
+        ("          *reinterpret_cast<float4*>(prow + (cg + kColGroups * j) * LP + i) =",
+         "          *reinterpret_cast<float4*>(prow + (key0 + kKeyGroups * j) * LP + i) ="),
+    ],
+    "expf": [("p.scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);",
+              "p.scale_log2 = scale;"),
+             ("const float alpha = exp2f(", "const float alpha = expf("),
+             ("s[i][j] = exp2f(", "s[i][j] = expf(")],
+    # two blocks of 4 warps an SM (64 q rows; 8 warps of 8 rows at D 256),
+    # whose softmaxes and barriers fall out of step, in the SM's 228 KB:
+    # Q, V and P^T unpadded
+    "two_blocks": [("static constexpr int kWarps = 8;   // warps a block",
+                    "static constexpr int kWarps = D == 256 ? 8 : 4;"),
+                   ("static constexpr int kBlocks = 1;  // blocks an SM",
+                    "static constexpr int kBlocks = D == 256 ? 1 : 2;"),
+                   ("static constexpr int LDQ = D + 4;", "static constexpr int LDQ = D;"),
+                   ("static constexpr int LDV = D + 4;", "static constexpr int LDV = D;"),
+                   ("static constexpr int LP = RW + 4;", "static constexpr int LP = RW;"),
+                   ("  if (err != cudaSuccess) return static_cast<int>(err);\n  const long long grid",
+                    "  if (err == cudaSuccess)\n    err = cudaFuncSetAttribute(flash_kernel<T, D>, "
+                    "cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);\n"
+                    "  if (err != cudaSuccess) return static_cast<int>(err);\n  const long long grid")],
+    "no_warp_skip": [("    const bool live = wr0 < p.sq && !(p.causal && k0 > wr1) &&\n"
+                      "                      !(p.window > 0 && k0 + kBK - 1 <= wr0 - p.window);",
+                      "    const bool live = true;")],
+    "s_unroll4": [("#pragma unroll 8\n      for (int d = 0; d < D; d += 4) {",
+                   "#pragma unroll 4\n      for (int d = 0; d < D; d += 4) {")],
+    "pv_unroll4": [("#pragma unroll 8\n      for (int j = 0; j < kBK; ++j) {",
+                    "#pragma unroll 4\n      for (int j = 0; j < kBK; ++j) {")],
+    # the mask applied per score, each under its own branch on the edge test
+    "mask_per_score": [
+        ("      if (k0 + kBK > p.kv_len || (p.causal && k0 + kBK - 1 > wr0) ||\n"
+         "          (p.window > 0 && k0 <= wr1 - p.window)) {\n",
+         "      const bool edge = k0 + kBK > p.kv_len || (p.causal && k0 + kBK - 1 > wr0) ||\n"
+         "                        (p.window > 0 && k0 <= wr1 - p.window);\n      {\n"),
+        ("            if (!ok) s[i][j] = kNegInf;", "            if (edge && !ok) s[i][j] = kNegInf;")],
+    # diagnostics: wrong outputs by design, for the time of the rest
+    "diag_no_pv": [("    if (live) {\n      // O += P V", "    if (false) {\n      // O += P V")],
+    "diag_no_s": [("      for (int d = 0; d < D; d += 4) {", "      for (int d = D; d < D; d += 4) {")],
+    "diag_no_exp": [("        const float alpha = exp2f(m[i] - m_new);", "        const float alpha = 1.0f;"),
+                    ("          s[i][j] = exp2f(s[i][j] - m_new);", "          s[i][j] = s[i][j] - m_new;")],
+    "diag_s_no_lds": [("qrow + 2 * i * LDQ + d)", "qrow + 2 * i * LDQ)"),
+                      ("krow + kColGroups * j * LDK + d)", "krow + kColGroups * j * LDK)")],
+    "diag_k_broadcast": [("  const float* const krow = ks + cg * LDK; ", "  const float* const krow = ks; ")],
+    "diag_pv_no_lds": [("load_vec<4>(pr + i, prow + j * LP + i)", "load_vec<4>(pr + i, prow + i)"),
+                       ("vcol + j * LDV + g * VW * kColGroups)", "vcol + g * VW * kColGroups)")],
+    "diag_no_sync": [("    cp_async_wait_all();\n    __syncthreads();  // K(it)", "    // K(it)"),
+                     ("    cp_async_wait_all();\n    __syncthreads();  // V(it)", "    // V(it)")],
+}
+# per source: its variants, C entry, library, binder, wrapper, dtype, parity
+# shapes (B, S, H, Hkv, D, causal, window) and default timed shape (B, S, H, Hkv, D)
 SOURCES = {
+    "flash.cu": dict(
+        variants=SIMT_VARIANTS, entry="flash_attention_forward", library=fkernel.LIBRARY,
+        bind=fkernel._bind, fn=fkernel.flash_forward, dtype=torch.float32,
+        parity=[(2, 300, 4, 2, 128, True, 0), (1, 400, 4, 1, 128, True, 100),
+                (1, 256, 4, 4, 64, False, 0), (1, 97, 2, 1, 32, False, 40)],
+        shape=(8, 2048, 16, 2, 128)),
     "flash_sm90.cu": dict(
         variants=VARIANTS, entry="flash_attention_forward_sm90", library=fkernel.SM90_LIBRARY,
+        bind=fkernel._bind_tma("flash_attention_forward_sm90"), dtype=torch.bfloat16,
         fn=fkernel.flash_forward_sm90,
         parity=[(2, 300, 4, 2, 128, True, 0), (1, 400, 4, 1, 128, True, 100),
                 (1, 256, 4, 4, 64, False, 0), (1, 97, 2, 1, 64, False, 40)],
@@ -166,6 +317,7 @@ SOURCES = {
     "flash_sm90_d256.cu": dict(
         variants=D256_VARIANTS, entry="flash_attention_forward_sm90_d256",
         library=fkernel.SM90_D256_LIBRARY, fn=fkernel.flash_forward_sm90_d256,
+        bind=fkernel._bind_tma("flash_attention_forward_sm90_d256"), dtype=torch.bfloat16,
         parity=[(2, 300, 4, 2, 256, True, 0), (1, 400, 4, 1, 256, True, 100),
                 (1, 256, 4, 4, 256, False, 0), (1, 97, 2, 1, 256, False, 40)],
         shape=(8, 2048, 16, 16, 256)),
@@ -228,14 +380,14 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def measure(source: str, name: str, shape: tuple) -> dict:
     spec = SOURCES[source]
     lib = ctypes.CDLL(str(OUT / Path(source).stem / f"lib{name}.so"))
-    fkernel._bind_tma(spec["entry"])(lib)
+    spec["bind"](lib)
     spec["library"]._lib = lib  # the wrapper launches this variant
     fn = spec["fn"]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def qkv(B, S, H, Hkv, D):  # the model's (B, S, H, D) tensors as (B, H, S, D) views
-        return [torch.randn(B, S, h, D, generator=gen, device=dev).bfloat16().transpose(1, 2)
+        return [torch.randn(B, S, h, D, generator=gen, device=dev).to(spec["dtype"]).transpose(1, 2)
                 for h in (H, Hkv, Hkv)]
 
     rel = []
