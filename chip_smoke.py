@@ -8,7 +8,7 @@ the CUDA toolkit:
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
 source, started together), then runs ten phases (phase 6 in eight
-parts), each printing its lines, and the kernels line:
+parts, phase 9 in two), each printing its lines, and the kernels line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -244,11 +244,30 @@ parts), each printing its lines, and the kernels line:
    step, and wall times (information only: both ranks share the card);
    the tensor-core kernel at both ranks' attention shapes against the
    plain version, SDPA and its bound;
+9f. the data axis as processes: four ranks on ``cuda:0`` as a (data 2,
+   model 2) grid (``GroupPool(..., axes=...)``, gloo): (a) float32 and
+   bf16 all-reduce sums over the data group and over the model group
+   byte-equal to the local sums; (b) Qwen2.5-3B (its leaves replicated
+   over data) served data-parallel, phase 9b's traffic, 4 rows a data
+   rank, the rows joined against phase 9b's one-process runs (bf16 5e-2,
+   the float32 cut 1e-4 and its greedy tokens equal in row order); (c)
+   Qwen3-MoE-235B-A22B with its FSDP (data, model) blocks gathered over
+   data at use, 2 layers, phase 6's prompts and 1 teacher-forced step,
+   routing pinned, against the one-process run under the grid's profile
+   (the same gates; the float32 cut at 1 layer), a planted zeroed data
+   block above 5e-2, each rank's parameter bytes; (d) one FSDP train step
+   of Qwen3-MoE at 1 float32 layer (phase 8's batch, 1 local step,
+   routing pinned) against the one-process step under the grid's profile
+   (loss, ``delta_norm`` and every parameter within 1e-5), a planted
+   skipped gradient sum above it; each rank's peak memory, all-reduces by
+   axis a prefill, a decode step and a train step, wall times (information
+   only), and the tensor-core kernel at the grid ranks' shapes (B 4);
 10. the dry run (``launch.dryrun``: fake tensors on the host) against the
    card: its memory constant against ``total_memory``; the parameter bytes
-   a device against phase 9's ranks' and the one-process tree's; the
-   counting group's all-reduces a prefill and a decode step against phase
-   9b's and 9c's; the roofline of phase 6's prefill on the H100's
+   a device against phase 9's ranks' and the one-process tree's, and 9f's;
+   the counting group's all-reduces a prefill and a decode step against
+   phase 9b's and 9c's, and the counting grid's by axis against 9f's, rank
+   by rank (a prefill, a decode step, a train step); the roofline of phase 6's prefill on the H100's
    datasheet figures, whose compute term the measured prefill may not
    beat (the terms, the dominant one and compute / measured printed);
 11. a ``kernels`` JSON line: launches on each path (phase 4 for the
@@ -257,9 +276,9 @@ parts), each printing its lines, and the kernels line:
    the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's, 6f's and
    phase 9's (both ranks') serving runs for the flash kernels, phase
    7's process job and phase 7c's faulted jobs for the agg and quant
-   entries, phase 8's rounds for
-   every kernel), time, plain version's time, bound and a library call's
-   time per kernel, at the path's shapes.
+   entries, phase 8's rounds for every kernel, phase 9f's grid serving
+   for the flash kernels), time, plain version's time, bound and a library
+   call's time per kernel, at the path's shapes.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. A phase that raises prints ``phase <id>
@@ -342,6 +361,7 @@ from repro_torch.core.mesh_lowering import Mesh  # noqa: E402
 from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch import tensor_parallel as tp  # noqa: E402
 from repro_torch.launch.steps import _with_moe_profile, build_serve_step  # noqa: E402
+from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.core import mesh_lowering  # noqa: E402
 from repro_torch.fl.privacy import DPConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -4488,13 +4508,14 @@ def _tp_serve_rank(group, runs: list) -> list:
 
 
 def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool,
-                  sample: int = 0) -> dict:
+                  sample: int = 0, mesh: Mesh = None) -> dict:
     """The one-process run of the same draws under the split run's
-    profile; with ``record``, the expert picks of every routing call; with
-    ``sample``, that many tokens sampled as ``_tp_serve_rank`` samples."""
+    profile (``mesh``'s; phase 9's by default); with ``record``, the expert
+    picks of every routing call; with ``sample``, that many tokens sampled
+    as ``_tp_serve_rank`` samples."""
     bundle = build_model(cfg, dev)
-    prefill = _with_moe_profile(bundle.prefill, cfg, _tp_mesh())
-    serve_step = _with_moe_profile(bundle.serve_step, cfg, _tp_mesh())
+    prefill = _with_moe_profile(bundle.prefill, cfg, mesh or _tp_mesh())
+    serve_step = _with_moe_profile(bundle.serve_step, cfg, mesh or _tp_mesh())
     params, prompts, forced = _tp_draw(bundle, cfg, seed, B, S, steps)
     pin = _PinnedRouting()
     with pin, torch.no_grad():
@@ -4828,6 +4849,7 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
             "Qwen2.5-3B", ref, ref32, [r.value[0] for r in res], [r.value[1] for r in res],
             TP_QWEN_LAYERS, "8/1", pinned=False, smi=smi)
         out["qwen"]["sampled"] = _tp_sampling_check(ref32, [r.value[1] for r in res])
+        out["refs"] = {"qwen": ref, "qwen32": ref32}  # phase 9f's one-process runs too
         del ref, ref32, res
         part("9b ranks")
 
@@ -4926,9 +4948,444 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------- #
+# phase 9f: the data axis as processes
+# ---------------------------------------------------------------------- #
+# Four gloo ranks on the one card as a (data 2, model 2) grid: (a) all-reduce
+# sums over the data group and over the model group; (b) Qwen2.5-3B (tp:
+# its leaves replicated over data) serving phase 9b's traffic, 4 rows a
+# data rank, against phase 9b's one-process runs; (c) Qwen3-MoE-235B-A22B
+# (FSDP: its leaves in (data, model) blocks, gathered over data at use)
+# serving phase 9c's traffic and its float32 cut against one-process runs
+# under the grid's profile; (d) one FSDP train step of Qwen3-MoE at 1 layer in
+# float32 (phase 8's batch, 1 local step) against the one-process
+# build_train_step under the grid's profile, the routing pinned. Planted
+# faults: (c) a data gather that leaves the last data rank's block at zero,
+# (d) gradients of the leaves replicated over data that skip the sum over
+# (pod, data). Each rank draws a layer whole before it keeps its blocks
+# (13 GB a rank for a float32 MoE layer: 52 GB at once on the card).
+GRID_AXES = (("data", 2), ("model", 2))
+GRID_QWEN_LAYERS, GRID_MOE_LAYERS, GRID_MOE_F32_LAYERS, GRID_TRAIN_LAYERS = (
+    TP_QWEN_LAYERS, TP_MOE_LAYERS, TP_F32_MOE_LAYERS, 1)
+# gloo all-reduces about 1 GB/s a rank on one card (tools/gloo_allreduce_
+# rates.py), and FSDP serving gathers every leaf's data blocks at each call
+# (6.2 GB a rank a call at 2 bf16 MoE layers: ~11 s): (c) drives the gated
+# runs only, its bf16 prefill with 1 teacher-forced step (9c's reports the
+# unpinned distance) and its float32 cut's prefill
+GRID_MOE_STEPS = 1
+# (d) at 1 local step: the second would hold the round's parameters and
+# the first step's (3.75 GB each a rank) beside the gathered layer and its
+# gradient (4.8 GB each), 18.7 GB a rank: four ranks and the driver do not
+# fit the card's 79 GB. The batch (8 x 128) is not what fills it.
+GRID_TRAIN_LOCAL_STEPS = 1
+GRID_FAULTS = ("zero_data_block", "skip_rows_sum")
+
+
+def _grid_mesh() -> Mesh:
+    return Mesh(GRID_AXES)
+
+
+def _rank_picks(group):
+    """The rank's part of one routing call's one-process picks (nb, N, k):
+    its whole blocks where the rows divide the blocks, else its tokens of
+    the block it shares."""
+    me, n = group.client_rank, group.rows
+
+    def cut(idx):
+        nb, N = idx.shape[:2]
+        if nb % n == 0:
+            return idx[me * nb // n:(me + 1) * nb // n]
+        span = n // nb
+        b, part = me // span, me % span
+        return idx[b:b + 1, part * N // span:(part + 1) * N // span]
+
+    return cut
+
+
+@contextlib.contextmanager
+def _zeroed_data_block(group):
+    """The planted fault ``zero_data_block``: the last data rank gathers
+    zeros for its block of every FSDP leaf (it still joins the all-reduce,
+    so the ranks stay in step)."""
+    whole = tp.gather_data
+
+    def gather(x, dim):
+        if group.coords["data"] == group.data_size - 1:
+            x = torch.zeros_like(x)
+        return whole(x, dim)
+
+    tp.gather_data = gather
+    try:
+        yield
+    finally:
+        tp.gather_data = whole
+
+
+@contextlib.contextmanager
+def _skipped_rows_sum():
+    """The planted fault ``skip_rows_sum``: each rank keeps its own rows'
+    gradient of the leaves replicated over data (every rank skips the same
+    all-reduces, so the ranks stay in step)."""
+    whole = tp.rows_sum
+    tp.rows_sum = lambda x, group=None: x
+    try:
+        yield
+    finally:
+        tp.rows_sum = whole
+
+
+def _grid_comm_rank(group) -> dict:
+    """(a) float32 and bf16 all-reduce sums over the data group and over
+    the model group against the local sum of the two ranks' tensors (made
+    here from their coordinates), byte for byte."""
+    dev = group.device
+    d, m = group.coords["data"], group.rank
+
+    def x_of(dc, mc, dt):
+        gen = torch.Generator(device=dev).manual_seed(190 + 10 * dc + mc)
+        return torch.randn(1 << 20, generator=gen, device=dev).to(dt)
+
+    out = {"backend": group.backend}
+    for dt in (torch.float32, torch.bfloat16):
+        view = torch.int16 if dt == torch.bfloat16 else torch.int32
+        mine = x_of(d, m, dt)
+        for axis, got, parts in (
+                ("data", tp.rows_sum(mine, group), [x_of(i, m, dt) for i in range(2)]),
+                ("model", tp.all_reduce_sum(mine, group), [x_of(d, i, dt) for i in range(2)])):
+            want = (parts[0] + parts[1]).view(view)
+            out[f"{axis} {dt}"] = bool(torch.equal(got.view(view), want))
+    return out
+
+
+def _grid_serve_rank(group, runs: list) -> list:
+    """``_tp_serve_rank`` on the grid: each run's drives on the rank's rows
+    of the prompts and the forced tokens and on its blocks; a drive's
+    ``fault`` may be ``zero_data_block``, its ``picks`` are the one-process
+    run's, cut to the rank's rows (``_rank_picks``). Per run the rank's
+    parameter bytes and peak memory, per drive ``_tp_drive``'s result with
+    the rank's counters by axis."""
+    dev = group.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    results = []
+    for cfg, seed, B, S, steps, drives in runs:
+        free_device()
+        torch.cuda.reset_peak_memory_stats(dev)
+        bundle, setup = build_serve_step(cfg, _grid_mesh(), S + max(steps, 1), B, dev, group)
+        params, prompts, forced = _tp_draw(bundle, cfg, seed, B, S, steps)
+        rows = setup.rows({"tokens": prompts, "forced": forced})
+        res = {"param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
+               "drives": []}
+        for drive in drives:
+            pin = _PinnedRouting()
+            planted = (_zeroed_data_block(group) if drive.get("fault") == GRID_FAULTS[0]
+                       else contextlib.nullcontext())
+            with pin, planted:
+                if drive.get("picks") is not None:
+                    pin.picks = [p.to(dev) for p in drive["picks"]]
+                    pin.replay(_rank_picks(group))
+                with torch.no_grad():
+                    d = _tp_drive(setup.prefill, setup.serve_step, bundle, params,
+                                  rows["tokens"], rows["forced"], drive["steps"], group)
+            d["pinned_calls"] = pin.calls if drive.get("picks") is not None else 0
+            res["drives"].append(d)
+        res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        del params, prompts, forced, rows, bundle, setup
+        results.append(res)
+    free_device()
+    return results
+
+
+def _grid_train_rank(group, cfg, seed: int, batch: dict, round_seed: int, ref_path: str,
+                     picks: list) -> dict:
+    """(d) one FSDP train step on the grid, the routing pinned to the
+    one-process step's picks: its metrics, the largest distance of the
+    rank's new blocks from the same blocks of the one-process step's
+    parameters (``ref_path``, read in place), its counters and peak memory;
+    then the same step with ``skip_rows_sum`` planted (its distance and
+    metrics)."""
+    dev = group.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fed = FedStepConfig(local_steps=GRID_TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    bundle, setup = build_train_step(cfg, _grid_mesh(), fed, device=dev, group=group)
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    out = {}
+    for label, planted in (("main", contextlib.nullcontext()), ("fault", _skipped_rows_sum())):
+        free_device()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = bundle.init(torch.Generator(device=dev).manual_seed(seed))
+        state = setup.init_state(params)
+        group.reset_counters()
+        pin = _PinnedRouting()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with pin, planted:
+            pin.picks = [p.to(dev) for p in picks]
+            pin.replay(_rank_picks(group))
+            params, state, metrics = setup.step(params, state, batch, round_seed)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+        counters = group.counters()
+        blocks = shd.shard_tree(ref, shd.param_specs(ref, cfg, group.mesh), group.mesh,
+                                group.coords)
+        worst = max(float((got - want.to(dev)).abs().max())
+                    for got, want in zip(tree_leaves(params), tree_leaves(blocks)))
+        out[label] = {"step_s": step_s, "counters": counters, "max_abs": worst,
+                      "pinned_calls": pin.calls,
+                      "metrics": {k: float(v) for k, v in metrics.items()},
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del params, state, blocks
+    del ref, bundle, setup
+    free_device()
+    return out
+
+
+def _grid_join(drives: list) -> torch.Tensor:
+    """The grid ranks' logits of one drive as the whole batch: each data
+    rank's vocabulary blocks side by side, the data ranks' rows in order."""
+    m = dict(GRID_AXES)["model"]
+    return torch.cat([torch.cat([d["logits"] for d in drives[i:i + m]], dim=-1)
+                      for i in range(0, len(drives), m)], dim=0)
+
+
+def _by_axis(counters: dict) -> dict:
+    return {"model": (counters["model_all_reduces"], counters["model_all_reduce_bytes"]),
+            "data": (counters["data_all_reduces"], counters["data_all_reduce_bytes"])}
+
+
+def _grid_serving_checks(label: str, ref: dict, f32_ref: dict, res: list, f32_res: list,
+                         layers: int, heads: str, fsdp: bool, smi: str) -> dict:
+    """The gates of 9f (b) and (c) on one model's grid results: the joined
+    bf16 logits (the pinned drive's for the MoE), the float32 cut's and its
+    greedy tokens in row order, the planted fault (the MoE's), the flash
+    launches and the gathers."""
+    main = [r["drives"][0] for r in res]
+    whole = _grid_join(main)
+    steps = whole.shape[1] - 1
+    check(whole.shape == ref["logits"].shape, f"9f {label}: logits {tuple(whole.shape)} "
+          f"against {tuple(ref['logits'].shape)}")
+    check(bool(torch.isfinite(whole).all()), f"9f {label}: non-finite joined logits")
+    rels = {"gate": _rel_l2(whole, ref["logits"])}
+    lines = [_tp_gate(f"{label} bf16 prefill + {steps} steps, rows joined"
+                      + (" (routing pinned)" if fsdp else ""), rels["gate"], SERVE_REL_L2)]
+    if fsdp:
+        fault = _grid_join([r["drives"][-1] for r in res])
+        rels["fault"] = _rel_l2(fault, ref["logits"][:, :1])
+        check(rels["fault"] > SERVE_REL_L2, f"9f {label}: the planted fault ({GRID_FAULTS[0]}) "
+              f"reads {rels['fault']}, not above {SERVE_REL_L2}")
+        lines.append(f"fault {GRID_FAULTS[0]} rel L2 {rels['fault']:.3e} > {SERVE_REL_L2}")
+    f32_whole = _grid_join([r["drives"][-1] for r in f32_res])
+    f32_want = f32_ref["logits"][:, :f32_whole.shape[1]]
+    rels["f32"] = _rel_l2(f32_whole, f32_want)
+    lines.append(_tp_gate(f"{label} float32", rels["f32"], TP_F32_REL))
+    greedy, want = torch.argmax(f32_whole, dim=-1), torch.argmax(f32_want, dim=-1)
+    check(torch.equal(greedy, want), f"9f {label}: {int((greedy != want).sum())} of "
+          f"{want.numel()} greedy tokens of the float32 cut differ from one process's")
+    lines.append(f"float32 greedy tokens {tuple(want.shape)} equal in row order")
+    gathered = [(d["prefill_counters"]["data_gathered_leaves"],
+                 d["step_counters"]["data_gathered_leaves"]) for d in main]
+    check(all((g[0] > 0 and g[1] > 0) == fsdp for g in gathered),
+          f"9f {label}: leaves gathered over data per prefill / decode step {gathered}")
+    want_l = on_entry("flash_attention_forward_sm90", layers)
+    for r, d in enumerate(main):
+        check(d["prefill_launches"] == want_l and d["prefill_bhsd"] == layers
+              and d["step_launches"] == 0,
+              f"9f {label} rank {r}: flash launches per prefill {d['prefill_launches']} "
+              f"({d['prefill_bhsd']} calls), per decode step {d['step_launches']}; want {want_l}")
+    lines.append(f"{layers} flash_sm90 launches a prefill per rank at B "
+                 f"{main[0]['logits'].shape[0]}, H {heads}; leaves gathered over data per "
+                 f"prefill / step {gathered}")
+    info = {"rel_l2": rels, "launches_per_rank": [
+        sum(d["prefill_launches"].values()) + d["step_launches"] * steps for d in main],
+        "param_bytes": [r["param_bytes"] for r in res], "ref_param_bytes": ref["param_bytes"],
+        "peak_gb": [r["peak_gb"] for r in res] + [r["peak_gb"] for r in f32_res],
+        "prefill_by_axis": [_by_axis(d["prefill_counters"]) for d in main],
+        "step_by_axis": [_by_axis(d["step_counters"]) for d in main],
+        "prefill_s": [d["prefill_s"] for d in main], "decode_ms": [d["decode_ms"] for d in main]}
+    print(f"phase 9f{'c' if fsdp else 'b'} {label}: " + "; ".join(lines)
+          + f"; per rank: param bytes {info['param_bytes']} of {ref['param_bytes']}, peak GB "
+          f"{[round(x, 2) for x in info['peak_gb']]}, all-reduces (count, bytes) by axis per "
+          f"prefill {info['prefill_by_axis']} per decode step {info['step_by_axis']}; wall "
+          f"(one card, four ranks: information only) prefill s "
+          f"{[round(x, 3) for x in info['prefill_s']]}, decode ms a step "
+          f"{[round(x, 2) for x in info['decode_ms']]} (card {smi})", flush=True)
+    return info
+
+
+@contextlib.contextmanager
+def _grid_profile():
+    """Steps built inside take the grid's MoE profile whatever their mesh
+    (a one-process step on (data 1, model 1) routes as the grid does)."""
+    whole = tsteps._with_moe_profile
+    tsteps._with_moe_profile = lambda fn, cfg, mesh, manual_axes=(): whole(
+        fn, cfg, _grid_mesh(), manual_axes)
+    try:
+        yield
+    finally:
+        tsteps._with_moe_profile = whole
+
+
+def _grid_train_reference(dev, cfg, batch: dict, ref_dir: str) -> dict:
+    """(d)'s one-process step: ``build_train_step`` on (data 1, model 1)
+    under the grid's profile, its expert picks recorded (the forward and the
+    remat recompute of each local step); the new parameters saved to
+    ``ref_dir`` for the ranks to read in place."""
+    fed = FedStepConfig(local_steps=GRID_TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _grid_profile():
+        bundle, setup = build_train_step(cfg, Mesh((("data", 1), ("model", 1))), fed, device=dev)
+    params = bundle.init(torch.Generator(device=dev).manual_seed(11))
+    pin = _PinnedRouting()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with pin:
+        new, _, metrics = setup.step(params, setup.init_state(params), batch, 5)
+    torch.cuda.synchronize(dev)
+    out = {"step_s": time.perf_counter() - t0, "metrics": {k: float(v) for k, v in metrics.items()},
+           "picks": [p.cpu() for p in pin.picks],
+           "param_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "path": os.path.join(ref_dir, "params.pt")}
+    del params
+    torch.save(tree_map(lambda x: x.cpu(), new), out["path"])
+    del bundle, setup, new, metrics, pin
+    free_device()
+    return out
+
+
+def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
+    """9f: four ranks on the card as a (data 2, model 2) grid, against the
+    one-process model on the same draws: (a) the data and model groups'
+    sums, (b) Qwen2.5-3B served data-parallel, (c) Qwen3-MoE-235B-A22B
+    served with its FSDP blocks gathered over data at use, (d) one FSDP
+    train step of Qwen3-MoE; the flash kernel at the ranks' shapes."""
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    qwen = dataclasses.replace(get_config("qwen2_5_3b"), num_layers=GRID_QWEN_LAYERS,
+                               attn_impl="flash")
+    moe = dataclasses.replace(get_config("qwen3_moe_235b_a22b"), num_layers=GRID_MOE_LAYERS,
+                              attn_impl="flash")
+    f32 = dict(param_dtype="float32", attn_impl="xla")
+    qwen32 = dataclasses.replace(qwen, num_layers=TP_F32_LAYERS, **f32)
+    moe32 = dataclasses.replace(moe, num_layers=GRID_MOE_F32_LAYERS, **f32)
+    train_cfg = dataclasses.replace(get_config("qwen3_moe_235b_a22b"),
+                                    num_layers=GRID_TRAIN_LAYERS, param_dtype="float32")
+    refs = tpar.pop("refs")
+    out = {}
+    free_device()
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    # the one-process runs phase 9 did not make: the MoE's under the grid's
+    # profile (its routing blocks are phase 9c's at 8 x 2048 tokens, not at
+    # every size), and (d)'s step, run first and freed before the ranks start
+    ref_moe = _tp_reference(dev, moe, 9, B, S, GRID_MOE_STEPS, record=True, mesh=_grid_mesh())
+    ref_moe32 = _tp_reference(dev, moe32, 10, B, TP_F32_PROMPT, 0, record=True,
+                              mesh=_grid_mesh())
+    batch = {"tokens": next(synthetic_lm_batches(vocab=train_cfg.vocab_size, batch=TRAIN_BATCH,
+                                                 seq=TRAIN_SEQ, seed=0))}
+    ref_dir = tempfile.mkdtemp(prefix="grid_step_")
+    try:
+        train_ref = _grid_train_reference(dev, train_cfg, batch, ref_dir)
+        part("one process")
+        with tp.GroupPool([str(dev)] * 4, timeout_s=TP_CALL_S, axes=GRID_AXES) as pool:
+            part("spawn")
+            comm = [r.value for r in pool.run(_grid_comm_rank)]
+            check(all(v for c in comm for k, v in c.items() if k != "backend"),
+                  f"an all-reduce over a grid group is not the sum: {comm}")
+            print(f"phase 9f a: 4 ranks on {dev} as {dict(GRID_AXES)}, backend {pool.backend}; "
+                  "float32 and bf16 all-reduce sums over the data group and over the model "
+                  "group byte-equal to the local sums", flush=True)
+            part("a")
+            res = [r.value for r in pool.run(_grid_serve_rank, [
+                (qwen, 7, B, S, TP_STEPS, [{"steps": TP_STEPS}]),
+                (qwen32, 8, B, TP_F32_PROMPT, TP_STEPS, [{"steps": TP_STEPS}])])]
+            out["qwen"] = _grid_serving_checks(
+                "Qwen2.5-3B", refs["qwen"], refs["qwen32"], [r[0] for r in res],
+                [r[1] for r in res], GRID_QWEN_LAYERS, "8/1", False, smi)
+            part("b")
+            picks = ref_moe["picks"]
+            n_calls = GRID_MOE_LAYERS * (1 + GRID_MOE_STEPS)
+            check(len(picks) == n_calls, f"{len(picks)} routing calls recorded")
+            drives = [{"steps": GRID_MOE_STEPS, "picks": picks},
+                      {"steps": 0, "picks": picks[:GRID_MOE_LAYERS], "fault": GRID_FAULTS[0]}]
+            res = [r.value for r in pool.run(_grid_serve_rank, [
+                (moe, 9, B, S, GRID_MOE_STEPS, drives),
+                (moe32, 10, B, TP_F32_PROMPT, 0, [{"steps": 0, "picks": ref_moe32["picks"]}])])]
+            for r, v in enumerate(res):
+                check(v[0]["drives"][0]["pinned_calls"] == n_calls,
+                      f"rank {r} replayed {v[0]['drives'][0]['pinned_calls']} picks")
+            out["moe"] = _grid_serving_checks(
+                "Qwen3-MoE-235B-A22B", ref_moe, ref_moe32, [r[0] for r in res],
+                [r[1] for r in res], GRID_MOE_LAYERS, "32/2", True, smi)
+            del res
+            part("c")
+            res = [r.value for r in pool.run(_grid_train_rank, train_cfg, 11, batch, 5,
+                                             train_ref["path"], train_ref["picks"])]
+            part("d")
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    want = train_ref["metrics"]
+    for r, v in enumerate(res):
+        got = v["main"]
+        check(got["pinned_calls"] == len(train_ref["picks"]),
+              f"(d) rank {r} replayed {got['pinned_calls']} of {len(train_ref['picks'])} picks")
+        for k in ("loss", "delta_norm"):
+            check(abs(got["metrics"][k] - want[k]) <= TP_TRAIN_RTOL * abs(want[k]),
+                  f"9f (d) rank {r} {k} {got['metrics'][k]} against {want[k]}")
+        check(got["max_abs"] <= TP_TRAIN_ATOL, f"9f (d) rank {r} parameters {got['max_abs']} "
+                                               "from the one-process step")
+        check(v["fault"]["max_abs"] > TP_TRAIN_ATOL, f"9f (d) rank {r}: the planted fault "
+              f"({GRID_FAULTS[1]}) reads {v['fault']['max_abs']}, not above {TP_TRAIN_ATOL}")
+    out["train"] = {"max_abs": [v["main"]["max_abs"] for v in res],
+                    "fault_max_abs": [v["fault"]["max_abs"] for v in res],
+                    "metrics": [v["main"]["metrics"] for v in res], "ref_metrics": want,
+                    "by_axis": [_by_axis(v["main"]["counters"]) for v in res],
+                    "data_gathered": [v["main"]["counters"]["data_gathered_leaves"] for v in res],
+                    "peak_gb": [v["main"]["peak_gb"] for v in res],
+                    "step_s": [v["main"]["step_s"] for v in res],
+                    "ref_step_s": train_ref["step_s"], "ref_peak_gb": train_ref["peak_gb"]}
+    t = out["train"]
+    print(f"phase 9f d: one FSDP train step, Qwen3-MoE-235B-A22B {GRID_TRAIN_LAYERS} layer "
+          f"float32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {GRID_TRAIN_LOCAL_STEPS} local step, "
+          f"routing pinned, on {dict(GRID_AXES)} against one process under the grid's "
+          f"profile: loss "
+          f"{[m['loss'] for m in t['metrics']]} vs {want['loss']}, delta_norm "
+          f"{[m['delta_norm'] for m in t['metrics']]} vs {want['delta_norm']} (rtol "
+          f"{TP_TRAIN_RTOL}); parameters max abs {t['max_abs']} <= {TP_TRAIN_ATOL}; fault "
+          f"{GRID_FAULTS[1]} max abs {t['fault_max_abs']} > {TP_TRAIN_ATOL}; per rank "
+          f"all-reduces (count, bytes) by axis {t['by_axis']}, leaves gathered over data "
+          f"{t['data_gathered']}, peak GB {[round(x, 2) for x in t['peak_gb']]} (one process "
+          f"{t['ref_peak_gb']:.2f}); wall s {[round(x, 2) for x in t['step_s']]} vs "
+          f"{t['ref_step_s']:.2f} (information only; card {smi})", flush=True)
+    # the tensor-core kernel at the grid ranks' attention shapes (B 4 of 8)
+    rows = B // dict(GRID_AXES)["data"]
+    m = dict(GRID_AXES)["model"]
+    out["flash"] = {
+        "qwen": _flash_at(dev, rows, S, qwen.num_heads // m, qwen.num_kv_heads // m, 128, 0,
+                          torch.bfloat16, 93),
+        "moe": _flash_at(dev, rows, S, moe.num_heads // m, moe.num_kv_heads // m, 128, 0,
+                         torch.bfloat16, 94)}
+    part("flash timings")
+    out["parts_s"] = parts
+    print(f"phase 9f parts s {json.dumps(parts)}", flush=True)
+    for name, f in out["flash"].items():
+        print(f"phase 9f flash_sm90 at {f['shape']}: {f['ms']:.3f} ms, plain "
+              f"{f['plain_ms']:.3f} ms, SDPA {f['library_ms']:.3f} ms, bound "
+              f"{f['bound'][0]:.3f} ms ({f['bound'][1]}), max abs err {f['max_abs_err']:.3e}, "
+              f"rel L2 {f['rel_l2']:.3e} (card {smi})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # phase 10: the dry run against the card
 # ---------------------------------------------------------------------- #
-def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str) -> dict:
+def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str,
+                  grid: dict = None) -> dict:
     """10: the dry run (``launch.dryrun``, ``launch.analysis``; fake tensors
     on the host, nothing on the card) against what phases 6 and 9 measured
     on it: the card-memory constant against the device's; the parameter
@@ -4937,7 +5394,10 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str) -> dict:
     all-reduces a prefill and a decode step against phase 9b's and 9c's, rank
     by rank; and the roofline of phase 6's prefill (Qwen2.5-3B, 36 layers,
     bf16, 8 x 2048) on the card's figures: the measured prefill may not be
-    faster than its compute term."""
+    faster than its compute term. With phase 9f's results (``grid``), the
+    counting grid's (data 2, model 2) ranks too: each rank's all-reduces
+    by axis a prefill, a decode step and an FSDP train step, and its
+    parameter bytes, against what each rank of 9f measured."""
     total = torch.cuda.get_device_properties(dev).total_memory
     check(hw.HBM_PER_CARD == total, f"the card-memory constant {hw.HBM_PER_CARD} is not the "
                                     f"device's {total}")
@@ -4965,6 +5425,7 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str) -> dict:
             check(got == want, f"{label} rank {r}: the counting group counts {got}, phase 9 "
                                f"measured {want}")
             counts[label].append(got)
+    grid_counts = _dry_run_grid(qwen, moe, shape, grid) if grid is not None else None
     full = get_config("qwen2_5_3b")
     cost = dryrun.cost_pair(full, shape, one)
     roof = dryrun.roofline_of(full, shape, one, cost)
@@ -4983,12 +5444,49 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str) -> dict:
           f"{roof.compute_s * 1e3 / ms:.4f}, model FLOPs / (measured x peak) "
           f"{roof.model_flops / (ms / 1e3 * hw.PEAK_FLOPS_BF16):.4f} (card {smi})", flush=True)
     return {"roofline": roof.to_dict(), "prefill_ms": ms, "param_bytes": (split, whole),
-            "collectives": counts}
+            "collectives": counts, "grid": grid_counts}
+
+
+def _dry_run_grid(qwen, moe, shape: ShapeConfig, grid: dict) -> dict:
+    """Phase 10 on 9f: the counting grid's ranks against 9f's."""
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    mesh = _grid_mesh()
+    n = len(grid["moe"]["param_bytes"])
+    out = {"param_bytes": {}, "serve": {}}
+    for label, cfg, info in (("Qwen2.5-3B", qwen, grid["qwen"]),
+                             ("Qwen3-MoE-235B-A22B", moe, grid["moe"])):
+        want = dryrun.device_bytes(cfg, shape, mesh)["param_bytes"]
+        check(all(b == want for b in info["param_bytes"]),
+              f"{label}: the dry run's parameter bytes a device at {dict(GRID_AXES)} {want}, 9f "
+              f"measured {info['param_bytes']}")
+        out["param_bytes"][label] = want
+        out["serve"][label] = []
+        for r in range(n):
+            got = dryrun.count_grid_collectives(dryrun.serve_counts, GRID_AXES, r, cfg, B, S, True)
+            meas = {"prefill": info["prefill_by_axis"][r], "step": info["step_by_axis"][r]}
+            check(got == meas, f"{label} grid rank {r}: the counting grid counts {got}, 9f "
+                               f"measured {meas}")
+            out["serve"][label].append(got)
+    train_cfg = dataclasses.replace(get_config("qwen3_moe_235b_a22b"),
+                                    num_layers=GRID_TRAIN_LAYERS, param_dtype="float32")
+    fed = FedStepConfig(local_steps=GRID_TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    out["train"] = []
+    for r in range(n):
+        got = dryrun.count_grid_collectives(dryrun.train_counts, GRID_AXES, r, train_cfg, mesh,
+                                            fed, (TRAIN_BATCH, TRAIN_SEQ), "f32", None, True)
+        check(got == grid["train"]["by_axis"][r], f"9f (d) grid rank {r}: the counting grid "
+              f"counts {got}, 9f measured {grid['train']['by_axis'][r]}")
+        out["train"].append(got)
+    print(f"phase 10 grid: parameter bytes a device at {dict(GRID_AXES)} "
+          f"{json.dumps(out['param_bytes'])} equal 9f's ranks'; all-reduces (count, bytes) by "
+          f"axis a prefill / decode step {json.dumps(out['serve'])} and an FSDP train step "
+          f"{json.dumps(out['train'])} by the counting grid equal 9f's, rank by rank", flush=True)
+    return out
 
 
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
                  moe: dict, proc: dict, fault: dict, train: dict, families: dict,
-                 tpar: dict) -> str:
+                 tpar: dict, grid: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
     counted from 0 over its own run (``launches_by_path``): phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
@@ -5001,8 +5499,9 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     phase 7c's three faulted jobs (the same) for the agg and quant entries,
     and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
-    plain attention), and phase 9's split serving, both ranks' launches
-    (the tensor-core flash kernel at each rank's heads)."""
+    plain attention), phase 9's split serving, both ranks' launches
+    (the tensor-core flash kernel at each rank's heads), and phase 9f's
+    grid serving, all four ranks' launches (each rank's rows and heads)."""
     # the flash rows' numbers: the D 32/64/128 tensor-core kernel at phase
     # 6's serving shape; the D 256 one on its path, 6g's (Gemma-7B, bf16);
     # flash.cu on its path, 6f's (Qwen2.5-3B in float32; its other float32
@@ -5058,6 +5557,11 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
             tp_ranks = [a + b for a, b in zip(tpar["qwen"]["launches_per_rank"],
                                               tpar["moe"]["launches_per_rank"])]
         by_path["9"] = sum(tp_ranks)
+        grid_ranks = [0] * len(grid["qwen"]["launches_per_rank"])
+        if name == "flash_attention_forward_sm90":
+            grid_ranks = [a + b for a, b in zip(grid["qwen"]["launches_per_rank"],
+                                                grid["moe"]["launches_per_rank"])]
+        by_path["9f"] = sum(grid_ranks)
         launches = sum(by_path.values())
         extra = {}
         if name == "flash_attention_forward_sm90":
@@ -5072,7 +5576,10 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
                 "at_bf16_d32_shape": _shape_entry(serve["flash"][2]),
                 "phase9_launches_per_rank": tp_ranks,
                 "at_tp_qwen_rank_shape": _shape_entry(tpar["flash"]["qwen"]),
-                "at_tp_moe_rank_shape": _shape_entry(tpar["flash"]["moe"])}
+                "at_tp_moe_rank_shape": _shape_entry(tpar["flash"]["moe"]),
+                "phase9f_launches_per_rank": grid_ranks,
+                "at_grid_qwen_rank_shape": _shape_entry(grid["flash"]["qwen"]),
+                "at_grid_moe_rank_shape": _shape_entry(grid["flash"]["moe"])}
         elif name == "flash_attention_forward_sm90_d256":
             extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"]}
         elif name == "flash_attention_forward":
@@ -5178,9 +5685,10 @@ def main() -> int:
     train = timed("8", phase_train, dev, smi)
     free_device()
     tpar = timed("9", phase_tensor_parallel, dev, smi)
-    timed("10", phase_dry_run, dev, serve, tpar, smi)
+    grid = timed("9f", phase_grid, dev, smi, tpar)
+    timed("10", phase_dry_run, dev, serve, tpar, smi, grid)
     lines = timed("line", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
-                                               fault, train, families, tpar))
+                                               fault, train, families, tpar, grid))
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
     print(lines, flush=True)

@@ -115,21 +115,25 @@ def resolve_device(device: Any = None) -> torch.device:
     return dev
 
 
-def shard_tree_from_numpy(tree: Any, cfg: Any, mesh: Any, rank: int, device: Any) -> Any:
+def shard_tree_from_numpy(tree: Any, cfg: Any, mesh: Any, rank: Any, device: Any) -> Any:
     """The block of every leaf of a parameter tree (numpy arrays, the JAX
-    package's parameters) that the ``model`` rank ``rank`` of ``mesh``
-    holds (``launch.sharding.param_pspec``), as tensors on ``device``."""
+    package's parameters) that a device of ``mesh`` holds
+    (``launch.sharding.param_pspec``), as tensors on ``device``: ``rank``
+    is the ``model`` rank (the other axes at 0), or a grid rank's
+    coordinates (``ModelGroup.coords``: its ``data`` blocks too)."""
     from repro_torch.launch import sharding
 
+    coords = dict(rank) if isinstance(rank, dict) else {"model": rank}
     specs = sharding.param_specs(tree, cfg, mesh)
-    blocks = sharding.shard_tree(tree, specs, mesh, {"model": rank})
+    blocks = sharding.shard_tree(tree, specs, mesh, coords)
     return tree_from_numpy(blocks, device)
 
 
 def unshard_tree(trees: Any, cfg: Any, mesh: Any) -> Any:
-    """The whole parameter tree (numpy) from the ``model`` ranks' trees
-    (``trees[r]``, numpy or tensors), in rank order; the ranks of the other
-    axes hold the same blocks."""
+    """The whole parameter tree (numpy) from the ranks' trees (numpy or
+    tensors): the ``model`` ranks' (``trees[r]``, in rank order; the ranks
+    of the other axes hold the same blocks), or a grid's, one per device of
+    ``mesh`` in its row-major order."""
     from repro_torch.launch import sharding
 
     host = [tree_to_numpy(t) for t in trees]

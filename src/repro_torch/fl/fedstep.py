@@ -118,14 +118,31 @@ def value_and_grad(loss_fn: LossFn, leaves: Sequence[torch.Tensor], treedef: Any
 
 
 def local_round(loss_fn: LossFn, leaves: List[torch.Tensor], treedef: Any, batch: Batch,
-                gen: torch.Generator, steps: int, lr: float) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                gen: torch.Generator, steps: int, lr: float,
+                gathered: Optional[Sequence[bool]] = None
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """``steps`` SGD steps on the ``steps`` microbatches of a client's
     batch; returns the local parameters' leaves and the last step's loss.
     The first step makes new tensors (``leaves`` are the global
-    parameters); later steps update the client's own copy in place."""
+    parameters); later steps update the client's own copy in place.
+
+    On a grid whose rows are split over client ranks, each rank takes its
+    rows of each microbatch (microbatch first, as the JAX package's
+    ``(k, B/k)`` reshape cuts them), and each gradient is summed over the
+    rows group: the leaves gathered over ``data`` at use (``gathered[j]``)
+    are summed by the gather's backward, the others here."""
+    from repro_torch.launch import tensor_parallel as tp
+
+    me, ranks = tp.row_share()
     loss = None
     for i in range(steps):
-        loss, grads = value_and_grad(loss_fn, leaves, treedef, split_batch(batch, steps, i), gen)
+        micro = split_batch(batch, steps, i)
+        if ranks > 1:
+            micro = split_batch(micro, ranks, me)
+        loss, grads = value_and_grad(loss_fn, leaves, treedef, micro, gen)
+        if ranks > 1:
+            grads = [g if gathered is not None and gathered[j] else tp.rows_sum(g)
+                     for j, g in enumerate(grads)]
         with torch.no_grad():
             new = []
             for j, w in enumerate(leaves):
@@ -137,23 +154,28 @@ def local_round(loss_fn: LossFn, leaves: List[torch.Tensor], treedef: Any, batch
 
 
 def sum_of_squares(leaves: Sequence[torch.Tensor],
-                   sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+                   sharded: Optional[Sequence[bool]] = None,
+                   data: Optional[Sequence[bool]] = None) -> torch.Tensor:
     """The sum of the squares of every leaf's elements. Under a model group
     (``sharded[i]``: the ranks hold blocks of leaf i), the blocks' sums are
-    summed over the group and the replicated leaves counted once."""
+    summed over the group and the replicated leaves counted once; on a grid
+    (``data[i]``: the ``data`` ranks hold blocks of leaf i), those blocks'
+    sums are summed over the ``data`` axis as well."""
     from repro_torch.launch import tensor_parallel as tp
 
-    own = rep = None
+    parts: Dict[Tuple[bool, bool], torch.Tensor] = {}
     for i, x in enumerate(leaves):
         s = torch.sum(torch.square(x))
-        if sharded is not None and sharded[i]:
-            own = s if own is None else own + s
-        else:
-            rep = s if rep is None else rep + s
-    if own is not None:
-        own = tp.all_reduce_sum(own)
-        return own if rep is None else own + rep
-    return rep
+        key = (sharded is not None and sharded[i], data is not None and data[i])
+        parts[key] = s if key not in parts else parts[key] + s
+    total = None
+    for (over_model, over_data), s in parts.items():
+        if over_model:
+            s = tp.all_reduce_sum(s)
+        if over_data:
+            s = tp.data_sum(s)
+        total = s if total is None else total + s
+    return total
 
 
 def make_fl_train_step(

@@ -22,10 +22,17 @@ and the dry run counts what that rank holds and does.
    ``total = c2 + (G - 2) * (c4 - c2) / 2`` extrapolates to the full depth,
    as the JAX module does. Fake tensors, not the meta device: the fed step
    and DP draw from ``torch.Generator``s, which the meta device has none
-   of. The step is the rank's (a counting ``ModelGroup`` of the mesh's
-   ``model`` size: its all-reduces are counted, none is made) on the
-   device's rows of the batch (the batch over the client axes where it
-   divides them, as ``batch_pspec`` splits it), one client of the fed step.
+   of. The step is the rank's (a counting ``ModelGroup``: its all-reduces
+   are counted, none is made) on the device's rows of the batch (the batch
+   over the client axes where it divides them, as ``batch_pspec`` splits
+   it). The counting group is laid out on the processes the mesh asks for
+   (``steps.grid_axes``): serving and an FSDP config's train step count
+   the grid's first rank at the mesh's real ``data`` size, its gathers of
+   FSDP's ``data`` blocks and its gradient sums over (pod, data) among the
+   collectives; a ``tp`` config's train step counts one client of the fed
+   step on the ``model`` axis. A batch that the rows do not divide is
+   counted on the ``model`` axis alone with the rows whole, as the JAX
+   guard replicates it.
 
    * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` (the products:
      mm, bmm, addmm, einsum's bmm, convolutions, attention). Attention runs
@@ -210,27 +217,54 @@ def _device_rows(rows: int, mesh: Mesh, axes: Tuple[str, ...]) -> int:
     return rows // n if rows % n == 0 else rows
 
 
+def lay_out(group: tp.ModelGroup, cfg: ModelConfig, mesh: Mesh, what: str, rows: int) -> bool:
+    """Lay the counting ``group`` out as the first rank of the grid ``mesh``
+    asks for (``steps.grid_axes``), when the grid's client ranks divide the
+    ``rows`` of the batch; whether it did."""
+    from repro_torch.launch.steps import grid_axes
+
+    clients = grid_axes(cfg, mesh, what)[:-1]
+    n = 1
+    for _, k in clients:
+        n *= k
+    if n == 1 or rows % n:
+        return False
+    group.clients, group.client_rank = clients, 0
+    return True
+
+
 def _rank_setup(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh, group: tp.ModelGroup):
     """One device's step of ``shape`` as ``(fn, args)``, built and fed under
     the caller's fake mode: the fed step for one client (the device's) on
     its rows (one local step, as the cost pair takes it), or a prefill /
-    decode step on its rows and its cache blocks."""
+    decode step on its rows and its cache blocks. ``group`` (counting) is
+    laid out on the mesh's grid where the batch divides its rows."""
     from repro_torch.launch.steps import build_serve_step, build_train_step
 
     rank_mesh = Mesh((("data", 1), ("model", group.size)))
+    fed = FedStepConfig(local_steps=1, local_lr=1e-2)
     if shape.kind == "train":
         clients = _train_clients(cfg, mesh)
-        B = _device_rows(shape.global_batch, mesh, clients or _client_axes(mesh))
-        one = Mesh(tuple((a, 1) for a in clients) + (("model", group.size),))
-        fed = FedStepConfig(local_steps=1, local_lr=1e-2)
-        bundle, setup = build_train_step(cfg, one, fed, device="cpu", group=group)
+        grid = not clients and cfg.param_sharding == "fsdp" and lay_out(
+            group, cfg, mesh, "train", shape.global_batch)
+        if grid:  # the step takes the global batch and cuts the rank's rows
+            B, step_mesh = shape.global_batch, mesh
+        else:
+            B = _device_rows(shape.global_batch, mesh, clients or _client_axes(mesh))
+            step_mesh = Mesh(tuple((a, 1) for a in clients) + (("model", group.size),))
+        bundle, setup = build_train_step(cfg, step_mesh, fed, device="cpu", group=group)
         params = bundle.init(torch.Generator().manual_seed(0))
         state = setup.init_state(params)
         batch = bundle.input_specs(dataclasses.replace(shape, global_batch=B))
         batch = {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in batch.items()}
         return setup.step, (params, state, batch, 0)
-    B = _device_rows(shape.global_batch, mesh, _client_axes(mesh))
-    bundle, setup = build_serve_step(cfg, rank_mesh, shape.seq_len, B, "cpu", group)
+    if lay_out(group, cfg, mesh, "serve", shape.global_batch):
+        B = shape.global_batch // group.rows
+        bundle, setup = build_serve_step(cfg, mesh, shape.seq_len, shape.global_batch, "cpu",
+                                         group)
+    else:
+        B = _device_rows(shape.global_batch, mesh, _client_axes(mesh))
+        bundle, setup = build_serve_step(cfg, rank_mesh, shape.seq_len, B, "cpu", group)
     params = bundle.init(torch.Generator().manual_seed(0))
     cache = bundle.init_cache(B, shape.seq_len)
     batch = bundle.input_specs(dataclasses.replace(shape, global_batch=B))
@@ -266,36 +300,56 @@ def count_collectives(fn: Callable[..., Any], size: int, rank: int, *args: Any) 
         return fn(group, *args)
 
 
+def count_grid_collectives(fn: Callable[..., Any], axes: Tuple[Tuple[str, int], ...],
+                           index: int, *args: Any) -> Any:
+    """``count_collectives`` for process ``index`` of the grid ``axes``
+    (``tensor_parallel.GroupPool(..., axes=axes)``'s rank order)."""
+    place = tp.grid_place(axes, index)
+    group = tp.ModelGroup.counting(place["size"], place["rank"], clients=place["clients"],
+                                   client_rank=place["client_rank"])
+    with _fake_mode():
+        return fn(group, *args)
+
+
+def _counts(group: tp.ModelGroup, by_axis: bool):
+    if not by_axis:
+        return group.all_reduces, group.all_reduce_bytes
+    c = group.counters()
+    return {"model": (c["model_all_reduces"], c["model_all_reduce_bytes"]),
+            "data": (c["data_all_reduces"], c["data_all_reduce_bytes"])}
+
+
 def serve_counts(group: tp.ModelGroup, cfg: ModelConfig, batch: int,
-                 prompt: int) -> Dict[str, Tuple[int, int]]:
+                 prompt: int, by_axis: bool = False) -> Dict[str, Any]:
     """The rank's all-reduces (count, bytes) in a prefill of ``batch`` x
     ``prompt`` tokens and in one decode step after it (``build_serve_step``
-    on the group's ``model`` axis, on the group's device)."""
+    on the group's mesh, on the group's device: on a grid, the rank's rows
+    of the batch); ``by_axis``: each as ``{"model": ..., "data": ...}``."""
     from repro_torch.launch.steps import build_serve_step
 
     dev = group.device
-    bundle, setup = build_serve_step(cfg, Mesh((("data", 1), ("model", group.size))),
-                                     prompt + 1, batch, dev, group)
+    bundle, setup = build_serve_step(cfg, group.mesh, prompt + 1, batch, dev, group)
     params = bundle.init(torch.Generator(device=dev).manual_seed(0))
-    cache = bundle.init_cache(batch, prompt + 1)
-    tokens = torch.zeros((batch, prompt), dtype=torch.int32, device=dev)
+    tokens = setup.rows({"tokens": torch.zeros((batch, prompt), dtype=torch.int32,
+                                               device=dev)})["tokens"]
+    cache = bundle.init_cache(tokens.shape[0], prompt + 1)
     out = {}
     with torch.no_grad():
         group.reset_counters()
         _, cache = setup.prefill(params, {"tokens": tokens}, cache)
-        out["prefill"] = (group.all_reduces, group.all_reduce_bytes)
+        out["prefill"] = _counts(group, by_axis)
         group.reset_counters()
         setup.serve_step(params, cache, {"token": tokens[:, :1]})
-        out["step"] = (group.all_reduces, group.all_reduce_bytes)
+        out["step"] = _counts(group, by_axis)
     return out
 
 
 def train_counts(group: tp.ModelGroup, cfg: ModelConfig, mesh: Mesh, fed: FedStepConfig,
                  batch: Tuple[int, int], cross_pod_wire: str = "f32",
-                 strategy_name: Optional[str] = None) -> Tuple[int, int]:
+                 strategy_name: Optional[str] = None, by_axis: bool = False) -> Any:
     """The rank's all-reduces (count, bytes) in one ``build_train_step``
     round on ``mesh`` over a token batch of ``batch`` (rows, length), on the
-    group's device."""
+    group's device; ``by_axis``: as ``{"model": ..., "data": ...}``."""
     from repro_torch.launch.steps import build_train_step
 
     dev = group.device
@@ -304,7 +358,7 @@ def train_counts(group: tp.ModelGroup, cfg: ModelConfig, mesh: Mesh, fed: FedSte
     state = setup.init_state(params)
     group.reset_counters()
     setup.step(params, state, {"tokens": torch.zeros(batch, dtype=torch.int32, device=dev)}, 0)
-    return group.all_reduces, group.all_reduce_bytes
+    return _counts(group, by_axis)
 
 
 def _extrapolate(a: Dict[str, Any], b: Dict[str, Any], n: float) -> Dict[str, Any]:

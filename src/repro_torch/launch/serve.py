@@ -7,20 +7,24 @@ argmax (or temperature sampling), then ``serve_step`` ``gen - 1`` times.
 CLI's flags and three more: ``--device`` (the card unless ``cpu`` is asked
 for; raises without a card), ``--attn-impl`` (the config's ``attn_impl``:
 ``flash`` runs the prefill's attention in the flash kernel) and
-``--ranks N``: the model split over N processes (``launch.tensor_parallel``,
-the mesh of ``launch.mesh.make_mesh_for_devices(N)``, which must put all N
-on the ``model`` axis), each on the card, or on the CPU with ``--device
-cpu``; every rank draws the one-process model's parameters from the same
-seed and keeps its blocks, and greedy tokens are the argmax over the ranks'
-vocabulary blocks; sampled tokens draw from the ranks' blocks gathered
-whole (``tensor_parallel.gather_columns``), with the same seeded generator
-on every rank, so they are the one-process run's draws.
+``--ranks N``: every device of the mesh ``launch.mesh.
+make_mesh_for_devices(N)`` (``model`` the largest of 8, 4, 2 dividing N,
+``data`` the rest) a process (``launch.tensor_parallel``), each on the
+card, or on the CPU with ``--device cpu``; every rank draws the one-process
+model's parameters and prompts from the same seed and keeps its blocks
+(FSDP configs: over ``data`` too) and its rows of the batch (over
+``data``); greedy tokens are the argmax over the ranks' vocabulary blocks;
+sampled tokens draw from the ranks' blocks gathered whole
+(``tensor_parallel.gather_columns``), with the same seeded generator on
+every rank (so with one data rank they are the one-process run's draws).
+The launcher joins the ranks' rows in (pod, data) order.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_5_3b \\
       --batch 8 --prompt-len 2048 --gen 64 --attn-impl flash
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --ranks 2 --device cpu --reduced
+  PYTHONPATH=src python -m repro_torch.launch.serve --ranks 6 --device cpu --reduced
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.launch.mesh import make_mesh_for_devices
+from repro_torch.launch.steps import grid_axes
 from repro_torch.models import transformer
 from repro_torch.models.api import ModelBundle, build_model
 
@@ -141,19 +146,24 @@ def _serve(group: Optional[tp.ModelGroup], args: argparse.Namespace) -> dict:
     params = bundle.init(gen)
     B, S = args.batch, args.prompt_len
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=bundle.device)
+    if group is not None and group.rows > 1:  # the rank's rows
+        b = B // group.rows
+        prompts = prompts[group.client_rank * b:(group.client_rank + 1) * b]
     out = generate(bundle, params, prompts, args.gen, args.temperature)
     if not out.all_finite:
         raise RuntimeError("non-finite logits")
     return {"tokens": out.tokens.cpu(), "prefill_s": out.prefill_s, "decode_s": out.decode_s,
             "device": str(bundle.device), "attn": cfg.attn_impl,
-            "counters": group.counters() if group is not None else {}}
+            "counters": group.counters() if group is not None else {},
+            "client_rank": group.client_rank if group is not None else 0}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_5_3b")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="prompts (default 4, or the least multiple of the data ranks above)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
@@ -161,32 +171,45 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-impl", choices=("xla", "flash"), default=None,
                     help="attention of the prefill (default: the config's)")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="processes the model is split over (its model axis)")
+                    help="processes: the devices of the JAX driver's mesh for that many")
     args = ap.parse_args(argv)
 
+    mesh = make_mesh_for_devices(args.ranks)
+    rows = mesh.shape["data"] if args.ranks > 1 else 1
+    if args.batch is None:
+        args.batch = rows * -(-4 // rows)
     B = args.batch
+    if B % rows:
+        raise ValueError(f"a batch of {B} does not split over {rows} data ranks")
     if args.ranks == 1:
         out = _serve(None, args)
     else:
-        mesh = make_mesh_for_devices(args.ranks)
-        if mesh.shape["model"] != args.ranks:
-            raise ValueError(f"{args.ranks} ranks make the mesh {mesh.shape}: serving takes a "
-                             "model axis of all of them (2, 4 or 8)")
+        cfg = get_config(args.arch, reduced=args.reduced)
+        axes = grid_axes(cfg, mesh, "serve")
         devices = _rank_devices(args.device, args.ranks)
-        with tp.GroupPool(devices) as pool:
-            print(f"[serve] {args.ranks} ranks on {devices}: backend {pool.backend}")
+        with tp.GroupPool(devices, axes=axes) as pool:
+            print(f"[serve] {args.ranks} ranks on {devices}: grid {dict(axes)}, backend "
+                  f"{pool.backend}")
             outs = [r.value for r in pool.run(_serve, args)]
-        if any(not torch.equal(o["tokens"], outs[0]["tokens"]) for o in outs):
-            raise RuntimeError("the ranks decoded different tokens")
-        out = outs[0]
-        print(f"[serve] per-rank all-reduces {out['counters']['all_reduces']} "
-              f"({out['counters']['all_reduce_bytes']} bytes), gathered leaves "
-              f"{out['counters']['gathered_leaves']}")
+        # every model rank of a client coordinate decodes its rows alike;
+        # the rows join in (pod, data) order
+        m = mesh.shape["model"]
+        for i in range(0, len(outs), m):
+            if any(not torch.equal(o["tokens"], outs[i]["tokens"]) for o in outs[i:i + m]):
+                raise RuntimeError("the model ranks of a data rank decoded different tokens")
+        out = dict(outs[0], tokens=torch.cat([o["tokens"] for o in outs[::m]], dim=0))
+        c = out["counters"]
+        print(f"[serve] rank 0: all-reduces over model {c['model_all_reduces']} "
+              f"({c['model_all_reduce_bytes']} bytes), over data {c['data_all_reduces']} "
+              f"({c['data_all_reduce_bytes']} bytes), gathered leaves "
+              f"{c['gathered_leaves']} (model) {c['data_gathered_leaves']} (data); rows of "
+              f"{rows} data ranks joined: {tuple(out['tokens'].shape)}")
     print(f"[serve] prefill {B}x{args.prompt_len} in {out['prefill_s']:.2f}s "
           f"({out['device']}, attn {out['attn']})")
     print(f"[serve] generated {args.gen} tokens/seq x {B} seqs in {out['decode_s']:.2f}s "
           f"({B * args.gen / max(out['decode_s'], 1e-9):.1f} tok/s)")
     print("[serve] sample token ids:", out["tokens"][0][:12].tolist())
+    print("[serve] every row's first token ids:", out["tokens"][:, :4].tolist())
     return 0
 
 

@@ -243,32 +243,49 @@ def unshard(pieces: Sequence[Any], spec: Spec, mesh: Mesh):
 
 def shard_tree(tree: Tree, specs: Tree, mesh: Mesh, coords: Dict[str, int]) -> Tree:
     """Every leaf's block for the device at ``coords``."""
-    return _zip_map(lambda leaf, spec: shard(leaf, spec, mesh, coords), tree, specs)
+    return zip_map(lambda leaf, spec: shard(leaf, spec, mesh, coords), tree, specs)
 
 
 def unshard_tree(trees: Sequence[Tree], specs: Tree, mesh: Mesh) -> Tree:
-    """Every leaf whole from the ``model`` ranks' trees (``trees[r]``, in
-    rank order); the devices of the other axes hold the same blocks."""
+    """Every leaf whole from the devices' trees: one tree per device of the
+    mesh (a grid's ranks, in ``mesh_coords`` order), or the ``model``
+    ranks' trees (``trees[r]``, in rank order) where the devices of the
+    other axes hold the same blocks."""
     coords = mesh_coords(mesh)
-    return _zip_map(lambda *leaves: unshard([leaves[1 + c.get("model", 0)] for c in coords],
-                                            leaves[-1], mesh),
+    if len(trees) == len(coords):
+        index = list(range(len(coords)))
+    else:
+        index = [c.get("model", 0) for c in coords]
+    return zip_map(lambda *leaves: unshard([leaves[1 + i] for i in index], leaves[-1], mesh),
                     trees[0], *trees, specs)
 
 
-def _zip_map(fn, tree: Tree, *others: Tree) -> Tree:
+def zip_map(fn, tree: Tree, *others: Tree) -> Tree:
     """``fn(leaf, *other_leaves)`` over trees of ``tree``'s structure (a
     spec tree's tuples are leaves there)."""
     if isinstance(tree, dict):
-        return {k: _zip_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
+        return {k: zip_map(fn, v, *(o[k] for o in others)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_zip_map(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree))
+        return type(tree)(zip_map(fn, v, *(o[i] for o in others)) for i, v in enumerate(tree))
     if tree is None:
         return None
     return fn(tree, *others)
 
 
-def is_sharded(spec: Optional[Spec], axis: str = "model") -> bool:
-    return spec is not None and any(axis in _entry_axes(e) for e in spec)
+def is_sharded(spec: Optional[Spec], axis: str = "model", mesh: Optional[Mesh] = None) -> bool:
+    """Whether ``spec`` splits a dim over ``axis`` (into more than one
+    block: the axis is larger than 1 on ``mesh``, when given)."""
+    if spec is None or not any(axis in _entry_axes(e) for e in spec):
+        return False
+    return mesh is None or mesh.shape.get(axis, 1) > 1
+
+
+def split_dim(spec: Spec, axis: str, mesh: Mesh) -> Optional[int]:
+    """The dim ``spec`` splits over ``axis`` into more than one block, or
+    None."""
+    if not is_sharded(spec, axis, mesh):
+        return None
+    return next(i for i, e in enumerate(spec) if axis in _entry_axes(e))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,8 +321,14 @@ class LeafBlocks:
     @property
     def sharded(self) -> List[bool]:
         """Whether the ``model`` ranks hold blocks of each leaf."""
-        return [is_sharded(s) for s in self.specs]
+        return self.sharded_over("model")
+
+    def sharded_over(self, axis: str) -> List[bool]:
+        """Whether the ranks of ``axis`` (``model`` or ``data``) hold blocks
+        of each leaf (the axis larger than 1)."""
+        return [is_sharded(s, axis, self.mesh) for s in self.specs]
 
     def cut(self, i: int, x):
-        """The device's block of leaf ``i`` given whole (``x``)."""
+        """The device's block of leaf ``i`` given whole (``x``): over every
+        axis the spec names, ``data`` included."""
         return shard(x, self.specs[i], self.mesh, self.coords)

@@ -19,10 +19,26 @@ one-process mean. What spans whole leaves is taken over the group:
 ``delta_norm`` and the DP clip norm sum the squares of the sharded leaves
 over the group and count the replicated leaves once; DP noise is drawn for
 the whole leaf and cut to the rank's block; the int8 wire's per-tensor
-scale is the whole leaf's absmax (``launch.sharding.LeafBlocks``). Not
-ported (ROADMAP Queue 1): an FSDP config on a mesh whose ``data`` axis is
-larger than 1 (its ``data``-dim blocks), serving on a mesh with client
-axes larger than 1.
+scale is the whole leaf's absmax (``launch.sharding.LeafBlocks``).
+
+Where ``data`` is not a client axis, every device of the mesh is a process
+(a grid: ``tensor_parallel.GroupPool(devices, axes=...)``, the axes of
+``grid_axes``), and the builders take the rank's group of the grid:
+
+* the one-client train step of an FSDP config (its clients live on
+  ``pod``, which the JAX package folds into data parallelism): each rank
+  holds its (data, model) block of every leaf, gathers a leaf's ``data``
+  blocks at use, takes its rows of each microbatch over (pod, data), and
+  sums each gradient over (pod, data) (``fl.fedstep.local_round``); the
+  loss is the global batch's;
+* serving on client axes larger than 1: each rank serves its rows of the
+  batch (``ServeSetup.rows``) with the cache of its rows, FSDP configs
+  gathering their leaves over ``data`` at use, ``tp`` configs holding them
+  replicated over ``data``; the caller joins the rows in (pod, data) order.
+
+A ``tp`` config's train step at ``data`` > 1 keeps its virtual clients
+(a group of the ``model`` axis alone). At ``model`` 1 without a group,
+both builders are one process on whole leaves.
 """
 from __future__ import annotations
 
@@ -37,7 +53,7 @@ from repro_torch.core.topologies import classical_fl, hierarchical_fl
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.fl.fedstep import (FedStepConfig, batch_to_device, client_generator,
                                    init_server_state, local_round, make_fl_train_step,
-                                   sum_of_squares)
+                                   split_batch, sum_of_squares)
 from repro_torch.fl.strategies import get_strategy
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import tensor_parallel as tp
@@ -75,26 +91,38 @@ def _with_moe_profile(fn: Callable, cfg: ModelConfig, mesh: Mesh,
     return wrapped
 
 
+def grid_axes(cfg: ModelConfig, mesh: Mesh, what: str) -> Tuple[Tuple[str, int], ...]:
+    """The axes of ``mesh`` that run as processes for ``what`` ("train" or
+    "serve"): every axis where ``data`` is not a client axis (serving, an
+    FSDP config's train step), else the ``model`` axis alone. A ``pod``
+    axis of 1 is left out."""
+    m = mesh.shape.get("model", 1)
+    if what == "serve" or cfg.param_sharding == "fsdp":
+        clients = tuple((a, mesh.shape[a]) for a in ("pod", "data") if a in mesh.axis_names)
+        clients = tuple((a, n) for a, n in clients if a == "data" or n > 1)
+        return (clients or (("data", 1),)) + (("model", m),)
+    return (("data", 1), ("model", m))
+
+
 def _model_group(cfg: ModelConfig, mesh: Mesh, group: Optional[tp.ModelGroup],
                  what: str) -> Optional[tp.ModelGroup]:
-    """The group the mesh's ``model`` axis asks for (None at model 1)."""
+    """The rank's group the mesh asks for: None at model 1 without one (a
+    single process on whole leaves), else a group laid out on the mesh's
+    process axes (``grid_axes``)."""
     m = mesh.shape.get("model", 1)
-    if m == 1:
+    if group is None and m == 1:
         return None
-    if group is None or group.size != m:
-        raise ValueError(f"a model axis of {m} runs as {m} processes: pass the rank's group "
+    axes = grid_axes(cfg, mesh, what)
+    n = 1
+    for _, k in axes:
+        n *= k
+    if group is None:
+        raise ValueError(f"a model axis of {m} runs as {n} processes: pass the rank's group "
                          f"(launch.tensor_parallel.run_model_group), got {group}")
-    clients = 1
-    for a in ("pod", "data"):
-        clients *= mesh.shape.get(a, 1)
-    if what == "train" and cfg.param_sharding == "fsdp" and mesh.shape.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: FSDP's data-dim blocks on a data axis of {mesh.shape['data']} "
-            "are not ported (ROADMAP Queue 1, FSDP with data > 1)")
-    if what == "serve" and clients > 1:
-        raise NotImplementedError(
-            f"serving on client axes of {clients} devices beside a model axis is not ported "
-            "(ROADMAP Queue 1)")
+    have, want = dict(group.clients), dict(axes[:-1])
+    if group.size != m or any(have.get(a, 1) != want.get(a, 1) for a in set(have) | set(want)):
+        raise ValueError(f"{cfg.arch_id} on {mesh.shape} runs as the grid {axes} ({n} "
+                         f"processes); the group is {group.clients} x model {group.size}")
     return group
 
 
@@ -164,14 +192,17 @@ def build_train_step(
         return bundle, TrainSetup(tp.bind(step, group), init_state, client_axes, tag)
 
     # ---- one client: local SGD over local_steps microbatches --------------
+    # (on a grid: each rank's rows of every microbatch, its blocks over data)
+    over_data = None if blocks is None else blocks.sharded_over("data")
+
     def step(params, state, batch, seed):
         leaves, treedef = tree_flatten(params)
         batch = batch_to_device(batch, leaves[0].device)
         gen = client_generator(seed, 0, "loss", leaves[0].device)
         new, loss = local_round(bundle.loss_fn, leaves, treedef, batch, gen,
-                                fed.local_steps, fed.local_lr)
+                                fed.local_steps, fed.local_lr, over_data)
         sq = sum_of_squares([(a - b).to(torch.float32) for a, b in zip(new, leaves)],
-                            None if blocks is None else blocks.sharded)
+                            None if blocks is None else blocks.sharded, over_data)
         return tree_unflatten(treedef, new), state, {"loss": loss, "delta_norm": torch.sqrt(sq)}
 
     def init_state(params):
@@ -184,12 +215,18 @@ def build_train_step(
 # --------------------------------------------------------------------- #
 # serving
 # --------------------------------------------------------------------- #
+def _no_split(batch: Dict[str, Any]) -> Dict[str, Any]:
+    return batch
+
+
 @dataclasses.dataclass(frozen=True)
 class ServeSetup:
     serve_step: Callable
     prefill: Callable
     param_shardings: Tree  # the parameters' specs (launch.sharding.param_pspec)
     cache_shardings: Tree  # the cache's specs (launch.sharding.cache_pspec)
+    # the rank's rows of a global batch (over pod x data; itself off a grid)
+    rows: Callable[[Dict[str, Any]], Dict[str, Any]] = _no_split
 
 
 def build_serve_step(cfg: ModelConfig, mesh: Mesh, max_len: int, batch: int,
@@ -199,7 +236,8 @@ def build_serve_step(cfg: ModelConfig, mesh: Mesh, max_len: int, batch: int,
     profile: ``prefill(params, batch, cache)`` and ``serve_step(params,
     cache, batch)``, and the specs the parameters and the cache of
     ``batch`` x ``max_len`` are stored by. With a ``model`` axis of m > 1,
-    the rank's (``group``)."""
+    or a grid, the rank's (``group``): it serves its rows of the batch
+    (``rows``) from the cache of its rows (``bundle.init_cache(rows, ...)``)."""
     group = _model_group(cfg, mesh, group, "serve")
     bundle = build_model(cfg, device, group)
     p_specs = shd.param_specs(param_shapes(cfg), cfg, mesh)
@@ -208,4 +246,11 @@ def build_serve_step(cfg: ModelConfig, mesh: Mesh, max_len: int, batch: int,
         lambda params, cache, batch_in: bundle.serve_step(params, cache, batch_in), cfg, mesh)
     prefill = _with_moe_profile(
         lambda params, batch_in, cache: bundle.prefill(params, batch_in, cache), cfg, mesh)
-    return bundle, ServeSetup(serve, prefill, p_specs, c_specs)
+    rows = _no_split
+    if group is not None and group.rows > 1:
+        me, n = group.client_rank, group.rows
+
+        def rows(batch_in):
+            return split_batch(batch_in, n, me)
+
+    return bundle, ServeSetup(serve, prefill, p_specs, c_specs, rows)

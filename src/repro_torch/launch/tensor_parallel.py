@@ -29,6 +29,19 @@ The model code finds the group of the call in a context variable
 around every call of its bundle; no group, or a group of one, is the
 one-process model.
 
+A grid (``GroupPool(devices, axes)``) makes the client axes ``pod`` and
+``data`` processes too, one for each device of the mesh: the rank's
+``ModelGroup`` then also holds its client coordinate, the group of the
+ranks that share its ``model`` coordinate (its rows group: the batch rows
+and the gradients are split and summed over ``pod`` x ``data``) and the
+group of those that also share its ``pod`` coordinate (the ``data`` axis,
+over which FSDP stores a second dim of its leaves). ``gather_data``
+gathers such a leaf at use (forward: the zero-padded block all-reduced
+over ``data``; backward: the whole leaf's gradient summed over the rows
+group, then the rank's block), ``reduce_from_rows`` sums a rank's share
+of a loss over the rows. Every collective counts on its axis: ``model``
+or ``data`` (the client axes).
+
 ``GroupPool`` spawns one process per entry of ``devices`` with a
 ``file://`` rendezvous in a temp directory and runs functions on all of
 them; ``run_model_group`` is a pool for one call. A pool on the cards
@@ -49,7 +62,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -59,54 +72,122 @@ import torch.utils.checkpoint
 _GROUP: contextvars.ContextVar = contextvars.ContextVar("model_group", default=None)
 
 
+Axes = Tuple[Tuple[str, int], ...]
+# the counters: every all-reduce of the rank (count, bytes), those over the
+# client axes among them, and the leaves gathered at use over each axis
+_COUNTERS = ("all_reduces", "all_reduce_bytes", "data_all_reduces", "data_all_reduce_bytes",
+             "gathered_leaves", "gathered_bytes", "data_gathered_leaves", "data_gathered_bytes")
+
+
 @dataclasses.dataclass
 class ModelGroup:
-    """One rank's view of the ``model`` axis: its rank and the axis size,
-    the process group (``None`` for a group of one), the backend, the
-    rank's device, and the rank's counters: all-reduces (calls, bytes) and
-    leaves gathered at use (leaves, bytes of the whole leaves)."""
+    """One rank's view of the mesh: its ``model`` rank and the axis size,
+    the ``model`` axis's process group (``None`` for a group of one), the
+    backend, the rank's device, its client axes (``clients``: the sizes of
+    ``pod`` and ``data`` as processes, ``(("data", 1),)`` when the model
+    axis alone is processes) and its linear index over them
+    (``client_rank``, the last axis fastest), the rows group (``rows_pg``:
+    the ranks sharing its ``model`` coordinate) and the ``data`` axis group
+    (``data_pg``: those that also share its ``pod`` coordinate), and the
+    rank's counters (``_COUNTERS``)."""
 
     rank: int
     size: int
     pg: Any = None
     backend: str = "none"
     device: torch.device = torch.device("cpu")
+    clients: Axes = (("data", 1),)
+    client_rank: int = 0
+    rows_pg: Any = None
+    data_pg: Any = None
     all_reduces: int = 0
     all_reduce_bytes: int = 0
+    data_all_reduces: int = 0
+    data_all_reduce_bytes: int = 0
     gathered_leaves: int = 0
     gathered_bytes: int = 0
+    data_gathered_leaves: int = 0
+    data_gathered_bytes: int = 0
+
+    @property
+    def rows(self) -> int:
+        """The ranks the batch rows are split over: ``pod`` x ``data``."""
+        n = 1
+        for _, k in self.clients:
+            n *= k
+        return n
+
+    @property
+    def data_size(self) -> int:
+        """The ``data`` axis's size (the blocks of an FSDP leaf's data dim)."""
+        return dict(self.clients).get("data", 1)
+
+    @property
+    def world(self) -> int:
+        return self.rows * self.size
 
     @property
     def mesh(self):
-        """The mesh the rank's parameters and caches are stored by."""
+        """The mesh the rank's parameters are stored by."""
+        from repro_torch.core.mesh_lowering import Mesh
+
+        return Mesh(tuple(self.clients) + (("model", self.size),))
+
+    @property
+    def model_mesh(self):
+        """The ``model`` axis alone: the mesh of the rank's own rows."""
         from repro_torch.core.mesh_lowering import Mesh
 
         return Mesh((("data", 1), ("model", self.size)))
 
     @property
     def coords(self) -> Dict[str, int]:
-        return {"data": 0, "model": self.rank}
+        out, idx = {}, self.client_rank
+        for name, k in reversed(self.clients):
+            out[name] = idx % k
+            idx //= k
+        return {**{a: out[a] for a, _ in self.clients}, "model": self.rank}
 
     def counters(self) -> Dict[str, int]:
-        return {k: getattr(self, k) for k in (
-            "all_reduces", "all_reduce_bytes", "gathered_leaves", "gathered_bytes")}
+        out = {k: getattr(self, k) for k in _COUNTERS}
+        out["model_all_reduces"] = self.all_reduces - self.data_all_reduces
+        out["model_all_reduce_bytes"] = self.all_reduce_bytes - self.data_all_reduce_bytes
+        return out
 
     def reset_counters(self) -> None:
-        for k in self.counters():
+        for k in _COUNTERS:
             setattr(self, k, 0)
 
     @classmethod
-    def counting(cls, size: int, rank: int = 0, device: Any = "cpu") -> "ModelGroup":
-        """Rank ``rank`` of a group of ``size`` with no processes behind it:
-        each collective is counted, as on a real group, and returns its
-        input unchanged (the values are not the group's)."""
-        return cls(rank=rank, size=size, backend="count", device=torch.device(device))
+    def counting(cls, size: int, rank: int = 0, device: Any = "cpu", clients: Axes = (("data", 1),),
+                 client_rank: int = 0) -> "ModelGroup":
+        """Rank ``rank`` of a model axis of ``size`` (at ``client_rank`` of
+        a grid's ``clients``) with no processes behind it: each collective
+        is counted, as on a real group, and returns its input unchanged
+        (the values are not the group's)."""
+        return cls(rank=rank, size=size, backend="count", device=torch.device(device),
+                   clients=tuple(clients), client_rank=client_rank)
 
 
 def current_group() -> Optional[ModelGroup]:
-    """The group of the running call, or ``None`` (one process)."""
+    """The group of the running call when its ``model`` axis is split, or
+    ``None`` (one process on the model axis)."""
     g = _GROUP.get()
     return g if g is not None and g.size > 1 else None
+
+
+def rows_group() -> Optional[ModelGroup]:
+    """The group of the running call when its batch rows are split over
+    client ranks (a grid), or ``None``."""
+    g = _GROUP.get()
+    return g if g is not None and g.rows > 1 else None
+
+
+def data_group() -> Optional[ModelGroup]:
+    """The group of the running call when its ``data`` axis has more than
+    one rank (FSDP's data-dim blocks), or ``None``."""
+    g = _GROUP.get()
+    return g if g is not None and g.data_size > 1 else None
 
 
 @contextlib.contextmanager
@@ -120,7 +201,7 @@ def use_group(group: Optional[ModelGroup]) -> Iterator[None]:
 
 def bind(fn: Callable, group: Optional[ModelGroup]) -> Callable:
     """``fn`` run under ``group`` (``fn`` itself without one)."""
-    if group is None or group.size == 1:
+    if group is None or group.world == 1:
         return fn
 
     def run(*a, **k):
@@ -144,13 +225,15 @@ def is_block(local: int, full: int) -> bool:
 
 def checkpoint(fn: Callable, *args: Any) -> Any:
     """``torch.utils.checkpoint`` of ``fn`` whose recompute in the backward
-    runs under the group of the forward (the backward may run outside the
-    call that set it)."""
-    group = _GROUP.get()
+    runs in the context of the forward: its group and its sharding profile
+    (``models.shard_ctx``, whose ``min_blocks`` cuts the MoE routing
+    blocks). The backward may run outside the call that set them, and on
+    the card it runs on autograd's device thread, which does not inherit
+    the caller's context variables."""
+    context = contextvars.copy_context()
 
     def run(*a):
-        with use_group(group):
-            return fn(*a)
+        return context.copy().run(fn, *a)
 
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
@@ -158,19 +241,26 @@ def checkpoint(fn: Callable, *args: Any) -> Any:
 # --------------------------------------------------------------------- #
 # collectives
 # --------------------------------------------------------------------- #
-def _all_reduce_(x: torch.Tensor, op, group: ModelGroup) -> torch.Tensor:
-    """All-reduce ``x`` in place over the group (counted)."""
+def _all_reduce_(x: torch.Tensor, op, group: ModelGroup, over: str = "model") -> torch.Tensor:
+    """All-reduce ``x`` in place over the group's ``model`` axis, its rows
+    (``over="rows"``: pod x data) or its ``data`` axis (counted; the last
+    two as client-axis all-reduces)."""
+    nbytes = x.numel() * x.element_size()
     group.all_reduces += 1
-    group.all_reduce_bytes += x.numel() * x.element_size()
+    group.all_reduce_bytes += nbytes
+    if over != "model":
+        group.data_all_reduces += 1
+        group.data_all_reduce_bytes += nbytes
     if group.backend != "count":
-        dist.all_reduce(x, op=op, group=group.pg)
+        pg = {"model": group.pg, "rows": group.rows_pg, "data": group.data_pg}[over]
+        dist.all_reduce(x, op=op, group=pg)
     return x
 
 
 def all_reduce_sum(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
     """The sum of ``x`` over the group, a new tensor (no autograd)."""
     group = group or current_group()
-    if group is None:
+    if group is None or group.size == 1:
         return x
     return _all_reduce_(x.detach().clone(), dist.ReduceOp.SUM, group)
 
@@ -179,7 +269,7 @@ def all_reduce_max(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch
     """The elementwise max of ``x`` over the group, a new tensor (no
     autograd: a max is used as a constant shift)."""
     group = group or current_group()
-    if group is None:
+    if group is None or group.size == 1:
         return x
     return _all_reduce_(x.detach().clone(), dist.ReduceOp.MAX, group)
 
@@ -278,7 +368,7 @@ def gather_columns(x: torch.Tensor, offset: int, width: int,
     the zero-padded whole (exact: one term of each sum is nonzero; no
     autograd)."""
     group = group or current_group()
-    if group is None:
+    if group is None or group.size == 1:
         return x
     full = x.new_zeros(tuple(x.shape[:-1]) + (width,))
     full[..., offset:offset + x.shape[-1]] = x.detach()
@@ -294,13 +384,97 @@ def global_argmax(x: torch.Tensor, offset: int, width: int,
     max of the negated indices."""
     group = group or current_group()
     local = torch.argmax(x, dim=-1) + offset
-    if group is None:
+    if group is None or group.size == 1:
         return local
     vals = torch.amax(x, dim=-1)
     top = all_reduce_max(vals.to(torch.float32), group)
     hit = vals.to(torch.float32) == top
     neg = torch.where(hit, -local, torch.full_like(local, -width))
     return -all_reduce_max(neg, group)
+
+
+# --------------------------------------------------------------------- #
+# the client axes of a grid
+# --------------------------------------------------------------------- #
+class _GatherData(torch.autograd.Function):
+    """FSDP's gather at use: the leaf whole along ``dim`` from the ``data``
+    ranks' blocks (the zero-padded block all-reduced over ``data``, exact).
+    Each rank computes on its own rows, so the whole leaf's gradient is a
+    partial sum: the backward sums it over the rows group (pod x data) and
+    keeps the rank's block, a reduce-scatter written as an all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        n = x.shape[dim]
+        ctx.dim, ctx.lo, ctx.n, ctx.group = dim, group.coords["data"] * n, n, group
+        shape = list(x.shape)
+        shape[dim] = n * group.data_size
+        full = x.new_zeros(shape)
+        full.narrow(dim, ctx.lo, n).copy_(x)
+        group.data_gathered_leaves += 1
+        group.data_gathered_bytes += full.numel() * full.element_size()
+        return _all_reduce_(full, dist.ReduceOp.SUM, group, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        # the incoming gradient is summed in place where it is a buffer of
+        # its own (a whole leaf's: one copy fewer at the backward's peak)
+        own = g.is_contiguous() and g._base is None
+        g = _all_reduce_(g if own else g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group,
+                         "rows")
+        # a copy of the block, so that the whole leaf's sum is freed here
+        block = g.narrow(ctx.dim, ctx.lo, ctx.n).clone(memory_format=torch.contiguous_format)
+        return block, None, None
+
+
+def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` whole along ``dim`` over the ``data`` axis (itself when the
+    running group has one data rank)."""
+    group = data_group()
+    return x if group is None else _GatherData.apply(x, dim, group)
+
+
+class _ReduceFromRows(torch.autograd.Function):
+    """A rank's share summed over the rows group: all-reduce forward,
+    identity backward (each rank's gradient is of its own share)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.contiguous().clone(), dist.ReduceOp.SUM, group, "rows")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_rows(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the rows group of each rank's share ``x`` (itself when
+    the rows are not split)."""
+    group = rows_group()
+    return x if group is None else _ReduceFromRows.apply(x, group)
+
+
+def rows_sum(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over the rows group, a new tensor (no autograd)."""
+    group = group or rows_group()
+    if group is None:
+        return x
+    return _all_reduce_(x.detach().clone(), dist.ReduceOp.SUM, group, "rows")
+
+
+def data_sum(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over the ``data`` axis, a new tensor (no
+    autograd)."""
+    group = group or data_group()
+    if group is None:
+        return x
+    return _all_reduce_(x.detach().clone(), dist.ReduceOp.SUM, group, "data")
+
+
+def row_share() -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of the batch rows."""
+    group = rows_group()
+    return (0, 1) if group is None else (group.client_rank, group.rows)
 
 
 # --------------------------------------------------------------------- #
@@ -333,8 +507,57 @@ def build_kernels() -> None:
             fut.result()
 
 
-def _worker(rank: int, devices: List[str], backend: str, init_file: str, timeout_s: float,
-            tasks, results) -> None:
+def grid_place(axes: Axes, index: int) -> Dict[str, Any]:
+    """Where process ``index`` of the mesh ``axes`` (row-major: the last
+    axis fastest) sits, as ``ModelGroup``'s fields: its ``model`` rank and
+    the axis size, the client axes and its index over them."""
+    from repro_torch.core.mesh_lowering import Mesh
+    from repro_torch.launch.sharding import mesh_coords
+
+    me = mesh_coords(Mesh(tuple(axes)))[index]
+    clients = tuple((a, n) for a, n in axes if a != "model")
+    client_rank = 0
+    for a, n in clients:
+        client_rank = client_rank * n + me[a]
+    return {"rank": me.get("model", 0), "size": dict(axes).get("model", 1),
+            "clients": clients or (("data", 1),), "client_rank": client_rank}
+
+
+def _grid_groups(index: int, axes: Axes) -> ModelGroup:
+    """The group of process ``index`` of the mesh ``axes``, its process
+    groups made by ``dist.new_group``: every rank makes every group, in the
+    same order, as the call asks."""
+    from repro_torch.core.mesh_lowering import Mesh
+    from repro_torch.launch.sharding import mesh_coords
+
+    coords = mesh_coords(Mesh(axes))
+    clients = tuple(a for a, _ in axes if a != "model")
+
+    def make(key: Callable[[Dict[str, int]], Any]) -> Any:
+        members: Dict[Any, List[int]] = {}
+        for i, c in enumerate(coords):
+            members.setdefault(key(c), []).append(i)
+        mine = None
+        for ranks in members.values():
+            if len(ranks) == len(coords):
+                pg = dist.group.WORLD
+            elif len(ranks) == 1:
+                pg = None
+            else:
+                pg = dist.new_group(ranks)
+            if index in ranks:
+                mine = pg
+        return mine
+
+    model_pg = make(lambda c: tuple(c[a] for a in clients))
+    rows_pg = make(lambda c: c.get("model", 0))
+    pods = dict(axes).get("pod", 1)
+    data_pg = rows_pg if pods == 1 else make(lambda c: (c.get("pod", 0), c.get("model", 0)))
+    return ModelGroup(pg=model_pg, rows_pg=rows_pg, data_pg=data_pg, **grid_place(axes, index))
+
+
+def _worker(rank: int, devices: List[str], axes: Axes, backend: str, init_file: str,
+            timeout_s: float, tasks, results) -> None:
     size = len(devices)
     try:
         device = torch.device(devices[rank])
@@ -343,8 +566,8 @@ def _worker(rank: int, devices: List[str], backend: str, init_file: str, timeout
         torch.set_num_threads(1)
         dist.init_process_group(backend, init_method=f"file://{init_file}", world_size=size,
                                 rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
-        group = ModelGroup(rank=rank, size=size, pg=dist.group.WORLD, backend=backend,
-                           device=device)
+        group = _grid_groups(rank, axes)
+        group.backend, group.device = backend, device
         results.put((rank, "ready", None))
     except Exception:  # noqa: BLE001 - reported to the parent
         results.put((rank, "error", traceback.format_exc()))
@@ -377,10 +600,21 @@ class GroupPool:
     """One process per entry of ``devices``, joined in a process group,
     running functions ``fn(group, *args)`` on every rank at once. ``fn``
     must be importable by name (a module-level function) and return host
-    objects. Any rank's failure closes the pool and raises ``GroupError``."""
+    objects. Any rank's failure closes the pool and raises ``GroupError``.
 
-    def __init__(self, devices: Sequence[Any], *, timeout_s: float = 300.0):
+    ``axes`` (a mesh's ``(name, size)`` pairs, their product the number of
+    devices) lays the ranks out on a grid in row-major order, the ``model``
+    axis fastest; by default every rank is on the ``model`` axis."""
+
+    def __init__(self, devices: Sequence[Any], *, timeout_s: float = 300.0,
+                 axes: Optional[Axes] = None):
         self.devices = [str(torch.device(d)) for d in devices]
+        self.axes = tuple(axes or (("data", 1), ("model", len(self.devices))))
+        n = 1
+        for _, k in self.axes:
+            n *= k
+        if n != len(self.devices) or "model" not in dict(self.axes):
+            raise ValueError(f"a grid {self.axes} for {len(self.devices)} devices")
         self.backend = choose_backend(self.devices)
         if any(torch.device(d).type == "cuda" for d in self.devices):
             build_kernels()  # here, once, so that a compile error shows before any rank
@@ -395,7 +629,8 @@ class GroupPool:
         try:
             for rank in range(len(self.devices)):
                 p = ctx.Process(target=_worker, args=(
-                    rank, self.devices, self.backend, os.path.join(self._dir, "rendezvous"),
+                    rank, self.devices, self.axes, self.backend,
+                    os.path.join(self._dir, "rendezvous"),
                     timeout_s, self._tasks[rank], self._results), daemon=True)
                 p.start()
                 self._procs.append(p)
@@ -475,8 +710,8 @@ class GroupPool:
 
 
 def run_model_group(fn: Callable, devices: Sequence[Any], *args: Any,
-                    timeout_s: float = 300.0) -> List[RankResult]:
-    """``fn(group, *args)`` on one process per entry of ``devices``; each
-    rank's value, in rank order."""
-    with GroupPool(devices, timeout_s=timeout_s) as pool:
+                    timeout_s: float = 300.0, axes: Optional[Axes] = None) -> List[RankResult]:
+    """``fn(group, *args)`` on one process per entry of ``devices`` (on the
+    grid ``axes``); each rank's value, in rank order."""
+    with GroupPool(devices, timeout_s=timeout_s, axes=axes) as pool:
         return pool.run(fn, *args, timeout_s=timeout_s)

@@ -9,13 +9,17 @@ to the JAX package's for the same seed. ``--ranks N`` takes the JAX
 driver's mesh for N devices (``launch.mesh.make_mesh_for_devices``): its
 ``model`` axis is that many processes (``launch.tensor_parallel``), on the
 cards or on the CPU with ``--device cpu``, and its ``data`` axis virtual
-clients; every rank draws the one-process parameters from the same seed
-and keeps its blocks.
+clients; an FSDP config (its clients live on ``pod``) makes every device
+of the mesh a process instead, each holding its (data, model) blocks and
+training on its rows of each microbatch. Every rank draws the one-process
+parameters from the same seed and keeps its blocks.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_5_3b --reduced \\
       --steps 50 --batch 8 --seq 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --ranks 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b_a22b --reduced \
+      --device cpu --ranks 6
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.fl.fedstep import FedStepConfig
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.launch.mesh import make_mesh_for_devices, make_smoke_mesh, make_virtual_mesh
 from repro_torch.launch.serve import _rank_devices
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.steps import build_train_step, grid_axes
 
 
 def make_batch(cfg, tokens, device) -> dict:
@@ -56,7 +60,7 @@ def _train(group, args, mesh) -> dict:
     # bf16 products reduce split-K partial sums in float32, as the JAX
     # package's float32 accumulation does (models/layers.py)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    if group is None or group.rank == 0:
+    if group is None or group.rank == group.client_rank == 0:
         print(f"[train] arch={cfg.arch_id} params={cfg.param_count():,} "
               f"mesh={mesh.shape} clients over {setup.client_axes} "
               f"tag={setup.tag.name if setup.tag else None} device={bundle.device}", flush=True)
@@ -70,7 +74,7 @@ def _train(group, args, mesh) -> dict:
         batch = make_batch(cfg, next(data), bundle.device)
         params, state, metrics = setup.step(params, state, batch, i)
         losses.append(float(metrics["loss"]))
-        if (group is None or group.rank == 0) and (i % args.log_every == 0
+        if (group is None or group.rank == group.client_rank == 0) and (i % args.log_every == 0
                                                    or i == args.steps - 1):
             print(f"[train] step {i:4d} loss {losses[-1]:.4f} "
                   f"({(time.time() - t0) / (i + 1):.2f}s/step)", flush=True)
@@ -85,7 +89,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2_5_3b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows a step (default 8, or the least multiple above of the local "
+                         "steps times the data ranks)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--local-steps", type=int, default=2)
     ap.add_argument("--local-lr", type=float, default=0.05)
@@ -100,6 +106,10 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    clients = args.clients * (make_mesh_for_devices(args.ranks).shape["data"])
+    unit = args.local_steps * clients
+    if args.batch is None:
+        args.batch = unit * -(-8 // unit)
     if args.ranks == 1:
         mesh = make_smoke_mesh() if args.clients == 1 else make_virtual_mesh(args.clients)
         losses = _train(None, args, mesh)["losses"]
@@ -107,9 +117,14 @@ def main(argv=None):
         if args.clients != 1 or args.checkpoint:
             raise ValueError("--ranks takes its clients from the mesh and saves no checkpoint")
         mesh = make_mesh_for_devices(args.ranks)
-        devices = _rank_devices(args.device, mesh.shape["model"])
-        with tp.GroupPool(devices) as pool:
-            print(f"[train] {len(devices)} ranks on {devices}: backend {pool.backend}")
+        axes = grid_axes(get_config(args.arch, reduced=args.reduced), mesh, "train")
+        n = 1
+        for _, k in axes:
+            n *= k
+        devices = _rank_devices(args.device, n)
+        with tp.GroupPool(devices, axes=axes) as pool:
+            print(f"[train] {len(devices)} ranks on {devices}: grid {dict(axes)}, backend "
+                  f"{pool.backend}")
             outs = [r.value for r in pool.run(_train, args, mesh, timeout_s=3600)]
         losses = outs[0]["losses"]
         if any(o["losses"] != losses for o in outs):

@@ -28,6 +28,14 @@ the rank's block of every cache leaf (``cache_pspec``), and every call runs
 under the group, so the model code computes on the blocks and meets the
 other ranks in the collectives. Logits come back as the rank's vocabulary block
 (``transformer.vocab_offset``). ``group=None`` is the one-process model.
+
+On a grid (a group whose client axes are processes too) the rank keeps
+its blocks over ``data`` as well (FSDP configs), and serves and trains its
+own rows of the batch: ``init_cache(rows, ...)`` allocates the cache of
+the rank's rows (its ``model`` blocks), and ``loss_fn`` returns the loss
+of the whole batch, each rank's share summed over the rows group
+(``tensor_parallel.reduce_from_rows``; each rank's gradient is of its
+own share).
 """
 from __future__ import annotations
 
@@ -101,9 +109,10 @@ def _rank_keep(cfg: ModelConfig, group: tp.ModelGroup):
 
 def _rank_cache(cfg: ModelConfig, batch: int, max_len: int, group: tp.ModelGroup,
                 device: torch.device) -> Tree:
-    """The rank's block of every cache leaf, allocated at its block shape."""
+    """The rank's block of every cache leaf, allocated at its block shape:
+    the cache of the rank's ``batch`` rows, cut over the ``model`` axis."""
     full = cache_shapes(cfg, batch, max_len)
-    mesh = group.mesh
+    mesh = group.model_mesh
 
     def leaf(path, x):
         spec = sharding.cache_pspec(path, x, cfg, mesh)
@@ -118,8 +127,10 @@ def _on_group(bundle: "ModelBundle") -> "ModelBundle":
     """``bundle`` whose every call runs under its group, with the group's
     blocks for parameters and caches."""
     group, cfg = bundle.group, bundle.cfg
-    if group is None or group.size == 1:
+    if group is None or group.world == 1:
         return bundle
+    if group.data_size > 1 and not cfg.encoder_layers:
+        transformer.param_specs_on(cfg, group.mesh)  # the specs the layers gather by
 
     def init(gen):
         return bundle.init(gen, _rank_keep(cfg, group))
@@ -178,9 +189,9 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> ModelBundle:
         _refuse_flash_training(cfg)
         if is_vlm:
             embeds = _embed_with_patches(params, cfg, batch["tokens"], batch["patch_embeds"])
-            return transformer.lm_loss(params, cfg, batch["tokens"], embeds=embeds,
-                                       positions=batch.get("positions"))
-        return transformer.lm_loss(params, cfg, batch["tokens"])
+            return tp.reduce_from_rows(transformer.lm_loss(
+                params, cfg, batch["tokens"], embeds=embeds, positions=batch.get("positions")))
+        return tp.reduce_from_rows(transformer.lm_loss(params, cfg, batch["tokens"]))
 
     def init_cache(batch_size, max_len):
         return transformer.init_cache(cfg, batch_size, max_len, device)
@@ -242,7 +253,7 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     def loss_fn(params, batch, rng):
         del rng
         _refuse_flash_training(cfg)
-        return encdec.lm_loss(params, cfg, batch["tokens"], batch["frames"])
+        return tp.reduce_from_rows(encdec.lm_loss(params, cfg, batch["tokens"], batch["frames"]))
 
     def init_cache(batch_size, max_len):
         return encdec.init_cache(cfg, batch_size, max_len, device)

@@ -225,9 +225,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device: torch.device,
 def lm_loss(params: Tree, cfg: ModelConfig, tokens: torch.Tensor,
             frames: torch.Tensor) -> torch.Tensor:
     """Next-token cross-entropy of the decoder over ``tokens`` given the
-    encoded ``frames``."""
+    encoded ``frames`` (on a grid of D client ranks, the rank's share: its
+    mean over D)."""
     memory = encode(params, cfg, frames)
     h, _, _ = decode_hidden(params, cfg, tokens, memory)
     unemb = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return chunked_ce(h[:, :-1], unemb, tokens[:, 1:], use_scan=cfg.scan_attn_chunks,
-                      vocab=cfg.padded_vocab)
+                      vocab=cfg.padded_vocab) / tp.row_share()[1]

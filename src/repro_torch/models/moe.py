@@ -24,6 +24,15 @@ Router aux loss: the load-balancing loss ``E * sum_e f_e * P_e`` per block
 (f the routed-token fraction, P the mean router probability), averaged over
 the blocks.
 
+On a grid whose batch rows are split over client ranks
+(``tensor_parallel.row_share``), the routing blocks are the one-process
+run's on the global token count: a rank with N/D of the N tokens routes
+its nb/D whole blocks where D divides nb, each with the capacity of the
+one-process block; where nb divides D, each block spans D/nb ranks, and a
+slot's rank within its expert adds the slots of the block's earlier ranks
+(their per-expert counts, all-reduced over the rows). The aux loss a rank
+returns is its share: the ranks' shares sum to the mean over all nb blocks.
+
 Under a model group (``launch.tensor_parallel``) whose size divides the
 experts, each rank holds a block of them (``(E/m, d, ff)``). The router is
 replicated: every rank routes every token alike. Each rank dispatches the
@@ -101,14 +110,33 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _straddle(counts: torch.Tensor, span: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A block spread over ``span`` consecutive client ranks, this rank's
+    per-expert slot counts ``counts`` (1, E): the slots of the block's
+    earlier ranks and of the whole block, each (1, E), from one all-reduce
+    of every rank's counts over the rows group."""
+    me, ranks = tp.row_share()
+    every = torch.zeros((ranks,) + tuple(counts.shape[1:]), dtype=counts.dtype,
+                        device=counts.device)
+    every[me] = counts[0]
+    every = tp.rows_sum(every)
+    first = me - me % span
+    return (torch.sum(every[first:me], dim=0, keepdim=True),
+            torch.sum(every[first:first + span], dim=0, keepdim=True))
+
+
 def _route(p: Tree, xb: torch.Tensor, cfg: ModelConfig, C: int,
-           experts: Optional[Tuple[int, int]] = None, rows: Optional[torch.Tensor] = None):
+           experts: Optional[Tuple[int, int]] = None, rows: Optional[torch.Tensor] = None,
+           span: int = 1):
     """Route every block of xb (nb, N, d): the expert-major buffer
     (E, nb, C, d) and the combine metadata (expert ids, ranks, slot
     weights, each (nb, N·k), and the per-block aux loss (nb,)).
     ``experts`` = (lo, n) keeps the buffer of experts [lo, lo + n) only:
     the other experts' slots take zero weight and add zeros into row 0.
-    ``rows`` (xb's values) are the rows scattered, when not xb itself."""
+    ``rows`` (xb's values) are the rows scattered, when not xb itself.
+    ``span`` > 1: xb is this rank's part of one block spread over that many
+    client ranks (``_straddle``); its aux is the rank's share of the
+    block's."""
     nb, N, d = xb.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     probs = router_probs(p, xb)  # (nb, N, E)
@@ -116,13 +144,20 @@ def _route(p: Tree, xb: torch.Tensor, cfg: ModelConfig, C: int,
     top_w = top_w / torch.clamp(torch.sum(top_w, dim=-1, keepdim=True), min=1e-9)
 
     oh = F.one_hot(top_e, E).to(torch.int32)  # (nb, N, k, E)
-    frac = torch.mean(torch.sum(oh, dim=2).to(torch.float32), dim=1) / k  # (nb, E)
-    aux = E * torch.sum(frac * torch.mean(probs, dim=1), dim=-1)  # (nb,)
+    ids = top_e.reshape(nb, N * k)
+    cum = torch.cumsum(oh.reshape(nb, N * k, E), dim=1, dtype=torch.int32)
+    if span == 1:
+        frac = torch.mean(torch.sum(oh, dim=2).to(torch.float32), dim=1) / k  # (nb, E)
+        aux = E * torch.sum(frac * torch.mean(probs, dim=1), dim=-1)  # (nb,)
+    else:
+        before, total = _straddle(cum[:, -1], span)
+        cum = cum + before[:, None, :]
+        n_block = N * span
+        frac = total.to(torch.float32) / (n_block * k)
+        aux = E * torch.sum(frac * (torch.sum(probs, dim=1) / n_block), dim=-1)
 
     # rank of each slot within its expert: the running count of earlier
     # same-expert slots in the block
-    ids = top_e.reshape(nb, N * k)
-    cum = torch.cumsum(oh.reshape(nb, N * k, E), dim=1, dtype=torch.int32)
     rank = torch.gather(cum, 2, ids[..., None])[..., 0] - 1
     del oh, cum
     keep = rank < C
@@ -223,16 +258,25 @@ def moe_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     B, S, d = x.shape
     N = B * S
     E, k = cfg.num_experts, cfg.experts_per_token
-    nb = route_blocks(N)
-    block = N // nb
+    me, ranks = tp.row_share()
+    nb = route_blocks(N * ranks)  # the one-process blocks of every rank's tokens
+    block = N * ranks // nb
     C = _capacity(block, cfg)
+    span = 1
+    if nb % ranks == 0:
+        nb //= ranks  # this rank's whole blocks
+    elif ranks % nb == 0:
+        nb, span, block = 1, ranks // nb, N  # this rank's part of one block
+    else:
+        raise ValueError(f"{nb} routing blocks of {N * ranks} tokens neither divide nor are "
+                         f"divided by {ranks} client ranks")
     n_e = p["gate"].shape[0]
     split = tp.is_block(n_e, E)
     experts = rows = None
     if split:  # this rank's experts; the dispatch rows pass f
         experts = (tp.current_group().rank * n_e, n_e)
         rows = tp.copy_to_group(x).reshape(nb, block, d)
-    buf, meta = _route(p, x.reshape(nb, block, d), cfg, C, experts, rows)
+    buf, meta = _route(p, x.reshape(nb, block, d), cfg, C, experts, rows, span)
     prof = get_profile()
     if prof is not None:  # the JAX package's dispatch-layout pin
         buf = constrain(buf, (prof["batch"] or None, None, None, None))
@@ -245,4 +289,7 @@ def moe_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
         y = tp.reduce_from_group(y).to(x.dtype)
     if cfg.shared_expert:
         y = y + mlp_apply(p["shared"], x, cfg.activation, cfg.d_ff)
-    return y, torch.mean(meta[3])
+    if ranks == 1:
+        return y, torch.mean(meta[3])
+    # this rank's share of the mean over the one-process run's blocks
+    return y, torch.sum(meta[3]) / (nb * ranks // span)

@@ -25,18 +25,28 @@ logits (its columns below ``vocab_size``, from ``vocab_offset``), and
 ``chunked_ce`` takes a distributed log-sum-exp over the blocks (an
 all-reduce of the row maxima, of the sums of exponentials and of the
 target logits).
+
+On a grid whose ``data`` axis holds FSDP's blocks (``launch.
+tensor_parallel.data_group``), each layer's leaves split over ``data``
+are gathered whole over it as the layer begins (inside the checkpointed
+piece, so a remat layer frees them after its forward and gathers them
+again in the recompute), and the embedding at the lookup and at the
+logits (``data_whole``); each rank runs its own rows of the batch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init, layer_kinds
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import embed_apply, embed_init, rmsnorm_apply, rmsnorm_init, unembed_apply
+from repro_torch.models.layers import (MetaGenerator, embed_apply, embed_init, rmsnorm_apply,
+                                       rmsnorm_init, unembed_apply)
 from repro_torch.models.shard_ctx import pin_activation, pin_stash
 
 Tree = Any
@@ -137,6 +147,42 @@ def default_positions(cfg: ModelConfig, batch: int, seq: int, device: torch.devi
     return pos
 
 
+@functools.lru_cache(maxsize=16)
+def param_specs_on(cfg: ModelConfig, mesh: Any) -> Tree:
+    """The parameter specs of ``cfg`` on ``mesh`` (from the meta tree; a
+    rank's bundle computes them as it is built, outside its calls)."""
+    return shd.param_specs(init_params(MetaGenerator(), cfg), cfg, mesh)
+
+
+def data_specs(cfg: ModelConfig, *path: Any) -> Optional[Tree]:
+    """The specs of the part of the parameter tree at ``path`` on the
+    running grid's mesh when its ``data`` axis splits leaves, else None."""
+    group = tp.data_group()
+    if group is None or cfg.param_sharding != "fsdp":
+        return None
+    specs = param_specs_on(cfg, group.mesh)
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
+def data_whole(tree: Tree, specs: Optional[Tree], stacked: bool = False) -> Tree:
+    """``tree`` with each leaf that ``specs`` splits over ``data`` gathered
+    whole over it (``tp.gather_data``); ``stacked``: the specs are a
+    stack's and the leaves one slice of it (a leading dim fewer)."""
+    if specs is None:
+        return tree
+    group = tp.data_group()
+
+    def leaf(x, spec):
+        dim = shd.split_dim(spec, "data", group.mesh)
+        if dim is None:
+            return x
+        return tp.gather_data(x, dim - 1 if stacked else dim)
+
+    return shd.zip_map(leaf, tree, specs)
+
+
 def _unstack(tree: Tree, G: int) -> List[Tree]:
     """The G per-group trees of a stacked tree, as views. One ``unbind`` per
     leaf: its backward stacks the G gradients once, where G ``x[g]`` slices
@@ -163,12 +209,14 @@ def apply_stack(
         # stacked cache, which is returned as it came
         G = _n_groups(cfg)
         layers = [_unstack(params["groups"][j], G) for j in range(len(kinds))]
+        specs = [data_specs(cfg, "groups", j) for j in range(len(kinds))]
 
         def group(g, h, aux):
             h = pin_activation(h)  # the JAX package's scan-carry pin
             for j, kind in enumerate(kinds):
                 c = tree_map(lambda x: x[g], cache["groups"][j]) if cache is not None else None
-                h, _, a = block_apply(layers[j][g], h, positions, c, mode, cfg, kind)
+                p = data_whole(layers[j][g], specs[j], stacked=True)
+                h, _, a = block_apply(p, h, positions, c, mode, cfg, kind)
                 aux = aux + a
             return pin_stash(h), aux
 
@@ -183,6 +231,7 @@ def apply_stack(
     new_layers = []
     for i, p in enumerate(params["layers"]):
         ci = cache["layers"][i] if cache is not None else None
+        p = data_whole(p, data_specs(cfg, "layers", i))
         h, ci_new, a = block_apply(p, h, positions, ci, mode, cfg, kinds[i % len(kinds)])
         new_layers.append(ci_new)
         aux = aux + a
@@ -204,7 +253,8 @@ def forward_hidden(
     if embeds is None:
         if tokens is None:
             raise ValueError("forward needs tokens or embeds")
-        h = embed_apply(params["embed"], tokens, cfg.padded_vocab)
+        embed = data_whole(params["embed"], data_specs(cfg, "embed"))
+        h = embed_apply(embed, tokens, cfg.padded_vocab)
     else:
         h = embeds
     h = pin_activation(h)
@@ -223,6 +273,12 @@ def _unembedding(params: Tree, cfg: ModelConfig) -> Tree:
     return params["embed"] if cfg.tie_embeddings else params["unembed"]
 
 
+def _unembedding_whole(params: Tree, cfg: ModelConfig) -> Tree:
+    """The unembedding gathered whole over ``data`` where FSDP splits it."""
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    return data_whole(params[key], data_specs(cfg, key))
+
+
 def vocab_offset(params: Tree, cfg: ModelConfig) -> int:
     """The first vocabulary column of the rank's logits (0 unless the
     unembedding is a block of the vocabulary)."""
@@ -235,7 +291,7 @@ def logits_of(params: Tree, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     padding rows (``cfg.padded_vocab``) are dropped at this boundary. Under
     a model group with a vocab-sharded unembedding, the rank's columns
     ``[vocab_offset, ...)`` below ``vocab_size``."""
-    unemb = _unembedding(params, cfg)
+    unemb = _unembedding_whole(params, cfg)
     lo = vocab_offset(params, cfg)
     if unemb["emb"].shape[0] != cfg.padded_vocab:
         h = tp.copy_to_group(h)
@@ -338,11 +394,15 @@ def lm_loss(
     """Next-token cross-entropy (tokens shifted internally) + router aux.
 
     Uses ``chunked_ce``'s recomputed blocks when the config is in
-    deployment mode (``scan_attn_chunks``), as the JAX package does."""
+    deployment mode (``scan_attn_chunks``), as the JAX package does. On a
+    grid whose rows are split over D client ranks, the rank's share of the
+    global batch's loss: its mean cross-entropy over D, and its share of
+    the router aux (``moe.moe_apply``); the shares sum to the loss of the
+    whole batch."""
     h, _, aux = forward_hidden(params, cfg, tokens=tokens, embeds=embeds, positions=positions)
-    loss = chunked_ce(h[:, :-1], _unembedding(params, cfg), tokens[:, 1:],
+    loss = chunked_ce(h[:, :-1], _unembedding_whole(params, cfg), tokens[:, 1:],
                       use_scan=cfg.scan_attn_chunks, vocab=cfg.padded_vocab)
-    return loss + cfg.router_aux_weight * aux
+    return loss / tp.row_share()[1] + cfg.router_aux_weight * aux
 
 
 def decode_step(

@@ -86,7 +86,7 @@ def serve_rank(group, cfg, mesh_axes, params_np, tokens, frames, steps, fault=Fa
     planted = skipped_wo_all_reduce(group) if fault else contextlib.nullcontext()
     with torch.no_grad(), planted:
         out = greedy(setup.prefill, setup.serve_step, bundle, params,
-                     serve_batch(cfg, tokens, frames, dev), steps, group)
+                     setup.rows(serve_batch(cfg, tokens, frames, dev)), steps, group)
     out["flash_launches"] = {name: fn.launches for name, fn in fkernel.ROUTES.items()}
     out["counters"] = group.counters()
     out["param_bytes"] = sum(x.numel() * x.element_size()
@@ -116,7 +116,7 @@ def _params_on(bundle, cfg, params_np, device, group=None):
         from repro_torch.convert import tree_from_numpy
 
         return tree_from_numpy(params_np, device)
-    return shard_tree_from_numpy(params_np, cfg, group.mesh, group.rank, device)
+    return shard_tree_from_numpy(params_np, cfg, group.mesh, group.coords, device)
 
 
 def serve_one_process(cfg, mesh_axes, params_np, tokens, frames, steps, device="cpu"):
@@ -194,7 +194,7 @@ def _train_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, strat
 
         params = tree_from_numpy(params_np, "cpu")
     else:
-        params = shard_tree_from_numpy(params_np, cfg, group.mesh, group.rank, "cpu")
+        params = shard_tree_from_numpy(params_np, cfg, group.mesh, group.coords, "cpu")
     state = setup.init_state(params)
     codes = []
     quantize = mesh_lowering.quantize_int8
@@ -265,15 +265,15 @@ def failing_rank(group):
     return {}
 
 
-def serve_counts_rank(group, cfg, batch, prompt):
+def serve_counts_rank(group, cfg, batch, prompt, by_axis=False):
     """``launch.dryrun.serve_counts`` on the rank's real group."""
     from repro_torch.launch import dryrun
 
     with one_thread():
-        return dryrun.serve_counts(group, cfg, batch, prompt)
+        return dryrun.serve_counts(group, cfg, batch, prompt, by_axis)
 
 
-def train_counts_rank(group, cfg, mesh_axes, fed_kwargs, batch, wire):
+def train_counts_rank(group, cfg, mesh_axes, fed_kwargs, batch, wire, by_axis=False):
     """``launch.dryrun.train_counts`` on the rank's real group."""
     from repro_torch.fl.privacy import DPConfig
     from repro_torch.launch import dryrun
@@ -283,4 +283,46 @@ def train_counts_rank(group, cfg, mesh_axes, fed_kwargs, batch, wire):
         fed_kwargs["dp"] = DPConfig(**fed_kwargs["dp"])
     with one_thread():
         return dryrun.train_counts(group, cfg, Mesh(mesh_axes), FedStepConfig(**fed_kwargs),
-                                   batch, wire)
+                                   batch, wire, None, by_axis)
+
+
+def data_gather_adjoint_rank(group, w_np, x_np):
+    """loss = sum over every rank's rows of ``(x @ W) ** 2``, with W (its
+    rows in ``data`` blocks) gathered over ``data`` at use and each rank's
+    share summed over the rows group: the loss, the gathered W and the
+    gradient of the rank's block."""
+    torch.set_num_threads(1)
+    d, n = group.coords["data"], w_np.shape[0] // group.data_size
+    b = x_np.shape[0] // group.rows
+    x = torch.from_numpy(x_np[group.client_rank * b:(group.client_rank + 1) * b].copy())
+    wb = torch.from_numpy(w_np[d * n:(d + 1) * n].copy()).requires_grad_(True)
+    with tp.use_group(group):
+        w = tp.gather_data(wb, 0)
+        y = x @ w
+        loss = tp.reduce_from_rows(torch.sum(y * y))
+        loss.backward()
+    return {"loss": float(loss), "w_whole": w.detach().numpy(), "gw": wb.grad.numpy(),
+            "counters": group.counters()}
+
+
+def moe_rows_rank(group, cfg, p_np, x_np, mesh_axes):
+    """``moe_apply`` of the rank's rows of ``x_np`` (B, S, d) under the
+    mesh's profile (``group=None``: every row, one process), the experts cut
+    to the rank's ``model`` block: its output rows and its aux share."""
+    from repro_torch.models import moe
+
+    with one_thread():
+        p = {k: torch.from_numpy(v) for k, v in p_np.items() if k != "router"}
+        p["router"] = {"w": torch.from_numpy(p_np["router"])}
+        x = torch.from_numpy(x_np)
+        if group is not None:
+            E = cfg.num_experts // group.size
+            for k in ("gate", "up", "down"):
+                p[k] = p[k][group.rank * E:(group.rank + 1) * E]
+            b = x.shape[0] // group.rows
+            x = x[group.client_rank * b:(group.client_rank + 1) * b]
+        fn = _with_moe_profile(lambda: moe.moe_apply(p, x, cfg), cfg, Mesh(mesh_axes))
+        with tp.use_group(group), torch.no_grad():
+            y, aux = fn()
+        return {"y": y.numpy(), "aux": float(aux),
+                "counters": group.counters() if group is not None else {}}

@@ -588,10 +588,11 @@ def test_init_draws_from_the_generator():
 
 def test_what_is_not_ported_raises():
     """Every family of the JAX package builds, serves and trains, over a
-    model axis too (tests/test_torch_tensor_parallel.py); what the port
-    still lacks is FSDP's data-dim blocks: ``build_train_step`` refuses an
-    FSDP config on a mesh whose data axis is larger than 1 (and any model
-    axis > 1 without the rank's group)."""
+    model axis too (tests/test_torch_tensor_parallel.py) and on a grid of
+    data and model ranks (tests/test_torch_fsdp.py); ``build_train_step``
+    refuses an FSDP config on a mesh whose data axis is larger than 1 given
+    a group of the model axis alone (its data axis runs as processes), and
+    any model axis > 1 without the rank's group."""
     from repro_torch.core.mesh_lowering import Mesh
     from repro_torch.launch.steps import build_train_step
     from repro_torch.launch.tensor_parallel import ModelGroup
@@ -599,7 +600,7 @@ def test_what_is_not_ported_raises():
     for arch in ("hymba_1_5b", "xlstm_1_3b", "seamless_m4t_medium"):
         bundle = build_model(get_config(arch, reduced=True), "cpu")
         assert bundle.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="FSDP"):
+    with pytest.raises(ValueError, match="runs as the grid"):
         build_train_step(get_config("qwen3_moe_235b_a22b", reduced=True),
                          Mesh((("data", 2), ("model", 2))), device="cpu",
                          group=ModelGroup(rank=0, size=2))

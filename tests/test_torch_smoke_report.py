@@ -363,10 +363,19 @@ if __name__ == "__main__":
 
     out = cs.phase_tensor_parallel(torch.device("cpu"), "no card")
     print("LAUNCHES", out["qwen"]["launches_per_rank"], out["moe"]["launches_per_rank"])
+    grid = cs.phase_grid(torch.device("cpu"), "no card", out)
+    print("GRID LAUNCHES", grid["qwen"]["launches_per_rank"], grid["moe"]["launches_per_rank"])
     torch.cuda.get_device_properties = lambda dev: types.SimpleNamespace(
         total_memory=hw.HBM_PER_CARD)
-    ten = cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card")
+    ten = cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card", grid)
     print("DRYRUN", ten["roofline"]["dominant"], ten["param_bytes"])
+    right = grid["train"]["by_axis"][1]
+    grid["train"]["by_axis"][1] = {"model": right["model"], "data": (1, 1)}
+    try:
+        cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card", grid)
+    except cs.PhaseFailed as e:
+        print("GRID MISCOUNT REFUSED", e)
+    grid["train"]["by_axis"][1] = right
     out["qwen"]["prefill_all_reduce"][1] = (8, 0)
     try:
         cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card")
@@ -383,8 +392,9 @@ if __name__ == "__main__":
 def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     """The whole phase, every gate, over two gloo ranks on the CPU (the
     flash route a counting plain version, the CUDA calls no-ops), then
-    phase 10 on its results: it passes, and refuses a miscounted
-    all-reduce and a prefill faster than its compute term."""
+    phase 9f over a (data 2, model 2) grid of four, then phase 10 on their
+    results: it passes, and refuses a miscounted all-reduce (phase 9's and
+    9f's by axis) and a prefill faster than its compute term."""
     driver = tmp_path / "rehearse_phase9.py"
     driver.write_text(_REHEARSAL)
     env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
@@ -394,10 +404,13 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     out = proc.stdout
     for part in ("phase 9a:", "phase 9b Qwen2.5-3B:", "phase 9b sampling:",
                  "phase 9c Qwen3-MoE-235B-A22B:", "phase 9d:", "phase 9e:",
-                 "phase 9 flash_sm90 at", "phase 10: card memory", "MISCOUNT REFUSED",
-                 "TOO FAST REFUSED"):
+                 "phase 9 flash_sm90 at", "phase 9f a:", "phase 9fb Qwen2.5-3B:",
+                 "phase 9fc Qwen3-MoE-235B-A22B:", "phase 9f d:", "phase 9f flash_sm90 at",
+                 "phase 10 grid:", "phase 10: card memory", "MISCOUNT REFUSED",
+                 "GRID MISCOUNT REFUSED", "TOO FAST REFUSED"):
         assert part in out
     assert "LAUNCHES [4, 4] [2, 2]" in out and "DRYRUN memory" in out
+    assert "GRID LAUNCHES [4, 4, 4, 4] [2, 2, 2, 2]" in out
 
 
 def test_float32_flash_gate_sees_the_planted_attention_faults():

@@ -331,16 +331,25 @@ def test_a_ranks_init_cuts_each_part_as_drawn(arch, monkeypatch):
                 assert parts.count((path, stack)) == stack, (path, stack)
 
 
-def test_builders_refuse_what_is_not_ported():
+def test_builders_build_on_a_data2_model2_grid_and_refuse_a_missing_group():
+    """Both builders build at (data 2, model 2) for the rank of a grid: the
+    FSDP train step as one client over the grid, serving on the rank's rows.
+    A model axis without its group, or a grid's step given a group of the
+    model axis alone, is refused."""
     qwen, moe = get_config("qwen2_5_3b", reduced=True), get_config("qwen3_moe_235b_a22b",
                                                                     reduced=True)
-    group = tp.ModelGroup(rank=0, size=2)
+    mesh = Mesh((("data", 2), ("model", 2)))
+    grid = tp.ModelGroup(rank=0, size=2, clients=(("data", 2),), client_rank=1)
     with pytest.raises(ValueError, match="runs as 2 processes"):
         build_train_step(qwen, Mesh((("data", 1), ("model", 2))), device="cpu")
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        build_train_step(moe, Mesh((("data", 2), ("model", 2))), device="cpu", group=group)
-    with pytest.raises(NotImplementedError, match="serving on client axes"):
-        build_serve_step(qwen, Mesh((("data", 2), ("model", 2))), 8, 2, "cpu", group)
+    bundle, setup = build_train_step(moe, mesh, device="cpu", group=grid)
+    assert bundle.group is grid and setup.client_axes == () and setup.tag is None
+    bundle, setup = build_serve_step(qwen, mesh, 8, 4, "cpu", grid)
+    assert bundle.group is grid
+    rows = setup.rows({"tokens": torch.arange(4)[:, None]})["tokens"]
+    assert rows[:, 0].tolist() == [2, 3]  # the second data rank's rows
+    with pytest.raises(ValueError, match="runs as the grid"):
+        build_serve_step(qwen, mesh, 8, 4, "cpu", tp.ModelGroup(rank=0, size=2))
     bundle, setup = build_serve_step(qwen, Mesh((("data", 1), ("model", 1))), 8, 2, "cpu")
     assert bundle.group is None and setup.param_shardings["embed"]["emb"] == ("model", None)
 
