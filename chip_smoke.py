@@ -7,7 +7,7 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs ten phases (phase 6 in eight
+source, started together), then runs ten phases (phase 6 in twelve
 parts, phase 9 in two), each printing its lines, and the kernels line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
@@ -148,6 +148,22 @@ parts, phase 9 in two), each printing its lines, and the kernels line:
    within 2e-3; then ``flash.cu`` at the model's attention shape, at D 32,
    64 and 256 and at Hymba-1.5B's, all float32, against the plain version,
    SDPA and its bound;
+   6v, 6k, 6j, 6l. the four shipped configurations the phases above do not
+   serve, at their published widths, bf16, seeded weights, phase 6's
+   traffic, each through phase 6's checks with ``flash_sm90.cu`` at its
+   attention shape (B 8, S 2048, D 128, causal) against the plain version,
+   SDPA and its bound: 6v Qwen2-VL-2B (28 layers, H 12/2; serving keeps
+   the serve loop's stub patches and text positions, as the JAX package
+   does, and the gates and times run on a VLM batch: seeded patch
+   embeddings over the first 1024 slots and M-RoPE positions whose h and w
+   streams are the 32 x 32 patch grid's rows and columns, with a planted
+   fault that rotates every section by the t stream); 6k DeepSeek-7B (30
+   layers, MHA H 32/32); 6j GLM4-9B (40 layers, H 32/2); each then 2 layers
+   in float32 card against CPU; 6l Llama4-Maverick-400B-A17B (H 40/8, 128
+   experts top-1 and a shared expert, MoE every other layer) cut from 48
+   layers to one period (a dense layer, then a MoE layer, 37 GB), through
+   phase 6d's checks and times (routing pinned, the shared expert timed
+   as a piece, the init's peak memory);
 7. the process plane (run after phase 5, before phase 6): (a) phase 5's job
    (the same tree, seeds, 4 trainers, 2 rounds, ``int8_blocks``) through
    ``run_job_multiproc`` with ``reduce_plan`` 1: 5 worker processes and the
@@ -273,8 +289,8 @@ parts, phase 9 in two), each printing its lines, and the kernels line:
 11. a ``kernels`` JSON line: launches on each path (phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
-   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's, 6f's and
-   phase 9's (both ranks') serving runs for the flash kernels, phase
+   the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's, 6f's, 6v's,
+   6k's, 6j's, 6l's and phase 9's (both ranks') serving runs for the flash kernels, phase
    7's process job and phase 7c's faulted jobs for the agg and quant
    entries, phase 8's rounds for every kernel, phase 9f's grid serving
    for the flash kernels), time, plain version's time, bound and a library
@@ -462,6 +478,9 @@ MOE_TF_CAPACITY, MOE_TF_PROMPTS, MOE_TF_LEN = 8.0, 2, 256
 # recurrence takes whole chunks): Hymba's of 2048 (its window, so the steps
 # wrap the ring), xLSTM's of 1792
 HYMBA_PROMPT, SEAMLESS_PROMPT, TF_PROMPTS, TF_STEPS = 4096, 256, 2, 32
+# phase 6v: Qwen2-VL-2B's stub patch embeddings, scaled as the CPU twins
+# scale theirs (tests/test_torch_models.py)
+VLM_PATCH_SCALE = 0.1
 # the encoder-decoder's stub frames, float32 as the serve loop's: this
 # times randn, so that the encoder does real work
 STUB_FRAMES = 0.1
@@ -3309,36 +3328,67 @@ class _PinnedRouting:
         tmoe._top_k = self._top_k
 
 
-def _moe_param_count(cfg) -> int:
-    """The parameters of the model's tree: untied embedding and unembedding
-    at the padded vocabulary, per layer two norms, attention (no biases)
-    and the MoE block (float32 router, stacked experts), the final norm."""
-    d, E, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
-    attn = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d
-    layer = 2 * d + attn + d * E + 3 * E * d * ff
-    return 2 * cfg.padded_vocab * d + cfg.num_layers * layer + d
-
-
 def phase_serve_moe(dev: torch.device) -> dict:
-    """Serving Qwen3-MoE-235B-A22B at its published widths, depth cut to
-    MOE_LAYERS, through ``serve.generate`` with the flash kernel; checks
-    and times, and the tensor-core flash kernel at its attention shape."""
-    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    """6d: Qwen3-MoE-235B-A22B at its published widths, depth cut to
+    MOE_LAYERS (``_serve_moe``)."""
     full = get_config("qwen3_moe_235b_a22b")
-    check((full.num_layers, full.d_model, full.num_heads, full.num_kv_heads, full.head_dim,
-           full.num_experts, full.experts_per_token, full.moe_d_ff, full.vocab_size,
-           full.tie_embeddings, full.param_dtype, full.moe_every)
-          == (94, 4096, 64, 4, 128, 128, 8, 1536, 151936, False, "bfloat16", 1),
-          "qwen3_moe_235b_a22b is not the published config")
+    _published(full, num_layers=94, d_model=4096, num_heads=64, num_kv_heads=4, head_dim=128,
+               num_experts=128, experts_per_token=8, moe_d_ff=1536, vocab_size=151936,
+               tie_embeddings=False, param_dtype="bfloat16", moe_every=1, shared_expert=False)
     cfg = dataclasses.replace(full, num_layers=MOE_LAYERS, attn_impl="flash")
+    return _serve_moe(dev, "Qwen3-MoE-235B-A22B", cfg, full.num_layers)
+
+
+def phase_serve_llama4(dev: torch.device) -> dict:
+    """6l: Llama4-Maverick-400B-A17B at its published widths (128 experts
+    top-1 and a shared expert, MoE every other layer), depth cut to one
+    period: a dense layer, then a MoE layer (``_serve_moe``)."""
+    full = get_config("llama4_maverick_400b_a17b")
+    _published(full, num_layers=48, d_model=5120, num_heads=40, num_kv_heads=8, head_dim=128,
+               d_ff=8192, num_experts=128, experts_per_token=1, moe_d_ff=8192, moe_every=2,
+               shared_expert=True, vocab_size=202048, tie_embeddings=False,
+               param_dtype="bfloat16", rope_theta=500_000.0)
+    cfg = dataclasses.replace(full, num_layers=full.moe_every, attn_impl="flash")
+    return _serve_moe(dev, "Llama4-Maverick-400B-A17B", cfg, full.num_layers)
+
+
+def _moe_text(cfg) -> str:
+    return (f"{cfg.num_experts} experts top-{cfg.experts_per_token}"
+            + (" and a shared expert" if cfg.shared_expert else "")
+            + (f", MoE every {cfg.moe_every} layers" if cfg.moe_every > 1 else ""))
+
+
+def _serve_moe(dev: torch.device, label: str, cfg, full_layers: int) -> dict:
+    """Serving a MoE config (``cfg``: the published widths, depth cut,
+    ``attn_impl="flash"``) through ``serve.generate`` with the flash kernel:
+    phase 6's traffic; parameters counted against the JAX-shaped tree (the
+    period's dense layers and the shared expert too) and the init's peak
+    memory; one tensor-core flash launch a layer per prefill, none per
+    decode step; the flash prefill against the plain attention's with the
+    routing pinned, teacher forcing pinned; times and profiles (the MoE
+    pieces and the shared expert by CUDA events); nothing held after; the
+    tensor-core flash kernel at the model's attention shape."""
+    B, S, T = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    n_layers = cfg.num_layers
+    n_moe = n_layers // cfg.moe_every
     free_device()
     before = program_bytes(dev)
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        stage_s[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
     bundle = build_model(cfg, dev)
     plain_bundle = build_model(dataclasses.replace(cfg, attn_impl="xla"), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
     params = bundle.init(gen)
+    init_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     n_params = sum(x.numel() for x in tree_leaves(params))
-    check(n_params == _moe_param_count(cfg), f"{n_params} parameters, not {_moe_param_count(cfg)}")
+    check(n_params == _tree_param_count(cfg),
+          f"{label}: {n_params} parameters, not {_tree_param_count(cfg)} (the JAX-shaped tree)")
     params_gb = sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3349,12 +3399,12 @@ def phase_serve_moe(dev: torch.device) -> dict:
     launches = fkernel.flash_attention_bhsd.launches
     routes = _route_launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    check(out.all_finite, "non-finite logits while serving the MoE model")
-    check(out.tokens.shape == (B, T), f"tokens {tuple(out.tokens.shape)}")
-    on_path = on_entry("flash_attention_forward_sm90", MOE_LAYERS)
-    check(launches == MOE_LAYERS and routes == on_path,
-          f"{launches} flash launches ({routes}) in a prefill and {T - 1} decode steps, "
-          f"not {on_path}")
+    check(out.all_finite, f"{label}: non-finite logits while serving")
+    check(out.tokens.shape == (B, T), f"{label}: tokens {tuple(out.tokens.shape)}")
+    on_path = on_entry("flash_attention_forward_sm90", n_layers)
+    check(launches == n_layers and routes == on_path,
+          f"{label}: {launches} flash launches ({routes}) in a prefill and {T - 1} decode "
+          f"steps, not {on_path}")
 
     # per call: one launch a layer per prefill, none per decode step
     fkernel.reset_launches()
@@ -3364,10 +3414,11 @@ def phase_serve_moe(dev: torch.device) -> dict:
     fkernel.reset_launches()
     cache = bundle.serve_step(params, cache, {"token": nxt})[1]
     per_step = fkernel.flash_attention_bhsd.launches
-    check(per_prefill == MOE_LAYERS and per_prefill_routes == on_path and per_step == 0,
-          f"flash launches per prefill {per_prefill} ({per_prefill_routes}), per decode step "
-          f"{per_step}")
+    check(per_prefill == n_layers and per_prefill_routes == on_path and per_step == 0,
+          f"{label}: flash launches per prefill {per_prefill} ({per_prefill_routes}), per "
+          f"decode step {per_step}")
     del cache
+    stage("serve")
     # the flash prefill against the plain attention's, both routing every
     # token to the experts the flash prefill picked (a top-k choice turns a
     # bf16 rounding difference in the router's input into another expert);
@@ -3383,10 +3434,11 @@ def phase_serve_moe(dev: torch.device) -> dict:
     fx_err = float((logits_f - logits_x).abs().max())
     unpinned_rel = _rel_l2(logits_f, logits_u)
     check(all(bool(torch.isfinite(x).all()) for x in (logits_f, logits_x, logits_u)),
-          "non-finite prefill logits")
-    check(pin.calls == 2 * MOE_LAYERS, f"{pin.calls} routing calls pinned, not {2 * MOE_LAYERS}")
+          f"{label}: non-finite prefill logits")
+    check(pin.calls == 2 * n_moe, f"{label}: {pin.calls} routing calls pinned, not {2 * n_moe}")
     check(fx_rel <= SERVE_REL_L2,
-          f"MoE flash vs plain prefill logits (routing pinned): rel L2 {fx_rel} > {SERVE_REL_L2}")
+          f"{label}: flash vs plain prefill logits (routing pinned): rel L2 {fx_rel} > "
+          f"{SERVE_REL_L2}")
     del logits_x, logits_u
     # teacher forcing at capacity factor 8 (no slot dropped, so the decode
     # step routes as the longer prefill does): a decode step after a
@@ -3411,27 +3463,32 @@ def phase_serve_moe(dev: torch.device) -> dict:
         cache = tf.prefill(params, {"tokens": tf_prompts[:, :-1]}, tf.init_cache(P, L + 1))[1]
         pin.replay(lambda idx: idx.view(P, L + 1, k)[:, L:].reshape(1, P, k))
         logits_d = tf.serve_step(params, cache, {"token": tf_prompts[:, -1:]})[0]
-    check(pin.calls == 3 * MOE_LAYERS, f"{pin.calls} routing calls, not {3 * MOE_LAYERS}")
+    check(pin.calls == 3 * n_moe, f"{label}: {pin.calls} routing calls, not {3 * n_moe}")
     tf_rel = _rel_l2(logits_d, logits_s1)
     tf_err = float((logits_d - logits_s1).abs().max())
     tf_unpinned_rel = _rel_l2(teacher_forcing(), logits_s1)
     check(bool(torch.isfinite(logits_d).all()) and tf_rel <= SERVE_REL_L2,
-          f"MoE teacher forcing (routing pinned): rel L2 {tf_rel} > {SERVE_REL_L2}")
+          f"{label}: teacher forcing (routing pinned): rel L2 {tf_rel} > {SERVE_REL_L2}")
     # the picks are views of whole sort indices; the prompts' view holds them
     del cache, logits_d, logits_s1, logits_f, pin, tf_prompts
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_device()
+    stage("gates")
 
-    # times: the prefill (median of 3 after a warm-up, CUDA events), a
-    # decode step (from generate), and where the device time of each goes
-    def prefill():
-        return bundle.prefill(params, {"tokens": prompts}, bundle.init_cache(B, S + T))
+    # times: the prefill (median of 3 after a warm-up, CUDA events), the
+    # plain attention's prefill, a decode step (from generate), and where
+    # the device time of each goes
+    def prefill(which=bundle):
+        return which.prefill(params, {"tokens": prompts}, which.init_cache(B, S + T))
 
     prefill_ms = _median_ms(prefill)
+    plain_prefill_ms = _median_ms(lambda: prefill(plain_bundle), runs=1, warm=False)
     prof_prefill = _kernel_classes(prefill)
-    with _RegionTimer() as regions_prefill:
+    pieces = dict(_RegionTimer.PIECES)
+    if cfg.shared_expert:
+        pieces["shared_expert"] = (tmoe, "mlp_apply")
+    with _RegionTimer(pieces) as regions_prefill:
         cache = prefill()[1]
-    with _RegionTimer() as regions_step:
+    with _RegionTimer(pieces) as regions_step:
         bundle.serve_step(params, cache, {"token": nxt})
     del cache
     decode_ms = out.decode_s / (T - 1) * 1e3
@@ -3440,60 +3497,42 @@ def phase_serve_moe(dev: torch.device) -> dict:
     prof_step = _kernel_classes(lambda: bundle.serve_step(params, cache, {"token": nxt}))
     del cache, params, bundle, plain_bundle, tf, out, prompts, nxt
     free_device()
-    held_mb = check_held(dev, before, 1.0, "the MoE phase", strict=True)
+    held_mb = check_held(dev, before, 1.0, f"the {label} phase", strict=True)
+    stage("times")
 
-    # the tensor-core flash kernel at the model's attention shape, against
-    # the plain version and SDPA; the bound is the causal products' work
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    gen = torch.Generator(device=dev).manual_seed(2)
-    q, k, v = _qkv(dev, gen, B, S, H, Hkv, D, torch.bfloat16)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    plain = fref.reference_attention(q, k, v)
-    got = flash_attention(q, k, v)
-    err, rel = float((got.float() - plain.float()).abs().max()), _rel_l2(got, plain)
-    check(err <= FLASH_ATOL[torch.bfloat16] and rel <= FLASH_REL_L2[torch.bfloat16],
-          f"flash at the MoE shape: max abs err {err}, rel L2 {rel}")
-    del plain, got
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
-    flops = 4 * D * B * H * (S * (S + 1) // 2)
-    flash = dict(
-        ms=cuda_ms(lambda: flash_attention(q, k, v), reps=20),
-        plain_ms=cuda_ms(lambda: fref.reference_attention(q, k, v), reps=2),
-        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20),
-        bound=bound(nbytes, flops, BF16_TENSOR_FLOPS), max_abs_err=err)
-    del q, k, v, qt, kt, vt
-    torch.cuda.empty_cache()
+    # the tensor-core flash kernel at the model's attention shape
+    flash = _flash_at(dev, B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0,
+                      torch.bfloat16, seed=2)
+    stage("flash")
     # the expert products' work and their least time: 3 products of
-    # (E, C_total, d) x (d, ff) per layer, and a decode step's expert
-    # weights read once per layer
+    # (E, C_total, d) x (d, ff) per MoE layer, and a decode step's expert
+    # weights read once per MoE layer
     nb = tmoe.route_blocks(S * B)
     C = tmoe._capacity(S * B // nb, cfg)
-    expert_flops = MOE_LAYERS * 3 * 2 * cfg.num_experts * nb * C * cfg.d_model * cfg.moe_d_ff
-    expert_bytes = MOE_LAYERS * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * 2
-    print(f"phase serve moe: Qwen3-MoE-235B-A22B (published widths, {MOE_LAYERS} of "
-          f"{full.num_layers} layers, {n_params} bf16 params ({params_gb:.2f} GB), 128 experts "
-          f"top-8, random weights) B {B} prompt {S} gen {T} with the flash kernel; flash "
-          f"launches {launches} {json.dumps(routes)} (per prefill {per_prefill}, per decode step "
-          f"{per_step}); flash vs plain prefill (routing pinned to the flash run's) rel_l2 "
-          f"{fx_rel:.3g} max_abs_err {fx_err:.3g} (unpinned: rel_l2 {unpinned_rel:.3g}); "
-          f"teacher forcing (capacity {MOE_TF_CAPACITY}, {MOE_TF_PROMPTS} prompts of "
-          f"{MOE_TF_LEN}, routing pinned to the longer prefill's) rel_l2 {tf_rel:.3g} max_abs_err "
-          f"{tf_err:.3g} (unpinned: rel_l2 {tf_unpinned_rel:.3g}); prefill_ms "
-          f"{prefill_ms:.3f} (in generate {out_prefill_ms:.3f}) decode_ms_per_step "
-          f"{decode_ms:.3f}; peak_device_gb {peak_gb:.2f}; held after {held_mb:.1f} MB; "
-          f"prefill pieces device ms {json.dumps({k: round(v, 3) for k, v in regions_prefill.ms.items()})} "
-          f"decode step pieces device ms {json.dumps({k: round(v, 3) for k, v in regions_step.ms.items()})}; "
-          f"prefill profile {json.dumps(_rounded(prof_prefill))} decode step profile "
+    expert_flops = n_moe * 3 * 2 * cfg.num_experts * nb * C * cfg.d_model * cfg.moe_d_ff
+    expert_bytes = n_moe * 3 * cfg.num_experts * cfg.d_model * cfg.moe_d_ff * 2
+    print(f"phase serve moe: {label} (published widths, {n_layers} of {full_layers} layers, "
+          f"{n_params} bf16 params ({params_gb:.2f} GB; init peak {init_peak_gb:.2f} GB), "
+          f"{_moe_text(cfg)}, random weights) B {B} prompt {S} gen {T} with the flash kernel; "
+          f"flash launches {launches} {json.dumps(routes)} (per prefill {per_prefill}, per "
+          f"decode step {per_step}); flash vs plain prefill (routing pinned to the flash "
+          f"run's) rel_l2 {fx_rel:.3g} max_abs_err {fx_err:.3g} (unpinned: rel_l2 "
+          f"{unpinned_rel:.3g}); teacher forcing (capacity {MOE_TF_CAPACITY}, {MOE_TF_PROMPTS} "
+          f"prompts of {MOE_TF_LEN}, routing pinned to the longer prefill's) rel_l2 "
+          f"{tf_rel:.3g} max_abs_err {tf_err:.3g} (unpinned: rel_l2 {tf_unpinned_rel:.3g}); "
+          f"prefill_ms {prefill_ms:.3f} (in generate {out_prefill_ms:.3f}) plain_prefill_ms "
+          f"{plain_prefill_ms:.3f} decode_ms_per_step {decode_ms:.3f}; peak_device_gb "
+          f"{peak_gb:.2f}; held after {held_mb:.1f} MB; prefill pieces device ms "
+          f"{json.dumps(_rounded(regions_prefill.ms))} decode step pieces device ms "
+          f"{json.dumps(_rounded(regions_step.ms))}; prefill profile "
+          f"{json.dumps(_rounded(prof_prefill))} decode step profile "
           f"{json.dumps(_rounded(prof_step))}; expert products per prefill {expert_flops:.4g} "
           f"FLOP (least {expert_flops / BF16_TENSOR_FLOPS * 1e3:.3f} ms), a decode step's "
           f"expert weights {expert_bytes / 1e9:.2f} GB (least "
-          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); flash at (B {B}, S {S}, H {H}/{Hkv}, "
-          f"D {D}, causal) ms {flash['ms']:.3f} max_abs_err {err:.3g} rel_l2 {rel:.3g} plain_ms "
-          f"{flash['plain_ms']:.3f} sdpa_ms {flash['library_ms']:.3f} bound_ms "
-          f"{flash['bound'][0]:.4f} ({flash['bound'][1]})", flush=True)
-    print("phase serve moe: ok", flush=True)
-    return {"launches": routes, "flash": flash}
+          f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); {_flash_text(flash)}; stage_s "
+          f"{json.dumps(stage_s)}", flush=True)
+    print(f"phase serve moe {label}: ok", flush=True)
+    return {"launches": routes, "flash": [flash], "prefill_ms": prefill_ms}
 
 
 # ---------------------------------------------------------------------- #
@@ -3516,11 +3555,18 @@ def _ssd_params(cfg) -> int:
 def _tree_param_count(cfg) -> int:
     """The parameters of the JAX package's tree for ``cfg`` (its init's
     leaves, worked out from the shapes, not ``param_count()``): embedding
-    (and unembedding, untied) at the padded vocabulary, the layers, the
-    final norm (and the encoder's)."""
+    (and unembedding, untied) at the padded vocabulary, the layers (a MoE
+    layer: a float32 router, the stacked experts and the shared expert; a
+    MoE config's dense layers), the final norm (and the encoder's)."""
     d = cfg.d_model
     emb = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
     mlp = 3 * d * cfg.d_ff
+    if cfg.is_moe:
+        experts = d * cfg.num_experts + 3 * cfg.num_experts * d * cfg.moe_d_ff
+        ffn = {"dense": mlp, "moe": experts + (mlp if cfg.shared_expert else 0)}
+        kinds = blocks.layer_kinds(cfg)
+        return emb + sum(2 * d + _attn_params(cfg) + ffn[kinds[i % len(kinds)]]
+                         for i in range(cfg.num_layers)) + d
     if cfg.encoder_layers:
         enc = 2 * d + _attn_params(cfg) + mlp
         dec = 3 * d + 2 * _attn_params(cfg) + mlp
@@ -3540,6 +3586,22 @@ def _has_attention(cfg) -> bool:
     return bool(cfg.encoder_layers or set(blocks.layer_kinds(cfg)) & {"dense", "moe", "hymba"})
 
 
+def _vlm_inputs(cfg, B: int, S: int, gen: torch.Generator, dev) -> dict:
+    """A VLM batch's vision part (the ViT is a stub in both packages):
+    seeded patch embeddings over the first P = min(vision_patches, S) slots
+    (``VLM_PATCH_SCALE * randn``), and M-RoPE positions (3, B, S): the t
+    stream the slot index everywhere, the h and w streams the rows and
+    columns of the square patch grid over the patch slots, t after them."""
+    P = min(cfg.vision_patches, S)
+    side = int(cfg.vision_patches ** 0.5)
+    patches = VLM_PATCH_SCALE * torch.randn(B, P, cfg.d_model, generator=gen, device=dev)
+    t = torch.arange(S, dtype=torch.int32, device=dev)
+    h, w = t.clone(), t.clone()
+    h[:P], w[:P] = t[:P] // side, t[:P] % side
+    positions = torch.stack([t, h, w])[:, None].expand(3, B, S).contiguous()
+    return {"patch_embeds": patches, "positions": positions}
+
+
 def _serve_family(dev, label: str, cfg, seed: int, B: int, S: int, T: int,
                   on_path: dict) -> dict:
     """``serve.generate`` on ``cfg`` with the flash kernel: params from a
@@ -3548,8 +3610,10 @@ def _serve_family(dev, label: str, cfg, seed: int, B: int, S: int, T: int,
     (``on_path`` per prefill, none per decode step), the per-call
     launches, and the flash prefill's logits and, with attention, the
     plain attention's (gated by the caller). An encoder-decoder gets
-    ``STUB_FRAMES * randn`` stub frames. Returns what the phase goes on
-    with (the bundles, params, prompts, batch, numbers)."""
+    ``STUB_FRAMES * randn`` stub frames; a VLM's prefills take a VLM batch
+    (``_vlm_inputs``), while ``generate`` feeds the serve loop's stubs (zero
+    patches, text positions), as the JAX package's does. Returns what the
+    phase goes on with (the bundles, params, prompts, batch, numbers)."""
     bundle = build_model(cfg, dev)
     attention = _has_attention(cfg)
     plain = build_model(dataclasses.replace(cfg, attn_impl="xla"), dev) if attention else None
@@ -3566,6 +3630,8 @@ def _serve_family(dev, label: str, cfg, seed: int, B: int, S: int, T: int,
         frames = STUB_FRAMES * torch.randn(B, cfg.frontend_len, cfg.d_model, generator=gen,
                                            device=dev)
         batch["frames"] = frames
+    if cfg.family == "vlm":
+        batch.update(_vlm_inputs(cfg, B, S, gen, dev))
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path: one generate call, launches counted from 0
@@ -3624,27 +3690,40 @@ def _float32_gate(run: dict):
             f"rel L2 from the float32 model over the plain bf16 prefill's ({plain:.4g})")
 
 
+_APPLY_MROPE = blocks.apply_mrope
+
+
+def _mrope_collapsed(x, positions, sections, theta):
+    """A planted M-RoPE fault: every section rotated by the t stream (the
+    h and w streams lost on their way to the attention's inputs)."""
+    return _APPLY_MROPE(x, positions[:1].expand_as(positions), sections, theta)
+
+
 def _flash_gate(label: str, cfg, run: dict, gate) -> str:
     """The flash prefill within ``gate``'s limit, and each planted
     attention fault (phase 6's: the plain attention with one KV tile
-    dropped, with q heads on the wrong kv heads, without the causal mask)
-    in the same prefill above it. With as many kv heads as query heads
-    there is no wrong kv head (h % Hkv is h // 1): that fault is left out."""
+    dropped, with q heads on the wrong kv heads, without the causal mask;
+    with M-RoPE positions in the batch, every section rotated by the t
+    stream) in the same prefill above it. With as many kv heads as query
+    heads there is no wrong kv head (h % Hkv is h // 1): that fault is left
+    out."""
     distance, limit, what = gate(run)
     got = distance(run["logits_f"])
     check(got <= limit, f"{label}: the flash prefill's {what} is {got} > {limit}")
-    faults = {name: f for name, f in PLANTED_FAULTS.items()
+    faults = {name: ("flash_attention", f) for name, f in PLANTED_FAULTS.items()
               if name != "wrong_kv_head" or cfg.num_kv_heads < cfg.num_heads}
     bundle, params, batch = run["bundle"], run["params"], run["batch"]
+    if cfg.rope_type == "mrope" and "positions" in batch:
+        faults["mrope_streams_collapsed"] = ("apply_mrope", _mrope_collapsed)
     B, S = run["prompts"].shape
     controls = {}
-    try:
-        for name, fault in faults.items():
-            blocks.flash_attention = fault
+    for name, (attr, fault) in faults.items():
+        setattr(blocks, attr, fault)
+        try:
             controls[name] = distance(bundle.prefill(params, dict(batch),
                                                      bundle.init_cache(B, S + 1))[0])
-    finally:
-        blocks.flash_attention = flash_attention
+        finally:
+            blocks.flash_attention, blocks.apply_mrope = flash_attention, _APPLY_MROPE
     check(min(controls.values()) > limit,
           f"{label}: a planted attention fault reads within {limit}: {controls}")
     return (f"flash prefill {what} {got:.4g} <= {limit}; controls (planted attention faults) "
@@ -3661,6 +3740,9 @@ def _tf_one(dev, run: dict, limit: float = SERVE_REL_L2) -> tuple:
     _, cache = bundle.prefill(params, dict(batch), bundle.init_cache(B, S + 1))
     logits_d, _ = bundle.serve_step(params, cache, {"token": nxt})
     longer = dict(batch, tokens=torch.cat([batch["tokens"], nxt], dim=1))
+    if "positions" in batch:  # a decode step takes position S on every stream
+        pos = batch["positions"]
+        longer["positions"] = torch.cat([pos, torch.full_like(pos[..., :1], S)], dim=-1)
     logits_s1, _ = bundle.prefill(params, longer, bundle.init_cache(B, S + 1))
     rel, err = _rel_l2(logits_d, logits_s1), float((logits_d - logits_s1).abs().max())
     check(rel <= limit, f"teacher forcing: rel L2 {rel} > {limit}")
@@ -3816,8 +3898,8 @@ def _recurrent_teacher(prefill_len: int, cuts: tuple, ring: int = 0):
 def _card_vs_cpu(dev, cfg, seed: int, L: int) -> dict:
     """The same float32 model (``cfg``, drawn on the card and copied to the
     host) on the card and on the CPU: a prefill of 1 x L tokens (and, for
-    an encoder-decoder, ``STUB_FRAMES * randn`` frames) and one decode
-    step. The relative L2 of the prefill's and the step's logits, and the
+    an encoder-decoder, ``STUB_FRAMES * randn`` frames; for a VLM, a VLM
+    batch, ``_vlm_inputs``) and one decode step. The relative L2 of the prefill's and the step's logits, and the
     largest of the cache's float leaves'; and each side's seconds."""
     card = build_model(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3827,6 +3909,8 @@ def _card_vs_cpu(dev, cfg, seed: int, L: int) -> dict:
     if cfg.encoder_layers:
         batch["frames"] = STUB_FRAMES * torch.randn(1, cfg.frontend_len, cfg.d_model,
                                                     generator=gen, device=dev)
+    if cfg.family == "vlm":
+        batch.update(_vlm_inputs(cfg, 1, L, gen, dev))
     sides = {"card": (card, params, batch, toks[:, L:])}
     cpu = build_model(cfg, "cpu")
     sides["cpu"] = (cpu, tree_map(lambda x: x.cpu(), params),
@@ -4165,6 +4249,51 @@ def phase_serve_qwen_f32(dev: torch.device) -> dict:
         flash_shapes=[(B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0, f32),
                       (B, S, 16, 2, 32, 0, f32), (B, S, 16, 2, 64, 0, f32),
                       (B, S, 16, 16, 256, 0, f32), (B, HYMBA_PROMPT, 25, 5, 64, 2048, f32)])
+
+
+def _dense_serve_phase(dev, label: str, cfg) -> dict:
+    """6v, 6k, 6j: a dense or VLM config at its published widths and full
+    depth through ``_serve_phase``: phase 6's traffic, one
+    ``flash_sm90.cu`` launch a layer a prefill, CARD_CPU_LAYERS float32
+    layers card against CPU, the kernel at the model's attention shape."""
+    gate = dataclasses.replace(cfg, num_layers=CARD_CPU_LAYERS, param_dtype="float32",
+                               attn_impl="xla")
+    return _serve_phase(
+        dev, label, cfg, SERVE_PROMPT,
+        on_entry("flash_attention_forward_sm90", cfg.num_layers), gate_cfg=gate,
+        pieces={"flash": (blocks, "flash_attention")},
+        step_pieces={"attention": (blocks, "_attn_core_decode")},
+        flash_shapes=[(SERVE_BATCH, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                       0, torch.bfloat16)])
+
+
+def phase_serve_qwen2_vl(dev: torch.device) -> dict:
+    """6v: Qwen2-VL-2B (H 12/2, M-RoPE sections 16/24/24, 1024 patch
+    slots), its gates and times on a VLM batch (``_vlm_inputs``)."""
+    cfg = dataclasses.replace(get_config("qwen2_vl_2b"), attn_impl="flash")
+    _published(cfg, num_layers=28, d_model=1536, num_heads=12, num_kv_heads=2, head_dim=128,
+               d_ff=8960, vocab_size=151936, qkv_bias=True, tie_embeddings=True,
+               rope_type="mrope", mrope_sections=(16, 24, 24), rope_theta=1_000_000.0,
+               vision_patches=1024, param_dtype="bfloat16")
+    return _dense_serve_phase(dev, "Qwen2-VL-2B", cfg)
+
+
+def phase_serve_deepseek(dev: torch.device) -> dict:
+    """6k: DeepSeek-7B (MHA, H 32/32 at D 128)."""
+    cfg = dataclasses.replace(get_config("deepseek_7b"), attn_impl="flash")
+    _published(cfg, num_layers=30, d_model=4096, num_heads=32, num_kv_heads=32, head_dim=128,
+               d_ff=11008, vocab_size=102400, qkv_bias=False, tie_embeddings=False,
+               param_dtype="bfloat16")
+    return _dense_serve_phase(dev, "DeepSeek-7B", cfg)
+
+
+def phase_serve_glm4(dev: torch.device) -> dict:
+    """6j: GLM4-9B (H 32/2, QKV bias, theta 1e6)."""
+    cfg = dataclasses.replace(get_config("glm4_9b"), attn_impl="flash")
+    _published(cfg, num_layers=40, d_model=4096, num_heads=32, num_kv_heads=2, head_dim=128,
+               d_ff=13696, vocab_size=151552, qkv_bias=True, tie_embeddings=False,
+               rope_theta=1_000_000.0, param_dtype="bfloat16")
+    return _dense_serve_phase(dev, "GLM4-9B", cfg)
 
 
 # ---------------------------------------------------------------------- #
@@ -4980,6 +5109,24 @@ GRID_TRAIN_LOCAL_STEPS = 1
 GRID_FAULTS = ("zero_data_block", "skip_rows_sum")
 
 
+@contextlib.contextmanager
+def _expandable_segments():
+    """Ranks spawned inside take ``expandable_segments`` for their caching
+    allocators, so the blocks a rank frees between (c), its init and its
+    step do not stay reserved as pieces too small to reuse: four ranks at
+    (d)'s 14.7 GB peaks, each with ~2 GB reserved in such pieces, once left
+    an 80 GB card no room for a rank's 3 GB float32 draw."""
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+
+
 def _grid_mesh() -> Mesh:
     return Mesh(GRID_AXES)
 
@@ -5134,7 +5281,8 @@ def _grid_train_rank(group, cfg, seed: int, batch: dict, round_seed: int, ref_pa
         out[label] = {"step_s": step_s, "counters": counters, "max_abs": worst,
                       "pinned_calls": pin.calls,
                       "metrics": {k: float(v) for k, v in metrics.items()},
-                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                      "reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
         del params, state, blocks
     del ref, bundle, setup
     free_device()
@@ -5292,7 +5440,8 @@ def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
     try:
         train_ref = _grid_train_reference(dev, train_cfg, batch, ref_dir)
         part("one process")
-        with tp.GroupPool([str(dev)] * 4, timeout_s=TP_CALL_S, axes=GRID_AXES) as pool:
+        with _expandable_segments(), tp.GroupPool([str(dev)] * 4, timeout_s=TP_CALL_S,
+                                                  axes=GRID_AXES) as pool:
             part("spawn")
             comm = [r.value for r in pool.run(_grid_comm_rank)]
             check(all(v for c in comm for k, v in c.items() if k != "backend"),
@@ -5347,6 +5496,7 @@ def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
                     "by_axis": [_by_axis(v["main"]["counters"]) for v in res],
                     "data_gathered": [v["main"]["counters"]["data_gathered_leaves"] for v in res],
                     "peak_gb": [v["main"]["peak_gb"] for v in res],
+                    "reserved_gb": [v["main"]["reserved_gb"] for v in res],
                     "step_s": [v["main"]["step_s"] for v in res],
                     "ref_step_s": train_ref["step_s"], "ref_peak_gb": train_ref["peak_gb"]}
     t = out["train"]
@@ -5359,7 +5509,8 @@ def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
           f"{TP_TRAIN_RTOL}); parameters max abs {t['max_abs']} <= {TP_TRAIN_ATOL}; fault "
           f"{GRID_FAULTS[1]} max abs {t['fault_max_abs']} > {TP_TRAIN_ATOL}; per rank "
           f"all-reduces (count, bytes) by axis {t['by_axis']}, leaves gathered over data "
-          f"{t['data_gathered']}, peak GB {[round(x, 2) for x in t['peak_gb']]} (one process "
+          f"{t['data_gathered']}, peak GB {[round(x, 2) for x in t['peak_gb']]} (reserved "
+          f"{[round(x, 2) for x in t['reserved_gb']]}; one process "
           f"{t['ref_peak_gb']:.2f}); wall s {[round(x, 2) for x in t['step_s']]} vs "
           f"{t['ref_step_s']:.2f} (information only; card {smi})", flush=True)
     # the tensor-core kernel at the grid ranks' attention shapes (B 4 of 8)
@@ -5492,9 +5643,9 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
     phase 5's job for the quant kernels, phase 6's serving, phase 6d's
-    MoE serving and phases 6h, 6x, 6s, 6g and 6f's serving (``families``:
-    6x runs no TPU kernel, 0 launches; 6f is the float32 path of flash.cu)
-    for flash,
+    MoE serving and phases 6h, 6x, 6s, 6g, 6f, 6v, 6k, 6j and 6l's serving
+    (``families``: 6x runs no TPU kernel, 0 launches; 6f is the float32
+    path of flash.cu) for flash,
     phase 7's process job (the hub's launches plus every child's) and
     phase 7c's three faulted jobs (the same) for the agg and quant entries,
     and phase 8's training rounds for every kernel
@@ -5565,12 +5716,11 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
         launches = sum(by_path.values())
         extra = {}
         if name == "flash_attention_forward_sm90":
-            f = moe["flash"]
-            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"], "at_moe_shape": {
-                "shape": "B 8, S 2048, H 64/4, D 128, causal", "ms": f["ms"],
-                "max_abs_err": f["max_abs_err"], "plain_ms": f["plain_ms"],
-                "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
-                "library_ms": f["library_ms"]},
+            extra = {"shape": t["shape"], "sdpa_backend": t["sdpa_backend"],
+                "at_moe_shape": _shape_entry(moe["flash"][0]),
+                **{f"at_{key}_shape": _shape_entry(families[phase]["flash"][0])
+                   for phase, key in (("6v", "qwen2_vl"), ("6k", "deepseek"), ("6j", "glm4"),
+                                      ("6l", "llama4"))},
                 "at_hymba_shape": _shape_entry(families["6h"]["flash"][0]),
                 "at_seamless_shape": _shape_entry(families["6s"]["flash"][0]),
                 "at_bf16_d32_shape": _shape_entry(serve["flash"][2]),
@@ -5611,7 +5761,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
 
 def _shape_entry(f: dict) -> dict:
     return {"shape": f["shape"], "ms": f["ms"], "max_abs_err": f["max_abs_err"],
-            "plain_ms": f["plain_ms"], "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
+            "rel_l2": f["rel_l2"], "plain_ms": f["plain_ms"], "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
             "bound_terms_ms": f["bound_terms"], "library_ms": f["library_ms"],
             "sdpa_backend": f["sdpa_backend"]}
 
@@ -5679,7 +5829,9 @@ def main() -> int:
     families = {}
     for name, fn in (("6h", phase_serve_hymba), ("6x", phase_serve_xlstm),
                      ("6s", phase_serve_seamless), ("6g", phase_serve_gemma),
-                     ("6f", phase_serve_qwen_f32)):
+                     ("6f", phase_serve_qwen_f32), ("6v", phase_serve_qwen2_vl),
+                     ("6k", phase_serve_deepseek), ("6j", phase_serve_glm4),
+                     ("6l", phase_serve_llama4)):
         families[name] = timed(name, fn, dev)
         free_device()
     train = timed("8", phase_train, dev, smi)

@@ -23,7 +23,9 @@ over whole heads, ``wo`` row-parallel with its output summed over the
 group. Each rank's query heads read the KV heads the GQA map gives them:
 its own block of ``wk`` / ``wv`` where the KV heads divide the group, else
 the whole leaves (gathered at use where the rule cut them into part-heads)
-and the heads sliced out. Where the group does not divide the query heads
+and the heads sliced out; where its query heads straddle KV heads (12
+query and 3 KV heads at 2 ranks), each query head gets its KV head, so the
+rank attends as MHA. Where the group does not divide the query heads
 (Hymba's 25), attention computes replicated on whole, gathered leaves. A KV
 cache is stored by ``launch.sharding.cache_pspec``: its block of heads
 where the KV heads divide the group, else its block of the sequence
@@ -32,7 +34,7 @@ where the KV heads divide the group, else its block of the sequence
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,22 +65,27 @@ class HeadSplit:
     kv_lo: int  # the first KV head they read
     n_kv: int  # the KV heads they read
     kv_whole: bool  # K/V are projected for every KV head (then sliced)
+    # where the rank's query heads straddle KV heads (its groups are not
+    # whole): the KV head, from kv_lo, that each of its query heads reads
+    kv_of_q: Optional[Tuple[int, ...]] = None
 
 
 def head_split(cfg: ModelConfig) -> HeadSplit:
-    """The rank's heads under the running group (all of them without one)."""
+    """The rank's heads under the running group (all of them without one).
+    A rank whose query heads straddle KV heads reads KV heads ``q_lo // G``
+    through ``(q_lo + n_q - 1) // G``, each query head its own."""
     H, Hkv = cfg.num_heads, cfg.num_kv_heads
     group = tp.current_group()
     if group is None or H % group.size:
         return HeadSplit(False, H, 0, Hkv, group is not None)
     n_q = H // group.size
     q_lo, G = group.rank * n_q, H // Hkv
-    if (n_q % G) if n_q >= G else (G % n_q):
-        raise NotImplementedError(
-            f"{n_q} query heads a rank with groups of {G} straddle KV heads (ROADMAP Queue 1)")
     kv_lo = q_lo // G
-    n_kv = max(1, n_q // G)
-    return HeadSplit(True, n_q, kv_lo, n_kv, Hkv % group.size != 0)
+    n_kv = (q_lo + n_q - 1) // G + 1 - kv_lo
+    kv_of_q = None
+    if n_q % G and G % n_q:  # neither whole groups nor inside one
+        kv_of_q = tuple((q_lo + i) // G - kv_lo for i in range(n_q))
+    return HeadSplit(True, n_q, kv_lo, n_kv, Hkv % group.size != 0, kv_of_q)
 
 
 def rank_weights(p: Tree, cfg: ModelConfig, hs: HeadSplit) -> Tree:
@@ -109,8 +116,13 @@ def enter(x: torch.Tensor, hs: HeadSplit) -> torch.Tensor:
 
 
 def kv_heads(k: torch.Tensor, hs: HeadSplit) -> torch.Tensor:
-    """The KV heads the rank's query heads read, from K/V of whole heads."""
-    return k if k.shape[2] == hs.n_kv else k[:, :, hs.kv_lo:hs.kv_lo + hs.n_kv]
+    """The KV heads the rank's query heads read, from K/V of whole heads;
+    where they straddle KV heads, one KV head a query head (the attention
+    and the flash kernels take whole groups only)."""
+    k = k if k.shape[2] == hs.n_kv else k[:, :, hs.kv_lo:hs.kv_lo + hs.n_kv]
+    if hs.kv_of_q is None:
+        return k
+    return k.index_select(2, torch.tensor(hs.kv_of_q, device=k.device))
 
 
 def project_q(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -163,7 +163,7 @@ def _attn_core_decode(
     B = h.shape[0]
     kc = attn.kv_heads(attn.cache_read(k_cache, W), hs)
     vc = attn.kv_heads(attn.cache_read(v_cache, W), hs)
-    qc = q.reshape(B, 1, hs.n_kv, hs.n_q // hs.n_kv, -1)
+    qc = q.reshape(B, 1, kc.shape[2], hs.n_q // kc.shape[2], -1)
     scores = attn._grouped_scores(qc, kc) * scale  # (B, Hkv, G, 1, W) f32
     scores = torch.where(valid[None, None, None, None, :], scores, attn.NEG_INF)
     w = torch.softmax(scores, dim=-1)

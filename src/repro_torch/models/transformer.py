@@ -77,7 +77,13 @@ def stacked_draws(n: int, draw, keep=None) -> Tree:
     JAX package's ``tree_map(stack)``: dicts in sorted-key order). Each tree
     is cut to ``keep(tree)`` (itself when None), copied into the stack and
     dropped, so the init holds the stack and one tree, not two copies of
-    every layer."""
+    every layer. A stack of one tree is that tree's leaves (a view of
+    each, copied only where ``keep`` cut a view of a larger leaf): one
+    Llama4 period is 37 GB in bfloat16, which a copy would hold twice."""
+    if n == 1:
+        one = draw() if keep is None else keep(draw())
+        return tree_map(lambda x: (x if x._base is None else x.clone(
+            memory_format=torch.contiguous_format)).unsqueeze(0), one)
     stack = None
     for i in range(n):
         one = draw() if keep is None else keep(draw())

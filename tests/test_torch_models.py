@@ -1,7 +1,8 @@
 """The port's model stack (``repro_torch.models``) against the JAX
 package's, on the CPU, at the reduced Qwen2.5-3B (2 layers, d_model 256,
-GQA 4/2 heads of 32, vocab 512), reduced Qwen2-VL-2B and Gemma-7B (head dim
-32 there, GeGLU, tied), and the reduced recurrent families: Hymba-1.5B
+GQA 4/2 heads of 32, vocab 512), reduced Qwen2-VL-2B, Gemma-7B (head dim
+32 there, GeGLU, tied), DeepSeek-7B (MHA) and GLM4-9B (QKV bias), and the
+reduced recurrent families: Hymba-1.5B
 (hymba blocks, window 64, SSD chunk 16) and xLSTM-1.3B (16 layers: two
 periods of 7 mlstm + 1 slstm). The encoder-decoder family has its own file
 (``tests/test_torch_encdec.py``).
@@ -335,6 +336,25 @@ def test_gemma_reduced_matches_jax(attn_impl):
     jcfg, tcfg = _cfg("gemma_7b", attn_impl=attn_impl)
     assert tcfg.activation == "geglu" and tcfg.tie_embeddings
     assert tcfg.num_kv_heads == tcfg.num_heads
+    calls = _serve_both(jcfg, tcfg, seq=40, steps=2, max_len=48)
+    _check_calls(calls, "float32")
+
+
+# the dense configs besides Qwen2.5-3B and Gemma-7B, reduced: DeepSeek-7B
+# (MHA, 4/4 heads of 32), GLM4-9B (GQA 4/2, QKV bias, theta 1e6, untied)
+DENSE = {"deepseek_7b": dict(num_kv_heads=4, qkv_bias=False, tie_embeddings=False),
+         "glm4_9b": dict(num_kv_heads=2, qkv_bias=True, tie_embeddings=False,
+                         rope_theta=1_000_000.0)}
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+@pytest.mark.parametrize("arch", list(DENSE))
+def test_dense_reduced_matches_jax(arch, attn_impl):
+    """The reduced DeepSeek-7B and GLM4-9B: prefill 40 tokens and decode 2
+    more in both packages, float32, on the plain attention and the flash
+    route; logits and caches within F32_LOGITS_ATOL."""
+    jcfg, tcfg = _cfg(arch, attn_impl=attn_impl)
+    assert {k: getattr(tcfg, k) for k in DENSE[arch]} == DENSE[arch]
     calls = _serve_both(jcfg, tcfg, seq=40, steps=2, max_len=48)
     _check_calls(calls, "float32")
 

@@ -151,12 +151,14 @@ def test_no_result_without_a_card_or_a_checkout(tmp_path, alone):
 
 SERVING_PHASES = [("6h", "phase_serve_hymba"), ("6x", "phase_serve_xlstm"),
                   ("6s", "phase_serve_seamless"), ("6g", "phase_serve_gemma"),
-                  ("6f", "phase_serve_qwen_f32")]
+                  ("6f", "phase_serve_qwen_f32"), ("6v", "phase_serve_qwen2_vl"),
+                  ("6k", "phase_serve_deepseek"), ("6j", "phase_serve_glm4"),
+                  ("6l", "phase_serve_llama4")]
 
 
 @pytest.mark.parametrize("phase,fn", SERVING_PHASES, ids=[p for p, _ in SERVING_PHASES])
 def test_serving_phase_failure_names_its_id(monkeypatch, capsys, phase, fn):
-    """``main`` runs the five later serving phases after 6d, in order,
+    """``main`` runs the nine later serving phases after 6d, in order,
     each under its own id: every phase before the failing one ran, none
     after it, and the failure line names it."""
     ran = []
@@ -186,12 +188,14 @@ def test_serving_phase_failure_names_its_id(monkeypatch, capsys, phase, fn):
 
 
 @pytest.mark.parametrize("arch", ["hymba_1_5b", "xlstm_1_3b", "seamless_m4t_medium", "gemma_7b",
-                                  "qwen2_5_3b"])
+                                  "qwen2_5_3b", "qwen2_vl_2b", "deepseek_7b", "glm4_9b",
+                                  "qwen3_moe_235b_a22b", "llama4_maverick_400b_a17b"])
 @pytest.mark.parametrize("scan_layers", [False, True])
 def test_tree_param_count_counts_the_jax_packages_tree(arch, scan_layers):
     """The serving phases hold the port's parameter count against
     ``_tree_param_count``, worked out from the shapes: it counts the JAX
-    package's init tree (reduced configs, both stackings)."""
+    package's init tree (reduced configs, both stackings; the MoE configs'
+    routers, experts, shared expert and interleaved dense layers)."""
     import dataclasses
 
     import jax
@@ -442,3 +446,164 @@ def test_float32_flash_gate_sees_the_planted_attention_faults():
     run["logits_f"] = run["logits_f"] * (1 + 1e-3)
     with pytest.raises(chip_smoke.PhaseFailed, match="flash prefill"):
         chip_smoke._flash_gate("Qwen2.5 float32", cfg, run, gate)
+
+
+# ---------------------------------------------------------------------- #
+# phases 6v, 6k, 6j, 6l: the VLM batch, the MoE phase on Llama4, the line
+# ---------------------------------------------------------------------- #
+def _vlm_run(prompt=96):
+    """A reduced float32 Qwen2-VL at the published head dim (128) and M-RoPE
+    sections (16, 24, 24), 64 patch slots, on the VLM batch
+    ``_serve_family`` builds: its flash and plain prefills. (At the reduced
+    head dim of 32 the h and w sections are the slowest bands, and a 4 x 4
+    grid's streams move the logits by 1.2e-3 only.)"""
+    from repro_torch.models.api import build_model
+
+    cfg = _reduced("qwen2_vl_2b", attn_impl="flash", head_dim=128,
+                   mrope_sections=(16, 24, 24), vision_patches=64)
+    bundle = build_model(cfg, "cpu")
+    plain = build_model(cfg.__class__(**{**cfg.__dict__, "attn_impl": "xla"}), "cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = bundle.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt), generator=gen)
+    batch = {"tokens": prompts, **chip_smoke._vlm_inputs(cfg, 2, prompt, gen, "cpu")}
+    nxt = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen).to(torch.int32)
+    return cfg, {"bundle": bundle, "params": params, "prompts": prompts, "batch": batch,
+                 "nxt": nxt,
+                 "logits_f": bundle.prefill(params, dict(batch),
+                                           bundle.init_cache(2, prompt + 1))[0],
+                 "logits_x": plain.prefill(params, dict(batch),
+                                           plain.init_cache(2, prompt + 1))[0]}
+
+
+def test_vlm_batch_gates_and_sees_its_collapsed_mrope_streams():
+    """6v's VLM batch on the reduced Qwen2-VL: patch embeddings over the
+    first 64 slots, h and w the 8 x 8 grid's rows and columns there and t
+    after; the flash prefill within the plain gate, every planted fault
+    (the M-RoPE streams collapsed to t too) above it; teacher forcing on
+    the batch (the longer prefill's positions extended) within its limit."""
+    from repro_torch.models import blocks, layers
+
+    cfg, run = _vlm_run()
+    pos, patches = run["batch"]["positions"], run["batch"]["patch_embeds"]
+    assert tuple(patches.shape) == (2, 64, cfg.d_model) and tuple(pos.shape) == (3, 2, 96)
+    t = torch.arange(96, dtype=torch.int32)
+    assert torch.equal(pos[0, 1], t)
+    assert torch.equal(pos[1, 0, :64], t[:64] // 8) and torch.equal(pos[2, 0, :64], t[:64] % 8)
+    assert torch.equal(pos[1:, :, 64:], t[64:].expand(2, 2, 32))
+    text = chip_smoke._flash_gate("Qwen2-VL", cfg, run, chip_smoke._plain_gate)
+    controls = json.loads(text.split("planted attention faults) ", 1)[1])
+    assert set(controls) == {"tile_dropped", "wrong_kv_head", "not_causal",
+                             "mrope_streams_collapsed"}
+    assert min(controls.values()) > chip_smoke.SERVE_REL_L2
+    assert blocks.apply_mrope is layers.apply_mrope
+    assert blocks.flash_attention is chip_smoke.flash_attention
+    rel, _, _ = chip_smoke._tf_one(torch.device("cpu"), run, limit=chip_smoke.TF_F32_REL)
+    assert rel <= chip_smoke.TF_F32_REL
+
+
+class _Event:
+    def __init__(self, **kw):
+        pass
+
+    def record(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 0.25
+
+
+@pytest.fixture
+def cpu_card(monkeypatch):
+    """The card's calls a serving phase makes, as no-ops or fixed readings
+    on the CPU; the tensor-core flash route a plain version that counts its
+    launches, the tensor-core route being what a bf16 config takes."""
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fref
+
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(chip_smoke, "program_bytes", lambda dev: 0)
+    monkeypatch.setattr(chip_smoke, "check_held", lambda *a, **k: 0.0)
+    monkeypatch.setattr(chip_smoke, "cuda_ms", lambda fn, reps=5: (fn(), 0.1)[1])
+    monkeypatch.setattr(chip_smoke, "_median_ms", lambda fn, runs=3, warm=True: (fn(), 1.0)[1])
+    monkeypatch.setattr(chip_smoke, "_kernel_classes", lambda fn: (fn(), {"busy_share": 1.0})[1])
+    monkeypatch.setattr(fk, "_check", lambda *a: True)
+
+    def plain_sm90(q, k, v, *, causal=True, window=0):
+        plain_sm90.launches += 1
+        return fref.reference_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                        causal=causal, window=window).transpose(1, 2)
+
+    plain_sm90.launches = 0
+    monkeypatch.setitem(fk.ROUTES, "flash_forward_sm90", plain_sm90)
+    monkeypatch.setattr(fk, "KERNELS", (fk.flash_attention_bhsd, fk.flash_forward, plain_sm90,
+                                        fk.flash_forward_sm90_d256))
+    for name, value in (("SERVE_BATCH", 2), ("SERVE_PROMPT", 64), ("SERVE_GEN", 3),
+                        ("MOE_TF_LEN", 16)):
+        monkeypatch.setattr(chip_smoke, name, value)
+
+
+def test_moe_phase_serves_the_reduced_llama4_period(cpu_card, capsys):
+    """6l's code (6d's, over the config) on the reduced Llama4 cut to one
+    period, bf16, on the CPU: the parameter count holds with the dense
+    layer and the shared expert in it, 2 flash launches a prefill and none
+    a decode step, the routing-pinned gates hold (one MoE layer pinned),
+    and the shared expert is timed as a piece of its own."""
+    cfg = _reduced("llama4_maverick_400b_a17b", param_dtype="bfloat16", attn_impl="flash",
+                   num_layers=2)
+    assert cfg.shared_expert and cfg.moe_every == 2 and cfg.experts_per_token == 1
+    out = chip_smoke._serve_moe(torch.device("cpu"), "Llama4 reduced", cfg, 48)
+    assert out["launches"] == chip_smoke.on_entry("flash_attention_forward_sm90", 2)
+    assert out["flash"][0]["rel_l2"] <= chip_smoke.FLASH_REL_L2[torch.bfloat16]
+    line = capsys.readouterr().out
+    assert "Llama4 reduced (published widths, 2 of 48 layers" in line
+    assert "4 experts top-1 and a shared expert, MoE every 2 layers" in line
+    pieces = json.loads(line.split("prefill pieces device ms ", 1)[1].split(" decode", 1)[0])
+    assert set(pieces) == {"route", "experts", "combine", "flash", "shared_expert"}
+    assert "phase serve moe Llama4 reduced: ok" in line
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_apply
+
+    assert moe.mlp_apply is mlp_apply and moe._top_k.__name__ == "_top_k"
+
+
+def _flash_entry(ms):
+    return {"shape": f"shape at {ms}", "ms": ms, "max_abs_err": 1e-3, "rel_l2": 2e-3,
+            "plain_ms": 10.0, "bound": (0.278, "operations"), "library_ms": 0.3,
+            "bound_terms": {"bytes_ms": 0.01, "products_ms": 0.278, "exp_ms": 0.05},
+            "sdpa_backend": "FLASH_ATTENTION", "route": {}, "direct": {
+                "ms": 9.0, "max_abs_err": 0.0, "rel_l2": 0.0}}
+
+
+def test_kernels_line_has_the_four_shapes_and_their_launches():
+    """The ``kernels`` line's ``flash_sm90.cu`` row carries an
+    ``at_<shape>`` entry for each of 6v, 6k, 6j and 6l (ms, bound, plain,
+    SDPA, rel L2) and their prefill launches by path."""
+    agg = ["exact_fold_into_tree", "exact_fold_into", "exact_divide", "exact_fold",
+           "weighted_aggregate", "quantize_blocks", "dequantize_blocks"]
+    sm90 = "flash_attention_forward_sm90"
+    flash = [sm90, "flash_attention_forward_sm90_d256", "flash_attention_forward"]
+    zero = {name: 0 for name in agg + flash}
+    plain = {"ms": 1.0, "plain_ms": 2.0, "bound": (0.5, "bytes"), "library_ms": 1.5,
+             "max_abs_err": 0.0}
+    run = {"launches": zero, "timings": {name: plain for name in agg}}
+    fam = {phase: {"launches": dict(zero, **{sm90: n}), "flash": [_flash_entry(0.1 * i)]}
+           for i, (phase, n) in enumerate((("6h", 32), ("6x", 0), ("6s", 12), ("6g", 0),
+                                            ("6f", 0), ("6v", 28), ("6k", 30), ("6j", 40),
+                                            ("6l", 2)))}
+    serve = {"launches": dict(zero, **{sm90: 36}), "flash": [_flash_entry(0.347)] * 3}
+    moe = {"launches": dict(zero, **{sm90: 8}), "flash": [_flash_entry(1.295)]}
+    ranks = {"qwen": {"launches_per_rank": [4, 4]}, "moe": {"launches_per_rank": [2, 2]},
+             "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66)}}
+    line = json.loads(chip_smoke.kernels_line(run, run, run, run, serve, moe, run, run, run,
+                                              fam, ranks, ranks))
+    row = next(r for r in line["kernels"] if r["name"] == sm90)
+    for phase, n in (("6v", 28), ("6k", 30), ("6j", 40), ("6l", 2)):
+        assert row["launches_by_path"][phase] == n
+    for i, key in ((5, "qwen2_vl"), (6, "deepseek"), (7, "glm4"), (8, "llama4")):
+        entry = row[f"at_{key}_shape"]
+        assert entry["ms"] == 0.1 * i and entry["rel_l2"] == 2e-3
+        assert {"bound_ms", "bound_by", "plain_ms", "library_ms"} <= set(entry)
+    assert row["at_moe_shape"]["ms"] == 1.295

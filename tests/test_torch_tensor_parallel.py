@@ -18,6 +18,9 @@ alone. Checks:
   train step (parameters within rtol 2e-5 / atol 1e-6, as in
   ``test_torch_fedstep.py``; loss and ``delta_norm`` alike), and the
   per-rank parameter bytes;
+* query heads that straddle KV heads (12 query and 3 KV heads at m = 2:
+  groups of 4, 6 query heads a rank), on the plain attention and the
+  flash route, against the one-process port and the JAX package;
 * the gather counter: 0 for Qwen2.5-3B at m = 2; at m = 4 its K/V leaves
   (``kv_dim`` 64 cut into half heads) and the sequence-sharded cache;
 * a planted fault, the last rank keeping its own partial sum of ``wo``,
@@ -37,6 +40,7 @@ alone. Checks:
   held to the port's groups within ``F32_LOGITS_ATOL`` 2e-4 (two
   partitioned float32 programs whose sums run in other orders).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -371,7 +375,7 @@ def test_serve_launcher_over_two_ranks(capsys):
 # the JAX package's sharded steps on 4 host devices
 # ---------------------------------------------------------------------- #
 _JAX_TWINS = r'''
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -400,7 +404,7 @@ def save_tree(prefix, tree):
 
 
 for case in spec["serve"]:
-    cfg = get_config(case["arch"], reduced=True)
+    cfg = dataclasses.replace(get_config(case["arch"], reduced=True), **case.get("overrides", {}))
     mesh = mesh_of(tuple(case["mesh"]))
     inp = dict(np.load(case["inputs"]))
     B, S = inp["tokens"].shape
@@ -470,6 +474,15 @@ JAX_WHOLE_LEAF = {"dp": dict(mesh=(2, 2), names=("data", "model"), wire="f32"),
                   "dp_int8": dict(mesh=(2, 1, 2), names=("pod", "data", "model"), wire="int8")}
 
 
+# query heads that straddle KV heads at m = 2: groups of 4, 6 query heads a rank
+STRADDLE = dict(num_heads=12, num_kv_heads=3)
+
+
+def _straddle_cfg(attn_impl):
+    return dataclasses.replace(get_config("qwen2_5_3b", reduced=True), attn_impl=attn_impl,
+                               **STRADDLE)
+
+
 def _case_name(arch, mesh):
     return f"{arch}@{mesh[0]}x{mesh[1]}"
 
@@ -485,6 +498,12 @@ def jax_twins(tmp_path_factory):
         np.savez(path, tokens=tokens, **({"frames": frames} if frames is not None else {}))
         spec["serve"].append(dict(arch=arch, mesh=mesh, inputs=str(path), steps=STEPS,
                                   name=_case_name(arch, mesh)))
+    cfg = _straddle_cfg("xla")
+    tokens, _ = _inputs(cfg)
+    path = d / "straddle.npz"
+    np.savez(path, tokens=tokens)
+    spec["serve"].append(dict(arch="qwen2_5_3b", mesh=(1, 2), inputs=str(path), steps=STEPS,
+                              name="straddle@1x2", overrides=STRADDLE))
     for arch, mesh in JAX_TRAIN:
         rng = np.random.default_rng(2)
         tokens = rng.integers(0, get_config(arch, reduced=True).vocab_size, (4, 16))
@@ -531,6 +550,34 @@ def test_sharded_serving_equals_the_jax_packages(jax_twins, pool2, pool4, arch, 
                    inp["tokens"], inp.get("frames"), STEPS)
     want = {"tokens": out[case["name"] + "/tokens"],
             "logits": [out[f"{case['name']}/logits/{i}"][..., :cfg.vocab_size]
+                       for i in range(STEPS + 1)]}
+    _assert_serving(res, want, F32_LOGITS_ATOL)
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "flash"])
+def test_straddling_query_heads_equal_one_process_and_the_jax_packages(jax_twins, pool2,
+                                                                        attn_impl):
+    """12 query and 3 KV heads at m = 2 (groups of 4, 6 query heads a
+    rank): rank 0 reads KV heads 0-1, rank 1 KV heads 1-2, each query head
+    its own. Prefill and 3 greedy decode steps, on the plain attention and
+    the flash route, equal the one-process port within ``LOGITS_ATOL`` and
+    the JAX package's sharded serving within ``F32_LOGITS_ATOL``."""
+    from repro_torch.models import attention
+
+    cfg = _straddle_cfg(attn_impl)
+    for rank, kv_lo, kv_of_q in ((0, 0, (0, 0, 0, 0, 1, 1)), (1, 1, (0, 0, 1, 1, 1, 1))):
+        with tp.use_group(tp.ModelGroup(rank=rank, size=2)):
+            hs = attention.head_split(cfg)
+        assert (hs.n_q, hs.kv_lo, hs.n_kv, hs.kv_of_q) == (6, kv_lo, 2, kv_of_q)
+    spec, out = jax_twins
+    params = _jax_tree(out, "straddle@1x2/params", _params(cfg))
+    tokens, _ = _inputs(cfg)
+    mesh_axes = (("data", 1), ("model", 2))
+    res = pool2.run(prog.serve_rank, cfg, mesh_axes, params, tokens, None, STEPS)
+    _assert_serving(res, prog.serve_one_process(cfg, mesh_axes, params, tokens, None, STEPS),
+                    LOGITS_ATOL)
+    want = {"tokens": out["straddle@1x2/tokens"],
+            "logits": [out[f"straddle@1x2/logits/{i}"][..., :cfg.vocab_size]
                        for i in range(STEPS + 1)]}
     _assert_serving(res, want, F32_LOGITS_ATOL)
 
