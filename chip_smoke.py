@@ -7,8 +7,9 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the kernels from ``src/repro_torch/kernels/*/csrc`` (one nvcc per
-source, started together), then runs ten phases (phase 6 in twelve
-parts, phase 9 in two), each printing its lines, and the kernels line:
+source, started together), then runs ten phases (phase 3 in two parts,
+phase 6 in twelve, phase 9 in two), each printing its lines, and the
+kernels line:
 
 1. environment: torch/CUDA versions, the card, the kernel builds;
 2. kernel parity: every kernel entry against its plain PyTorch version on
@@ -28,6 +29,21 @@ parts, phase 9 in two), each printing its lines, and the kernels line:
    deadline job with a straggler, and a one-trainer FedBuff job restarted
    from its checkpoint by a second ``run_job`` (weights, logs and the
    restored step byte-equal card vs CPU);
+   3e. the eight example programs (``repro_torch.examples``: quickstart,
+   topology_extension, multiproc_quickstart, async_fedbuff, hier_async,
+   gossip_ring, vertical_fl, per_channel_backends), each ``main`` as written
+   (a policy's grace 1.5 s), on the card and then on the CPU, each passing
+   its own asserts: quickstart's and topology_extension's weights byte-equal
+   card vs CPU (and the snapshots), multiproc_quickstart's threads byte-equal
+   to its 4 processes on each device and within the SGD tolerance card vs
+   CPU; the softmax-regression jobs' virtual times, channel bytes and
+   participation equal and weights within the SGD tolerance, except where
+   the order of arrivals decides the model (an async tier, a deadline root
+   over sync aggregators), held to the count of absorbed updates and
+   rounds; gossip's link bytes (13 760 raw, 7 680 under topk0.25),
+   vertical's 165 messages and losses, the mesh step's losses; each
+   example's launches from 0: the five that fold launch the tree fold and
+   the divide and never the per-leaf fold, the other three no kernel;
 4. the slice at full width: a ``classical_fl`` job whose weight tree is the
    parameter tree of Qwen2.5-3B (published widths, depth cut from 36
    layers to 4), 8 trainers, 3 rounds, with the job's global weights held
@@ -286,7 +302,8 @@ parts, phase 9 in two), each printing its lines, and the kernels line:
    by rank (a prefill, a decode step, a train step); the roofline of phase 6's prefill on the H100's
    datasheet figures, whose compute term the measured prefill may not
    beat (the terms, the dominant one and compute / measured printed);
-11. a ``kernels`` JSON line: launches on each path (phase 4 for the
+11. a ``kernels`` JSON line: launches on each path (phase 3e's examples
+   for every kernel, phase 4 for the
    streaming fold kernels, phase 4b's coordinated job for the stacked exact
    fold, phase 4c's jobs and batch for every agg entry, phase 5's job for
    the quant kernels, phase 6's, 6d's, 6h's, 6x's, 6s's, 6g's, 6f's, 6v's,
@@ -312,6 +329,8 @@ import dataclasses
 import functools
 import gc
 import hashlib
+import importlib
+import io
 import json
 import os
 import shutil
@@ -331,6 +350,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import checkpoint  # noqa: E402
+from repro_torch import examples  # noqa: E402
+from repro_torch.examples import hier_async as ex_hier  # noqa: E402
 from repro_torch.convert import tree_to_numpy  # noqa: E402
 from repro_torch.core.expansion import JobSpec  # noqa: E402
 from repro_torch.core import roles as troles  # noqa: E402
@@ -967,6 +988,170 @@ def phase_small_policies(dev: torch.device) -> None:
     print(f"phase small policies: ok deadline (straggler excluded every round) and async "
           f"restart (restored_step 2, {len(out['card'][2][1])} absorbed updates) byte-equal card "
           f"vs cpu (kernel launches {json.dumps(launches)})", flush=True)
+
+
+# ---------------------------------------------------------------------- #
+# phase 3e
+# ---------------------------------------------------------------------- #
+# the examples whose aggregators fold through the agg kernels; the gossip,
+# vertical and mesh-step examples fold in float64 torch or not at all
+FOLDING_EXAMPLES = ("quickstart", "topology_extension", "multiproc_quickstart",
+                    "async_fedbuff", "hier_async")
+EXAMPLE_ACC_SAMPLES = 2  # of the 1 024 test samples
+
+
+def _example_main(name: str, device):
+    """``repro_torch.examples.<name>.main(device)`` with its printing kept
+    for its ``... OK`` line: (result, seconds)."""
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = module.main(device)
+    seconds = time.perf_counter() - t
+    check(f"{name} OK" in buf.getvalue(),
+          f"example {name} on {device} printed no OK line: {buf.getvalue()[-300:]!r}")
+    return out, seconds
+
+
+def _leaves_gate(what: str, a: dict, b: dict, byte_equal: bool = False) -> float:
+    """The card's leaves against the CPU's, byte for byte or within the SGD
+    tolerance; returns the largest absolute difference."""
+    check(a.keys() == b.keys(), f"{what}: leaves {sorted(a)} vs {sorted(b)}")
+    err = 0.0
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"{what}/{k}: {x.shape} {x.dtype} vs {y.shape} {y.dtype}")
+        err = max(err, float(np.abs(x.astype(np.float64) - y).max(initial=0.0)))
+        if byte_equal:
+            check(x.tobytes() == y.tobytes(), f"{what}/{k}: card and CPU bytes differ ({err})")
+        else:
+            check(np.allclose(x, y, rtol=SGD_RTOL, atol=SGD_ATOL),
+                  f"{what}/{k}: card vs CPU differs by {err}")
+    return err
+
+
+def _accuracy_gate(what: str, a: float, b: float) -> None:
+    check(abs(a - b) * 1024 <= EXAMPLE_ACC_SAMPLES, f"{what}: accuracy card {a} vs CPU {b}")
+
+
+def _policy_run_gate(what: str, card: dict, host: dict, ordered: bool, times: bool):
+    """One policy job, card against CPU. A job whose model follows the order
+    of arrivals (``ordered``) is held to the count of absorbed updates and
+    rounds, and with ``times`` to its virtual time, bytes and rounds' shape;
+    any other to its virtual time, bytes, participation, accuracy and
+    weights. Returns the weights' largest difference (None: not compared)."""
+    check(card["accuracy"] > 0.5 and host["accuracy"] > 0.5,
+          f"{what}: accuracies {card['accuracy']} {host['accuracy']}")
+    if times or not ordered:
+        check(card["virtual_time"] == host["virtual_time"],
+              f"{what}: virtual time card {card['virtual_time']} vs CPU {host['virtual_time']}")
+        check(card["channel_bytes"] == host["channel_bytes"], f"{what}: channel_bytes differ")
+    if ordered:
+        for log in ("staleness", "participation"):
+            check(len(card[log] or []) == len(host[log] or []), f"{what}: {log} log lengths differ")
+        if times:
+            def shape(log):
+                return [(len(e["included"]), len(e["excluded"]), e["missing"], e["round_time"])
+                        for e in log]
+            check(shape(card["participation"]) == shape(host["participation"]),
+                  f"{what}: rounds differ")
+        check(all(np.isfinite(v).all() for v in card["weights"].values()), f"{what}: weights")
+        return None
+    check(card["participation"] == host["participation"], f"{what}: participation differs")
+    _accuracy_gate(what, card["accuracy"], host["accuracy"])
+    return _leaves_gate(what, card["weights"], host["weights"])
+
+
+def _example_gate(name: str, card: dict, host: dict) -> dict:
+    """An example's result on the card against the CPU's: what it holds and
+    its largest weight difference."""
+    if name in ("quickstart", "topology_extension"):
+        if name == "topology_extension":
+            check(card["snapshots"] == host["snapshots"] and len(card["snapshots"]) == 3,
+                  f"snapshots card {card['snapshots']} vs CPU {host['snapshots']}")
+            check(card["tag_diff"] == host["tag_diff"], "TAG diffs differ")
+        check(card["channel_bytes"] == host["channel_bytes"], f"{name}: channel_bytes differ")
+        return {"byte_equal": True, "max_abs_err": _leaves_gate(name, card["weights"],
+                                                                host["weights"], True)}
+    if name == "multiproc_quickstart":
+        # threads against processes byte for byte on each device: main asserts it
+        for key in ("channel_bytes", "threads_channel_bytes", "workers"):
+            check(card[key] == host[key], f"{name}: {key} card {card[key]} vs CPU {host[key]}")
+        return {"threads_vs_processes": "byte-equal",
+                "max_abs_err": _leaves_gate(name, card["threads"], host["threads"])}
+    if name == "async_fedbuff":
+        check((card["sync"]["virtual_time"], card["deadline"]["virtual_time"]) == (40.0, 10.0),
+              f"{name}: virtual times {card['sync']['virtual_time']}, "
+              f"{card['deadline']['virtual_time']}")
+        return {p: _policy_run_gate(f"{name}/{p}", card[p], host[p], p == "async", False)
+                for p in card}
+    if name == "hier_async":
+        return {f"{r}/{m}": _policy_run_gate(
+            f"{name}/{r}/{m}", card[r, m], host[r, m], (r, m) in ex_hier.ARRIVAL_ORDERED,
+            "async" not in (r, m)) for r, m in card}
+    if name == "gossip_ring":
+        errs = {}
+        for codec in card:
+            a, b = card[codec], host[codec]
+            want = {"": 13760.0, "topk0.25": 7680.0}[codec]
+            check(a["link_bytes"] == b["link_bytes"] == want,
+                  f"{name}/{codec}: link bytes {a['link_bytes']} {b['link_bytes']}, want {want}")
+            check(a["channel_bytes"] == b["channel_bytes"], f"{name}/{codec}: channel_bytes")
+            for x, y in zip(a["accuracies"], b["accuracies"], strict=True):
+                _accuracy_gate(f"{name}/{codec}", x, y)
+            errs[codec or "raw"] = max(_leaves_gate(f"{name}/{codec}/{w}", a["weights"][w],
+                                                    b["weights"][w]) for w in a["weights"])
+        return errs
+    if name == "vertical_fl":
+        check(card["messages"] == host["messages"] == 165,
+              f"{name}: messages card {card['messages']} vs CPU {host['messages']}")
+        check(card["channel_bytes"] == host["channel_bytes"], f"{name}: channel_bytes differ")
+        check(np.allclose(card["losses"], host["losses"], rtol=SGD_RTOL, atol=SGD_ATOL),
+              f"{name}: losses card {card['losses']} vs CPU {host['losses']}")
+        return {"max_abs_err": max(_leaves_gate(f"{name}/{w}", card["weights"][w],
+                                                host["weights"][w]) for w in card["weights"])}
+    errs = {}
+    for wire in card:  # per_channel_backends
+        check(np.allclose(card[wire]["losses"], host[wire]["losses"], rtol=SGD_RTOL,
+                          atol=SGD_ATOL), f"{name}/{wire}: losses differ")
+        errs[wire] = _leaves_gate(f"{name}/{wire}", {"w": card[wire]["w"]}, {"w": host[wire]["w"]})
+    return errs
+
+
+def phase_examples(dev: torch.device) -> dict:
+    """The eight example programs (``repro_torch.examples``), each ``main``
+    as written, on the card and then on the CPU in this process: each passes
+    its own asserts, and the card's result is held against the CPU's
+    (``_example_gate``). Each example's launches count from 0 over its card
+    run (a process tree's children's included): the folding examples launch
+    the tree fold and the divide and never the per-leaf fold, the others
+    launch no kernel."""
+    total = {}
+    for name in examples.NAMES:
+        _reset_all_launches()
+        card, card_s = _example_main(name, dev)
+        launches = _all_launches()
+        if name == "multiproc_quickstart":
+            children = card["process_launches"]
+            check(children.get("exact_fold_into_tree", 0) > 0,
+                  f"{name}: the process tree never launched the tree fold ({children})")
+            launches = {k: v + children.get(k, 0) for k, v in launches.items()}
+        host, host_s = _example_main(name, "cpu")
+        held = _example_gate(name, card, host)
+        launches = {k: v for k, v in launches.items() if v}
+        if name in FOLDING_EXAMPLES:
+            check(launches.get("exact_fold_into_tree", 0) > 0
+                  and launches.get("exact_divide", 0) > 0, f"{name}: launches {launches}")
+            check("exact_fold_into" not in launches, f"{name} folded leaf by leaf: {launches}")
+        else:
+            check(not launches, f"{name} launched {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"phase examples: ok {name} card_s {card_s:.3f} cpu_s {host_s:.3f} launches "
+              f"{json.dumps(launches)} card vs cpu {json.dumps(held)}", flush=True)
+    return {"launches": total}
 
 
 # ---------------------------------------------------------------------- #
@@ -5637,9 +5822,11 @@ def _dry_run_grid(qwen, moe, shape: ShapeConfig, grid: dict) -> dict:
 
 def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dict,
                  moe: dict, proc: dict, fault: dict, train: dict, families: dict,
-                 tpar: dict, grid: dict) -> str:
+                 tpar: dict, grid: dict, examples_run: dict) -> str:
     """One row per kernel. ``launches`` sums the paths that run it, each
-    counted from 0 over its own run (``launches_by_path``): phase 4's job
+    counted from 0 over its own run (``launches_by_path``): phase 3e's
+    example programs (``examples_run``: their card runs, a process tree's
+    children included) for every kernel, phase 4's job
     for the streaming fold entries, phase 4b's coordinated job for the
     stacked fold, phase 4c's policy jobs and its batch for all agg entries,
     phase 5's job for the quant kernels, phase 6's serving, phase 6d's
@@ -5692,7 +5879,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     out = []
     for name, src, replaces, on_path, library, run, phase in rows:
         t = run["timings"][name]
-        by_path = {phase: run["launches"][name]}
+        by_path = {phase: run["launches"][name], "3e": examples_run["launches"].get(name, 0)}
         if src == agg_src:
             by_path["4c"] = policies["launches"].get(name, 0)
         if src in (agg_src, quant_src):
@@ -5810,6 +5997,7 @@ def main() -> int:
     timed("2", phase_parity, dev)
     timed("3", lambda: (phase_small_jobs(dev), phase_small_topologies(dev),
                         phase_small_policies(dev)))
+    ex = timed("3e", phase_examples, dev)
     full = timed("4", phase_full_width, dev)
     free_device()
     topo = timed("4b", phase_full_width_topologies, dev)
@@ -5840,7 +6028,7 @@ def main() -> int:
     grid = timed("9f", phase_grid, dev, smi, tpar)
     timed("10", phase_dry_run, dev, serve, tpar, smi, grid)
     lines = timed("line", lambda: kernels_line(full, topo, policies, codec, serve, moe, proc,
-                                               fault, train, families, tpar, grid))
+                                               fault, train, families, tpar, grid, ex))
     print(f"phase_s {json.dumps(phase_s)}", flush=True)
     print(f"elapsed_s {time.perf_counter() - t0:.1f}", flush=True)
     print(lines, flush=True)

@@ -4,8 +4,9 @@
   ``tools/flash_sm90_variants.py`` or ``tools/agg_fold_variants.py``, imports
   ``jax``, ``repro`` or ``ml_dtypes`` (an AST walk, and a subprocess import
   with them blocked in ``sys.modules``); the card's machine has none.
-* ``run_job``, ``build_train_step`` and the train launcher without a
-  device raise where there is no CUDA device.
+* ``run_job``, ``build_train_step``, the train launcher and the example
+  programs (``repro_torch.examples``) without a device raise where there
+  is no CUDA device.
 * The training slice's modules (mesh lowering, DP, the fed step, the data
   pipeline, the train launchers), the fault plane's (channels, runtime,
   launcher, hub and conformance), client and sample selection, the MoE
@@ -18,6 +19,7 @@
   outside a checkout.
 """
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -28,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import examples
 from repro_torch.core import runtime
 from repro_torch.core.expansion import JobSpec
 from repro_torch.core.tag import DatasetSpec
@@ -95,6 +98,19 @@ def test_run_job_defaults_to_cuda_and_raises_without_it(monkeypatch):
     res = runtime.run_job(job, device="cpu", timeout=30)
     assert not res.errors and res.global_weights()["w"].device.type == "cpu"
 
+
+
+@pytest.mark.parametrize("name", examples.NAMES)
+def test_examples_default_to_cuda_and_raise_without_it(name, monkeypatch):
+    """Each example's ``main`` and its command line (``python -m
+    repro_torch.examples.<name>``) run on the card unless given ``cpu``:
+    without a card they raise before any job starts."""
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        examples.cli(module.main, [])
 
 TRAINING_MODULES = ["core/mesh_lowering.py", "fl/privacy.py", "fl/fedstep.py",
                     "data/datasets.py", "data/pipeline.py", "launch/mesh.py",

@@ -165,10 +165,10 @@ def test_serving_phase_failure_names_its_id(monkeypatch, capsys, phase, fn):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(chip_smoke, "free_device", lambda: None)
     earlier = ["phase_environment", "phase_parity", "phase_small_jobs", "phase_small_topologies",
-               "phase_small_policies", "phase_full_width", "phase_full_width_topologies",
-               "phase_full_width_policies", "phase_codec_parity", "phase_codec_job",
-               "phase_process_plane", "phase_fault_plane", "phase_flash_parity", "phase_serve",
-               "phase_serve_moe"]
+               "phase_small_policies", "phase_examples", "phase_full_width",
+               "phase_full_width_topologies", "phase_full_width_policies", "phase_codec_parity",
+               "phase_codec_job", "phase_process_plane", "phase_fault_plane", "phase_flash_parity",
+               "phase_serve", "phase_serve_moe"]
     for name in earlier:
         monkeypatch.setattr(chip_smoke, name, lambda *a, _n=name: ran.append(_n) or {})
     for _, name in SERVING_PHASES:
@@ -577,10 +577,10 @@ def _flash_entry(ms):
                 "ms": 9.0, "max_abs_err": 0.0, "rel_l2": 0.0}}
 
 
-def test_kernels_line_has_the_four_shapes_and_their_launches():
-    """The ``kernels`` line's ``flash_sm90.cu`` row carries an
-    ``at_<shape>`` entry for each of 6v, 6k, 6j and 6l (ms, bound, plain,
-    SDPA, rel L2) and their prefill launches by path."""
+def _kernels_line(examples_launches: dict) -> dict:
+    """``kernels_line`` on synthetic phase results: every agg and quant
+    entry timed alike, flash's prefill launches by serving phase, and the
+    example programs' launches ``examples_launches``."""
     agg = ["exact_fold_into_tree", "exact_fold_into", "exact_divide", "exact_fold",
            "weighted_aggregate", "quantize_blocks", "dequantize_blocks"]
     sm90 = "flash_attention_forward_sm90"
@@ -597,9 +597,17 @@ def test_kernels_line_has_the_four_shapes_and_their_launches():
     moe = {"launches": dict(zero, **{sm90: 8}), "flash": [_flash_entry(1.295)]}
     ranks = {"qwen": {"launches_per_rank": [4, 4]}, "moe": {"launches_per_rank": [2, 2]},
              "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66)}}
-    line = json.loads(chip_smoke.kernels_line(run, run, run, run, serve, moe, run, run, run,
-                                              fam, ranks, ranks))
-    row = next(r for r in line["kernels"] if r["name"] == sm90)
+    return json.loads(chip_smoke.kernels_line(run, run, run, run, serve, moe, run, run, run,
+                                              fam, ranks, ranks,
+                                              {"launches": examples_launches}))
+
+
+def test_kernels_line_has_the_four_shapes_and_their_launches():
+    """The ``kernels`` line's ``flash_sm90.cu`` row carries an
+    ``at_<shape>`` entry for each of 6v, 6k, 6j and 6l (ms, bound, plain,
+    SDPA, rel L2) and their prefill launches by path."""
+    line = _kernels_line({})
+    row = next(r for r in line["kernels"] if r["name"] == "flash_attention_forward_sm90")
     for phase, n in (("6v", 28), ("6k", 30), ("6j", 40), ("6l", 2)):
         assert row["launches_by_path"][phase] == n
     for i, key in ((5, "qwen2_vl"), (6, "deepseek"), (7, "glm4"), (8, "llama4")):
@@ -607,3 +615,15 @@ def test_kernels_line_has_the_four_shapes_and_their_launches():
         assert entry["ms"] == 0.1 * i and entry["rel_l2"] == 2e-3
         assert {"bound_ms", "bound_by", "plain_ms", "library_ms"} <= set(entry)
     assert row["at_moe_shape"]["ms"] == 1.295
+
+
+def test_kernels_line_counts_the_examples_launches():
+    """Phase 3e's launches land under ``3e`` in every row's launches by
+    path and in its total; a kernel the examples never launch reads 0."""
+    rows = {r["name"]: r for r in _kernels_line(
+        {"exact_fold_into_tree": 41, "exact_divide": 43})["kernels"]}
+    for name, n in (("exact_fold_into_tree", 41), ("exact_divide", 43), ("exact_fold_into", 0),
+                    ("quantize_blocks", 0), ("flash_attention_forward_sm90", 0)):
+        assert rows[name]["launches_by_path"]["3e"] == n
+    assert rows["exact_fold_into_tree"]["launches"] == 41
+    assert rows["flash_attention_forward_sm90"]["launches"] == 36 + 8 + 144 + 12 + 12
