@@ -38,11 +38,12 @@ class CollectiveStats:
 
     @classmethod
     def of_group(cls, group) -> "CollectiveStats":
-        """A ``ModelGroup``'s counters (every collective of the port is an
-        all-reduce; a gather at use is one, counted in both)."""
-        if not group.all_reduces:
-            return cls(by_kind={})
-        return cls(by_kind={"all-reduce": (group.all_reduces, group.all_reduce_bytes)})
+        """A ``ModelGroup``'s counters: its all-reduces (a gather at use
+        over ``model`` is one, counted in both) and its all-gathers (FSDP's
+        data gathers, at their whole leaves' bytes)."""
+        kinds = {"all-reduce": (group.all_reduces, group.all_reduce_bytes),
+                 "all-gather": (group.data_gathered_leaves, group.data_gathered_bytes)}
+        return cls(by_kind={k: v for k, v in kinds.items() if v[0]})
 
 
 @dataclasses.dataclass

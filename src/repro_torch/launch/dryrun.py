@@ -29,7 +29,11 @@ and the dry run counts what that rank holds and does.
    (``steps.grid_axes``): serving and an FSDP config's train step count
    the grid's first rank at the mesh's real ``data`` size, its gathers of
    FSDP's ``data`` blocks and its gradient sums over (pod, data) among the
-   collectives; a ``tp`` config's train step counts one client of the fed
+   collectives (the model code's own: a layer's leaves gathered as it
+   begins, a MoE layer's expert leaves gathered by the expert FFN one at a
+   time, in slices and again in its backward where they do not fit the
+   rank's memory share, ``models.moe``; a gather counts as a collective
+   over ``data``); a ``tp`` config's train step counts one client of the fed
    step on the ``model`` axis. A batch that the rows do not divide is
    counted on the ``model`` axis alone with the rows whole, as the JAX
    guard replicates it.
@@ -301,12 +305,14 @@ def count_collectives(fn: Callable[..., Any], size: int, rank: int, *args: Any) 
 
 
 def count_grid_collectives(fn: Callable[..., Any], axes: Tuple[Tuple[str, int], ...],
-                           index: int, *args: Any) -> Any:
+                           index: int, *args: Any, memory_share: Optional[int] = None) -> Any:
     """``count_collectives`` for process ``index`` of the grid ``axes``
-    (``tensor_parallel.GroupPool(..., axes=axes)``'s rank order)."""
+    (``tensor_parallel.GroupPool(..., axes=axes)``'s rank order), the rank
+    holding ``memory_share`` bytes of its device (``None``: no bound; the
+    MoE expert FFN sizes its gathers by it)."""
     place = tp.grid_place(axes, index)
     group = tp.ModelGroup.counting(place["size"], place["rank"], clients=place["clients"],
-                                   client_rank=place["client_rank"])
+                                   client_rank=place["client_rank"], memory_share=memory_share)
     with _fake_mode():
         return fn(group, *args)
 
@@ -316,7 +322,7 @@ def _counts(group: tp.ModelGroup, by_axis: bool):
         return group.all_reduces, group.all_reduce_bytes
     c = group.counters()
     return {"model": (c["model_all_reduces"], c["model_all_reduce_bytes"]),
-            "data": (c["data_all_reduces"], c["data_all_reduce_bytes"])}
+            "data": (c["data_collectives"], c["data_collective_bytes"])}
 
 
 def serve_counts(group: tp.ModelGroup, cfg: ModelConfig, batch: int,
@@ -324,7 +330,9 @@ def serve_counts(group: tp.ModelGroup, cfg: ModelConfig, batch: int,
     """The rank's all-reduces (count, bytes) in a prefill of ``batch`` x
     ``prompt`` tokens and in one decode step after it (``build_serve_step``
     on the group's mesh, on the group's device: on a grid, the rank's rows
-    of the batch); ``by_axis``: each as ``{"model": ..., "data": ...}``."""
+    of the batch); ``by_axis``: each as ``{"model": ..., "data": ...}``,
+    the ``data`` entry every collective over the client axes (all-reduces
+    and the data gathers' all-gathers)."""
     from repro_torch.launch.steps import build_serve_step
 
     dev = group.device

@@ -15,14 +15,16 @@ the collectives below itself:
   (``gather_at_use``: an all-reduce of the zero-padded block, exact, since
   one term of each sum is nonzero), and each such gather is counted.
 
-Only all-reduce is used, with sum and max, since gloo does not take every
-collective on CUDA tensors. A counting group (``ModelGroup.counting``) has
+All-reduce is used, with sum and max, and broadcast for FSDP's data
+blocks (``gather_data``): gloo takes both on CUDA tensors, where it does
+not take every collective. A counting group (``ModelGroup.counting``) has
 no process group behind it: its collectives only advance its counters and
 return their input, so a rank's step runs alone (under fake tensors, as
 ``launch.dryrun`` counts a step's collectives). The backend is chosen by
 rule: ``nccl`` when the ranks are on distinct cards, ``gloo`` when ranks
 share a card or run on the CPU (NCCL refuses two ranks on one device). Gloo takes CUDA tensors for
-all-reduce; a backend that refuses them raises, nothing is rerouted.
+all-reduce and broadcast; a backend that refuses them raises, nothing is
+rerouted.
 
 The model code finds the group of the call in a context variable
 (``use_group``), which ``models.api.build_model(cfg, device, group)`` sets
@@ -36,11 +38,13 @@ ranks that share its ``model`` coordinate (its rows group: the batch rows
 and the gradients are split and summed over ``pod`` x ``data``) and the
 group of those that also share its ``pod`` coordinate (the ``data`` axis,
 over which FSDP stores a second dim of its leaves). ``gather_data``
-gathers such a leaf at use (forward: the zero-padded block all-reduced
-over ``data``; backward: the whole leaf's gradient summed over the rows
-group, then the rank's block), ``reduce_from_rows`` sums a rank's share
-of a loss over the rows. Every collective counts on its axis: ``model``
-or ``data`` (the client axes).
+gathers such a leaf at use (forward: the ranks' blocks all-gathered over
+``data``, one broadcast from each, counted as a gathered leaf; backward: the whole leaf's gradient
+summed over the rows group, then the rank's block), ``reduce_from_rows``
+sums a rank's share of a loss over the rows. Every all-reduce counts on
+its axis: ``model`` or ``data`` (the client axes). A rank also holds its
+share of its device's memory (``ModelGroup.memory_share``), by which the
+MoE expert FFN sizes what it gathers at once (``models.moe``).
 
 ``GroupPool`` spawns one process per entry of ``devices`` with a
 ``file://`` rendezvous in a temp directory and runs functions on all of
@@ -88,8 +92,10 @@ class ModelGroup:
     axis alone is processes) and its linear index over them
     (``client_rank``, the last axis fastest), the rows group (``rows_pg``:
     the ranks sharing its ``model`` coordinate) and the ``data`` axis group
-    (``data_pg``: those that also share its ``pod`` coordinate), and the
-    rank's counters (``_COUNTERS``)."""
+    (``data_pg``: those that also share its ``pod`` coordinate), the
+    bytes of its device's memory that are its own (``memory_share``: the
+    device's memory over the ranks on it; ``None`` on the CPU and in a
+    counting group, no bound), and the rank's counters (``_COUNTERS``)."""
 
     rank: int
     size: int
@@ -100,6 +106,7 @@ class ModelGroup:
     client_rank: int = 0
     rows_pg: Any = None
     data_pg: Any = None
+    memory_share: Optional[int] = None
     all_reduces: int = 0
     all_reduce_bytes: int = 0
     data_all_reduces: int = 0
@@ -152,6 +159,10 @@ class ModelGroup:
         out = {k: getattr(self, k) for k in _COUNTERS}
         out["model_all_reduces"] = self.all_reduces - self.data_all_reduces
         out["model_all_reduce_bytes"] = self.all_reduce_bytes - self.data_all_reduce_bytes
+        # every collective over the client axes: their all-reduces and the
+        # data gathers' all-gathers (a gather's bytes: its whole leaf's)
+        out["data_collectives"] = self.data_all_reduces + self.data_gathered_leaves
+        out["data_collective_bytes"] = self.data_all_reduce_bytes + self.data_gathered_bytes
         return out
 
     def reset_counters(self) -> None:
@@ -160,13 +171,13 @@ class ModelGroup:
 
     @classmethod
     def counting(cls, size: int, rank: int = 0, device: Any = "cpu", clients: Axes = (("data", 1),),
-                 client_rank: int = 0) -> "ModelGroup":
+                 client_rank: int = 0, memory_share: Optional[int] = None) -> "ModelGroup":
         """Rank ``rank`` of a model axis of ``size`` (at ``client_rank`` of
-        a grid's ``clients``) with no processes behind it: each collective
-        is counted, as on a real group, and returns its input unchanged
-        (the values are not the group's)."""
+        a grid's ``clients``, with ``memory_share``) with no processes
+        behind it: each collective is counted, as on a real group, and
+        returns its input unchanged (the values are not the group's)."""
         return cls(rank=rank, size=size, backend="count", device=torch.device(device),
-                   clients=tuple(clients), client_rank=client_rank)
+                   clients=tuple(clients), client_rank=client_rank, memory_share=memory_share)
 
 
 def current_group() -> Optional[ModelGroup]:
@@ -398,33 +409,47 @@ def global_argmax(x: torch.Tensor, offset: int, width: int,
 # --------------------------------------------------------------------- #
 class _GatherData(torch.autograd.Function):
     """FSDP's gather at use: the leaf whole along ``dim`` from the ``data``
-    ranks' blocks (the zero-padded block all-reduced over ``data``, exact).
-    Each rank computes on its own rows, so the whole leaf's gradient is a
-    partial sum: the backward sums it over the rows group (pod x data) and
-    keeps the rank's block, a reduce-scatter written as an all-reduce."""
+    ranks' blocks (an all-gather over ``data``, made of one broadcast from
+    each data rank, exact: for a 1 GB bf16 leaf on one H100 shared by a
+    (data 2, model 2) grid, 0.81-0.84 s where gloo's own all-gather took
+    1.35-1.36 s and the zero-padded all-reduce 1.42-1.47 s,
+    ``tools/gloo_allreduce_rates.py``). Each rank computes
+    on its own rows, so the whole leaf's gradient is a partial sum: the
+    backward sums it over the rows group (pod x data) and keeps the rank's
+    block, a reduce-scatter written as an all-reduce."""
 
     @staticmethod
     def forward(ctx, x, dim, group):
         n = x.shape[dim]
         ctx.dim, ctx.lo, ctx.n, ctx.group = dim, group.coords["data"] * n, n, group
+        # the blocks in data order, each a contiguous slice of one buffer,
+        # then moved to their place along dim (a copy where dim > 0)
+        count = group.backend == "count"
+        blocks = (x.new_zeros if count else x.new_empty)((group.data_size,) + tuple(x.shape))
+        blocks[group.coords["data"]] = x
+        for i in range(0 if count else group.data_size):
+            dist.broadcast(blocks[i], src=dist.get_global_rank(group.data_pg, i),
+                           group=group.data_pg)
         shape = list(x.shape)
         shape[dim] = n * group.data_size
-        full = x.new_zeros(shape)
-        full.narrow(dim, ctx.lo, n).copy_(x)
         group.data_gathered_leaves += 1
-        group.data_gathered_bytes += full.numel() * full.element_size()
-        return _all_reduce_(full, dist.ReduceOp.SUM, group, "data")
+        group.data_gathered_bytes += blocks.numel() * blocks.element_size()
+        return blocks.movedim(0, dim).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
-        # the incoming gradient is summed in place where it is a buffer of
-        # its own (a whole leaf's: one copy fewer at the backward's peak)
-        own = g.is_contiguous() and g._base is None
-        g = _all_reduce_(g if own else g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group,
-                         "rows")
-        # a copy of the block, so that the whole leaf's sum is freed here
-        block = g.narrow(ctx.dim, ctx.lo, ctx.n).clone(memory_format=torch.contiguous_format)
-        return block, None, None
+        return _rows_block(g, ctx.dim, ctx.lo, ctx.n, ctx.group), None, None
+
+
+def _rows_block(g: torch.Tensor, dim: int, lo: int, n: int, group: ModelGroup) -> torch.Tensor:
+    """The whole leaf's gradient ``g`` of this rank's rows summed over the
+    rows group, cut to the block ``[lo, lo + n)`` along ``dim``."""
+    # the incoming gradient is summed in place where it is a buffer of its
+    # own (a whole leaf's: one copy fewer at the backward's peak)
+    own = g.is_contiguous() and g._base is None
+    g = _all_reduce_(g if own else g.contiguous().clone(), dist.ReduceOp.SUM, group, "rows")
+    # a copy of the block, so that the whole leaf's sum is freed here
+    return g.narrow(dim, lo, n).clone(memory_format=torch.contiguous_format)
 
 
 def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -432,6 +457,14 @@ def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
     running group has one data rank)."""
     group = data_group()
     return x if group is None else _GatherData.apply(x, dim, group)
+
+
+def data_block_grad(g: torch.Tensor, dim: int, group: ModelGroup) -> torch.Tensor:
+    """The gradient of the rank's ``data`` block along ``dim`` from the
+    whole leaf's gradient ``g`` on the rank's rows: ``gather_data``'s
+    backward, for a leaf gathered at use inside a hand-written backward."""
+    n = g.shape[dim] // group.data_size
+    return _rows_block(g, dim, group.coords["data"] * n, n, group)
 
 
 class _ReduceFromRows(torch.autograd.Function):
@@ -568,6 +601,9 @@ def _worker(rank: int, devices: List[str], axes: Axes, backend: str, init_file: 
                                 rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
         group = _grid_groups(rank, axes)
         group.backend, group.device = backend, device
+        if device.type == "cuda":
+            group.memory_share = (torch.cuda.get_device_properties(device).total_memory
+                                  // devices.count(devices[rank]))
         results.put((rank, "ready", None))
     except Exception:  # noqa: BLE001 - reported to the parent
         results.put((rank, "error", traceback.format_exc()))

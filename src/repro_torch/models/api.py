@@ -21,9 +21,10 @@ Every family of the JAX package is ported, for serving and training
 
 ``build_model(cfg, device, group)`` with a model group of m ranks
 (``launch.tensor_parallel``) is one rank's bundle: ``init`` draws the tree
-as the one-process bundle does, in the same order, and cuts each part to
-the rank's block of every leaf (``launch.sharding.param_pspec``) as it is
-drawn, so no more than one layer is ever whole; ``init_cache`` allocates
+as the one-process bundle does, in the same order, and cuts each leaf to
+the rank's block (``launch.sharding.param_pspec``) as soon as it is drawn,
+so no more than one leaf is ever whole (a MoE expert leaf is cut as its
+float32 draw, before the cast); ``init_cache`` allocates
 the rank's block of every cache leaf (``cache_pspec``), and every call runs
 under the group, so the model code computes on the blocks and meets the
 other ranks in the collectives. Logits come back as the rank's vocabulary block
@@ -86,10 +87,10 @@ _CACHE_FILL = {"pos": -1, "m": -1e30}
 
 
 def _rank_keep(cfg: ModelConfig, group: tp.ModelGroup):
-    """An init's ``keep`` (``transformer.init_params``) that cuts each part
-    to the rank's block of every leaf, by the spec of the leaf in the whole
-    tree: a stacked leaf's spec leads with ``None``, so layer ``i``'s block
-    is slot ``i`` of the stack's block."""
+    """An init's ``keep`` (``transformer.init_params``) that cuts each part,
+    as it is drawn, to the rank's block of every leaf, by the spec of the
+    leaf in the whole tree: a stacked leaf's spec leads with ``None``, so
+    layer ``i``'s block is slot ``i`` of the stack's block."""
     mesh, coords = group.mesh, group.coords
 
     def keep(path, tree, stack=None):

@@ -34,25 +34,26 @@ where the KV heads divide the group, else its block of the sequence
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_apply, dense_init
+from repro_torch.models.layers import dense_apply, dense_init, keep_whole
 
 Tree = Dict[str, torch.Tensor]
 
 NEG_INF = -1e30
 
 
-def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tree:
+def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+              keep: Callable = keep_whole) -> Tree:
     return {
-        "wq": dense_init(gen, cfg.d_model, cfg.q_dim, dtype, bias=cfg.qkv_bias),
-        "wk": dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, bias=cfg.qkv_bias),
-        "wv": dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, bias=cfg.qkv_bias),
-        "wo": dense_init(gen, cfg.q_dim, cfg.d_model, dtype),
+        "wq": keep(("wq",), dense_init(gen, cfg.d_model, cfg.q_dim, dtype, bias=cfg.qkv_bias)),
+        "wk": keep(("wk",), dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, bias=cfg.qkv_bias)),
+        "wv": keep(("wv",), dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, bias=cfg.qkv_bias)),
+        "wo": keep(("wo",), dense_init(gen, cfg.q_dim, cfg.d_model, dtype)),
     }
 
 

@@ -37,7 +37,7 @@ and states gathered at use, each rank storing back its block of the state.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -50,6 +50,8 @@ from repro_torch.models.layers import (
     apply_rope,
     dense_apply,
     dense_init,
+    keep_below,
+    keep_whole,
     mlp_apply,
     mlp_init,
     rmsnorm_apply,
@@ -182,17 +184,19 @@ def _ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return d_i, H, cfg.ssm_state
 
 
-def ssd_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tree:
+def ssd_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             keep: Callable = keep_whole) -> Tree:
     d = cfg.d_model
     d_i, H, N = _ssd_dims(cfg)
     dev = gen.device
     return {
-        "in_xz": dense_init(gen, d, 2 * d_i, dtype),  # value path + gate z
-        "in_bc": dense_init(gen, d, 2 * H * N, dtype),  # k (B) and q (C), per head
-        "in_dt": dense_init(gen, d, H, dtype),
-        "a_log": torch.zeros((H,), dtype=torch.float32, device=dev),
-        "d_skip": torch.ones((H,), dtype=torch.float32, device=dev),
-        "out": dense_init(gen, d_i, d, dtype),
+        "in_xz": keep(("in_xz",), dense_init(gen, d, 2 * d_i, dtype)),  # value path + gate z
+        # k (B) and q (C), per head
+        "in_bc": keep(("in_bc",), dense_init(gen, d, 2 * H * N, dtype)),
+        "in_dt": keep(("in_dt",), dense_init(gen, d, H, dtype)),
+        "a_log": keep(("a_log",), torch.zeros((H,), dtype=torch.float32, device=dev)),
+        "d_skip": keep(("d_skip",), torch.ones((H,), dtype=torch.float32, device=dev)),
+        "out": keep(("out",), dense_init(gen, d_i, d, dtype)),
     }
 
 
@@ -272,37 +276,44 @@ def ssd_apply_decode(p: Tree, h: torch.Tensor, cache: Tree,
 # ===================================================================== #
 # block kinds
 # ===================================================================== #
-def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype: torch.dtype) -> Tree:
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype: torch.dtype,
+               keep: Callable = keep_whole) -> Tree:
+    """A block's parameters, each part passed to ``keep`` as it is drawn
+    (``layers.keep_below``)."""
     d = cfg.d_model
     dev = gen.device
+
+    def norm(name):
+        return keep((name,), rmsnorm_init(d, dtype, dev))
+
     if kind in ("dense", "moe"):
         p = {
-            "ln1": rmsnorm_init(d, dtype, dev),
-            "attn": attn.attn_init(gen, cfg, dtype),
-            "ln2": rmsnorm_init(d, dtype, dev),
+            "ln1": norm("ln1"),
+            "attn": attn.attn_init(gen, cfg, dtype, keep_below(keep, "attn")),
+            "ln2": norm("ln2"),
         }
         if kind == "moe":
-            p["moe"] = moe_init(gen, cfg, dtype)
+            p["moe"] = moe_init(gen, cfg, dtype, keep_below(keep, "moe"))
         else:
-            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype)
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, dtype, keep_below(keep, "mlp"))
         return p
     if kind == "hymba":
         return {
-            "ln1": rmsnorm_init(d, dtype, dev),
-            "attn": attn.attn_init(gen, cfg, dtype),
-            "ssd": ssd_init(gen, cfg, dtype),
-            "ln_attn": rmsnorm_init(d, dtype, dev),
-            "ln_ssm": rmsnorm_init(d, dtype, dev),
-            "ln2": rmsnorm_init(d, dtype, dev),
-            "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
+            "ln1": norm("ln1"),
+            "attn": attn.attn_init(gen, cfg, dtype, keep_below(keep, "attn")),
+            "ssd": ssd_init(gen, cfg, dtype, keep_below(keep, "ssd")),
+            "ln_attn": norm("ln_attn"),
+            "ln_ssm": norm("ln_ssm"),
+            "ln2": norm("ln2"),
+            "mlp": mlp_init(gen, d, cfg.d_ff, dtype, keep_below(keep, "mlp")),
         }
     if kind == "mlstm":
-        return {"ln1": rmsnorm_init(d, dtype, dev), "ssd": ssd_init(gen, cfg, dtype)}
+        return {"ln1": norm("ln1"), "ssd": ssd_init(gen, cfg, dtype, keep_below(keep, "ssd"))}
     if kind == "slstm":
         return {
-            "ln1": rmsnorm_init(d, dtype, dev),
-            "gates": dense_init(gen, d, 4 * d, dtype),
-            "out": dense_init(gen, d, d, dtype),
+            "ln1": norm("ln1"),
+            "gates": keep(("gates",), dense_init(gen, d, 4 * d, dtype)),
+            "out": keep(("out",), dense_init(gen, d, d, dtype)),
         }
     raise ValueError(f"unknown block kind {kind!r}")
 

@@ -38,6 +38,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     embed_apply,
     embed_init,
+    keep_below,
+    keep_whole,
     mlp_apply,
     mlp_init,
     rmsnorm_apply,
@@ -47,7 +49,6 @@ from repro_torch.models.transformer import (
     _unstack,
     chunked_ce,
     default_positions,
-    keep_whole,
     logits_of,
     param_dtype,
     stacked_draws,
@@ -56,25 +57,27 @@ from repro_torch.models.transformer import (
 Tree = Any
 
 
-def _enc_block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tree:
+def _enc_block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                    keep=keep_whole) -> Tree:
     d, dev = cfg.d_model, gen.device
     return {
-        "ln1": rmsnorm_init(d, dtype, dev),
-        "attn": attn.attn_init(gen, cfg, dtype),
-        "ln2": rmsnorm_init(d, dtype, dev),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
+        "ln1": keep(("ln1",), rmsnorm_init(d, dtype, dev)),
+        "attn": attn.attn_init(gen, cfg, dtype, keep_below(keep, "attn")),
+        "ln2": keep(("ln2",), rmsnorm_init(d, dtype, dev)),
+        "mlp": mlp_init(gen, d, cfg.d_ff, dtype, keep_below(keep, "mlp")),
     }
 
 
-def _dec_block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tree:
+def _dec_block_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+                    keep=keep_whole) -> Tree:
     d, dev = cfg.d_model, gen.device
     return {
-        "ln1": rmsnorm_init(d, dtype, dev),
-        "self": attn.attn_init(gen, cfg, dtype),
-        "ln_x": rmsnorm_init(d, dtype, dev),
-        "cross": attn.attn_init(gen, cfg, dtype),
-        "ln2": rmsnorm_init(d, dtype, dev),
-        "mlp": mlp_init(gen, d, cfg.d_ff, dtype),
+        "ln1": keep(("ln1",), rmsnorm_init(d, dtype, dev)),
+        "self": attn.attn_init(gen, cfg, dtype, keep_below(keep, "self")),
+        "ln_x": keep(("ln_x",), rmsnorm_init(d, dtype, dev)),
+        "cross": attn.attn_init(gen, cfg, dtype, keep_below(keep, "cross")),
+        "ln2": keep(("ln2",), rmsnorm_init(d, dtype, dev)),
+        "mlp": mlp_init(gen, d, cfg.d_ff, dtype, keep_below(keep, "mlp")),
     }
 
 
@@ -86,10 +89,10 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, keep=keep_whole) -> Tree
     dev = gen.device
     E, L = cfg.encoder_layers, cfg.num_layers
     params = {"embed": keep(("embed",), embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))}
-    params["encoder"] = stacked_draws(E, lambda: _enc_block_init(gen, cfg, dtype),
-                                      lambda one: keep(("encoder",), one, E))
-    params["decoder"] = stacked_draws(L, lambda: _dec_block_init(gen, cfg, dtype),
-                                      lambda one: keep(("decoder",), one, L))
+    params["encoder"] = stacked_draws(E, lambda: _enc_block_init(
+        gen, cfg, dtype, lambda path, tree: keep(("encoder",) + path, tree, E)))
+    params["decoder"] = stacked_draws(L, lambda: _dec_block_init(
+        gen, cfg, dtype, lambda path, tree: keep(("decoder",) + path, tree, L)))
     params["ln_enc"] = keep(("ln_enc",), rmsnorm_init(cfg.d_model, dtype, dev))
     params["ln_f"] = keep(("ln_f",), rmsnorm_init(cfg.d_model, dtype, dev))
     if not cfg.tie_embeddings:

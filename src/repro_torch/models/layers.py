@@ -4,7 +4,11 @@ port of ``repro.models.layers``).
 Parameters are plain dicts of tensors; init functions draw from the
 caller's ``torch.Generator`` on its device (``normal * d_in**-0.5`` in
 float32, cast to the parameter dtype, as the JAX package draws; the values
-differ from JAX's, so parity tests carry the JAX weights across).
+differ from JAX's, so parity tests carry the JAX weights across). An init
+that builds more than one leaf passes each part to its ``keep(path, part)``
+as soon as the part is drawn, ``path`` relative to the init's own tree: a
+model-group rank's ``keep`` cuts the part to the rank's blocks
+(``models.api``), so the rank never holds two leaves whole.
 
 Products keep the JAX package's float32 accumulation
 (``preferred_element_type``): ``dot`` rounds once to the input dtype and
@@ -24,7 +28,7 @@ then row-parallel with its output summed over the group.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +59,18 @@ class MetaGenerator:
     dtypes on the meta device, with no data (a full config's tree)."""
 
     device = torch.device("meta")
+
+
+def keep_whole(path: Tuple[Any, ...], tree: Any, stack: Optional[int] = None) -> Any:
+    """An init's ``keep`` that keeps every part whole (the one-process
+    model)."""
+    return tree
+
+
+def keep_below(keep: Callable, *prefix: Any) -> Callable:
+    """``keep`` for the init of the part at ``prefix``, whose paths are
+    relative to that part."""
+    return lambda path, tree: keep(prefix + tuple(path), tree)
 
 
 def _normal(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -216,11 +232,12 @@ def apply_mrope(
 # --------------------------------------------------------------------- #
 # gated MLPs
 # --------------------------------------------------------------------- #
-def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype) -> Tree:
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype: torch.dtype,
+             keep: Callable = keep_whole) -> Tree:
     return {
-        "gate": dense_init(gen, d, d_ff, dtype),
-        "up": dense_init(gen, d, d_ff, dtype),
-        "down": dense_init(gen, d_ff, d, dtype),
+        "gate": keep(("gate",), dense_init(gen, d, d_ff, dtype)),
+        "up": keep(("up",), dense_init(gen, d, d_ff, dtype)),
+        "down": keep(("down",), dense_init(gen, d_ff, d, dtype)),
     }
 
 

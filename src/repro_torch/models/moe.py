@@ -42,17 +42,32 @@ once. The dispatch input and the combine weights pass ``copy_to_group``,
 so their gradients, partial on each rank, are summed. A shared expert
 splits as the MLP does. Where the group does not divide the experts, they
 compute replicated.
+
+On a grid whose ``data`` axis holds FSDP's blocks, the expert leaves stay
+the rank's blocks (``(E/m, d/D, ff)``, ``(E/m, ff/D, d)``) until the
+expert FFN uses them: it gathers one leaf over ``data`` and takes its
+product before it gathers the next (``_ExpertFFN``), in slices of its
+experts where three whole leaves would take more than ``GATHER_SHARE`` of
+the rank's memory share. Where they fit, a training forward keeps them
+for the backward, as gathering the layer at once did; where they do not,
+each is freed after its product and the backward gathers it again, slice
+by slice, each leaf's gradient summed over the rows and cut to the block.
+A Llama4 expert leaf is 5.37 GB whole a rank in bfloat16 (the rank's
+experts over ``model``): four grid ranks on one 80 GB card gather it in
+four slices of 16 experts, so a rank holds 1.34 GB of expert leaves whole
+where gathering a layer at once held 16.1.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _normal, dense_init, mlp_apply, mlp_init
+from repro_torch.models.layers import (_normal, dense_init, keep_below, keep_whole, mlp_apply,
+                                       mlp_init)
 from repro_torch.models.shard_ctx import constrain, get_profile
 
 Tree = Dict[str, torch.Tensor]
@@ -60,18 +75,23 @@ Tree = Dict[str, torch.Tensor]
 ROUTE_BLOCK = 2048  # tokens per routing block (capacity enforced per block)
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Tree:
+def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             keep: Callable = keep_whole) -> Tree:
     """A float32 router, the experts' stacked weights (E, d, ff) x2 and
-    (E, ff, d), and the shared expert where the config has one."""
+    (E, ff, d), and the shared expert where the config has one. Each
+    expert leaf's float32 draw is passed to ``keep`` before the cast and
+    the scale, which act on each element alone: a rank casts its block
+    only, and holds one leaf's draw whole at a time (Llama4's 21.5 GB)."""
     d, ff, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
     p: Tree = {
-        "router": dense_init(gen, d, E, torch.float32),  # router math stays f32
-        "gate": _normal(gen, (E, d, ff)).to(dtype) * d**-0.5,
-        "up": _normal(gen, (E, d, ff)).to(dtype) * d**-0.5,
-        "down": _normal(gen, (E, ff, d)).to(dtype) * ff**-0.5,
+        # router math stays f32
+        "router": keep(("router",), dense_init(gen, d, E, torch.float32)),
+        "gate": keep(("gate",), _normal(gen, (E, d, ff))).to(dtype) * d**-0.5,
+        "up": keep(("up",), _normal(gen, (E, d, ff))).to(dtype) * d**-0.5,
+        "down": keep(("down",), _normal(gen, (E, ff, d))).to(dtype) * ff**-0.5,
     }
     if cfg.shared_expert:
-        p["shared"] = mlp_init(gen, d, cfg.d_ff, dtype)
+        p["shared"] = mlp_init(gen, d, cfg.d_ff, dtype, keep_below(keep, "shared"))
     return p
 
 
@@ -206,51 +226,154 @@ def _bmm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tens
     return torch.bmm(a.to(torch.float32), b.to(torch.float32)).to(out_dtype)
 
 
-def _expert_ffn_bwd(buf, gate, up, down, gbar):
+EXPERT_LEAVES = ("gate", "up", "down")
+# the part of a rank's memory share (``tp.ModelGroup.memory_share``) that
+# the expert leaves it gathers may take at once: three whole leaves, kept
+# from the forward for the backward, or else one slice of experts of each
+GATHER_SHARE = 0.25
+
+
+def gathered_at_use(path: Tuple[Any, ...]) -> bool:
+    """Whether the leaf at ``path`` of a layer is an expert leaf, which the
+    expert FFN gathers over ``data`` itself as it uses it
+    (``transformer.data_whole`` gathers every other split leaf as the layer
+    begins). The MLP's ``gate`` / ``up`` / ``down`` are dicts, not leaves."""
+    return bool(path) and path[-1] in EXPERT_LEAVES
+
+
+def _at_use(x: torch.Tensor, full: int) -> torch.Tensor:
+    """An expert leaf whole along dim 1 (``full`` long): itself where it
+    is, else its ``data`` block gathered (``tp.gather_data``, looked up as
+    the module's attribute at each call)."""
+    return x if x.shape[1] == full else tp.gather_data(x, 1)
+
+
+def _experts_at_once(gate: torch.Tensor, d: int, group) -> int:
+    """How many experts the FFN takes at a time: all of them where the
+    leaves are whole, the group sets no bound or three whole leaves fit in
+    ``GATHER_SHARE`` of the rank's memory share, else the most whose three
+    leaves' slices fit, dividing the experts. Each expert's rows are its
+    own products, so slices change no row's sums (on a card shared by the
+    four ranks of a grid, Llama4's 5.37 GB leaf a rank goes in four slices
+    of 16 experts; Qwen3-MoE's 1.61 GB float32 leaf whole)."""
+    E = gate.shape[0]
+    if gate.shape[1] == d or group is None or group.memory_share is None:
+        return E
+    three = 3 * gate.numel() * gate.element_size() * d // gate.shape[1]
+    budget = GATHER_SHARE * group.memory_share
+    return max((n for n in range(1, E + 1) if E % n == 0 and three * n <= budget * E), default=1)
+
+
+def _expert_ffn_fwd(buf, gate, up, down, kept: Optional[list] = None) -> torch.Tensor:
+    """The FFN's forward on experts whose leaves are gathered at use, each
+    freed after its product, or appended to ``kept`` for the backward."""
+    d, ff = buf.shape[-1], gate.shape[-1]
+
+    def use(x, full):
+        w = _at_use(x, full)
+        if kept is not None:
+            kept.append(w)
+        return w
+
+    g = _bmm(buf, use(gate, d), torch.float32)
+    u = _bmm(buf, use(up, d), torch.float32)
+    h = F.silu(g, inplace=True).mul_(u).to(buf.dtype)
+    del g, u
+    return _bmm(h, use(down, ff), buf.dtype)
+
+
+def _block_grad(g: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
+    """The gradient of ``x`` from its whole leaf's float32 gradient ``g``,
+    cast to x's dtype: where ``x`` is a ``data`` block, summed over the
+    rows in that dtype and cut to the block, as ``tp.gather_data``'s
+    backward does."""
+    g = g.to(x.dtype)
+    return g if g.shape == x.shape else tp.data_block_grad(g, 1, group)
+
+
+def _expert_ffn_bwd(buf, gate, up, down, gbar, group=None, whole=None):
     """The JAX package's ``_expert_ffn_bwd``: the activations recomputed in
-    float32, every gradient product in float32, cast to its input's dtype."""
+    float32, every gradient product in float32, cast to its input's dtype.
+    ``whole``: the leaves whole, kept by the forward; else leaves that are
+    ``data`` blocks are gathered again as each product needs them, one at
+    a time (down, up, gate, then up again). Their gradients are summed
+    over the rows and cut to the block (``group``: the forward's). The
+    products and sums are those of the whole leaves."""
     f32 = torch.float32
+    d, ff = buf.shape[-1], gate.shape[-1]
+
+    def leaf(i, full):
+        return whole[i] if whole else _at_use((gate, up, down)[i], full)
+
     gbar = gbar.to(f32)
-    g = _bmm(buf, gate, f32)
-    u = _bmm(buf, up, f32)
+    d_h = torch.bmm(gbar, leaf(2, ff).to(f32).transpose(1, 2))  # (E, R, ff)
+    u = _bmm(buf, leaf(1, d), f32)
+    g_w = leaf(0, d)
+    g = _bmm(buf, g_w, f32)
     sg = torch.sigmoid(g)
     silu_g = g * sg
-    h = silu_g * u
-    d_down = torch.bmm(h.transpose(1, 2), gbar)  # (E, ff, d)
-    d_h = torch.bmm(gbar, down.to(f32).transpose(1, 2))  # (E, R, ff)
-    d_u = d_h * silu_g
+    del g
     d_g = d_h * u * (sg + silu_g * (1.0 - sg))
+    d_buf = torch.bmm(d_g, g_w.to(f32).transpose(1, 2))
+    del g_w, sg
     bf = buf.to(f32).transpose(1, 2)
-    d_gate = torch.bmm(bf, d_g)
-    d_up = torch.bmm(bf, d_u)
-    d_buf = torch.bmm(d_g, gate.to(f32).transpose(1, 2))
-    d_buf = d_buf + torch.bmm(d_u, up.to(f32).transpose(1, 2))
-    return (d_buf.to(buf.dtype), d_gate.to(gate.dtype), d_up.to(up.dtype),
-            d_down.to(down.dtype))
+    d_gate = _block_grad(torch.bmm(bf, d_g), gate, group)
+    del d_g
+    d_down = _block_grad(torch.bmm((silu_g * u).transpose(1, 2), gbar), down, group)  # (E, ff, d)
+    del u
+    d_u = d_h * silu_g
+    del d_h, silu_g
+    d_up = _block_grad(torch.bmm(bf, d_u), up, group)
+    d_buf = d_buf + torch.bmm(d_u, leaf(1, d).to(f32).transpose(1, 2))
+    return d_buf.to(buf.dtype), d_gate, d_up, d_down
+
+
+def _joined(parts: list) -> tuple:
+    """The experts' slices' results, each joined along the experts."""
+    return parts[0] if len(parts) == 1 else tuple(torch.cat(p) for p in zip(*parts))
 
 
 class _ExpertFFN(torch.autograd.Function):
     """The experts' gated FFN on the expert-major buffer (E, R, d), with the
-    JAX package's hand-written backward (recompute, no stash)."""
+    JAX package's hand-written backward (recompute, no stash). Expert
+    leaves that are ``data`` blocks (an FSDP grid) are gathered one at a
+    time, each freed after its product, in slices of experts
+    (``_experts_at_once``). Where the experts go at once, a forward that
+    needs a backward keeps the three whole leaves for it; else the
+    backward gathers them again, slice by slice. So a rank holds at most
+    three whole expert leaves, and those only where they fit its share."""
 
     @staticmethod
-    def forward(ctx, buf, gate, up, down):
-        ctx.save_for_backward(buf, gate, up, down)
-        g = _bmm(buf, gate, torch.float32)
-        u = _bmm(buf, up, torch.float32)
-        h = F.silu(g, inplace=True).mul_(u).to(buf.dtype)
-        del g, u
-        return _bmm(h, down, buf.dtype)
+    def forward(ctx, buf, gate, up, down, grad: bool):
+        # the backward may run on autograd's device thread, outside the
+        # forward's group context
+        ctx.group = tp.data_group()
+        E = gate.shape[0]
+        n = _experts_at_once(gate, buf.shape[-1], ctx.group)
+        gathered = gate.shape[1] != buf.shape[-1]
+        kept = [] if gathered and n == E and grad and any(ctx.needs_input_grad) else None
+        ctx.n = n
+        outs = [_expert_ffn_fwd(buf[lo:lo + n], gate[lo:lo + n], up[lo:lo + n], down[lo:lo + n],
+                                kept) for lo in range(0, E, n)]
+        ctx.save_for_backward(buf, gate, up, down, *(kept or ()))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     @staticmethod
     def backward(ctx, gbar):
-        return _expert_ffn_bwd(*ctx.saved_tensors, gbar)
+        buf, gate, up, down, *whole = ctx.saved_tensors
+        n = ctx.n
+        with tp.use_group(ctx.group):
+            grads = _joined([_expert_ffn_bwd(buf[e], gate[e], up[e], down[e], gbar[e], ctx.group,
+                                             whole)
+                             for e in (slice(lo, lo + n) for lo in range(0, gate.shape[0], n))])
+        return grads + (None,)
 
 
 def expert_ffn(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
                down: torch.Tensor) -> torch.Tensor:
-    """buf (E, R, d) -> (E, R, d) in buf's dtype."""
-    return _ExpertFFN.apply(buf, gate, up, down)
+    """buf (E, R, d) -> (E, R, d) in buf's dtype; the expert leaves whole
+    or the rank's ``data`` blocks of them (dim 1)."""
+    return _ExpertFFN.apply(buf, gate, up, down, torch.is_grad_enabled())
 
 
 def moe_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -31,7 +31,9 @@ tensor_parallel.data_group``), each layer's leaves split over ``data``
 are gathered whole over it as the layer begins (inside the checkpointed
 piece, so a remat layer frees them after its forward and gathers them
 again in the recompute), and the embedding at the lookup and at the
-logits (``data_whole``); each rank runs its own rows of the batch.
+logits (``data_whole``); the MoE expert leaves are gathered by the expert
+FFN, one at a time (``models.moe``). Each rank runs its own rows of the
+batch.
 """
 from __future__ import annotations
 
@@ -43,10 +45,11 @@ import torch
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import tensor_parallel as tp
+from repro_torch.models import moe
 from repro_torch.models.blocks import block_apply, block_cache_init, block_init, layer_kinds
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MetaGenerator, embed_apply, embed_init, rmsnorm_apply,
-                                       rmsnorm_init, unembed_apply)
+from repro_torch.models.layers import (MetaGenerator, embed_apply, embed_init, keep_below,
+                                       keep_whole, rmsnorm_apply, rmsnorm_init, unembed_apply)
 from repro_torch.models.shard_ctx import pin_activation, pin_stash
 
 Tree = Any
@@ -66,27 +69,20 @@ def _n_groups(cfg: ModelConfig) -> int:
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
-def keep_whole(path: Tuple[Any, ...], tree: Tree, stack: Optional[int] = None) -> Tree:
-    """An init's ``keep`` that keeps every part whole (the one-process
-    model)."""
-    return tree
-
-
-def stacked_draws(n: int, draw, keep=None) -> Tree:
+def stacked_draws(n: int, draw) -> Tree:
     """``n`` trees from ``draw()``, drawn in order, stacked leaf by leaf (the
     JAX package's ``tree_map(stack)``: dicts in sorted-key order). Each tree
-    is cut to ``keep(tree)`` (itself when None), copied into the stack and
-    dropped, so the init holds the stack and one tree, not two copies of
-    every layer. A stack of one tree is that tree's leaves (a view of
-    each, copied only where ``keep`` cut a view of a larger leaf): one
-    Llama4 period is 37 GB in bfloat16, which a copy would hold twice."""
+    is copied into the stack and dropped, so the init holds the stack and
+    one tree, not two copies of every layer. A stack of one tree is that
+    tree's leaves (a view of each, copied only where a ``keep`` of the
+    draw cut a view of a larger leaf): one Llama4 period is 37 GB in
+    bfloat16, which a copy would hold twice."""
     if n == 1:
-        one = draw() if keep is None else keep(draw())
         return tree_map(lambda x: (x if x._base is None else x.clone(
-            memory_format=torch.contiguous_format)).unsqueeze(0), one)
+            memory_format=torch.contiguous_format)).unsqueeze(0), draw())
     stack = None
     for i in range(n):
-        one = draw() if keep is None else keep(draw())
+        one = draw()
         if stack is None:
             stack = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), one)
         tree_map(lambda dst, src: dst[i].copy_(src), stack, one)
@@ -97,9 +93,10 @@ def stacked_draws(n: int, draw, keep=None) -> Tree:
 def init_params(gen: torch.Generator, cfg: ModelConfig, keep=keep_whole) -> Tree:
     """Parameters on ``gen``'s device, drawn from ``gen`` in order: the
     embedding, the layers (group by group), the unembedding. Each part is
-    cut to ``keep(path, part, stack)`` as it is drawn (``stack``: the number
-    of layers stacked in the part's leaves, else None), so a model-group
-    rank (``models.api``) never holds more than one layer whole."""
+    cut to ``keep(path, part, stack)`` as it is drawn, down to a layer's
+    single leaves (``layers.keep_below``; ``stack``: the number of layers
+    stacked in the part's leaves, else None), so a model-group rank
+    (``models.api``) never holds more than one leaf whole."""
     dtype = param_dtype(cfg)
     kinds = layer_kinds(cfg)
     G = _n_groups(cfg)
@@ -107,12 +104,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, keep=keep_whole) -> Tree
         "embed": keep(("embed",), embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype))}
     if cfg.scan_layers:
         # stack per period position: each leaf leads with G
-        params["groups"] = stacked_draws(
-            G, lambda: tuple(block_init(gen, cfg, kind, dtype) for kind in kinds),
-            lambda one: keep(("groups",), one, G))
+        def in_stack(path, tree):
+            return keep(("groups",) + path, tree, G)
+
+        params["groups"] = stacked_draws(G, lambda: tuple(
+            block_init(gen, cfg, kind, dtype, keep_below(in_stack, j))
+            for j, kind in enumerate(kinds)))
     else:
         params["layers"] = tuple(
-            keep(("layers", i), block_init(gen, cfg, kinds[i % len(kinds)], dtype))
+            block_init(gen, cfg, kinds[i % len(kinds)], dtype, keep_below(keep, "layers", i))
             for i in range(cfg.num_layers))
     params["ln_f"] = keep(("ln_f",), rmsnorm_init(cfg.d_model, dtype, gen.device))
     if not cfg.tie_embeddings:
@@ -174,19 +174,24 @@ def data_specs(cfg: ModelConfig, *path: Any) -> Optional[Tree]:
 
 def data_whole(tree: Tree, specs: Optional[Tree], stacked: bool = False) -> Tree:
     """``tree`` with each leaf that ``specs`` splits over ``data`` gathered
-    whole over it (``tp.gather_data``); ``stacked``: the specs are a
-    stack's and the leaves one slice of it (a leading dim fewer)."""
+    whole over it (``tp.gather_data``), but the MoE expert leaves, which
+    the expert FFN gathers one at a time as it uses them
+    (``moe.gathered_at_use``); ``stacked``: the specs are a stack's and
+    the leaves one slice of it (a leading dim fewer)."""
     if specs is None:
         return tree
     group = tp.data_group()
 
-    def leaf(x, spec):
+    def leaf(path, x):
+        spec = specs
+        for k in path:
+            spec = spec[k]
         dim = shd.split_dim(spec, "data", group.mesh)
-        if dim is None:
+        if dim is None or moe.gathered_at_use(path):
             return x
         return tp.gather_data(x, dim - 1 if stacked else dim)
 
-    return shd.zip_map(leaf, tree, specs)
+    return shd.map_with_path(leaf, tree)
 
 
 def _unstack(tree: Tree, G: int) -> List[Tree]:
@@ -259,8 +264,10 @@ def forward_hidden(
     if embeds is None:
         if tokens is None:
             raise ValueError("forward needs tokens or embeds")
-        embed = data_whole(params["embed"], data_specs(cfg, "embed"))
-        h = embed_apply(embed, tokens, cfg.padded_vocab)
+        # no name holds the gathered embedding: it is freed once looked up,
+        # not kept through the layers (1.04 GB a rank for Llama4 on a grid)
+        h = embed_apply(data_whole(params["embed"], data_specs(cfg, "embed")), tokens,
+                        cfg.padded_vocab)
     else:
         h = embeds
     h = pin_activation(h)

@@ -6,6 +6,7 @@ in spawned ranks, so these live in a module that imports the port alone
 takes the rank's ``ModelGroup`` first and returns host objects.
 """
 import contextlib
+import weakref
 from unittest import mock
 
 import numpy as np
@@ -326,3 +327,70 @@ def moe_rows_rank(group, cfg, p_np, x_np, mesh_axes):
             y, aux = fn()
         return {"y": y.numpy(), "aux": float(aux),
                 "counters": group.counters() if group is not None else {}}
+
+
+@contextlib.contextmanager
+def recorded_expert_gathers():
+    """``tp.gather_data`` patched to keep a weak reference to each expert
+    leaf it gathers (the 3-d leaves): yields a dict of the gathers' count
+    and the most expert leaves alive at once, read as each is gathered."""
+    whole = tp.gather_data
+    refs, seen = [], {"gathers": 0, "most_alive": 0}
+
+    def gather(x, dim):
+        # a view of the gathered leaf: the model code holds this object
+        # alone, where gloo's worker thread may still hold the gathered
+        # tensor for a moment after the collective returns
+        out = whole(x, dim).view(x.shape[:dim] + (-1,) + x.shape[dim + 1:])
+        if out.dim() == 3:
+            refs.append(weakref.ref(out))
+            seen["gathers"] += 1
+            seen["most_alive"] = max(seen["most_alive"], sum(r() is not None for r in refs))
+        return out
+
+    with mock.patch.object(tp, "gather_data", gather):
+        yield seen
+    seen["alive_after"] = sum(r() is not None for r in refs)
+
+
+def expert_gathers_rank(group, cfg, mesh_axes, params_np, tokens, steps, share):
+    """Reduced Llama4 on the rank's blocks, three ways: as built (the
+    expert FFN gathers the expert leaves over data as it uses them; on the
+    CPU the rank's memory share sets no bound), with the rank's memory
+    share set to ``share`` bytes (``tp.ModelGroup.memory_share``: the FFN
+    then takes its experts in slices) and with every split leaf gathered as
+    its layer begins (``moe.gathered_at_use`` answering no). Per way:
+    greedy serving's logits (a prefill, ``steps`` decode steps), the loss
+    and the gradients of the rank's blocks from a train step's forward and
+    backward on the rank's rows, and ``recorded_expert_gathers``' counts
+    for each."""
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.models import moe
+
+    torch.set_num_threads(1)
+    B, S = tokens.shape
+    mesh = Mesh(mesh_axes)
+    bundle, setup = build_serve_step(cfg, mesh, S + steps + 1, B, "cpu", group)
+    params = _params_on(bundle, cfg, params_np, "cpu", group)
+    b = B // group.rows
+    rows = {"tokens": torch.from_numpy(tokens[group.client_rank * b:(group.client_rank + 1) * b])}
+    loss_fn = _with_moe_profile(bundle.loss_fn, cfg, mesh)
+    out = {}
+    ways = (("at_use", moe.gathered_at_use, group.memory_share),
+            ("sliced", moe.gathered_at_use, share),
+            ("at_layer", lambda path: False, group.memory_share))
+    for way, at_use, memory_share in ways:
+        with mock.patch.object(moe, "gathered_at_use", at_use), \
+                mock.patch.object(group, "memory_share", memory_share):
+            with recorded_expert_gathers() as serve, torch.no_grad():
+                res = greedy(setup.prefill, setup.serve_step, bundle, params,
+                             setup.rows(serve_batch(cfg, tokens)), steps, group)
+            leaves, treedef = tree_flatten(params)
+            xs = [x.detach().clone().requires_grad_(True) for x in leaves]
+            with recorded_expert_gathers() as train:
+                loss = loss_fn(tree_unflatten(treedef, xs), rows, None)
+                loss.backward()
+        out[way] = {"logits": res["logits"], "loss": float(loss),
+                    "grads": [x.grad.numpy() for x in xs], "serve": serve, "train": train}
+        del loss, xs
+    return out

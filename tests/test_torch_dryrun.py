@@ -234,13 +234,15 @@ def _real_counts(cfg, shape, mesh):
         flops, nbytes = FlopCounterMode(display=False), dryrun._ByteCounter()
         with flops, nbytes:
             fn(*args)
-    return float(flops.get_total_flops()), float(nbytes.bytes), group.all_reduce_bytes
+    # every collective's bytes: the all-reduces and the data gathers' all-gathers
+    return (float(flops.get_total_flops()), float(nbytes.bytes),
+            group.all_reduce_bytes + group.data_gathered_bytes)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 @pytest.mark.parametrize("arch", ["qwen2_5_3b", "qwen3_moe_235b_a22b", "hymba_1_5b"])
 def test_fake_counts_equal_real_counts(arch, kind):
-    """FLOPs and all-reduce bytes equal. The bytes may not: ``matmul``
+    """FLOPs and collective bytes equal. The bytes may not: ``matmul``
     picks ``mm`` or an expanded ``bmm`` by the strides its operands come
     with, and the MoE dispatch takes data-dependent paths, so fake and real
     tensors can take other ops (a dense prefill takes the same ones)."""

@@ -10,8 +10,8 @@ Checks, on the reduced configs in float32:
   subprocess for the module): the FSDP train step of Qwen3-MoE-235B-A22B
   (parameters within ``STEP_RTOL`` / ``STEP_ATOL`` of the one-process
   port's, and within the JAX twin's bound of the JAX package's) and its
-  serving, and Qwen2.5-3B's serving (logits within ``F32_LOGITS_ATOL``),
-  at (data 2, model 2); Qwen2.5-3B's serving and the FSDP train step at
+  serving, and Qwen2.5-3B's and reduced Llama4's serving (logits within
+  ``F32_LOGITS_ATOL``), at (data 2, model 2); Qwen2.5-3B's serving and the FSDP train step at
   (pod 2, data 1, model 2), where ``pod`` joins the row split and the
   gradient sum;
 * the data gather's adjoint against one-process autograd;
@@ -22,6 +22,10 @@ Checks, on the reduced configs in float32:
   the ranks;
 * the dry run's counting grid counts each rank's all-reduces by axis as
   the gloo grid does;
+* reduced Llama4's expert leaves gathered one at a time by the expert FFN
+  (one whole expert leaf alive at most, results equal to gathering every
+  leaf as the layer begins), and a grid rank's init cutting each leaf to
+  its block before it draws the next;
 * the launchers at ``--ranks 6``: (data 3, model 2), rows joined in order,
   an FSDP config trained with its loss falling.
 """
@@ -30,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -157,7 +162,7 @@ np.savez(sys.argv[1], **out)
 '''
 
 SERVE = {"moe@2x2": ("qwen3_moe_235b_a22b", GRID), "qwen@2x2": ("qwen2_5_3b", GRID),
-         "qwen@2x1x2": ("qwen2_5_3b", PODS)}
+         "qwen@2x1x2": ("qwen2_5_3b", PODS), "llama4@2x2": ("llama4_maverick_400b_a17b", GRID)}
 TRAIN = {"moe@2x2": GRID, "moe@2x1x2": PODS}
 TRAIN_ARCH = "qwen3_moe_235b_a22b"
 
@@ -285,6 +290,112 @@ def test_fsdp_train_step_with_remat_gathers_again_in_the_recompute(grid):
     assert gathered[True] - gathered[False] == sum(split) * base.num_layers * FED["local_steps"]
 
 
+def test_expert_leaves_are_gathered_one_at_a_time(grid):
+    """Reduced Llama4 on the grid: the expert FFN gathers each expert leaf
+    over data as it uses it, so in serving (a prefill and decode steps)
+    never more than one whole expert leaf is alive. Where three whole
+    leaves fit the rank's memory share (on the CPU, no bound) a train
+    step's forward keeps them for the backward, as gathering them as the
+    layer begins does; with a share that one expert's three leaves fill,
+    the FFN takes its experts one at a time, frees each leaf after its
+    product and gathers down, up, gate and up again in the backward, one
+    alive at a time. The logits, the loss and the gradients of every
+    block are the same, bit for bit, in the three ways."""
+    from repro_torch.models import moe
+
+    cfg = get_config("llama4_maverick_400b_a17b", reduced=True)
+    moe_layers = cfg.num_layers // cfg.moe_every
+    E = cfg.num_experts // 2
+    one_expert = cfg.d_model * cfg.moe_d_ff * 4  # one expert's whole leaf, float32
+    share = int(3 * one_expert / moe.GATHER_SHARE)
+    res = grid.run(prog.expert_gathers_rank, cfg, GRID, _params(cfg), _tokens(cfg, B, S, 1), STEPS,
+                   share)
+    calls = 1 + STEPS
+    for r in res:
+        at_use, at_layer, sliced = r.value["at_use"], r.value["at_layer"], r.value["sliced"]
+        assert sliced["serve"]["most_alive"] == 1 and sliced["train"]["most_alive"] == 1
+        assert sliced["serve"]["gathers"] == 3 * E * moe_layers * calls
+        assert sliced["train"]["gathers"] == (3 + 4) * E * moe_layers
+        assert at_use["serve"]["most_alive"] == 1
+        assert at_use["serve"]["gathers"] == at_layer["serve"]["gathers"] == 3 * moe_layers * calls
+        # kept for the backward: every MoE layer's three at the end of the
+        # forward, either way, and not gathered again
+        assert at_layer["serve"]["most_alive"] == 3
+        assert at_use["train"]["most_alive"] == at_layer["train"]["most_alive"] == 3 * moe_layers
+        assert at_use["train"]["gathers"] == at_layer["train"]["gathers"] == 3 * moe_layers
+        for way in (at_use, at_layer, sliced):
+            assert way["serve"]["alive_after"] == way["train"]["alive_after"] == 0
+        for other in (sliced, at_layer):
+            for a, b in zip(other["logits"], at_use["logits"]):
+                np.testing.assert_array_equal(a, b)
+            assert other["loss"] == at_use["loss"]
+            for a, b in zip(other["grads"], at_use["grads"]):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("scan_layers", [False, True], ids=["layers", "stacked"])
+def test_a_grid_ranks_init_holds_one_whole_leaf_at_a_time(scan_layers, monkeypatch):
+    """A (data 2, model 2) rank's init of reduced Llama4 draws in the
+    one-process order and cuts each leaf to its block before it draws the
+    next: at every draw the leaf drawn before it has been cut and no whole
+    leaf it cut is alive. Each rank's tree is, byte for byte, the
+    one-process draw cut by ``sharding.shard``."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import layers, moe
+
+    cfg = dataclasses.replace(get_config("llama4_maverick_400b_a17b", reduced=True),
+                              scan_layers=scan_layers)
+    mesh = Mesh(GRID)
+    normal, shard = layers._normal, sharding.shard
+    shapes = []
+
+    def counting(gen, shape):
+        shapes.append(tuple(shape))
+        return normal(gen, shape)
+
+    monkeypatch.setattr(layers, "_normal", counting)
+    monkeypatch.setattr(moe, "_normal", counting)
+    whole = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    specs = sharding.param_specs(whole, cfg, mesh)
+    state = {"pending": None, "draws": 0, "cut": []}
+
+    def held_whole():
+        return [tuple(x.shape) for x in (r() for r in state["cut"]) if x is not None]
+
+    def drawing(gen, shape):
+        if gen.device.type == "meta":  # the specs' shapes, drawn on no device
+            return normal(gen, shape)
+        assert state["pending"] is None, f"draw {state['draws']}: {state['pending']} was not cut"
+        assert not held_whole(), f"draw {state['draws']}: whole leaves alive {held_whole()}"
+        state["pending"], state["draws"] = tuple(shape), state["draws"] + 1
+        return normal(gen, shape)
+
+    def cutting(leaf, spec, mesh, coords):
+        if tuple(leaf.shape) == state["pending"]:
+            state["pending"] = None
+        if any(e is not None for e in spec):
+            state["cut"].append(weakref.ref(leaf))
+        return shard(leaf, spec, mesh, coords)
+
+    monkeypatch.setattr(layers, "_normal", drawing)
+    monkeypatch.setattr(moe, "_normal", drawing)
+    monkeypatch.setattr(sharding, "shard", cutting)
+    for c in sharding.mesh_coords(mesh):
+        state.update(pending=None, draws=0, cut=[])
+        group = tp.ModelGroup(rank=c["model"], size=2, clients=(("data", 2),),
+                              client_rank=c["data"])
+        got = build_model(cfg, "cpu", group).init(torch.Generator().manual_seed(0))
+        assert state["pending"] is None and not held_whole()
+        assert state["draws"] == len(shapes)  # the one-process draws, one for one
+        want = sharding.shard_tree(whole, specs, mesh, c)
+        flat = {}
+        sharding.map_with_path(lambda path, x: flat.__setitem__(path, x), got)
+        seen = []
+        sharding.map_with_path(lambda path, x: seen.append(path) or torch.testing.assert_close(
+            flat[path], x, rtol=0, atol=0), want)
+        assert sorted(seen) == sorted(flat)
+
+
 # ---------------------------------------------------------------------- #
 # the pieces
 # ---------------------------------------------------------------------- #
@@ -308,8 +419,9 @@ def test_data_gather_adjoint_equals_one_process_autograd(grid):
         np.testing.assert_allclose(d["gw"], wt.grad.numpy()[lo:lo + 3], rtol=1e-5, atol=1e-6)
         c = d["counters"]
         assert (c["data_gathered_leaves"], c["data_gathered_bytes"]) == (1, w.nbytes)
-        # the gather, the gradient's sum and the loss's: all over the client axes
-        assert c["data_all_reduces"] == 3 and c["model_all_reduces"] == 0
+        # the gradient's sum and the loss's, over the client axes (the
+        # gather is an all-gather, counted as the gathered leaf)
+        assert c["data_all_reduces"] == 2 and c["model_all_reduces"] == 0
 
 
 @pytest.mark.parametrize("k,ranks", [(2, 2), (2, 4), (4, 2)])

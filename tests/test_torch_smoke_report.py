@@ -325,6 +325,25 @@ def test_phase9_gates_fail(fault):
                                       pinned=False)
 
 
+def test_near_ties_hold_rounding_flips_and_name_a_wrong_token():
+    """``_near_ties`` on bf16 greedy tokens: a flip between two logits
+    closer than the rows' rounding noise is a near-tie within its limit;
+    a grid that picks a token far below the top is not."""
+    gen = torch.Generator().manual_seed(3)
+    want = torch.randn((2, 3, 1000), generator=gen)
+    want[0, 1, 7], want[0, 1, 9] = 10.0, 10.0005  # a near-tie: one process picks 9
+    noise = 1e-2 * torch.randn(want.shape, generator=gen)
+    got = want + noise
+    got[0, 1, 7], got[0, 1, 9] = 10.001, 10.0  # the grid picks 7
+    ties = chip_smoke._near_ties(got, want)
+    assert [t["at"] for t in ties] == [[0, 1]]
+    assert ties[0]["margin"] == pytest.approx(5e-4, rel=1e-3)
+    assert ties[0]["margin"] <= ties[0]["limit"]
+    got[1, 2, 3] = 100.0  # a token the one-process logits put far below their top
+    far = [t for t in chip_smoke._near_ties(got, want) if t["at"] == [1, 2]]
+    assert len(far) == 1 and far[0]["margin"] > far[0]["limit"]
+
+
 _REHEARSAL = r'''
 """Phase 9 of chip_smoke.py on the CPU at tiny widths: spawned ranks re-run
 this top level, so they take the same stand-ins."""
@@ -368,7 +387,8 @@ if __name__ == "__main__":
     out = cs.phase_tensor_parallel(torch.device("cpu"), "no card")
     print("LAUNCHES", out["qwen"]["launches_per_rank"], out["moe"]["launches_per_rank"])
     grid = cs.phase_grid(torch.device("cpu"), "no card", out)
-    print("GRID LAUNCHES", grid["qwen"]["launches_per_rank"], grid["moe"]["launches_per_rank"])
+    print("GRID LAUNCHES", grid["qwen"]["launches_per_rank"], grid["moe"]["launches_per_rank"],
+          grid["llama4"]["launches_per_rank"])
     torch.cuda.get_device_properties = lambda dev: types.SimpleNamespace(
         total_memory=hw.HBM_PER_CARD)
     ten = cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card", grid)
@@ -396,9 +416,11 @@ if __name__ == "__main__":
 def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     """The whole phase, every gate, over two gloo ranks on the CPU (the
     flash route a counting plain version, the CUDA calls no-ops), then
-    phase 9f over a (data 2, model 2) grid of four, then phase 10 on their
-    results: it passes, and refuses a miscounted all-reduce (phase 9's and
-    9f's by axis) and a prefill faster than its compute term."""
+    phase 9f over a (data 2, model 2) grid of four (its part (e): Llama4's
+    period, the ranks drawing in turn, the routing pinned, the zeroed data
+    block caught), then phase 10 on their results: it passes, and refuses
+    a miscounted all-reduce (phase 9's and 9f's by axis) and a prefill
+    faster than its compute term."""
     driver = tmp_path / "rehearse_phase9.py"
     driver.write_text(_REHEARSAL)
     env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
@@ -409,12 +431,14 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     for part in ("phase 9a:", "phase 9b Qwen2.5-3B:", "phase 9b sampling:",
                  "phase 9c Qwen3-MoE-235B-A22B:", "phase 9d:", "phase 9e:",
                  "phase 9 flash_sm90 at", "phase 9f a:", "phase 9fb Qwen2.5-3B:",
-                 "phase 9fc Qwen3-MoE-235B-A22B:", "phase 9f d:", "phase 9f flash_sm90 at",
+                 "phase 9fc Qwen3-MoE-235B-A22B:", "phase 9f d:",
+                 "phase 9fe Llama4-Maverick-400B-A17B:", "phase 9f e:", "phase 9f flash_sm90 at",
                  "phase 10 grid:", "phase 10: card memory", "MISCOUNT REFUSED",
                  "GRID MISCOUNT REFUSED", "TOO FAST REFUSED"):
         assert part in out
     assert "LAUNCHES [4, 4] [2, 2]" in out and "DRYRUN memory" in out
-    assert "GRID LAUNCHES [4, 4, 4, 4] [2, 2, 2, 2]" in out
+    assert "GRID LAUNCHES [4, 4, 4, 4] [2, 2, 2, 2] [2, 2, 2, 2]" in out
+    assert "fault zero_data_block rel L2" in out.split("phase 9fe", 1)[1]
 
 
 def test_float32_flash_gate_sees_the_planted_attention_faults():
@@ -597,15 +621,18 @@ def _kernels_line(examples_launches: dict) -> dict:
     moe = {"launches": dict(zero, **{sm90: 8}), "flash": [_flash_entry(1.295)]}
     ranks = {"qwen": {"launches_per_rank": [4, 4]}, "moe": {"launches_per_rank": [2, 2]},
              "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66)}}
+    grid = dict(ranks, llama4={"launches_per_rank": [2, 2]},
+                flash=dict(ranks["flash"], llama4=_flash_entry(0.23)))
     return json.loads(chip_smoke.kernels_line(run, run, run, run, serve, moe, run, run, run,
-                                              fam, ranks, ranks,
+                                              fam, ranks, grid,
                                               {"launches": examples_launches}))
 
 
 def test_kernels_line_has_the_four_shapes_and_their_launches():
     """The ``kernels`` line's ``flash_sm90.cu`` row carries an
     ``at_<shape>`` entry for each of 6v, 6k, 6j and 6l (ms, bound, plain,
-    SDPA, rel L2) and their prefill launches by path."""
+    SDPA, rel L2) and their prefill launches by path, and 9f (e)'s Llama4
+    rank shape with its launches in 9f's."""
     line = _kernels_line({})
     row = next(r for r in line["kernels"] if r["name"] == "flash_attention_forward_sm90")
     for phase, n in (("6v", 28), ("6k", 30), ("6j", 40), ("6l", 2)):
@@ -615,6 +642,8 @@ def test_kernels_line_has_the_four_shapes_and_their_launches():
         assert entry["ms"] == 0.1 * i and entry["rel_l2"] == 2e-3
         assert {"bound_ms", "bound_by", "plain_ms", "library_ms"} <= set(entry)
     assert row["at_moe_shape"]["ms"] == 1.295
+    assert row["at_grid_llama4_rank_shape"]["ms"] == 0.23
+    assert row["launches_by_path"]["9f"] == 2 * (4 + 2 + 2)  # (b), (c) and (e) a rank
 
 
 def test_kernels_line_counts_the_examples_launches():
@@ -626,4 +655,4 @@ def test_kernels_line_counts_the_examples_launches():
                     ("quantize_blocks", 0), ("flash_attention_forward_sm90", 0)):
         assert rows[name]["launches_by_path"]["3e"] == n
     assert rows["exact_fold_into_tree"]["launches"] == 41
-    assert rows["flash_attention_forward_sm90"]["launches"] == 36 + 8 + 144 + 12 + 12
+    assert rows["flash_attention_forward_sm90"]["launches"] == 36 + 8 + 144 + 12 + 16

@@ -1,18 +1,28 @@
 #!/usr/bin/env python3
-"""All-reduce rates of gloo on one CUDA card for a (data 2, model 2) grid
-of four ranks (``launch.tensor_parallel.GroupPool``), the layout phase 9f
-of ``chip_smoke.py`` runs: each rank all-reduces a buffer over its data
-group (two ranks) while the other pair does the same.
+"""All-reduce and all-gather rates of gloo on one CUDA card for a (data 2,
+model 2) grid of four ranks (``launch.tensor_parallel.GroupPool``), the
+layout phase 9f of ``chip_smoke.py`` runs: each rank all-reduces a buffer
+over its data group (two ranks) while the other pair does the same.
 
 Modes, each timed on the host clock around work that ends in a
 synchronize (median of 3, after a warm-up):
 
-* ``cuda``: one all-reduce of the whole CUDA buffer (the data gather's);
+* ``cuda``: one all-reduce of the whole float32 CUDA buffer;
 * ``cuda_chunks_N``: the buffer in N chunks, all issued with
   ``async_op=True`` before the first wait (gloo's worker threads may run
   them at once);
 * ``cpu_pinned``: one all-reduce of a pinned host buffer of the same size
-  (gloo's host ring alone, no device copies).
+  (gloo's host ring alone, no device copies);
+* ``gather_padded``: FSDP's data gather as an all-reduce of the whole
+  bf16 leaf, zero but for the rank's block along dim 1 (an expert leaf's
+  data dim);
+* ``gather_all_gather``: the same gather as one ``all_gather`` of the
+  blocks, moved to their place along dim 1;
+* ``gather_data``: the same gather through
+  ``tensor_parallel.gather_data`` (one broadcast from each data rank),
+  each gather checked equal to the padded all-reduce's.
+
+``GB_per_s`` is the buffer's (the whole leaf's) bytes over the seconds.
 
 Usage (on the card's machine, from the root of a checkout):
   python3 tools/gloo_allreduce_rates.py [--mb 512] [--chunks 4,16]
@@ -71,6 +81,34 @@ def rates_rank(group, mb: int, chunks: list) -> dict:
         dist.all_reduce(h, group=pg)
 
     out["cpu_pinned"] = _timed(host, dev)
+    # a bf16 leaf (8, rows, 8192) of the buffer's bytes, split over data on dim 1
+    rows = mb * (1 << 20) // (8 * 8192 * 2)
+    me, D = group.coords["data"], group.data_size
+    gen = torch.Generator(device=dev).manual_seed(me)
+    block = torch.randn((8, rows // D, 8192), generator=gen, device=dev).to(torch.bfloat16)
+    got = {}
+
+    def padded():
+        full = block.new_zeros((8, rows, 8192))
+        full.narrow(1, me * (rows // D), rows // D).copy_(block)
+        dist.all_reduce(full, group=group.data_pg)
+        got["padded"] = full
+
+    def all_gather():
+        blocks = block.new_empty((D,) + tuple(block.shape))
+        dist.all_gather(list(blocks.unbind(0)), block, group=group.data_pg)
+        got["all_gather"] = blocks.movedim(0, 1).reshape(8, rows, 8192)
+
+    def gather_data():
+        with tp.use_group(group), torch.no_grad():
+            got["gather_data"] = tp.gather_data(block, 1)
+
+    for name, fn in (("gather_padded", padded), ("gather_all_gather", all_gather),
+                     ("gather_data", gather_data)):
+        out[name] = _timed(fn, dev)
+    for name in ("all_gather", "gather_data"):
+        if not torch.equal(got["padded"], got[name]):
+            raise AssertionError(f"{name}'s leaf differs from the padded all-reduce's")
     return {k: {"s": v, "GB_per_s": mb * (1 << 20) / v / 1e9} for k, v in out.items()}
 
 
