@@ -402,6 +402,7 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.core.mesh_lowering import lower_tag_to_mesh  # noqa: E402
 from repro_torch.data.datasets import synthetic_lm_batches  # noqa: E402
 from repro_torch.fl.fedstep import FedStepConfig  # noqa: E402
+from repro_torch.fl import fedstep as tfedstep  # noqa: E402
 from repro_torch.launch.mesh import make_virtual_mesh  # noqa: E402
 from repro_torch.launch.steps import build_train_step  # noqa: E402
 from repro_torch.core.mesh_lowering import Mesh  # noqa: E402
@@ -4832,12 +4833,15 @@ def _tp_serve_rank(group, runs: list) -> list:
 
 
 def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool,
-                  sample: int = 0, mesh: Mesh = None, block_sums: bool = False) -> dict:
+                  sample: int = 0, mesh: Mesh = None, block_sums: bool = False,
+                  after=None) -> dict:
     """The one-process run of the same draws under the split run's
     profile (``mesh``'s; phase 9's by default); with ``record``, the expert
     picks of every routing call; with ``sample``, that many tokens sampled
     as ``_tp_serve_rank`` samples; with ``block_sums``, the sums of every
-    leaf's block of each device of ``mesh`` (``_block_sums``)."""
+    leaf's block of each device of ``mesh`` (``_block_sums``); with
+    ``after``, ``after(params)`` last, on the same draw (``out["after"]``:
+    9f (f)'s donated step, which steps the draw in place)."""
     bundle = build_model(cfg, dev)
     prefill = _with_moe_profile(bundle.prefill, cfg, mesh or _tp_mesh())
     serve_step = _with_moe_profile(bundle.serve_step, cfg, mesh or _tp_mesh())
@@ -4855,7 +4859,11 @@ def _tp_reference(dev, cfg, seed: int, B: int, S: int, steps: int, record: bool,
     if sample:
         with torch.no_grad():
             out["sampled"] = generate(bundle, params, prompts, sample, 1.0).tokens.cpu()
-    del params, prompts, forced, bundle, pin
+    del prompts, forced, pin
+    if after is not None:
+        free_device()
+        out["after"] = after(params)
+    del params, bundle
     free_device()
     return out
 
@@ -5342,6 +5350,20 @@ GRID_LLAMA4_LAYERS, GRID_LLAMA4_STEPS = 2, 0
 # seeded prefill flips the same two tokens in every run, at 0.908 and
 # 0.076 RMS (rows 0 and 6)
 NEAR_TIE = 2.0
+# (f) one donated train step of (e)'s period on (e)'s draws (the ranks',
+# and the one-process draw after its prefill): TRAIN_BATCH x TRAIN_SEQ
+# tokens, GRID_TRAIN_LOCAL_STEPS, TRAIN_LR, Llama4's own plain attention
+# (the flash kernel has no backward in either package), the routing pinned
+# to the one-process step's picks (its forward and remat's recompute). Held
+# to one process: the loss within GRID_STEP_LOSS_RTOL, and every leaf's
+# block's gradient, on GRID_GRAD_ROWS rows drawn by a generator seeded by
+# the leaf and the device, within SERVE_REL_L2 (relative L2). The planted
+# fault, in the same step: the gradient of the leaf at GRID_STEP_FAULT[1]
+# (replicated over data) not summed over data
+GRID_GRAD_ROWS = 8
+GRID_STEP_LOSS_RTOL = 1e-2
+GRID_STEP_SEED = 5
+GRID_STEP_FAULT = ("skip_data_sum", ("ln_f", "scale"))
 
 
 @contextlib.contextmanager
@@ -5488,14 +5510,16 @@ def _grid_drives(group, bundle, setup, params, prompts, forced, drives: list) ->
     return out
 
 
-def _grid_llama4_rank(group, cfg, seed: int, B: int, S: int, steps: int, drives: list) -> dict:
+def _grid_llama4_rank(group, cfg, seed: int, B: int, S: int, steps: int, drives: list,
+                      train: dict = None) -> dict:
     """(e) Llama4's period on the grid. The ranks draw in turn, one after
     the other with a barrier over the world group between them (four ranks
     share one card: a rank's draw holds an expert leaf's whole float32
     draw, 21.5 GB), each cutting every leaf to its block as it is drawn and
     freeing its cache before the next rank draws; then ``_grid_drives``.
     The rank's parameter bytes, its blocks' sums (``_block_sums``), its
-    init peak, its serving peak and reserved memory, and the drives."""
+    init peak, its serving peak and reserved memory, and the drives; with
+    ``train``, then (f)'s step on the same blocks (``_grid_llama4_step``)."""
     dev = group.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5520,9 +5544,246 @@ def _grid_llama4_rank(group, cfg, seed: int, B: int, S: int, steps: int, drives:
     res["drives"] = _grid_drives(group, bundle, setup, params, prompts, forced, drives)
     res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     res["reserved_gb"] = torch.cuda.max_memory_reserved(dev) / 1e9
-    del params, prompts, forced, bundle, setup
+    del prompts, forced, bundle, setup
+    if train is not None:
+        res["train"] = _grid_llama4_step(group, params, train)
+    del params
     free_device()
     return res
+
+
+def _llama4_train_cfg():
+    """(f)'s configuration: (e)'s with Llama4's own plain attention."""
+    return dataclasses.replace(_grid_llama4(),
+                               attn_impl=get_config("llama4_maverick_400b_a17b").attn_impl)
+
+
+def _block_view(x: torch.Tensor, spec, mesh: Mesh, coords: dict) -> torch.Tensor:
+    """The block of ``x`` that the device at ``coords`` holds, as a view
+    (``sharding.shard`` cuts the same block as a copy)."""
+    idx = []
+    for d, e in zip(x.shape, spec):
+        n, i = shd.split_of(e, mesh, coords)
+        idx.append(slice(i * (d // n), (i + 1) * (d // n)))
+    return x[tuple(idx)]
+
+
+def _grad_stats(g: torch.Tensor, leaf: int, device: int) -> dict:
+    """A gradient block's float32 sum of squares and ``GRID_GRAD_ROWS`` of
+    its rows (along its last dim), drawn by a generator seeded by the leaf
+    and the mesh device, as float32 on the host."""
+    shape = tuple(g.shape[:-1]) if g.dim() > 1 else (1,)
+    n = 1
+    for k in shape:
+        n *= k
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(1000 * leaf + device))
+    idx = torch.unravel_index(pick[:min(GRID_GRAD_ROWS, n)], shape)
+    rows = (g if g.dim() > 1 else g[None])[tuple(i.to(g.device) for i in idx)]
+    return {"sq": float(torch.linalg.vector_norm(g, dtype=torch.float32)) ** 2,
+            "rows": rows.float().cpu()}
+
+
+class _GradProbe:
+    """Wraps ``fedstep.update_leaf`` for a step: each leaf's gradient, once
+    whole and summed over data, is recorded (``_grad_stats``) for each
+    ``(device, block)`` of ``cuts(j, g)`` in ``stats[(j, device)]``, then
+    the leaf is stepped. ``fault``: leaf ``fault``'s sum over the rows
+    still runs (the ranks and their counts stay in step), but the step and
+    the record take the rank's own rows' gradient."""
+
+    def __init__(self, cuts, fault: int = None):
+        self.cuts, self.fault = cuts, fault
+
+    def __enter__(self):
+        self._whole, self.stats = tfedstep.update_leaf, {}
+
+        def update(j, w, g, lr, rows=None, base=None):
+            if rows is not None:
+                summed = tp.rows_sum(g, rows)
+                g = g if j == self.fault else summed
+                del summed
+            for device, block in self.cuts(j, g):
+                self.stats[(j, device)] = _grad_stats(block, j, device)
+            return self._whole(j, w, g, lr, None, base)
+
+        tfedstep.update_leaf = update
+        return self
+
+    def __exit__(self, *exc):
+        tfedstep.update_leaf = self._whole
+
+
+class _StepTimer:
+    """Host seconds of a train step's collectives, each synchronized before
+    and after: the gathers over data in the forward, in remat's recompute
+    (inside the backward, outside the expert products' backward methods)
+    and in the expert products' backward, and the gradient sums over data
+    (the blocks' reduces to their owners and the rows sums of the leaves
+    replicated over data); rows sums outside the backward (routing counts)
+    as ``forward_sums``."""
+
+    KEYS = ("forward_gathers", "recompute_gathers", "backward_gathers", "gradient_sums",
+            "forward_sums")
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        self.s = dict.fromkeys(self.KEYS, 0.0)
+        self._saved = (tp.gather_data, tp._reduce_to_owners, tp.rows_sum)
+
+        def in_backward():
+            return torch._C._current_graph_task_id() != -1
+
+        backward_codes = {tmoe._Product.backward.__code__, tmoe._Down.backward.__code__}
+
+        def gather_key():
+            if not in_backward():
+                return "forward_gathers"
+            frame = sys._getframe(2)
+            while frame is not None and frame.f_code not in backward_codes:
+                frame = frame.f_back
+            return "recompute_gathers" if frame is None else "backward_gathers"
+
+        def timed(fn, key_of):
+            def run(*a, **k):
+                key = key_of()
+                torch.cuda.synchronize(self.dev)
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize(self.dev)
+                self.s[key] += time.perf_counter() - t0
+                return out
+            return run
+
+        tp.gather_data = timed(tp.gather_data, gather_key)
+        tp._reduce_to_owners = timed(tp._reduce_to_owners, lambda: "gradient_sums")
+        tp.rows_sum = timed(tp.rows_sum, lambda: "gradient_sums" if in_backward()
+                            else "forward_sums")
+        return self
+
+    def __exit__(self, *exc):
+        tp.gather_data, tp._reduce_to_owners, tp.rows_sum = self._saved
+
+
+class _HostPeak:
+    """The most host memory in use while it runs (MemTotal - MemAvailable
+    of /proc/meminfo, as ``free -m`` reads it, MB), read every 0.25 s."""
+
+    def __enter__(self):
+        self.mb, self._stop = self._used(), threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.25):
+                self.mb = max(self.mb, self._used())
+
+        self._thread = threading.Thread(target=watch, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _used() -> float:
+        info = {}
+        with open("/proc/meminfo") as f:
+            for line in f:
+                k, v = line.split(":", 1)
+                info[k] = int(v.split()[0])
+        return (info["MemTotal"] - info["MemAvailable"]) / 1024
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.mb = max(self.mb, self._used())
+
+
+def _leaf_paths(params) -> list:
+    paths = []
+    shd.map_with_path(lambda path, x: paths.append(path), params)
+    return paths
+
+
+def _llama4_step_reference(dev, params, batch: dict) -> dict:
+    """(f)'s one-process step on (e)'s one-process draw (stepped in place):
+    ``build_train_step`` on (data 1, model 1) under the grid's profile, its
+    expert picks recorded (the forward and remat's recompute), the loss and
+    ``delta_norm``, each leaf's gradient block of every device of the grid
+    (``_GradProbe``), the step's seconds and peak memory. Nothing of the
+    stepped tree is kept."""
+    t_part = time.perf_counter()
+    cfg = _llama4_train_cfg()
+    mesh = _grid_mesh()
+    coords = shd.mesh_coords(mesh)
+    specs = []
+    shd.zip_map(lambda x, spec: specs.append(spec), params, shd.param_specs(params, cfg, mesh))
+    fed = FedStepConfig(local_steps=GRID_TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    with _grid_profile():
+        bundle, setup = build_train_step(cfg, Mesh((("data", 1), ("model", 1))), fed, device=dev)
+    paths = _leaf_paths(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pin = _PinnedRouting()
+
+    def cuts(j, g):
+        return [(d, _block_view(g, specs[j], mesh, c)) for d, c in enumerate(coords)]
+
+    with pin, _GradProbe(cuts) as probe:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, _, metrics = setup.step(params, (), batch, GRID_STEP_SEED)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+    out = {"loss": float(metrics["loss"]), "delta_norm": float(metrics["delta_norm"]),
+           "picks": [p.cpu() for p in pin.picks], "stats": probe.stats, "step_s": step_s,
+           "paths": paths, "fault": paths.index(GRID_STEP_FAULT[1]),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del metrics, bundle, setup, pin
+    free_device()
+    out["part_s"] = time.perf_counter() - t_part
+    return out
+
+
+def _grid_llama4_step(group, params, train: dict) -> dict:
+    """(f) on the rank: one donated step of ``build_train_step`` on the
+    grid on the rank's blocks (stepped in place), the routing pinned to the
+    one-process step's picks cut to the rank's rows, ``train["fault"]``'s
+    sum over data planted (``_GradProbe``): the loss, ``delta_norm``, the
+    rank's gradient blocks' records, the step's seconds and their split
+    (``_StepTimer``), its counters and peak and reserved memory."""
+    dev = group.device
+    t_part = time.perf_counter()
+    fed = FedStepConfig(local_steps=GRID_TRAIN_LOCAL_STEPS, local_lr=TRAIN_LR)
+    bundle, setup = build_train_step(_llama4_train_cfg(), _grid_mesh(), fed, device=dev,
+                                     group=group)
+    me = shd.mesh_coords(_grid_mesh()).index(group.coords)
+    free_device()
+    torch.cuda.reset_peak_memory_stats(dev)
+    group.reset_counters()
+    pin = _PinnedRouting()
+    with pin, _GradProbe(lambda j, g: [(me, g)], train["fault"]) as probe, \
+            _StepTimer(dev) as timer:
+        pin.picks = [p.to(dev) for p in train["picks"]]
+        pin.replay(_rank_picks(group))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, _, metrics = setup.step(params, (), train["batch"], GRID_STEP_SEED)
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+    out = {"loss": float(metrics["loss"]), "delta_norm": float(metrics["delta_norm"]),
+           "device": me, "stats": probe.stats, "step_s": step_s, "split_s": timer.s,
+           "pinned_calls": pin.calls, "counters": group.counters(),
+           "memory_share": group.memory_share,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "reserved_gb": torch.cuda.max_memory_reserved(dev) / 1e9}
+    del metrics, bundle, setup, pin
+    out["part_s"] = time.perf_counter() - t_part
+    return out
+
+
+def _rows_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """``_rel_l2`` of two gradient samples; 0 where both are zero (rows of
+    experts that no token reached)."""
+    if not bool(b.any()):
+        return 0.0 if not bool(a.any()) else float("inf")
+    return _rel_l2(a, b)
 
 
 def _grid_train_rank(group, cfg, seed: int, batch: dict, round_seed: int, ref_path: str,
@@ -5735,7 +5996,8 @@ def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
     served with its FSDP blocks gathered over data at use, (d) one FSDP
     train step of Qwen3-MoE, (e) Llama4-Maverick-400B-A17B's period
     served at its published widths, its ranks drawing in turn and its
-    expert leaves gathered one at a time; the flash kernel at the ranks'
+    expert leaves gathered one at a time, (f) one donated train step of
+    that period on the same draws; the flash kernel at the ranks'
     shapes."""
     B, S = SERVE_BATCH, SERVE_PROMPT
     qwen = dataclasses.replace(get_config("qwen2_5_3b"), num_layers=GRID_QWEN_LAYERS,
@@ -5765,9 +6027,14 @@ def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
     ref_moe32 = _tp_reference(dev, moe32, 10, B, TP_F32_PROMPT, 0, record=True,
                               mesh=_grid_mesh())
     # (e)'s: 37.1 GB and a 56 GB init peak, freed before the ranks start;
-    # its logits, picks and every rank's block sums stay on the host
-    ref_llama4 = _tp_reference(dev, llama4, 12, B, S, GRID_LLAMA4_STEPS, record=True,
-                               mesh=_grid_mesh(), block_sums=True)
+    # its logits, picks and every rank's block sums stay on the host; then
+    # (f)'s step on the same draw, whose picks and gradient records stay
+    llama4_batch = {"tokens": next(synthetic_lm_batches(
+        vocab=llama4.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0))}
+    ref_llama4 = _tp_reference(
+        dev, llama4, 12, B, S, GRID_LLAMA4_STEPS, record=True, mesh=_grid_mesh(),
+        block_sums=True, after=lambda params: _llama4_step_reference(dev, params, llama4_batch))
+    step_ref = ref_llama4.pop("after")
     batch = {"tokens": next(synthetic_lm_batches(vocab=train_cfg.vocab_size, batch=TRAIN_BATCH,
                                                  seq=TRAIN_SEQ, seed=0))}
     ref_dir = tempfile.mkdtemp(prefix="grid_step_")
@@ -5815,12 +6082,22 @@ def phase_grid(dev: torch.device, smi: str, tpar: dict) -> dict:
             drives = [{"steps": GRID_LLAMA4_STEPS, "picks": picks},
                       {"steps": 0, "picks": picks[:GRID_LLAMA4_LAYERS // 2],
                        "fault": GRID_FAULTS[0]}]
-            llama4_res = [r.value for r in pool.run(_grid_llama4_rank, llama4, 12, B, S,
-                                                    GRID_LLAMA4_STEPS, drives)]
+            train = {"batch": llama4_batch, "picks": step_ref["picks"],
+                     "fault": step_ref["fault"]}
+            with _HostPeak() as host:
+                llama4_res = [r.value for r in pool.run(_grid_llama4_rank, llama4, 12, B, S,
+                                                        GRID_LLAMA4_STEPS, drives, train)]
             part("e")
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
+    # (f)'s own seconds: the one-process step and the ranks' steps, taken
+    # out of the parts they ran in
+    ranks_f = max(v["train"]["part_s"] for v in llama4_res)
+    parts["one process"] = round(parts["one process"] - step_ref["part_s"], 1)
+    parts["e"] = round(parts["e"] - ranks_f, 1)
+    parts["f"] = round(step_ref["part_s"] + ranks_f, 1)
     out["llama4"] = _grid_llama4_checks(ref_llama4, llama4_res, smi)
+    out["llama4_train"] = _grid_llama4_train_checks(step_ref, llama4_res, host.mb, smi)
     want = train_ref["metrics"]
     for r, v in enumerate(res):
         got = v["main"]
@@ -5916,6 +6193,77 @@ def _grid_llama4_checks(ref: dict, res: list, smi: str) -> dict:
           f"gathered over data per prefill {info['data_gathered']} (card {smi})",
           flush=True)
     return info
+
+
+def _grid_llama4_train_checks(ref: dict, res: list, host_mb: float, smi: str) -> dict:
+    """(f)'s gates: every rank replayed every pick of the one-process step;
+    the loss within ``GRID_STEP_LOSS_RTOL`` of one process's; every leaf's
+    block's sampled gradient rows within ``SERVE_REL_L2`` of the same block
+    of the one-process gradient, but the planted fault's leaf, which must
+    read above it; the ranks' step peaks sum to less than the card's
+    memory. ``delta_norm`` is reported, not gated: in bf16, ``w - lr * g``
+    rounds at the parameter's ulp, so the delta is no yardstick."""
+    n_calls = len(ref["picks"])
+    fault, paths = ref["fault"], ref["paths"]
+    name = "/".join(str(k) for k in paths[fault])
+    steps = [v["train"] for v in res]
+    rels, fault_rel, sq_rel = [], [], []
+    for r, t in enumerate(steps):
+        check(t["pinned_calls"] == n_calls,
+              f"9f (f) rank {r} replayed {t['pinned_calls']} of {n_calls} picks")
+        check(abs(t["loss"] - ref["loss"]) <= GRID_STEP_LOSS_RTOL * abs(ref["loss"]),
+              f"9f (f) rank {r}: loss {t['loss']} against one process's {ref['loss']}")
+        me, worst, worst_sq = t["device"], 0.0, 0.0
+        for j in range(len(paths)):
+            got, want = t["stats"][(j, me)], ref["stats"][(j, me)]
+            rel = _rows_rel(got["rows"], want["rows"])
+            leaf = "/".join(str(k) for k in paths[j])
+            if j == fault:
+                check(rel > SERVE_REL_L2, f"9f (f) rank {r}: the planted fault "
+                      f"({GRID_STEP_FAULT[0]} on {leaf}) reads {rel}, not above {SERVE_REL_L2}")
+                fault_rel.append(rel)
+                continue
+            check(rel <= SERVE_REL_L2, f"9f (f) rank {r}: leaf {leaf}'s gradient rows {rel} "
+                  f"from one process's block, above {SERVE_REL_L2}")
+            worst = max(worst, rel)
+            if want["sq"] > 0:
+                worst_sq = max(worst_sq, abs(got["sq"] - want["sq"]) / want["sq"])
+        rels.append(worst)
+        sq_rel.append(worst_sq)
+    card_gb = hw.HBM_PER_CARD / 1e9
+    peaks = [t["peak_gb"] for t in steps]
+    check(sum(peaks) < card_gb, f"9f (f): the ranks' step peaks {peaks} GB sum to more than the "
+          f"card's {card_gb} GB")
+    info = {"loss": [t["loss"] for t in steps], "ref_loss": ref["loss"],
+            "delta_norm": [t["delta_norm"] for t in steps], "ref_delta_norm": ref["delta_norm"],
+            "rows_rel_l2": rels, "fault_rel_l2": fault_rel, "sq_rel": sq_rel,
+            "step_s": [t["step_s"] for t in steps], "ref_step_s": ref["step_s"],
+            "split_s": [t["split_s"] for t in steps],
+            "by_axis": [_by_axis(t["counters"]) for t in steps],
+            "gathered_bytes": [t["counters"]["data_gathered_bytes"] for t in steps],
+            "reduced_bytes": [t["counters"]["data_reduce_bytes"] for t in steps],
+            "memory_share": [t["memory_share"] for t in steps],
+            "peak_gb": peaks, "reserved_gb": [t["reserved_gb"] for t in steps],
+            "ref_peak_gb": ref["peak_gb"], "host_peak_mb": host_mb}
+    split = [{k: round(v, 2) for k, v in s.items()} for s in info["split_s"]]
+    print(f"phase 9f f: one donated train step of Llama4-Maverick-400B-A17B's period (bf16, "
+          f"plain attention, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {GRID_TRAIN_LOCAL_STEPS} local "
+          f"step, lr {TRAIN_LR}) on {dict(GRID_AXES)} on (e)'s draws, routing pinned ({n_calls} "
+          f"picks replayed a rank), against one process under the grid's profile: loss "
+          f"{info['loss']} vs {ref['loss']} (rtol {GRID_STEP_LOSS_RTOL}); {len(paths)} leaves' "
+          f"blocks' gradient rows rel L2 max a rank {[f'{x:.3e}' for x in rels]} <= "
+          f"{SERVE_REL_L2}; fault {GRID_STEP_FAULT[0]} on {name} "
+          f"{[f'{x:.3e}' for x in fault_rel]} > {SERVE_REL_L2}; sum of squares rel max "
+          f"{[f'{x:.3e}' for x in sq_rel]} (no gate); delta_norm {info['delta_norm']} vs "
+          f"{ref['delta_norm']} (no gate: bf16 rounds w - lr g at w's ulp); per rank step s "
+          f"{[round(x, 2) for x in info['step_s']]} (one process {ref['step_s']:.2f}), split "
+          f"s {split}; collectives (count, bytes) by axis {info['by_axis']}, gathered over data "
+          f"{info['gathered_bytes']} B, reduced to owners {info['reduced_bytes']} B; peak GB "
+          f"{[round(x, 2) for x in peaks]} (sum {sum(peaks):.2f} of {card_gb:.2f}; reserved "
+          f"{[round(x, 2) for x in info['reserved_gb']]}; one process {ref['peak_gb']:.2f}); "
+          f"host in use peak {host_mb:.0f} MB (card {smi})", flush=True)
+    return info
+
 
 
 # ---------------------------------------------------------------------- #
@@ -6025,10 +6373,26 @@ def _dry_run_grid(qwen, moe, shape: ShapeConfig, grid: dict) -> dict:
         check(got == grid["train"]["by_axis"][r], f"9f (d) grid rank {r}: the counting grid "
               f"counts {got}, 9f measured {grid['train']['by_axis'][r]}")
         out["train"].append(got)
+    # (f): Llama4's donated step, its expert leaves gathered (forward,
+    # recompute, backward) and its gradient blocks reduced to their owners
+    # in the slices each rank's memory share sets
+    llama4 = grid["llama4_train"]
+    out["llama4_train"] = []
+    for r in range(n):
+        got = dryrun.count_grid_collectives(dryrun.train_counts, GRID_AXES, r,
+                                            _llama4_train_cfg(), mesh, fed,
+                                            (TRAIN_BATCH, TRAIN_SEQ), "f32", None, True,
+                                            memory_share=llama4["memory_share"][r])
+        check(got == llama4["by_axis"][r], f"9f (f) grid rank {r}: the counting grid counts "
+              f"{got}, 9f measured {llama4['by_axis'][r]}")
+        out["llama4_train"].append(got)
     print(f"phase 10 grid: parameter bytes a device at {dict(GRID_AXES)} "
           f"{json.dumps(out['param_bytes'])} equal 9f's ranks'; collectives (count, bytes) by "
-          f"axis (model: all-reduces; data: all-reduces and gathers) a prefill / decode step {json.dumps(out['serve'])} and an FSDP train step "
-          f"{json.dumps(out['train'])} by the counting grid equal 9f's, rank by rank", flush=True)
+          f"axis (model: all-reduces; data: all-reduces, gathers and reduces to the blocks' "
+          f"owners) a prefill / decode step {json.dumps(out['serve'])}, an FSDP train step "
+          f"{json.dumps(out['train'])} and Llama4's donated step "
+          f"{json.dumps(out['llama4_train'])} by the counting grid equal 9f's, rank by rank",
+          flush=True)
     return out
 
 

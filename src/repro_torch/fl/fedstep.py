@@ -107,50 +107,142 @@ def _drain(xs: List[Any], fn: Callable[[int, Any], Any]):
         yield fn(i, x)
 
 
+GradSink = Callable[[int, torch.Tensor], None]
+
+
 def value_and_grad(loss_fn: LossFn, leaves: Sequence[torch.Tensor], treedef: Any,
                    batch: Batch, gen: torch.Generator) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The loss at the parameters ``leaves`` and its gradient, leaf by leaf."""
+    grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    loss = grad_each(loss_fn, leaves, treedef, batch, gen, grads.__setitem__)
+    return loss, grads
+
+
+def grad_each(loss_fn: LossFn, leaves: Sequence[torch.Tensor], treedef: Any, batch: Batch,
+              gen: torch.Generator, on_grad: GradSink) -> torch.Tensor:
+    """The loss at the parameters ``leaves``; autograd hands leaf j's
+    gradient to ``on_grad(j, g)`` as soon as it is whole (a post-accumulate
+    hook, on autograd's thread, under no_grad) and drops it after.
+    ``on_grad`` may step ``leaves[j]`` in place: a leaf's gradient is whole
+    once the nodes that use it have run, and a remat group's recompute
+    reads its leaves before their nodes run (autograd's version counter
+    raises where a saved leaf changed)."""
     xs = [x.detach().requires_grad_(True) for x in leaves]
-    with torch.enable_grad():
-        loss = loss_fn(tree_unflatten(treedef, xs), batch, gen)
-        grads = list(torch.autograd.grad(loss, xs))
-    return loss.detach(), grads
+    done = [False] * len(xs)
+
+    def hook(j: int):
+        def run(x: torch.Tensor) -> None:
+            g, x.grad = x.grad, None
+            with torch.no_grad():
+                on_grad(j, g)
+            done[j] = True
+
+        return run
+
+    handles = [x.register_post_accumulate_grad_hook(hook(j)) for j, x in enumerate(xs)]
+    try:
+        with torch.enable_grad():
+            loss = loss_fn(tree_unflatten(treedef, xs), batch, gen)
+            loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    missing = [j for j, ok in enumerate(done) if not ok]
+    if missing:
+        raise RuntimeError(f"parameter leaves {missing} were not used in the loss")
+    return loss.detach()
+
+
+# a leaf of more elements is updated in pieces of as many: the update's
+# temporaries and float32 delta then never span a whole expert leaf
+UPDATE_PIECE = 1 << 26
+
+
+def _pieces(w: torch.Tensor, *others: Optional[torch.Tensor]) -> list:
+    """``w`` and ``others`` (of w's shape, or None) cut alike, in memory
+    order, into pieces of ``UPDATE_PIECE`` elements (w whole where it is
+    smaller, or not contiguous: a piece must be a view of w)."""
+    if w.numel() <= UPDATE_PIECE or not w.is_contiguous():
+        return [(w,) + others]
+    cut = [x.reshape(-1).split(UPDATE_PIECE) if x is not None else None for x in (w,) + others]
+    return [tuple(c[i] if c is not None else None for c in cut) for i in range(len(cut[0]))]
+
+
+def update_leaf(j: int, w: torch.Tensor, g: torch.Tensor, lr: float, rows: Any = None,
+                base: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """Leaf ``j``'s SGD step once its gradient ``g`` is whole: ``g`` summed
+    over the grid's rows group ``rows`` where given (a leaf that no gather
+    summed), then ``w - lr * g`` in w's dtype, written into ``w``. With
+    ``base`` (the leaf as the round began; ``w`` itself for a round of one
+    step), the float32 sum of the squares of the round's delta ``w_new -
+    base``, as ``sum_of_squares`` sums a leaf. A leaf of more than
+    ``UPDATE_PIECE`` elements is updated and summed in pieces. Looked up at
+    each call, so that a caller may wrap it."""
+    from repro_torch.launch import tensor_parallel as tp
+
+    if rows is not None:
+        g = tp.rows_sum(g, rows)
+    sq = None
+    for wp, gp, bp in _pieces(w, g, base):
+        update = lr * gp.to(wp.dtype)
+        if bp is None:
+            wp.sub_(update)
+            continue
+        new = wp - update
+        s = torch.sum(torch.square((new - bp).to(torch.float32)))
+        sq = s if sq is None else sq + s
+        wp.copy_(new)
+    return sq
 
 
 def local_round(loss_fn: LossFn, leaves: List[torch.Tensor], treedef: Any, batch: Batch,
                 gen: torch.Generator, steps: int, lr: float,
-                gathered: Optional[Sequence[bool]] = None
-                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                gathered: Optional[Sequence[bool]] = None, donate: bool = False
+                ) -> Tuple[List[torch.Tensor], torch.Tensor, Optional[List[torch.Tensor]]]:
     """``steps`` SGD steps on the ``steps`` microbatches of a client's
-    batch; returns the local parameters' leaves and the last step's loss.
-    The first step makes new tensors (``leaves`` are the global
-    parameters); later steps update the client's own copy in place.
+    batch; returns the local parameters' leaves, the last step's loss and,
+    with ``donate``, each leaf's float32 sum of squares of its delta over
+    the round. Each leaf is stepped as soon as autograd has made its
+    gradient (``update_leaf``), and the gradient dropped. ``donate``: the
+    round takes ``leaves`` over and steps them in place (a round of more
+    than one step keeps a copy of each leaf as it began, for its delta);
+    else the first step steps a copy of each leaf, the client's own.
 
     On a grid whose rows are split over client ranks, each rank takes its
     rows of each microbatch (microbatch first, as the JAX package's
     ``(k, B/k)`` reshape cuts them), and each gradient is summed over the
     rows group: the leaves gathered over ``data`` at use (``gathered[j]``)
-    are summed by the gather's backward, the others here."""
+    are summed by the gather's backward, the others in ``update_leaf``."""
     from repro_torch.launch import tensor_parallel as tp
 
     me, ranks = tp.row_share()
+    rows = tp.rows_group() if ranks > 1 else None
+    out = list(leaves)
+    sums: Optional[List[Optional[torch.Tensor]]] = [None] * len(out) if donate else None
+    first: List[Optional[torch.Tensor]] = [None] * len(out)
     loss = None
     for i in range(steps):
         micro = split_batch(batch, steps, i)
         if ranks > 1:
             micro = split_batch(micro, ranks, me)
-        loss, grads = value_and_grad(loss_fn, leaves, treedef, micro, gen)
-        if ranks > 1:
-            grads = [g if gathered is not None and gathered[j] else tp.rows_sum(g)
-                     for j, g in enumerate(grads)]
-        with torch.no_grad():
-            new = []
-            for j, w in enumerate(leaves):
-                g, grads[j] = grads[j], None
-                update = lr * g.to(w.dtype)
-                new.append(w.sub_(update) if i else w - update)
-            leaves = new
-    return leaves, loss
+        last = i == steps - 1
+
+        def on_grad(j: int, g: torch.Tensor, i: int = i, last: bool = last) -> None:
+            w = out[j]
+            if i == 0 and not donate:
+                w = out[j] = w.clone()
+            elif i == 0 and steps > 1:
+                first[j] = w.clone()
+            base = None
+            if donate and last:
+                base = w if steps == 1 else first[j]
+            summed = rows if gathered is None or not gathered[j] else None
+            sq = update_leaf(j, w, g, lr, summed, base)
+            if base is not None:
+                sums[j], first[j] = sq, None
+
+        loss = grad_each(loss_fn, out, treedef, micro, gen, on_grad)
+    return out, loss, sums
 
 
 def sum_of_squares(leaves: Sequence[torch.Tensor],
@@ -161,11 +253,18 @@ def sum_of_squares(leaves: Sequence[torch.Tensor],
     summed over the group and the replicated leaves counted once; on a grid
     (``data[i]``: the ``data`` ranks hold blocks of leaf i), those blocks'
     sums are summed over the ``data`` axis as well."""
+    return summed_over_blocks([torch.sum(torch.square(x)) for x in leaves], sharded, data)
+
+
+def summed_over_blocks(sums: Sequence[torch.Tensor],
+                       sharded: Optional[Sequence[bool]] = None,
+                       data: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The total of per-leaf sums ``sums`` (each of the rank's block of its
+    leaf) over the whole leaves, as ``sum_of_squares`` totals them."""
     from repro_torch.launch import tensor_parallel as tp
 
     parts: Dict[Tuple[bool, bool], torch.Tensor] = {}
-    for i, x in enumerate(leaves):
-        s = torch.sum(torch.square(x))
+    for i, s in enumerate(sums):
         key = (sharded is not None and sharded[i], data is not None and data[i])
         parts[key] = s if key not in parts else parts[key] + s
     total = None
@@ -239,7 +338,7 @@ def make_fl_train_step(
                 loss, grads = value_and_grad(loss_fn, p_leaves, treedef, shard, gen)
                 deltas = _drain(grads, lambda i, g: (-lr * g).to(torch.float32))
             else:
-                local, loss = local_round(loss_fn, p_leaves, treedef, shard, gen, k, lr)
+                local, loss, _ = local_round(loss_fn, p_leaves, treedef, shard, gen, k, lr)
                 deltas = _drain(local, lambda i, w: (w - p_leaves[i]).to(torch.float32))
             losses.append(loss)
             mark("reduce")

@@ -39,10 +39,12 @@ class CollectiveStats:
     @classmethod
     def of_group(cls, group) -> "CollectiveStats":
         """A ``ModelGroup``'s counters: its all-reduces (a gather at use
-        over ``model`` is one, counted in both) and its all-gathers (FSDP's
-        data gathers, at their whole leaves' bytes)."""
+        over ``model`` is one, counted in both), its all-gathers (FSDP's
+        data gathers, at their whole leaves' bytes) and its reduces (the
+        data gathers' gradient blocks, each to its owner at its bytes)."""
         kinds = {"all-reduce": (group.all_reduces, group.all_reduce_bytes),
-                 "all-gather": (group.data_gathered_leaves, group.data_gathered_bytes)}
+                 "all-gather": (group.data_gathered_leaves, group.data_gathered_bytes),
+                 "reduce": (group.data_reduces, group.data_reduce_bytes)}
         return cls(by_kind={k: v for k, v in kinds.items() if v[0]})
 
 

@@ -47,7 +47,9 @@ and the dry run counts what that rank holds and does.
      the traffic of eager PyTorch with nothing fused: an upper estimate of
      the HBM traffic.
    * Collective bytes: the rank's all-reduce bytes (the results' sizes, as
-     the JAX module counts a collective), from the counting group.
+     the JAX module counts a collective), its data gathers' (whole leaves)
+     and its gradient blocks' reduces to their owners (each block's bytes),
+     from the counting group.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_3b --shape prefill_32k

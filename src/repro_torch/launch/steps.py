@@ -30,7 +30,10 @@ Where ``data`` is not a client axis, every device of the mesh is a process
   holds its (data, model) block of every leaf, gathers a leaf's ``data``
   blocks at use, takes its rows of each microbatch over (pod, data), and
   sums each gradient over (pod, data) (``fl.fedstep.local_round``); the
-  loss is the global batch's;
+  loss is the global batch's. The one-client step takes the parameters it
+  is given over, as the JAX driver donates them: each leaf is stepped in
+  place as soon as autograd has made its gradient, so a step holds one
+  copy of the tree and the gradients not yet applied;
 * serving on client axes larger than 1: each rank serves its rows of the
   batch (``ServeSetup.rows``) with the cache of its rows, FSDP configs
   gathering their leaves over ``data`` at use, ``tp`` configs holding them
@@ -53,7 +56,7 @@ from repro_torch.core.topologies import classical_fl, hierarchical_fl
 from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.fl.fedstep import (FedStepConfig, batch_to_device, client_generator,
                                    init_server_state, local_round, make_fl_train_step,
-                                   split_batch, sum_of_squares)
+                                   split_batch, summed_over_blocks)
 from repro_torch.fl.strategies import get_strategy
 from repro_torch.launch import sharding as shd
 from repro_torch.launch import tensor_parallel as tp
@@ -195,14 +198,17 @@ def build_train_step(
     # (on a grid: each rank's rows of every microbatch, its blocks over data)
     over_data = None if blocks is None else blocks.sharded_over("data")
 
+    # (the step takes ``params`` over, as the JAX driver donates them: each
+    # leaf is stepped in place as soon as its gradient is whole, and the
+    # returned tree holds the same tensors)
+
     def step(params, state, batch, seed):
         leaves, treedef = tree_flatten(params)
         batch = batch_to_device(batch, leaves[0].device)
         gen = client_generator(seed, 0, "loss", leaves[0].device)
-        new, loss = local_round(bundle.loss_fn, leaves, treedef, batch, gen,
-                                fed.local_steps, fed.local_lr, over_data)
-        sq = sum_of_squares([(a - b).to(torch.float32) for a, b in zip(new, leaves)],
-                            None if blocks is None else blocks.sharded, over_data)
+        new, loss, sums = local_round(bundle.loss_fn, leaves, treedef, batch, gen,
+                                      fed.local_steps, fed.local_lr, over_data, donate=True)
+        sq = summed_over_blocks(sums, None if blocks is None else blocks.sharded, over_data)
         return tree_unflatten(treedef, new), state, {"loss": loss, "delta_norm": torch.sqrt(sq)}
 
     def init_state(params):

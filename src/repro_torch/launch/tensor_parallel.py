@@ -15,9 +15,10 @@ the collectives below itself:
   (``gather_at_use``: an all-reduce of the zero-padded block, exact, since
   one term of each sum is nonzero), and each such gather is counted.
 
-All-reduce is used, with sum and max, and broadcast for FSDP's data
-blocks (``gather_data``): gloo takes both on CUDA tensors, where it does
-not take every collective. A counting group (``ModelGroup.counting``) has
+All-reduce is used, with sum and max, broadcast for FSDP's data blocks
+(``gather_data``), and point-to-point sends of host copies for their
+gradients' reduces to the blocks' owners: gloo takes the first two on
+CUDA tensors, where it does not take every collective. A counting group (``ModelGroup.counting``) has
 no process group behind it: its collectives only advance its counters and
 return their input, so a rank's step runs alone (under fake tensors, as
 ``launch.dryrun`` counts a step's collectives). The backend is chosen by
@@ -40,7 +41,9 @@ group of those that also share its ``pod`` coordinate (the ``data`` axis,
 over which FSDP stores a second dim of its leaves). ``gather_data``
 gathers such a leaf at use (forward: the ranks' blocks all-gathered over
 ``data``, one broadcast from each, counted as a gathered leaf; backward: the whole leaf's gradient
-summed over the rows group, then the rank's block), ``reduce_from_rows``
+summed over the rows group into the rank's block: one reduce a data rank, each block to its
+owner, where the rows are the data axis, else an all-reduce cut to the block),
+``reduce_from_rows``
 sums a rank's share of a loss over the rows. Every all-reduce counts on
 its axis: ``model`` or ``data`` (the client axes). A rank also holds its
 share of its device's memory (``ModelGroup.memory_share``), by which the
@@ -78,9 +81,11 @@ _GROUP: contextvars.ContextVar = contextvars.ContextVar("model_group", default=N
 
 Axes = Tuple[Tuple[str, int], ...]
 # the counters: every all-reduce of the rank (count, bytes), those over the
-# client axes among them, and the leaves gathered at use over each axis
+# client axes among them, the leaves gathered at use over each axis, and the
+# reduces of a gathered leaf's gradient blocks to their owners over data
 _COUNTERS = ("all_reduces", "all_reduce_bytes", "data_all_reduces", "data_all_reduce_bytes",
-             "gathered_leaves", "gathered_bytes", "data_gathered_leaves", "data_gathered_bytes")
+             "gathered_leaves", "gathered_bytes", "data_gathered_leaves", "data_gathered_bytes",
+             "data_reduces", "data_reduce_bytes")
 
 
 @dataclasses.dataclass
@@ -115,6 +120,8 @@ class ModelGroup:
     gathered_bytes: int = 0
     data_gathered_leaves: int = 0
     data_gathered_bytes: int = 0
+    data_reduces: int = 0
+    data_reduce_bytes: int = 0
 
     @property
     def rows(self) -> int:
@@ -159,10 +166,13 @@ class ModelGroup:
         out = {k: getattr(self, k) for k in _COUNTERS}
         out["model_all_reduces"] = self.all_reduces - self.data_all_reduces
         out["model_all_reduce_bytes"] = self.all_reduce_bytes - self.data_all_reduce_bytes
-        # every collective over the client axes: their all-reduces and the
-        # data gathers' all-gathers (a gather's bytes: its whole leaf's)
-        out["data_collectives"] = self.data_all_reduces + self.data_gathered_leaves
-        out["data_collective_bytes"] = self.data_all_reduce_bytes + self.data_gathered_bytes
+        # every collective over the client axes: their all-reduces, the
+        # data gathers' all-gathers (a gather's bytes: its whole leaf's) and
+        # the gradient blocks' reduces (each its block's bytes)
+        out["data_collectives"] = (self.data_all_reduces + self.data_gathered_leaves
+                                   + self.data_reduces)
+        out["data_collective_bytes"] = (self.data_all_reduce_bytes + self.data_gathered_bytes
+                                        + self.data_reduce_bytes)
         return out
 
     def reset_counters(self) -> None:
@@ -415,8 +425,9 @@ class _GatherData(torch.autograd.Function):
     1.35-1.36 s and the zero-padded all-reduce 1.42-1.47 s,
     ``tools/gloo_allreduce_rates.py``). Each rank computes
     on its own rows, so the whole leaf's gradient is a partial sum: the
-    backward sums it over the rows group (pod x data) and keeps the rank's
-    block, a reduce-scatter written as an all-reduce."""
+    backward sums it over the rows group (pod x data) into the rank's block
+    (``_rows_block``: a reduce-scatter, written as one reduce a data rank,
+    the forward's broadcasts run backwards)."""
 
     @staticmethod
     def forward(ctx, x, dim, group):
@@ -443,13 +454,66 @@ class _GatherData(torch.autograd.Function):
 
 def _rows_block(g: torch.Tensor, dim: int, lo: int, n: int, group: ModelGroup) -> torch.Tensor:
     """The whole leaf's gradient ``g`` of this rank's rows summed over the
-    rows group, cut to the block ``[lo, lo + n)`` along ``dim``."""
+    rows group, cut to the block ``[lo, lo + n)`` along ``dim``. Where the
+    rows group is the ``data`` axis (no ``pod`` axis of more than one),
+    each data block is reduced to its owner (``_reduce_to_owners``: half
+    the bytes of an all-reduce, and at data 2 the same two-term sums); else
+    the whole leaf is all-reduced over the rows and cut."""
+    if group.rows == group.data_size:
+        return _reduce_to_owners(g, dim, n, group)
     # the incoming gradient is summed in place where it is a buffer of its
     # own (a whole leaf's: one copy fewer at the backward's peak)
     own = g.is_contiguous() and g._base is None
     g = _all_reduce_(g if own else g.contiguous().clone(), dist.ReduceOp.SUM, group, "rows")
     # a copy of the block, so that the whole leaf's sum is freed here
     return g.narrow(dim, lo, n).clone(memory_format=torch.contiguous_format)
+
+
+def _reduce_to_owners(g: torch.Tensor, dim: int, n: int, group: ModelGroup) -> torch.Tensor:
+    """The rank's ``data`` block (``n`` long along ``dim``) of the sum over
+    the data group of each rank's whole-leaf gradient ``g``: each block
+    reduced to its owner, counted as one reduce a data rank at its block's
+    bytes. Written as point-to-point sends: every rank sends its block i to
+    data rank i and receives the other ranks' blocks of its own (on a card
+    through pinned host copies: gloo sends host memory), then sums the
+    terms in data order. Each rank moves half an all-reduce's bytes, and at
+    data 2 the sums are the all-reduce's two-term sums. (gloo's own
+    ``dist.reduce`` of a card's block took 2.09-2.16 s for a 1 GB bf16
+    leaf's gradient on an H100 shared by a (data 2, model 2) grid, where
+    the all-reduce took 1.44-1.48 s, ``tools/gloo_allreduce_rates.py``.)"""
+    me, size = group.coords["data"], group.data_size
+    own = g.narrow(dim, me * n, n)
+    group.data_reduces += size
+    group.data_reduce_bytes += size * own.numel() * own.element_size()
+    if group.backend == "count":
+        return own.clone(memory_format=torch.contiguous_format)
+    pg = group.data_pg
+    card = g.is_cuda
+
+    def on_host(x: torch.Tensor) -> torch.Tensor:
+        if not card:
+            return x.contiguous()
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+
+    got, works = {}, []
+    for i in range(size):
+        if i == me:
+            continue
+        peer = dist.get_global_rank(pg, i)
+        got[i] = torch.empty(own.shape, dtype=own.dtype, pin_memory=card)
+        works.append(dist.isend(on_host(g.narrow(dim, i * n, n)), dst=peer, group=pg))
+        works.append(dist.irecv(got[i], src=peer, group=pg))
+    for w in works:
+        w.wait()
+    total = None
+    for i in range(size):
+        term = own if i == me else got.pop(i).to(g.device)
+        total = term if total is None else total + term
+    # the block as a buffer of its own, so that the whole leaf's gradient is
+    # freed here
+    if total._base is not None or not total.is_contiguous():
+        total = total.clone(memory_format=torch.contiguous_format)
+    return total
 
 
 def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -502,6 +566,20 @@ def data_sum(x: torch.Tensor, group: Optional[ModelGroup] = None) -> torch.Tenso
     if group is None:
         return x
     return _all_reduce_(x.detach().clone(), dist.ReduceOp.SUM, group, "data")
+
+
+def memory_share(device: Any) -> Optional[int]:
+    """The bytes of ``device``'s memory that the running call may count
+    on: its group's share (``ModelGroup.memory_share``: None, no bound, on
+    the CPU and in a counting group), or without a group a whole card's
+    (None on the CPU)."""
+    group = _GROUP.get()
+    if group is not None:
+        return group.memory_share
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(device).total_memory
 
 
 def row_share() -> Tuple[int, int]:

@@ -16,9 +16,13 @@ matmul over the experts, ``(E, nb·C, d) @ (E, d, ff)``, with the same
 per-row sums. The products accumulate in float32 and keep float32 where
 the JAX package's ``preferred_element_type`` does: the gate and up
 products stay float32 until ``h`` is cast to the buffer's dtype; the down
-product rounds once to it. The expert FFN's backward is written out
-(``_ExpertFFN``): it recomputes the activations from the inputs, as the
-JAX package's custom VJP does, and keeps nothing else.
+product rounds once to it. The expert FFN's backward is written out, as
+the JAX package's custom VJP is, in three autograd functions (``_Product``
+for the gate and up products, ``_Down``), so that autograd hands each
+expert leaf its gradient on its own: the float32 gate and up products are
+kept for it (the JAX package recomputes them: the same values), every
+gradient product is float32, and the buffer's two terms meet in float32
+and are cast once.
 
 Router aux loss: the load-balancing loss ``E * sum_e f_e * P_e`` per block
 (f the routed-token fraction, P the mean router probability), averaged over
@@ -55,7 +59,10 @@ by slice, each leaf's gradient summed over the rows and cut to the block.
 A Llama4 expert leaf is 5.37 GB whole a rank in bfloat16 (the rank's
 experts over ``model``): four grid ranks on one 80 GB card gather it in
 four slices of 16 experts, so a rank holds 1.34 GB of expert leaves whole
-where gathering a layer at once held 16.1.
+where gathering a layer at once held 16.1. The backward's slices are sized
+by what it holds of a slice (``_backward_experts``: the leaf, its float32
+widening, its float32 gradient and that gradient's cast), from the rank's
+share, or in one process from the card's memory (``tp.memory_share``).
 """
 from __future__ import annotations
 
@@ -264,22 +271,15 @@ def _experts_at_once(gate: torch.Tensor, d: int, group) -> int:
     return max((n for n in range(1, E + 1) if E % n == 0 and three * n <= budget * E), default=1)
 
 
-def _expert_ffn_fwd(buf, gate, up, down, kept: Optional[list] = None) -> torch.Tensor:
+def _expert_ffn_fwd(buf, gate, up, down) -> torch.Tensor:
     """The FFN's forward on experts whose leaves are gathered at use, each
-    freed after its product, or appended to ``kept`` for the backward."""
+    freed after its product (serving: nothing is kept for a backward)."""
     d, ff = buf.shape[-1], gate.shape[-1]
-
-    def use(x, full):
-        w = _at_use(x, full)
-        if kept is not None:
-            kept.append(w)
-        return w
-
-    g = _bmm(buf, use(gate, d), torch.float32)
-    u = _bmm(buf, use(up, d), torch.float32)
+    g = _bmm(buf, _at_use(gate, d), torch.float32)
+    u = _bmm(buf, _at_use(up, d), torch.float32)
     h = F.silu(g, inplace=True).mul_(u).to(buf.dtype)
     del g, u
-    return _bmm(h, use(down, ff), buf.dtype)
+    return _bmm(h, _at_use(down, ff), buf.dtype)
 
 
 def _block_grad(g: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
@@ -291,89 +291,185 @@ def _block_grad(g: torch.Tensor, x: torch.Tensor, group) -> torch.Tensor:
     return g if g.shape == x.shape else tp.data_block_grad(g, 1, group)
 
 
-def _expert_ffn_bwd(buf, gate, up, down, gbar, group=None, whole=None):
-    """The JAX package's ``_expert_ffn_bwd``: the activations recomputed in
-    float32, every gradient product in float32, cast to its input's dtype.
-    ``whole``: the leaves whole, kept by the forward; else leaves that are
-    ``data`` blocks are gathered again as each product needs them, one at
-    a time (down, up, gate, then up again). Their gradients are summed
-    over the rows and cut to the block (``group``: the forward's). The
-    products and sums are those of the whole leaves."""
-    f32 = torch.float32
-    d, ff = buf.shape[-1], gate.shape[-1]
-
-    def leaf(i, full):
-        return whole[i] if whole else _at_use((gate, up, down)[i], full)
-
-    gbar = gbar.to(f32)
-    d_h = torch.bmm(gbar, leaf(2, ff).to(f32).transpose(1, 2))  # (E, R, ff)
-    u = _bmm(buf, leaf(1, d), f32)
-    g_w = leaf(0, d)
-    g = _bmm(buf, g_w, f32)
-    sg = torch.sigmoid(g)
-    silu_g = g * sg
-    del g
-    d_g = d_h * u * (sg + silu_g * (1.0 - sg))
-    d_buf = torch.bmm(d_g, g_w.to(f32).transpose(1, 2))
-    del g_w, sg
-    bf = buf.to(f32).transpose(1, 2)
-    d_gate = _block_grad(torch.bmm(bf, d_g), gate, group)
-    del d_g
-    d_down = _block_grad(torch.bmm((silu_g * u).transpose(1, 2), gbar), down, group)  # (E, ff, d)
-    del u
-    d_u = d_h * silu_g
-    del d_h, silu_g
-    d_up = _block_grad(torch.bmm(bf, d_u), up, group)
-    d_buf = d_buf + torch.bmm(d_u, leaf(1, d).to(f32).transpose(1, 2))
-    return d_buf.to(buf.dtype), d_gate, d_up, d_down
+def _backward_experts(w: torch.Tensor, full: int, share: Optional[int]) -> int:
+    """How many experts of the leaf ``w`` (the rank's block, dim 1 ``full``
+    long whole) a backward product takes at a time: all of them without a
+    bound (``share`` None), else the most, dividing the experts, whose
+    slice's whole leaf (gathered or kept), its float32 widening, its
+    float32 gradient and that gradient's cast to the leaf's dtype fit in
+    ``GATHER_SHARE`` of ``share`` (Llama4's 5.37 GB bf16 leaf a grid rank
+    in slices of 8 of its 64 experts; the whole 10.7 GB leaf of one process
+    on a card in slices of 32)."""
+    E = w.shape[0]
+    if share is None:
+        return E
+    per = w.numel() // E * full // w.shape[1] * (2 * w.element_size() + 8)
+    budget = GATHER_SHARE * share
+    return max((n for n in range(1, E + 1) if E % n == 0 and per * n <= budget), default=1)
 
 
-def _joined(parts: list) -> tuple:
-    """The experts' slices' results, each joined along the experts."""
-    return parts[0] if len(parts) == 1 else tuple(torch.cat(p) for p in zip(*parts))
+def _slices(E: int, n: int):
+    return [slice(lo, lo + n) for lo in range(0, E, n)]
 
 
-class _ExpertFFN(torch.autograd.Function):
-    """The experts' gated FFN on the expert-major buffer (E, R, d), with the
-    JAX package's hand-written backward (recompute, no stash). Expert
-    leaves that are ``data`` blocks (an FSDP grid) are gathered one at a
-    time, each freed after its product, in slices of experts
-    (``_experts_at_once``). Where the experts go at once, a forward that
-    needs a backward keeps the three whole leaves for it; else the
-    backward gathers them again, slice by slice. So a rank holds at most
-    three whole expert leaves, and those only where they fit its share."""
+def _joined(parts: list) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+class _Budget:
+    """What a training forward's expert products know of their rank: the
+    forward's group (the backward may run on autograd's device thread,
+    outside the forward's group context), the forward's experts a slice
+    (``_experts_at_once``), whether it keeps the whole gathered leaves for
+    the backward (all experts at once), and the memory share the backward
+    sizes its slices by (``_backward_experts``)."""
+
+    def __init__(self, gate: torch.Tensor, d: int):
+        self.group = tp.data_group()
+        self.n = _experts_at_once(gate, d, self.group)
+        self.keep = gate.shape[1] != d and self.n == gate.shape[0]
+        self.share = tp.memory_share(gate.device)
+
+
+class _Product(torch.autograd.Function):
+    """``x32 @ w`` of the FFN's gate or up leaf, float32 out (E, R, ff):
+    the buffer ``x32`` is the expert-major buffer widened to float32 (its
+    products take it in ``dtype``, exact), ``w`` whole or the rank's
+    ``data`` block, gathered at use slice by slice (kept whole where
+    ``budget.keep``). Backward, each a float32 product: the buffer's term
+    ``dy @ w^T`` (w gathered again, slice by slice, where not kept), which
+    autograd adds in float32 to the other leaf's term, and w's gradient
+    ``x32^T @ dy``, summed over the rows and cut to w's block
+    (``_block_grad``): autograd hands it to w alone."""
 
     @staticmethod
-    def forward(ctx, buf, gate, up, down, grad: bool):
-        # the backward may run on autograd's device thread, outside the
-        # forward's group context
-        ctx.group = tp.data_group()
-        E = gate.shape[0]
-        n = _experts_at_once(gate, buf.shape[-1], ctx.group)
-        gathered = gate.shape[1] != buf.shape[-1]
-        kept = [] if gathered and n == E and grad and any(ctx.needs_input_grad) else None
-        ctx.n = n
-        outs = [_expert_ffn_fwd(buf[lo:lo + n], gate[lo:lo + n], up[lo:lo + n], down[lo:lo + n],
-                                kept) for lo in range(0, E, n)]
-        ctx.save_for_backward(buf, gate, up, down, *(kept or ()))
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+    def forward(ctx, x32, w, dtype, budget):
+        x = x32.to(dtype)
+        d = x.shape[-1]
+        parts, kept = [], None
+        for s in _slices(w.shape[0], budget.n):
+            ws = _at_use(w[s], d)
+            parts.append(_bmm(x[s], ws, torch.float32))
+            if budget.keep:
+                kept = ws
+            del ws
+        ctx.budget = budget
+        ctx.save_for_backward(x32, w, *(() if kept is None else (kept,)))
+        return _joined(parts)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x32, w, *kept = ctx.saved_tensors
+        b = ctx.budget
+        d = x32.shape[-1]
+        n = _backward_experts(w, d, b.share)
+        d_x, d_w = torch.empty_like(x32), torch.empty_like(w)
+        with tp.use_group(b.group):
+            for s in _slices(w.shape[0], n):
+                ws = kept[0][s] if kept else _at_use(w[s], d)
+                d_x[s] = torch.bmm(dy[s], ws.to(torch.float32).transpose(1, 2))
+                del ws
+                d_w[s] = _block_grad(torch.bmm(x32[s].transpose(1, 2), dy[s]), w[s], b.group)
+        return d_x, d_w, None, None
+
+
+class _Down(torch.autograd.Function):
+    """``silu(g) * u`` rounded to ``dtype``, times the FFN's down leaf
+    ``w`` (whole or the rank's ``data`` block, gathered at use), rounded
+    once to ``dtype``; g and u are the float32 gate and up products, kept
+    for the backward (the JAX package's custom VJP recomputes them from
+    the buffer: the same values). Backward, in float32: ``d_h = gbar @
+    w^T`` (w gathered again, slice by slice, where not kept), g's and u's
+    cotangents, and w's gradient ``(silu(g) * u)^T @ gbar``, cut to w's
+    block: autograd hands it to w before the gate and up products'
+    backward runs."""
+
+    @staticmethod
+    def forward(ctx, g, u, w, dtype, budget):
+        ff = g.shape[-1]
+        parts, kept = [], None
+        for s in _slices(w.shape[0], budget.n):
+            h = F.silu(g[s]).mul_(u[s]).to(dtype)
+            ws = _at_use(w[s], ff)
+            parts.append(_bmm(h, ws, dtype))
+            if budget.keep:
+                kept = ws
+            del h, ws
+        ctx.budget = budget
+        ctx.save_for_backward(g, u, w, *(() if kept is None else (kept,)))
+        return _joined(parts)
 
     @staticmethod
     def backward(ctx, gbar):
-        buf, gate, up, down, *whole = ctx.saved_tensors
-        n = ctx.n
-        with tp.use_group(ctx.group):
-            grads = _joined([_expert_ffn_bwd(buf[e], gate[e], up[e], down[e], gbar[e], ctx.group,
-                                             whole)
-                             for e in (slice(lo, lo + n) for lo in range(0, gate.shape[0], n))])
-        return grads + (None,)
+        g, u, w, *kept = ctx.saved_tensors
+        b = ctx.budget
+        ff = g.shape[-1]
+        n = _backward_experts(w, ff, b.share)
+        gbar = gbar.to(torch.float32)
+        d_g, d_u, d_w = torch.empty_like(g), torch.empty_like(u), torch.empty_like(w)
+        with tp.use_group(b.group):
+            for s in _slices(w.shape[0], n):
+                ws = kept[0][s] if kept else _at_use(w[s], ff)
+                d_h = torch.bmm(gbar[s], ws.to(torch.float32).transpose(1, 2))  # (n, R, ff)
+                del ws
+                sg = torch.sigmoid(g[s])
+                silu_g = g[s] * sg
+                d_g[s] = d_h * u[s] * (sg + silu_g * (1.0 - sg))
+                del sg
+                d_w[s] = _block_grad(torch.bmm((silu_g * u[s]).transpose(1, 2), gbar[s]), w[s],
+                                     b.group)
+                d_u[s] = d_h * silu_g
+                del d_h, silu_g
+        return d_g, d_u, d_w, None, None
 
 
-def expert_ffn(buf: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
-               down: torch.Tensor) -> torch.Tensor:
+class StackSlice:
+    """An expert leaf of a stack of one group (``scan_layers`` with G = 1),
+    as its layer holds it: the stack's one slice is taken (a view) where
+    the expert FFN uses the leaf, so its autograd node comes right before
+    that product's. Autograd then hands the leaf its gradient as soon as the
+    product's backward makes it, before the other expert products' backward
+    runs; a slice taken as the stack begins (``torch.unbind``) would hold
+    all three gradients until the group's backward is done."""
+
+    def __init__(self, stack: torch.Tensor):
+        self.stack = stack
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.stack.shape[1:]
+
+    def take(self) -> torch.Tensor:
+        return self.stack.squeeze(0)
+
+
+def _take(x) -> torch.Tensor:
+    return x.take() if isinstance(x, StackSlice) else x
+
+
+def expert_ffn(buf: torch.Tensor, gate, up, down) -> torch.Tensor:
     """buf (E, R, d) -> (E, R, d) in buf's dtype; the expert leaves whole
-    or the rank's ``data`` blocks of them (dim 1)."""
-    return _ExpertFFN.apply(buf, gate, up, down, torch.is_grad_enabled())
+    or the rank's ``data`` blocks of them (dim 1), or ``StackSlice``s of
+    either. Serving takes each slice of experts through its three products
+    in turn. A forward that records gradients runs three autograd
+    functions (``_Product`` for gate and up, ``_Down``), each leaf taken
+    just before its own, with the JAX package's hand-written backward: the
+    float32 products, and the buffer's two terms added in float32 and cast
+    once. So autograd hands each expert leaf its gradient on its own, and
+    a rank holds one expert leaf's gradient at a time."""
+    d = buf.shape[-1]
+    if not (torch.is_grad_enabled() and (buf.requires_grad or any(
+            isinstance(x, StackSlice) or x.requires_grad for x in (gate, up, down)))):
+        gate, up, down = _take(gate), _take(up), _take(down)
+        n = _experts_at_once(gate, d, tp.data_group())
+        return _joined([_expert_ffn_fwd(buf[s], gate[s], up[s], down[s])
+                        for s in _slices(gate.shape[0], n)])
+    x32 = buf.to(torch.float32)
+    gate = _take(gate)
+    budget = _Budget(gate, d)
+    g = _Product.apply(x32, gate, buf.dtype, budget)
+    u = _Product.apply(x32, _take(up), buf.dtype, budget)
+    return _Down.apply(g, u, _take(down), buf.dtype, budget)
 
 
 def moe_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -393,7 +489,7 @@ def moe_apply(p: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     else:
         raise ValueError(f"{nb} routing blocks of {N * ranks} tokens neither divide nor are "
                          f"divided by {ranks} client ranks")
-    n_e = p["gate"].shape[0]
+    n_e = p["gate"].shape[0]  # a leaf or a StackSlice
     split = tp.is_block(n_e, E)
     experts = rows = None
     if split:  # this rank's experts; the dispatch rows pass f

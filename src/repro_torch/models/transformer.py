@@ -197,7 +197,13 @@ def data_whole(tree: Tree, specs: Optional[Tree], stacked: bool = False) -> Tree
 def _unstack(tree: Tree, G: int) -> List[Tree]:
     """The G per-group trees of a stacked tree, as views. One ``unbind`` per
     leaf: its backward stacks the G gradients once, where G ``x[g]`` slices
-    would each scatter into a zero tensor of the whole stack."""
+    would each scatter into a zero tensor of the whole stack. A stack of
+    one group keeps its MoE expert leaves as ``moe.StackSlice``s, sliced
+    where the expert FFN uses them, so that autograd hands each its
+    gradient as soon as it is made."""
+    if G == 1:
+        return [shd.map_with_path(lambda path, x: moe.StackSlice(x) if moe.gathered_at_use(path)
+                                  else torch.unbind(x, 0)[0], tree)]
     leaves, treedef = tree_flatten(tree)
     cols = [torch.unbind(x, 0) for x in leaves]
     return [tree_unflatten(treedef, [c[g] for c in cols]) for g in range(G)]

@@ -394,3 +394,147 @@ def expert_gathers_rank(group, cfg, mesh_axes, params_np, tokens, steps, share):
                     "grads": [x.grad.numpy() for x in xs], "serve": serve, "train": train}
         del loss, xs
     return out
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()])
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(_bits(a.contiguous()), _bits(b.contiguous())))
+
+
+def _all_reduce_cut(g, dim, n, group):
+    """The gather's backward summed as it was before each gradient block
+    was reduced to its owner: the whole leaf all-reduced over the rows,
+    then the rank's block."""
+    g = g.contiguous().clone()
+    torch.distributed.all_reduce(g, group=group.rows_pg)
+    return g.narrow(dim, group.coords["data"] * n, n).clone()
+
+
+def reduce_to_owners_rank(group, seed):
+    """Whole-leaf gradients of the rank's rows (float32 and bfloat16, split
+    over data along dim 0 and along dim 1) summed over data into the
+    rank's block by ``tp.data_block_grad`` and by an all-reduce over the
+    rows cut to the block: per case whether the two are equal bit for bit,
+    whether the block is a buffer of its own, and the first's counters."""
+    torch.set_num_threads(1)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for dim in (0, 1):
+            gen = torch.Generator().manual_seed(seed + 10 * group.client_rank + group.rank)
+            g = torch.randn((6, 10, 3), generator=gen).to(getattr(torch, dtype))
+            want = _all_reduce_cut(g, dim, g.shape[dim] // group.data_size, group)
+            group.reset_counters()
+            got = tp.data_block_grad(g.clone(), dim, group)
+            out[f"{dtype} dim {dim}"] = {
+                "equal": _same_bits(got, want), "own": got._base is None and got.is_contiguous(),
+                "counters": group.counters()}
+    return out
+
+
+def _todays_step(group, cfg, bundle, mesh, fed, params, batch, seed):
+    """The one-client step's arithmetic as it was written before each
+    gradient was applied as it is made: every gradient at once
+    (``torch.autograd.grad``), the leaves replicated over data summed over
+    the rows, the first local step making new tensors, the gather's
+    backward an all-reduce over the rows cut to the block, the deltas
+    summed in float32 at the end. (new leaves, loss, delta_norm)."""
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.fl import fedstep
+
+    blocks = steps._leaf_blocks(cfg, group)
+    over_data = None if blocks is None else blocks.sharded_over("data")
+    sharded = None if blocks is None else blocks.sharded
+
+    def run(params):
+        leaves, treedef = tree_flatten(params)
+        b = fedstep.batch_to_device(batch, leaves[0].device)
+        gen = fedstep.client_generator(seed, 0, "loss", leaves[0].device)
+        me, ranks = tp.row_share()
+        cur = leaves
+        for i in range(fed.local_steps):
+            micro = fedstep.split_batch(b, fed.local_steps, i)
+            if ranks > 1:
+                micro = fedstep.split_batch(micro, ranks, me)
+            xs = [x.detach().requires_grad_(True) for x in cur]
+            with torch.enable_grad():
+                loss = bundle.loss_fn(tree_unflatten(treedef, xs), micro, gen)
+                grads = list(torch.autograd.grad(loss, xs))
+            loss = loss.detach()
+            if ranks > 1:
+                grads = [g if over_data[j] else tp.rows_sum(g) for j, g in enumerate(grads)]
+            with torch.no_grad():
+                cur = [w.sub_(fed.local_lr * g.to(w.dtype)) if i
+                       else w - fed.local_lr * g.to(w.dtype) for w, g in zip(cur, grads)]
+        sq = fedstep.sum_of_squares([(a - b).to(torch.float32) for a, b in zip(cur, leaves)],
+                                    sharded, over_data)
+        return cur, loss, torch.sqrt(sq)
+
+    with mock.patch.object(tp, "_reduce_to_owners", _all_reduce_cut):
+        return tp.bind(steps._with_moe_profile(run, cfg, mesh), group)(params)
+
+
+def streamed_step_rank(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, share=None):
+    """The one-client train step of ``build_train_step`` on the mesh
+    (``group=None``: one process under the mesh's profile), as built: each
+    gradient applied as it is made, the given tensors stepped in place,
+    each gradient block reduced to its owner; with ``share``, the rank's
+    memory share that many bytes (the expert FFN then takes its experts in
+    slices). Against ``_todays_step`` on the same parameters: whether the
+    new leaves, the loss and ``delta_norm`` are equal bit for bit; whether
+    the returned leaves are the given tensors; and, from weak references
+    kept by the patched ``fedstep.update_leaf``, the most expert-leaf
+    gradients alive at once and the expert-leaf updates."""
+    with one_thread():
+        return _streamed_step(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, share)
+
+
+def _streamed_step(group, cfg, mesh_axes, params_np, batch, seed, fed_kwargs, share):
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl import fedstep
+    from repro_torch.launch.sharding import map_with_path
+    from repro_torch.models import moe
+
+    mesh = Mesh(mesh_axes)
+    fed = FedStepConfig(**fed_kwargs)
+    if group is None:
+        one = Mesh(tuple((a, 1 if a == "model" else n) for a, n in mesh_axes))
+        profile = steps._with_moe_profile
+        with mock.patch.object(steps, "_with_moe_profile",
+                               lambda fn, cfg, _, manual_axes=(): profile(fn, cfg, mesh,
+                                                                          manual_axes)):
+            bundle, setup = build_train_step(cfg, one, fed, device="cpu")
+    else:
+        bundle, setup = build_train_step(cfg, mesh, fed, device="cpu", group=group)
+    params = _params_on(bundle, cfg, params_np, "cpu", group)
+    given = tree_leaves(params)
+    experts = []
+    map_with_path(lambda path, x: experts.append(moe.gathered_at_use(path)), params)
+    alive = []
+    seen = {"most_alive": 0}
+    whole = fedstep.update_leaf
+
+    def watching(j, w, g, lr, rows=None, base=None):
+        if experts[j]:
+            alive.append(weakref.ref(g))
+            seen["most_alive"] = max(seen["most_alive"], sum(r() is not None for r in alive))
+        return whole(j, w, g, lr, rows, base)
+
+    sliced = contextlib.nullcontext()
+    if share is not None:
+        sliced = (mock.patch.object(group, "memory_share", share) if group is not None
+                  else mock.patch.object(tp, "memory_share", lambda device: share))
+    with mock.patch.object(fedstep, "update_leaf", watching), sliced:
+        new, _, metrics = setup.step(params, (), batch, seed)
+    new = tree_leaves(new)
+    ref = _params_on(bundle, cfg, params_np, "cpu", group)
+    want, loss, norm = _todays_step(group, cfg, bundle, mesh, fed, ref, batch, seed)
+    return {"equal": [_same_bits(a, b) for a, b in zip(new, want)],
+            "loss_equal": _same_bits(metrics["loss"], loss),
+            "norm_equal": _same_bits(metrics["delta_norm"], norm),
+            "in_place": len(new) == len(given) and all(a is b for a, b in zip(new, given)),
+            "most_alive": seen["most_alive"], "expert_updates": len(alive),
+            "counters": group.counters() if group is not None else {}}

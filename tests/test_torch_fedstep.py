@@ -563,3 +563,74 @@ def test_step_frees_the_old_trees_without_the_garbage_collector(axes):
         assert old() is None
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------- #
+# the one-client step: donated, each gradient applied as it is made
+# ---------------------------------------------------------------------- #
+ONE = (("data", 1), ("model", 1))
+# name -> (arch, config changes, local steps): the reduced configs
+DONATED = {
+    "dense_tied": ("qwen2_5_3b", dict(fl_axes=("pod",)), 2),
+    "moe": ("qwen3_moe_235b_a22b", {}, 2),
+    "llama4_remat": ("llama4_maverick_400b_a17b", {}, 1),
+    "llama4_stacked_period": ("llama4_maverick_400b_a17b", dict(scan_layers=True, num_layers=2),
+                              1),
+    "moe_stacked_remat": ("qwen3_moe_235b_a22b", dict(scan_layers=True, remat=True), 2),
+    "llama4_bf16": ("llama4_maverick_400b_a17b", dict(param_dtype="bfloat16"), 1),
+}
+
+
+def _donated_case(name):
+    import _torch_tp_programs as prog
+    from repro_torch.configs import get_config
+
+    arch, changes, k = DONATED[name]
+    cfg = dataclasses.replace(get_config(arch, reduced=True), **changes)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (8, 16)).astype(np.int32)
+    return cfg, prog, {"tokens": tokens}, dict(local_steps=k, local_lr=0.05)
+
+
+@pytest.mark.parametrize("name", list(DONATED))
+def test_donated_step_is_byte_equal_to_the_functional_step(name):
+    """``build_train_step``'s one-client step takes the parameters it is
+    given over: each leaf is stepped in place as soon as autograd has made
+    its gradient (``update_leaf``), and ``delta_norm`` is summed leaf by
+    leaf as it is stepped. Its new leaves, loss and ``delta_norm`` are the
+    functional step's (every gradient at once, new tensors, the deltas
+    summed at the end), bit for bit: dense with tied embeddings, MoE, the
+    remat Llama4 period, a stack of one period, a stack of MoE groups under
+    remat, bfloat16, one and two local steps; the returned leaves are the
+    given tensors. In the MoE configs no more than one expert leaf's
+    gradient is alive at once where the expert leaves are not a stack of
+    several groups."""
+    cfg, prog, batch, fed = _donated_case(name)
+    res = prog.streamed_step_rank(None, cfg, ONE, 3, batch, 7, fed)
+    assert all(res["equal"]) and res["loss_equal"] and res["norm_equal"]
+    assert res["in_place"]
+    if cfg.is_moe:
+        # the expert leaves: one of each a MoE layer, or a stack of each
+        leaves = 1 if cfg.scan_layers else cfg.num_layers // cfg.moe_every
+        assert res["expert_updates"] == 3 * leaves * fed["local_steps"]
+        if not cfg.scan_layers or cfg.num_layers == cfg.moe_every:
+            assert res["most_alive"] == 1
+
+
+@pytest.mark.parametrize("name", ["moe", "llama4_remat", "llama4_stacked_period"])
+def test_sliced_expert_backward_is_byte_equal_in_one_process(name, monkeypatch):
+    """One process on whole expert leaves slices the experts' backward by
+    the card's memory (``tp.memory_share``): forced to one expert a slice,
+    the step is the unsliced functional step's, bit for bit."""
+    from repro_torch.models import moe
+
+    cfg, prog, batch, fed = _donated_case(name)
+    taken = []
+    backward_experts = moe._backward_experts
+    monkeypatch.setattr(moe, "_backward_experts",
+                        lambda *a: taken.append(backward_experts(*a)) or taken[-1])
+    res = prog.streamed_step_rank(None, cfg, ONE, 3, batch, 7, fed, share=1)
+    assert all(res["equal"]) and res["loss_equal"] and res["norm_equal"]
+    # the built step's backward products, one expert a slice, then the
+    # functional step's (no bound: all of them at once)
+    half = len(taken) // 2
+    assert half and set(taken[:half]) == {1} and set(taken[half:]) == {cfg.num_experts}

@@ -169,6 +169,52 @@ def test_expert_ffn_backward_matches_jax_vjp():
                                    err_msg=name)
 
 
+def _written_out_backward(buf, gate, up, down, gbar):
+    """The expert FFN's backward written out in one function, as the JAX
+    package's ``_expert_ffn_bwd`` computes it: the activations recomputed
+    in float32, every product in float32, each leaf's gradient cast to its
+    dtype, the buffer's two terms added in float32 and cast once."""
+    f32 = torch.float32
+    gbar = gbar.to(f32)
+    d_h = torch.bmm(gbar, down.to(f32).transpose(1, 2))
+    u, g = tmoe._bmm(buf, up, f32), tmoe._bmm(buf, gate, f32)
+    sg = torch.sigmoid(g)
+    silu_g = g * sg
+    d_g = d_h * u * (sg + silu_g * (1.0 - sg))
+    d_buf = torch.bmm(d_g, gate.to(f32).transpose(1, 2))
+    bf = buf.to(f32).transpose(1, 2)
+    d_gate = torch.bmm(bf, d_g).to(gate.dtype)
+    d_down = torch.bmm((silu_g * u).transpose(1, 2), gbar).to(down.dtype)
+    d_u = d_h * silu_g
+    d_up = torch.bmm(bf, d_u).to(up.dtype)
+    d_buf = d_buf + torch.bmm(d_u, up.to(f32).transpose(1, 2))
+    return d_buf.to(buf.dtype), d_gate, d_up, d_down
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_chained_expert_backward_is_byte_equal_to_the_written_out_one(dtype):
+    """The expert FFN runs as three autograd functions (the gate and up
+    products, then down), so that autograd hands each expert leaf its
+    gradient on its own; their gradients of the buffer and of the three
+    leaves equal, bit for bit, the backward written out in one function,
+    in float32 and in bfloat16 (the buffer's two float32 terms meet in
+    float32 and are cast once)."""
+    rng = np.random.default_rng(5)
+    E, R, d, ff = 4, 16, 32, 24
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(dtype)
+
+    buf, gate, up, down, gbar = (t(E, R, d), t(E, d, ff, scale=0.2), t(E, d, ff, scale=0.2),
+                                 t(E, ff, d, scale=0.2), t(E, R, d))
+    xs = [x.clone().requires_grad_(True) for x in (buf, gate, up, down)]
+    got = torch.autograd.grad(tmoe.expert_ffn(*xs), xs, gbar)
+    want = _written_out_backward(buf, gate, up, down, gbar)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    for name, a, b in zip(("buf", "gate", "up", "down"), got, want):
+        assert a.dtype == dtype and torch.equal(a.view(bits), b.view(bits)), name
+
+
 def test_top_k_breaks_ties_toward_the_lower_index():
     """``jax.lax.top_k`` on rows full of ties, and on distinct values."""
     x = np.array([[0.25] * 4, [0.1, 0.4, 0.4, 0.1], [0.3, 0.1, 0.5, 0.1]], np.float32)

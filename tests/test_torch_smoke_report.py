@@ -400,6 +400,13 @@ if __name__ == "__main__":
     except cs.PhaseFailed as e:
         print("GRID MISCOUNT REFUSED", e)
     grid["train"]["by_axis"][1] = right
+    right = grid["llama4_train"]["by_axis"][2]
+    grid["llama4_train"]["by_axis"][2] = {"model": right["model"], "data": (1, 1)}
+    try:
+        cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card", grid)
+    except cs.PhaseFailed as e:
+        print("LLAMA4 STEP MISCOUNT REFUSED", e)
+    grid["llama4_train"]["by_axis"][2] = right
     out["qwen"]["prefill_all_reduce"][1] = (8, 0)
     try:
         cs.phase_dry_run(torch.device("cpu"), {"prefill_ms": 1e6}, out, "no card")
@@ -418,9 +425,12 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     flash route a counting plain version, the CUDA calls no-ops), then
     phase 9f over a (data 2, model 2) grid of four (its part (e): Llama4's
     period, the ranks drawing in turn, the routing pinned, the zeroed data
-    block caught), then phase 10 on their results: it passes, and refuses
-    a miscounted all-reduce (phase 9's and 9f's by axis) and a prefill
-    faster than its compute term."""
+    block caught; its part (f): one donated step of that period on (e)'s
+    draws, the one-process step's picks replayed, every leaf's gradient
+    blocks held to one process's but the planted skipped sum's, which is
+    caught), then phase 10 on their results: it passes, and refuses a
+    miscounted all-reduce (phase 9's and 9f's by axis, (d)'s and (f)'s
+    steps) and a prefill faster than its compute term."""
     driver = tmp_path / "rehearse_phase9.py"
     driver.write_text(_REHEARSAL)
     env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
@@ -434,8 +444,14 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
                  "phase 9fc Qwen3-MoE-235B-A22B:", "phase 9f d:",
                  "phase 9fe Llama4-Maverick-400B-A17B:", "phase 9f e:", "phase 9f flash_sm90 at",
                  "phase 10 grid:", "phase 10: card memory", "MISCOUNT REFUSED",
-                 "GRID MISCOUNT REFUSED", "TOO FAST REFUSED"):
+                 "GRID MISCOUNT REFUSED", "LLAMA4 STEP MISCOUNT REFUSED", "TOO FAST REFUSED",
+                 "phase 9f f:"):
         assert part in out
+    step = out.split("phase 9f f:", 1)[1].splitlines()[0]
+    assert "(2 picks replayed a rank)" in step and "fault skip_data_sum on ln_f/scale" in step
+    parts = json.loads(out.split("phase 9f parts s ", 1)[1].splitlines()[0])
+    assert list(parts)[-3:] == ["e", "f", "flash timings"]
+    assert "Llama4's donated step" in out.split("phase 10 grid:", 1)[1]
     assert "LAUNCHES [4, 4] [2, 2]" in out and "DRYRUN memory" in out
     assert "GRID LAUNCHES [4, 4, 4, 4] [2, 2, 2, 2] [2, 2, 2, 2]" in out
     assert "fault zero_data_block rel L2" in out.split("phase 9fe", 1)[1]
@@ -656,3 +672,51 @@ def test_kernels_line_counts_the_examples_launches():
         assert rows[name]["launches_by_path"]["3e"] == n
     assert rows["exact_fold_into_tree"]["launches"] == 41
     assert rows["flash_attention_forward_sm90"]["launches"] == 36 + 8 + 144 + 12 + 16
+
+
+def test_main_ends_with_the_card_and_result_lines(monkeypatch, capsys):
+    """``main`` with every phase stubbed (the ``kernels`` line's synthetic
+    results): its last line is the result ``{"ok": true, "device":
+    {"platform": "gpu", "kind": ..., "count": 1}}``, the line before it the
+    card's name and power limit, and before that the ``kernels`` line."""
+    agg = ["exact_fold_into_tree", "exact_fold_into", "exact_divide", "exact_fold",
+           "weighted_aggregate", "quantize_blocks", "dequantize_blocks"]
+    sm90 = "flash_attention_forward_sm90"
+    zero = {name: 0 for name in agg + [sm90, "flash_attention_forward_sm90_d256",
+                                       "flash_attention_forward"]}
+    plain = {"ms": 1.0, "plain_ms": 2.0, "bound": (0.5, "bytes"), "library_ms": 1.5,
+             "max_abs_err": 0.0}
+    run = {"launches": zero, "timings": {name: plain for name in agg}}
+    fam = {phase: {"launches": zero, "flash": [_flash_entry(0.2)]} for phase in
+           ("6h", "6x", "6s", "6g", "6f", "6v", "6k", "6j", "6l")}
+    serve = {"launches": zero, "flash": [_flash_entry(0.347)] * 3}
+    ranks = {"qwen": {"launches_per_rank": [4, 4]}, "moe": {"launches_per_rank": [2, 2]},
+             "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66)}}
+    grid = dict(ranks, llama4={"launches_per_rank": [2, 2]},
+                flash=dict(ranks["flash"], llama4=_flash_entry(0.23)))
+    smi = "NVIDIA H100 80GB HBM3, 700.00 W"
+    stubs = {"phase_environment": lambda: smi, "phase_examples": lambda dev: {"launches": {}},
+             "phase_serve": lambda dev: serve, "phase_serve_moe": lambda dev: serve,
+             "phase_train": lambda dev, smi: run, "phase_tensor_parallel": lambda dev, smi: ranks,
+             "phase_grid": lambda dev, smi, tpar: grid,
+             "phase_dry_run": lambda *a: {}, "free_device": lambda: None}
+    for name in ("phase_parity", "phase_small_jobs", "phase_small_topologies",
+                 "phase_small_policies", "phase_flash_parity"):
+        stubs[name] = lambda *a: None
+    for name in ("phase_full_width", "phase_full_width_topologies", "phase_full_width_policies",
+                 "phase_process_plane", "phase_fault_plane", "phase_codec_parity",
+                 "phase_codec_job"):
+        stubs[name] = lambda *a: run
+    for phase, name in SERVING_PHASES + [("6l", "phase_serve_llama4")]:
+        stubs[name] = lambda dev, phase=phase: fam[phase]
+    for name, fn in stubs.items():
+        monkeypatch.setattr(chip_smoke, name, fn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert chip_smoke.main() == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert json.loads(lines[-1]) == {"ok": True, "device": {
+        "platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}}
+    assert lines[-2] == f"card: {smi}"
+    assert {r["name"] for r in json.loads(lines[-3])["kernels"]} == set(zero)

@@ -285,8 +285,14 @@ def _port_rounds(cfg, mesh, init_params, init_state, batches, cross_pod_wire="f3
     out = []
     for i, batch in enumerate(batches):
         params, state, m = setup.step(params, state, batch, i)
-        out.append(({k: float(v) for k, v in m.items()}, params, state))
+        # a copy: a one-client step takes the parameters it is given over
+        out.append(({k: float(v) for k, v in m.items()}, _copied(params), state))
     return setup, out
+
+
+def _copied(tree):
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [x.clone() for x in leaves])
 
 
 def _assert_round(got_m, got_p, want_m, want_leaves, param_atol=PARAM_ATOL):

@@ -20,7 +20,19 @@ synchronize (median of 3, after a warm-up):
   blocks, moved to their place along dim 1;
 * ``gather_data``: the same gather through
   ``tensor_parallel.gather_data`` (one broadcast from each data rank),
-  each gather checked equal to the padded all-reduce's.
+  each gather checked equal to the padded all-reduce's;
+* ``grad_all_reduce``: the whole leaf's gradient summed over the data
+  group by one all-reduce and cut to the rank's block (the gather's
+  backward before the reduce);
+* ``grad_reduce``: the same sum as one ``dist.reduce`` of each data
+  block, to the block's owner, on the CUDA tensor;
+* ``grad_reduce_host``: the same reduces on a pinned host copy of each
+  block, copied back to the card by the owner;
+* ``grad_reduce_data``: the same sum through
+  ``tensor_parallel.data_block_grad`` (each block sent to its owner
+  through pinned host copies, the owner summing); each block checked
+  equal, bit for bit, to the all-reduce's (two terms: the order does not
+  matter).
 
 ``GB_per_s`` is the buffer's (the whole leaf's) bytes over the seconds.
 
@@ -109,7 +121,59 @@ def rates_rank(group, mb: int, chunks: list) -> dict:
     for name in ("all_gather", "gather_data"):
         if not torch.equal(got["padded"], got[name]):
             raise AssertionError(f"{name}'s leaf differs from the padded all-reduce's")
-    return {k: {"s": v, "GB_per_s": mb * (1 << 20) / v / 1e9} for k, v in out.items()}
+    out.update(_grad_sums(group, rows, dev))
+    return {k: {"s": v, "GB_per_s": mb * (1 << 20) / v / 1e9} if isinstance(v, float)
+            else {"error": v} for k, v in out.items()}
+
+
+def _grad_sums(group, rows: int, dev) -> dict:
+    """The ``grad_*`` modes: the gradient of a whole bf16 leaf (8, rows,
+    8192) on the rank's rows, summed over data into the rank's block along
+    dim 1. A mode that the backend refuses records its error instead of a
+    time."""
+    me, D = group.coords["data"], group.data_size
+    n = rows // D
+    pg = group.data_pg
+    owners = [dist.get_global_rank(pg, i) for i in range(D)]
+    gen = torch.Generator(device=dev).manual_seed(100 + group.client_rank)
+    whole = torch.randn((8, rows, 8192), generator=gen, device=dev).to(torch.bfloat16)
+    got, out = {}, {}
+
+    def all_reduce():
+        g = whole.clone()
+        dist.all_reduce(g, group=pg)
+        got["all_reduce"] = g.narrow(1, me * n, n).clone()
+
+    def reduce():
+        for i in range(D):
+            piece = whole.narrow(1, i * n, n).contiguous()
+            dist.reduce(piece, dst=owners[i], group=pg)
+            if i == me:
+                got["reduce"] = piece
+
+    def reduce_host():
+        for i in range(D):
+            piece = torch.empty((8, n, 8192), dtype=torch.bfloat16, pin_memory=True)
+            piece.copy_(whole.narrow(1, i * n, n))
+            dist.reduce(piece, dst=owners[i], group=pg)
+            if i == me:
+                got["reduce_host"] = piece.to(dev)
+
+    def reduce_data():
+        with tp.use_group(group), torch.no_grad():
+            got["reduce_data"] = tp.data_block_grad(whole.clone(), 1, group)
+
+    for name, fn in (("grad_all_reduce", all_reduce), ("grad_reduce", reduce),
+                     ("grad_reduce_host", reduce_host), ("grad_reduce_data", reduce_data)):
+        try:
+            out[name] = _timed(fn, dev)
+        except Exception as e:  # noqa: BLE001 - a refused mode is a result
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    for name in ("reduce", "reduce_host", "reduce_data"):
+        if name in got and not torch.equal(got["all_reduce"].view(torch.int16),
+                                           got[name].view(torch.int16)):
+            raise AssertionError(f"{name}'s block differs from the all-reduce's")
+    return out
 
 
 def main(argv=None) -> int:
