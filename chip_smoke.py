@@ -274,8 +274,20 @@ kernels line:
    blocks gathered whole) on both sides, the tokens equal; each rank's
    peak memory, all-reduces (count, bytes) per prefill and per decode
    step, and wall times (information only: both ranks share the card);
-   the tensor-core kernel at both ranks' attention shapes against the
-   plain version, SDPA and its bound;
+   (g) Hymba-1.5B (8 layers, its attention's 25 query heads whole on each
+   rank through the tensor-core flash kernel at H 25/5, D 64, window 2048)
+   and xLSTM-1.3B (8 layers: one period) at their published widths in
+   bf16, their recurrent blocks on their slices (the SSD on a slice of
+   every head's P, the sLSTM on a slice of d, each rank's state its block
+   of the cache), phase 9b's traffic against the one-process model on the
+   same draws (relative L2 within 5e-2; the float32 cuts, Hymba at 2
+   layers and xLSTM's period on prompts of 256, within 1e-4), greedy
+   tokens equal but at near-ties (xLSTM's on its float32 cut, equal), each
+   rank's leaves and bytes gathered per prefill and per decode step equal
+   to those reckoned from the sharding rules (no ``in_xz``, SSD ``out``,
+   sLSTM ``gates`` or ``out``, no recurrent state), the counters printed;
+   the tensor-core kernel at both ranks' attention shapes and Hymba's
+   against the plain version, SDPA and its bound;
 9f. the data axis as processes: four ranks on ``cuda:0`` as a (data 2,
    model 2) grid (``GroupPool(..., axes=...)``, gloo): (a) float32 and
    bf16 all-reduce sums over the data group and over the model group
@@ -307,7 +319,8 @@ kernels line:
    a device against phase 9's ranks' and the one-process tree's, and 9f's
    (Llama4's 9.28 GB a rank too);
    the counting group's all-reduces a prefill and a decode step against
-   phase 9b's and 9c's, and the counting grid's by axis against 9f's, rank
+   phase 9b's, 9c's and 9g's (and 9g's parameter bytes a rank), and the
+   counting grid's by axis against 9f's, rank
    by rank (a prefill, a decode step, a train step); the roofline of phase 6's prefill on the H100's
    datasheet figures, whose compute term the measured prefill may not
    beat (the terms, the dominant one and compute / measured printed);
@@ -414,7 +427,7 @@ from repro_torch.core import mesh_lowering  # noqa: E402
 from repro_torch.fl.privacy import DPConfig  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh as hw  # noqa: E402
-from repro_torch.models.api import param_shapes  # noqa: E402
+from repro_torch.models.api import cache_shapes, param_shapes  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit
@@ -4712,6 +4725,21 @@ TP_FAULT = "skip_wo_all_reduce"
 # a code one off from a float32 sum in another order stays inside it; at
 # most TP_CODE_SHARE of the codes may differ, by one
 TP_PODS, TP_DP, TP_CODE_SHARE = 2, dict(clip_norm=0.05, noise_multiplier=1e-3), 1e-4
+# (g): the recurrent blocks on their slices (the SSD on a slice of every
+# head's P, the sLSTM on a slice of d, each rank's state its block of the
+# cache): Hymba-1.5B (32 -> 8 layers; its 25 query heads do not split over
+# 2, so its attention runs whole on each rank through flash_sm90.cu at H
+# 25/5, D 64, window 2048) and xLSTM-1.3B (48 -> 8 layers: one period, 7
+# mLSTM blocks and 1 sLSTM) at their published widths in bf16, phase 9b's
+# traffic; the float32 cuts Hymba at 2 layers and xLSTM's period, on
+# prompts of TP_F32_PROMPT
+TP_HYMBA_LAYERS, TP_XLSTM_LAYERS, TP_F32_HYMBA_LAYERS = 8, 8, 2
+# xLSTM's random-weight stack of exponentially gated blocks amplifies
+# rounding: its bf16 split run flipped a greedy token at a margin of 0.054,
+# 2.8 x the row's RMS difference (on an H100). Its greedy tokens are held
+# on the float32 cut (equal, as 9f's with a float32 cut are); its bf16
+# flips are printed with their margins
+TP_CHAOTIC = {"xLSTM-1.3B"}
 
 
 @contextlib.contextmanager
@@ -4767,6 +4795,7 @@ def _tp_drive(prefill, serve_step, bundle, params, prompts, forced, steps: int,
     logits, cache = prefill(params, {"tokens": prompts}, cache)
     torch.cuda.synchronize(dev)
     out["prefill_s"] = time.perf_counter() - t0
+    out["prompt_len"] = S
     out["prefill_launches"] = _route_launches()
     out["prefill_bhsd"] = fkernel.flash_attention_bhsd.launches
     out["prefill_counters"] = group.counters() if group is not None else {}
@@ -5152,13 +5181,176 @@ def _tp_serving_checks(label: str, ref: dict, f32_ref: dict, res: list, f32_res:
     return info
 
 
+def _tp_recurrent_cfgs() -> tuple:
+    """(g)'s bf16 configurations: Hymba-1.5B and xLSTM-1.3B at their
+    published widths, cut in depth."""
+    hymba = dataclasses.replace(get_config("hymba_1_5b"), num_layers=TP_HYMBA_LAYERS,
+                                attn_impl="flash")
+    xlstm = dataclasses.replace(get_config("xlstm_1_3b"), num_layers=TP_XLSTM_LAYERS)
+    check((hymba.d_model, hymba.num_heads, hymba.num_kv_heads, hymba.head_dim, hymba.ssm_heads,
+           hymba.ssm_state, hymba.d_ff, hymba.sliding_window) == (1600, 25, 5, 64, 25, 16, 5504,
+                                                                  2048), "hymba_1_5b's widths")
+    check((xlstm.d_model, xlstm.ssm_heads, xlstm.ssm_state, xlstm.ssm_expand, xlstm.slstm_every,
+           xlstm.vocab_size) == (2048, 4, 256, 2, 8, 50304), "xlstm_1_3b's widths")
+    return hymba, xlstm
+
+
+def _tp_reckoned_gathers(cfg, B: int, max_len: int) -> dict:
+    """(leaves, bytes) a rank of phase 9's group gathers at use per prefill
+    and per decode step, reckoned from the sharding rules alone: every leaf
+    the rule cuts among the SSD's ``in_bc`` and ``in_dt`` (q, k and the
+    decays of every head) and attention's leaves that the group does not
+    split by heads (all four where the query heads do not divide the group,
+    as Hymba's 25; ``wk`` / ``wv`` where the KV heads do not), and per
+    decode step the K and V caches the rule cuts on the sequence (read
+    whole). No ``in_xz``, SSD ``out``, sLSTM ``gates`` or ``out``, and no
+    recurrent state: those are the rank's slices."""
+    mesh, m = _tp_mesh(), TP_RANKS
+    whole = {"in_bc", "in_dt"}
+    if cfg.num_heads % m:
+        whole |= {"wq", "wk", "wv", "wo"}
+    elif cfg.num_kv_heads % m:
+        whole |= {"wk", "wv"}
+    got = {"prefill": [0, 0], "step": [0, 0]}
+
+    def add(calls, x, ndim):
+        # a stacked leaf (scan_layers) leads with its layers: one gather each
+        layers = x.shape[0] if x.dim() > ndim else 1
+        for c in calls:
+            got[c][0] += layers
+            got[c][1] += x.numel() * x.element_size()
+
+    def leaf(path, x):
+        if path[-2] in whole and shd.is_sharded(shd.param_pspec(path, x, cfg, mesh), "model",
+                                                mesh):
+            add(("prefill", "step"), x, 2 if path[-1] == "w" else 1)
+
+    def cache_leaf(path, x):
+        spec = shd.cache_pspec(path, x, cfg, mesh)
+        if path[-1] in ("k", "v") and shd.split_dim(spec, "model", mesh) == x.dim() - 3:
+            add(("step",), x, 4)
+
+    shd.map_with_path(leaf, param_shapes(cfg))
+    shd.map_with_path(cache_leaf, cache_shapes(cfg, B, max_len))
+    return {k: tuple(v) for k, v in got.items()}
+
+
+def _tp_recurrent_checks(label: str, cfg, ref: dict, f32_ref: dict, res: list, f32_res: list,
+                         cfg32, smi: str) -> dict:
+    """The gates of (g) on one model's rank results: the bf16 and float32
+    logits against one process (9b's limits), each greedy token equal but
+    at near-ties (``_near_ties``), every rank's gathers per prefill and
+    per decode step equal to ``_tp_reckoned_gathers`` (none of the sliced
+    leaves or states), the flash launches a prefill (Hymba: one a layer on
+    flash_sm90.cu; xLSTM: none), and the counters printed."""
+    lines, rels, ties = [], {}, {}
+    for cut, want, got, c in (("bf16", ref, res, cfg), ("float32", f32_ref, f32_res, cfg32)):
+        main = [r["drives"][0] for r in got]
+        whole = _tp_whole(main)
+        check(whole.shape == want["logits"].shape, f"9g {label} {cut}: logits "
+              f"{tuple(whole.shape)} against {tuple(want['logits'].shape)}")
+        check(bool(torch.isfinite(whole).all()), f"9g {label} {cut}: non-finite split logits")
+        rels[cut] = _rel_l2(whole, want["logits"])
+        limit = SERVE_REL_L2 if cut == "bf16" else TP_F32_REL
+        lines.append(_tp_gate(f"{label} {cut} prefill + {TP_STEPS} steps", rels[cut], limit))
+        ties[cut] = _near_ties(whole, want["logits"])
+        chaotic = label in TP_CHAOTIC
+        for t in ties[cut]:
+            if chaotic:  # its float32 tokens equal, its bf16 ones printed
+                check(cut == "bf16", f"9g {label} float32: the greedy token at {t['at']} "
+                      f"differs from one process's (margin {t['margin']})")
+            else:
+                check(t["margin"] <= t["limit"], f"9g {label} {cut}: the greedy token at "
+                      f"{t['at']} differs from one process's by a margin of {t['margin']}, "
+                      f"above {NEAR_TIE} x the row's RMS difference ({t['limit']})")
+        B, S = want["logits"].shape[0], main[0]["prompt_len"]
+        reckoned = _tp_reckoned_gathers(c, B, S + TP_STEPS)
+        for r, d in enumerate(main):
+            seen = {k: (d[f"{k}_counters"]["gathered_leaves"],
+                        d[f"{k}_counters"]["gathered_bytes"]) for k in ("prefill", "step")}
+            check(seen == reckoned, f"9g {label} {cut} rank {r}: gathered (leaves, bytes) "
+                  f"{seen}, reckoned from the rules {reckoned}")
+        held = ("equal" if cut == "float32" and chaotic
+                else "not held (printed)" if chaotic else f"equal but near-ties (<= {NEAR_TIE} "
+                "x the row's RMS difference)")
+        lines.append(f"{cut} greedy tokens {tuple(whole.shape[:2])} {held}: "
+                     f"{len(ties[cut])} differ {json.dumps(ties[cut])}; gathers (leaves, bytes) "
+                     f"per prefill / decode step {reckoned['prefill']} / {reckoned['step']} as "
+                     f"reckoned")
+    main = [r["drives"][0] for r in res]
+    flash = cfg.attn_impl == "flash"
+    want_l = on_entry("flash_attention_forward_sm90", cfg.num_layers if flash else 0)
+    for r, d in enumerate(main):
+        check(d["prefill_launches"] == want_l and d["step_launches"] == 0,
+              f"9g {label} rank {r}: flash launches per prefill {d['prefill_launches']}, per "
+              f"decode step {d['step_launches']}; want {want_l}")
+    layers = cfg.num_layers
+    info = {"rel_l2": rels, "near_ties": ties, "launches_per_rank": [
+        sum(d["prefill_launches"].values()) + d["step_launches"] * TP_STEPS for d in main],
+        "param_bytes": [r["param_bytes"] for r in res], "ref_param_bytes": ref["param_bytes"],
+        "peak_gb": [r["peak_gb"] for r in res],
+        "prefill_all_reduce": [(d["prefill_counters"]["all_reduces"],
+                                d["prefill_counters"]["all_reduce_bytes"]) for d in main],
+        "step_all_reduce": [(d["step_counters"]["all_reduces"],
+                             d["step_counters"]["all_reduce_bytes"]) for d in main],
+        "counters": [{"prefill": d["prefill_counters"], "step": d["step_counters"]}
+                     for d in main],
+        "prefill_s": [d["prefill_s"] for d in main], "decode_ms": [d["decode_ms"] for d in main],
+        "ref_prefill_s": ref["prefill_s"], "ref_decode_ms": ref["decode_ms"]}
+    c0 = info["counters"][0]
+    per_layer = {k: {"gathered_mb": c0[k]["gathered_bytes"] / layers / 1e6,
+                     "moved_mb": c0[k]["all_reduce_bytes"] / layers / 1e6}
+                 for k in ("prefill", "step")}
+    info["per_layer_mb"] = per_layer
+    print(f"phase 9g {label}: " + "; ".join(lines)
+          + f"; {sum(want_l.values())} flash_sm90 launches a prefill per rank; per rank: counters "
+          f"per prefill {json.dumps(c0['prefill'])} per decode step {json.dumps(c0['step'])}; "
+          f"a layer's bytes (gathered, all-reduced with the gathers) per prefill "
+          f"{per_layer['prefill']['gathered_mb']:.4f} / {per_layer['prefill']['moved_mb']:.4f} "
+          f"MB, per decode step {per_layer['step']['gathered_mb']:.4f} / "
+          f"{per_layer['step']['moved_mb']:.4f} MB; param bytes {info['param_bytes']} of "
+          f"{ref['param_bytes']}; peak GB {[round(x, 2) for x in info['peak_gb']]}; wall (one "
+          f"card, both ranks: information only) prefill s "
+          f"{[round(x, 3) for x in info['prefill_s']]} vs one process {ref['prefill_s']:.3f}, "
+          f"decode ms a step {[round(x, 2) for x in info['decode_ms']]} vs "
+          f"{ref['decode_ms']:.2f} (card {smi})", flush=True)
+    return info
+
+
+def _tp_recurrent(pool, dev, smi: str) -> dict:
+    """(g): Hymba-1.5B and xLSTM-1.3B over the two ranks, their recurrent
+    blocks on their slices, against the one-process model on the same
+    draws, in bf16 and in float32 (``_tp_recurrent_checks``)."""
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    f32 = dict(param_dtype="float32", attn_impl="xla")
+    hymba, xlstm = _tp_recurrent_cfgs()
+    out = {}
+    for label, key, cfg, f32_layers, seed in (
+            ("Hymba-1.5B", "hymba", hymba, TP_F32_HYMBA_LAYERS, 12),
+            ("xLSTM-1.3B", "xlstm", xlstm, TP_XLSTM_LAYERS, 14)):
+        cfg32 = dataclasses.replace(cfg, num_layers=f32_layers, **f32)
+        ref = _tp_reference(dev, cfg, seed, B, S, TP_STEPS, record=False)
+        ref32 = _tp_reference(dev, cfg32, seed + 1, B, TP_F32_PROMPT, TP_STEPS, record=False)
+        res = pool.run(_tp_serve_rank, [(cfg, seed, B, S, TP_STEPS, [{"steps": TP_STEPS}], 0),
+                                        (cfg32, seed + 1, B, TP_F32_PROMPT, TP_STEPS,
+                                         [{"steps": TP_STEPS}], 0)])
+        out[key] = _tp_recurrent_checks(label, cfg, ref, ref32, [r.value[0] for r in res],
+                                        [r.value[1] for r in res], cfg32, smi)
+        del ref, ref32, res
+        free_device()
+    return out
+
+
 def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
     """(a) the communicator, (b) Qwen2.5-3B and (c) Qwen3-MoE-235B-A22B
     split over two ranks on the card against the one-process model on the
     same draws, (d) one fed-step round over (data 2, model 2) against the
-    one-process round over (data 2, model 1); the flash kernel at the
-    ranks' attention shapes."""
+    one-process round over (data 2, model 1), (e) that round with DP and
+    the int8 wire, (g) Hymba-1.5B and xLSTM-1.3B with their recurrent
+    blocks on their slices; the flash kernel at the ranks' attention
+    shapes."""
     B, S = SERVE_BATCH, SERVE_PROMPT
+    hymba, _ = _tp_recurrent_cfgs()
     qwen = dataclasses.replace(get_config("qwen2_5_3b"), num_layers=TP_QWEN_LAYERS,
                                attn_impl="flash")
     moe = dataclasses.replace(get_config("qwen3_moe_235b_a22b"), num_layers=TP_MOE_LAYERS,
@@ -5287,12 +5479,19 @@ def phase_tensor_parallel(dev: torch.device, smi: str) -> dict:
         # (e) DP and the int8 cross-pod wire at model 2
         out["whole_leaf"] = _tp_whole_leaf_round(pool, dev, cfg, batch, smi)
         part("9e")
+
+        # (g) the recurrent blocks on their slices
+        out.update(_tp_recurrent(pool, dev, smi))
+        part("9g")
     # the tensor-core kernel at the ranks' attention shapes
     out["flash"] = {
         "qwen": _flash_at(dev, B, S, qwen.num_heads // TP_RANKS,
                           qwen.num_kv_heads // TP_RANKS, 128, 0, torch.bfloat16, 91),
         "moe": _flash_at(dev, B, S, moe.num_heads // TP_RANKS,
-                         moe.num_kv_heads // TP_RANKS, 128, 0, torch.bfloat16, 92)}
+                         moe.num_kv_heads // TP_RANKS, 128, 0, torch.bfloat16, 92),
+        # (g): Hymba's 25 query heads do not split, each rank runs them all
+        "hymba": _flash_at(dev, B, S, hymba.num_heads, hymba.num_kv_heads, hymba.head_dim,
+                           hymba.sliding_window, torch.bfloat16, 93)}
     part("flash timings")
     out["parts_s"] = parts
     print(f"phase 9 parts s {json.dumps(parts)}", flush=True)
@@ -5558,16 +5757,6 @@ def _llama4_train_cfg():
                                attn_impl=get_config("llama4_maverick_400b_a17b").attn_impl)
 
 
-def _block_view(x: torch.Tensor, spec, mesh: Mesh, coords: dict) -> torch.Tensor:
-    """The block of ``x`` that the device at ``coords`` holds, as a view
-    (``sharding.shard`` cuts the same block as a copy)."""
-    idx = []
-    for d, e in zip(x.shape, spec):
-        n, i = shd.split_of(e, mesh, coords)
-        idx.append(slice(i * (d // n), (i + 1) * (d // n)))
-    return x[tuple(idx)]
-
-
 def _grad_stats(g: torch.Tensor, leaf: int, device: int) -> dict:
     """A gradient block's float32 sum of squares and ``GRID_GRAD_ROWS`` of
     its rows (along its last dim), drawn by a generator seeded by the leaf
@@ -5723,7 +5912,7 @@ def _llama4_step_reference(dev, params, batch: dict) -> dict:
     pin = _PinnedRouting()
 
     def cuts(j, g):
-        return [(d, _block_view(g, specs[j], mesh, c)) for d, c in enumerate(coords)]
+        return [(d, shd.block_view(g, specs[j], mesh, c)) for d, c in enumerate(coords)]
 
     with pin, _GradProbe(cuts) as probe:
         torch.cuda.synchronize(dev)
@@ -6275,11 +6464,12 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str,
     on the host, nothing on the card) against what phases 6 and 9 measured
     on it: the card-memory constant against the device's; the parameter
     bytes a device against phase 9's ranks' (Qwen2.5-3B at 4 layers, model
-    2) and the one-process tree's (model 1); the counting group's
-    all-reduces a prefill and a decode step against phase 9b's and 9c's, rank
-    by rank; and the roofline of phase 6's prefill (Qwen2.5-3B, 36 layers,
-    bf16, 8 x 2048) on the card's figures: the measured prefill may not be
-    faster than its compute term. With phase 9f's results (``grid``), the
+    2) and the one-process tree's (model 1), and 9g's ranks' (Hymba and
+    xLSTM); the counting group's all-reduces a prefill and a decode step
+    against phase 9b's, 9c's and 9g's, rank by rank; and the roofline of
+    phase 6's prefill (Qwen2.5-3B, 36 layers, bf16, 8 x 2048) on the card's
+    figures: the measured prefill may not be faster than its compute term.
+    With phase 9f's results (``grid``), the
     counting grid's (data 2, model 2) ranks too: each rank's all-reduces
     by axis a prefill, a decode step and an FSDP train step, and its
     parameter bytes, against what each rank of 9f measured."""
@@ -6300,8 +6490,8 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str,
           f"the dry run's parameter bytes a device {split} (model {TP_RANKS}) and {whole} (model "
           f"1); phase 9 measured {measured} and {tpar['qwen']['ref_param_bytes']}")
     counts = {}
-    for label, cfg, info in (("Qwen2.5-3B", qwen, tpar["qwen"]),
-                             ("Qwen3-MoE-235B-A22B", moe, tpar["moe"])):
+
+    def count(label, cfg, info):
         counts[label] = []
         for r in range(TP_RANKS):
             got = dryrun.count_collectives(dryrun.serve_counts, TP_RANKS, r, cfg, B, S)
@@ -6310,6 +6500,9 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str,
             check(got == want, f"{label} rank {r}: the counting group counts {got}, phase 9 "
                                f"measured {want}")
             counts[label].append(got)
+
+    count("Qwen2.5-3B", qwen, tpar["qwen"])
+    count("Qwen3-MoE-235B-A22B", moe, tpar["moe"])
     grid_counts = _dry_run_grid(qwen, moe, shape, grid) if grid is not None else None
     full = get_config("qwen2_5_3b")
     cost = dryrun.cost_pair(full, shape, one)
@@ -6317,10 +6510,21 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str,
     ms = serve["prefill_ms"]
     check(ms / 1e3 >= roof.compute_s, f"phase 6's prefill {ms} ms beats its compute term "
                                       f"{roof.compute_s * 1e3} ms")
+    # 9g's last (the counting group walks xLSTM's sLSTM loop step by step)
+    hymba, xlstm = _tp_recurrent_cfgs()
+    rec_bytes = {}
+    for label, cfg, info in (("Hymba-1.5B", hymba, tpar["hymba"]),
+                             ("xLSTM-1.3B", xlstm, tpar["xlstm"])):
+        rec_bytes[label] = dryrun.device_bytes(cfg, shape, _tp_mesh())["param_bytes"]
+        check(all(b == rec_bytes[label] for b in info["param_bytes"]),
+              f"{label}: the dry run's parameter bytes a device {rec_bytes[label]} (model "
+              f"{TP_RANKS}); 9g measured {info['param_bytes']}")
+        count(label, cfg, info)
     print(f"phase 10: card memory {total} bytes = launch.mesh.HBM_PER_CARD; parameter bytes a "
-          f"device {split} at model {TP_RANKS} (phase 9: {measured}) and {whole} at model 1; "
+          f"device {split} at model {TP_RANKS} (phase 9: {measured}) and {whole} at model 1, "
+          f"9g's {json.dumps(rec_bytes)} equal its ranks'; "
           f"all-reduces (count, bytes) a prefill / decode step by the counting group "
-          f"{json.dumps(counts)} equal phase 9b's and 9c's; phase 6's prefill (Qwen2.5-3B, "
+          f"{json.dumps(counts)} equal phase 9b's, 9c's and 9g's; phase 6's prefill (Qwen2.5-3B, "
           f"{full.num_layers} layers, bf16, {B} x {S}): {roof.hlo_flops:.6g} FLOPs, "
           f"{roof.hlo_bytes:.6g} bytes (eager, unfused), model FLOPs {roof.model_flops:.6g}; "
           f"compute term {roof.compute_s * 1e3:.3f} ms, memory term {roof.memory_s * 1e3:.3f} "
@@ -6329,7 +6533,7 @@ def phase_dry_run(dev: torch.device, serve: dict, tpar: dict, smi: str,
           f"{roof.compute_s * 1e3 / ms:.4f}, model FLOPs / (measured x peak) "
           f"{roof.model_flops / (ms / 1e3 * hw.PEAK_FLOPS_BF16):.4f} (card {smi})", flush=True)
     return {"roofline": roof.to_dict(), "prefill_ms": ms, "param_bytes": (split, whole),
-            "collectives": counts, "grid": grid_counts}
+            "recurrent_param_bytes": rec_bytes, "collectives": counts, "grid": grid_counts}
 
 
 def _dry_run_grid(qwen, moe, shape: ShapeConfig, grid: dict) -> dict:
@@ -6414,7 +6618,8 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
     and phase 8's training rounds for every kernel
     (none launches there: the stages are float32 sums and training runs the
     plain attention), phase 9's split serving, both ranks' launches
-    (the tensor-core flash kernel at each rank's heads), and phase 9f's
+    (the tensor-core flash kernel at each rank's heads; 9g's Hymba at its
+    25 heads on each rank), and phase 9f's
     grid serving, all four ranks' launches (each rank's rows and heads;
     (b), (c) and (e)'s Llama4 period)."""
     # the flash rows' numbers: the D 32/64/128 tensor-core kernel at phase
@@ -6469,8 +6674,8 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
         by_path["8"] = train["launches"][name]
         tp_ranks = [0] * TP_RANKS
         if name == "flash_attention_forward_sm90":
-            tp_ranks = [a + b for a, b in zip(tpar["qwen"]["launches_per_rank"],
-                                              tpar["moe"]["launches_per_rank"])]
+            tp_ranks = [sum(n) for n in zip(*(tpar[key]["launches_per_rank"]
+                                              for key in ("qwen", "moe", "hymba", "xlstm")))]
         by_path["9"] = sum(tp_ranks)
         grid_ranks = [0] * len(grid["qwen"]["launches_per_rank"])
         if name == "flash_attention_forward_sm90":
@@ -6491,6 +6696,7 @@ def kernels_line(full: dict, topo: dict, policies: dict, codec: dict, serve: dic
                 "phase9_launches_per_rank": tp_ranks,
                 "at_tp_qwen_rank_shape": _shape_entry(tpar["flash"]["qwen"]),
                 "at_tp_moe_rank_shape": _shape_entry(tpar["flash"]["moe"]),
+                "at_tp_hymba_rank_shape": _shape_entry(tpar["flash"]["hymba"]),
                 "phase9f_launches_per_rank": grid_ranks,
                 "at_grid_qwen_rank_shape": _shape_entry(grid["flash"]["qwen"]),
                 "at_grid_moe_rank_shape": _shape_entry(grid["flash"]["moe"]),

@@ -49,7 +49,10 @@ and the dry run counts what that rank holds and does.
    * Collective bytes: the rank's all-reduce bytes (the results' sizes, as
      the JAX module counts a collective), its data gathers' (whole leaves)
      and its gradient blocks' reduces to their owners (each block's bytes),
-     from the counting group.
+     from the counting group. The model code makes them, so the count
+     follows its layout: the recurrent blocks on their slices sum their
+     ``out`` over the group and gather only the SSD's ``in_bc`` and
+     ``in_dt`` whole (``models.blocks``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2_5_3b --shape prefill_32k

@@ -20,6 +20,18 @@ the port's ``Mesh`` of named sizes. ``shard`` cuts one device's block out
 of a leaf and ``unshard`` puts the blocks of every device back together;
 ``launch.tensor_parallel`` runs a model on the blocks of the ``model``
 axis, one process per block.
+
+The recurrent sub-blocks compute on slices of their value columns
+(``recurrent_split``): the SSD on a slice of every head's P, the sLSTM on a
+slice of d. Three leaves whose ``model`` block by the rule is a contiguous
+run of columns (rows) are cut there instead into that slice of each group
+of the dim: the SSD's ``in_xz`` (its 2H groups of P columns: the value
+path's heads, then the gate's) and ``out`` (its H groups of P rows), and
+the sLSTM's ``gates`` (its four groups of d columns: i, f, z, o). Their
+spec entry is ``InGroups("model", groups)``, a string equal to
+``"model"``: the spec is the JAX package's, the block has the rule's size,
+and ``block_view`` (under ``shard``, ``unshard`` and every cut of a whole
+leaf) maps it to its positions in the whole leaf.
 """
 from __future__ import annotations
 
@@ -39,6 +51,58 @@ Spec = Tuple[Any, ...]
 _COL_PARENTS = {"wq", "wk", "wv", "in_xz", "in_bc", "in_dt", "gates", "gate", "up"}
 # parents whose "w" shards the INPUT dim on model (row parallel)
 _ROW_PARENTS = {"wo", "out", "down"}
+
+
+class InGroups(str):
+    """A spec entry that splits its dim over an axis in ``groups`` equal
+    runs, each cut alike: the dim read as (groups, n), a device's block is
+    its block of n in every group. It equals the axis's name."""
+
+    groups: int
+
+    def __new__(cls, axis: str, groups: int):
+        self = super().__new__(cls, axis)
+        self.groups = groups
+        return self
+
+    def __reduce__(self):
+        return InGroups, (str(self), self.groups)
+
+    def __repr__(self) -> str:
+        return f"InGroups({str(self)!r}, {self.groups})"
+
+
+def recurrent_split(cfg: ModelConfig, kind: str, m: int) -> bool:
+    """Whether a ``model`` axis of ``m`` splits the recurrent sub-block
+    ``kind`` (``"ssd"``: every head's P value columns; ``"slstm"``: its d)
+    into a slice a rank: where m > 1 divides that width. Then its leaves
+    are cut in groups (``InGroups``) and its state on that dim; else the
+    sub-block computes replicated."""
+    if kind == "ssd":
+        d_i, H, _ = cfg.ssd_dims
+        width = d_i // H
+    else:
+        width = cfg.d_model
+    return m > 1 and width % m == 0
+
+
+def _in_groups(names: Tuple[str, ...], spec: Spec, cfg: ModelConfig, mesh: Mesh) -> Spec:
+    """``spec`` with the ``model`` entry of a recurrent leaf cut in groups
+    (``InGroups``) where ``recurrent_split`` splits its sub-block."""
+    parent, owner = names[-2], names[-3] if len(names) >= 3 else ""
+    m = mesh.shape.get("model", 1)
+    _, H, _ = cfg.ssd_dims
+    if owner == "ssd" and parent in ("in_xz", "out"):
+        dim, groups, kind = (-1, 2 * H, "ssd") if parent == "in_xz" else (-2, H, "ssd")
+    elif parent == "gates":
+        dim, groups, kind = -1, 4, "slstm"
+    else:
+        return spec
+    if spec[dim] != "model" or not recurrent_split(cfg, kind, m):
+        return spec
+    out = list(spec)
+    out[dim] = InGroups("model", groups)
+    return tuple(out)
 
 
 def _names(path: Sequence[Any]) -> Tuple[str, ...]:
@@ -83,9 +147,9 @@ def param_pspec(path, leaf, cfg: ModelConfig, mesh: Mesh) -> Spec:
         if parent == "router":
             return _guard((None, None), shape, mesh)
         if parent in _COL_PARENTS:
-            return _guard((fsdp, "model"), shape, mesh)
+            return _in_groups(names, _guard((fsdp, "model"), shape, mesh), cfg, mesh)
         if parent in _ROW_PARENTS:
-            return _guard(("model", fsdp), shape, mesh)
+            return _in_groups(names, _guard(("model", fsdp), shape, mesh), cfg, mesh)
         return _guard((None, None), shape, mesh)
     if last == "b":
         if parent in _COL_PARENTS:
@@ -193,13 +257,27 @@ def shard_shape(shape: Sequence[int], spec: Spec, mesh: Mesh) -> Tuple[int, ...]
     return tuple(d // split_of(e, mesh, {})[0] for d, e in zip(shape, spec))
 
 
-def _block(shape: Sequence[int], spec: Spec, mesh: Mesh, coords: Dict[str, int]):
-    out = []
-    for d, e in zip(shape, spec):
+def block_view(x, spec: Spec, mesh: Mesh, coords: Dict[str, int]):
+    """The block of ``x`` (a tensor or numpy array) that the device at
+    ``coords`` holds, as a view of ``x``: each dim its slice, a dim cut in
+    groups (``InGroups``) read as (groups, n) and sliced on n, left as
+    those two dims. This is the one map from a block to its positions in
+    the whole leaf."""
+    idx = []
+    for d, e in zip(x.shape, spec):
         n, i = split_of(e, mesh, coords)
         b = d // n
-        out.append(slice(i * b, (i + 1) * b))
-    return tuple(out)
+        idx.append(slice(None) if isinstance(e, InGroups) else slice(i * b, (i + 1) * b))
+    x = x[tuple(idx)]
+    # from the last dim, so that each split leaves the earlier dims in place
+    for k in reversed(range(len(spec))):
+        if isinstance(spec[k], InGroups):
+            n, i = split_of(spec[k], mesh, coords)
+            g = spec[k].groups
+            b = x.shape[k] // g // n
+            x = x.reshape(tuple(x.shape[:k]) + (g, x.shape[k] // g) + tuple(x.shape[k + 1:]))
+            x = x[(slice(None),) * (k + 1) + (slice(i * b, (i + 1) * b),)]
+    return x
 
 
 def shard(leaf, spec: Spec, mesh: Mesh, coords: Dict[str, int]):
@@ -210,8 +288,11 @@ def shard(leaf, spec: Spec, mesh: Mesh, coords: Dict[str, int]):
         raise ValueError(f"spec {spec} does not fit a leaf of shape {tuple(leaf.shape)}")
     if all(e is None for e in spec):
         return leaf
-    piece = leaf[_block(leaf.shape, spec, mesh, coords)]
-    return piece.clone() if isinstance(piece, torch.Tensor) else np.array(piece, copy=True)
+    piece = block_view(leaf, spec, mesh, coords)
+    shape = shard_shape(leaf.shape, spec, mesh)
+    if isinstance(piece, torch.Tensor):
+        return piece.clone(memory_format=torch.contiguous_format).reshape(shape)
+    return np.array(piece, copy=True, order="C").reshape(shape)
 
 
 def unshard(pieces: Sequence[Any], spec: Spec, mesh: Mesh):
@@ -230,14 +311,16 @@ def unshard(pieces: Sequence[Any], spec: Spec, mesh: Mesh):
         full = np.empty(shape, dtype=first.dtype)
         seen = np.zeros(shape, dtype=bool)
     for c, piece in zip(coords, pieces):
-        blk = _block(shape, spec, mesh, c)
-        if bool(seen[blk].any()):
-            same = (torch.equal(full[blk], piece) if isinstance(piece, torch.Tensor)
-                    else np.array_equal(full[blk].view(np.uint8), np.asarray(piece).view(np.uint8)))
+        blk, hit = block_view(full, spec, mesh, c), block_view(seen, spec, mesh, c)
+        piece = piece.reshape(blk.shape)
+        if bool(hit.any()):
+            same = (torch.equal(blk, piece) if isinstance(piece, torch.Tensor)
+                    else np.array_equal(np.ascontiguousarray(blk).view(np.uint8),
+                                        np.ascontiguousarray(piece).view(np.uint8)))
             if not same:
                 raise ValueError(f"replicated blocks of a leaf with spec {spec} differ")
-        full[blk] = piece
-        seen[blk] = True
+        blk[...] = piece
+        hit[...] = True
     return full
 
 

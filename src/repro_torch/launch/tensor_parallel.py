@@ -365,21 +365,12 @@ def gather_at_use(x: torch.Tensor, dim: int, full: int) -> torch.Tensor:
 def gather_block(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) concatenated along ``dim``, in rank
     order (no autograd; counted as a gather): a leaf's whole from blocks
-    that a computation produced, such as a recurrent state's."""
+    that a computation produced, such as a KV cache cut on the sequence."""
     group = current_group()
     if group is None:
         return x
     with torch.no_grad():
         return _GatherAtUse.apply(x.detach(), dim, group)
-
-
-def block_of(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """This rank's block of a replicated ``x`` along ``dim``."""
-    group = current_group()
-    if group is None:
-        return x
-    n = x.shape[dim] // group.size
-    return x.narrow(dim, group.rank * n, n)
 
 
 def gather_columns(x: torch.Tensor, offset: int, width: int,

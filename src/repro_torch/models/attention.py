@@ -26,7 +26,11 @@ the whole leaves (gathered at use where the rule cut them into part-heads)
 and the heads sliced out; where its query heads straddle KV heads (12
 query and 3 KV heads at 2 ranks), each query head gets its KV head, so the
 rank attends as MHA. Where the group does not divide the query heads
-(Hymba's 25), attention computes replicated on whole, gathered leaves. A KV
+(Hymba's 25), attention computes replicated on whole, gathered leaves: at
+Hymba's published widths it is the one part of the layer that does (its
+SSD runs on the rank's slice of every head's P, its MLP on its blocks,
+``models.blocks``), and each decode step reads its K/V cache, cut on the
+sequence (5 KV heads), whole. A KV
 cache is stored by ``launch.sharding.cache_pspec``: its block of heads
 where the KV heads divide the group, else its block of the sequence
 (written by position, read whole through a gather) or whole.

@@ -32,8 +32,15 @@ attention caches.
 
 Under a model group (``launch.tensor_parallel``) attention splits by heads
 (``models.attention``), the MLP and the MoE experts by their blocks, and
-the recurrent sub-blocks (SSD, sLSTM) compute replicated on their leaves
-and states gathered at use, each rank storing back its block of the state.
+the recurrent sub-blocks by their value columns where the group divides
+them (``launch.sharding.recurrent_split``): the SSD on the rank's slice of
+every head's P (v, z, the state's P and ``out``'s rows; q, k and the
+decays whole), the sLSTM on its slice of d (each gate's columns, the
+``c``/``n``/``m`` state and ``out``'s rows), each finished by ``out``
+row-parallel, its partial sums added over the group. The state is the
+rank's block of the cache, read and written in place: it is never whole.
+Where the group does not divide them, the sub-block computes replicated on
+its leaves gathered at use (its state then is whole on every rank).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.launch import sharding as shd
 from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -178,16 +186,10 @@ def _attn_core_decode(
 # ===================================================================== #
 # SSD (Mamba-2) sub-block: hymba's parallel SSM path and the mlstm block
 # ===================================================================== #
-def _ssd_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
-    d_i = cfg.d_model * cfg.ssm_expand
-    H = cfg.ssm_heads or max(1, d_i // 64)
-    return d_i, H, cfg.ssm_state
-
-
 def ssd_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
              keep: Callable = keep_whole) -> Tree:
     d = cfg.d_model
-    d_i, H, N = _ssd_dims(cfg)
+    d_i, H, N = cfg.ssd_dims
     dev = gen.device
     return {
         "in_xz": keep(("in_xz",), dense_init(gen, d, 2 * d_i, dtype)),  # value path + gate z
@@ -201,75 +203,92 @@ def ssd_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 
 def ssd_state_init(cfg: ModelConfig, batch: int, device: torch.device) -> Tree:
-    d_i, H, N = _ssd_dims(cfg)
+    d_i, H, N = cfg.ssd_dims
     return {"state": torch.zeros((batch, H, N, d_i // H), dtype=torch.float32, device=device)}
 
 
+def _split(cfg: ModelConfig, kind: str) -> bool:
+    """Whether the running group splits the recurrent sub-block ``kind``
+    into its slices (``sharding.recurrent_split``): each rank then holds
+    its blocks of the leaves cut in groups and of the state, and computes
+    its slice; else the sub-block computes replicated."""
+    group = tp.current_group()
+    return group is not None and shd.recurrent_split(cfg, kind, group.size)
+
+
+def _ssd_weights(p: Tree, cfg: ModelConfig, split: bool) -> Tree:
+    """The SSD leaves as the rank computes with them. Split: its own blocks
+    of ``in_xz`` (its slice of every head's value and gate columns) and
+    ``out`` (the same rows); ``in_bc`` and ``in_dt`` whole (gathered at use
+    where the rule cut them), they, ``a_log`` and ``d_skip`` entering the
+    split computation through ``copy_to_group`` (each rank's gradient of
+    them is its slice's share: summed over the group). Not split: every
+    leaf whole (gathered at use where the rule cut it)."""
+    d_i, H, N = cfg.ssd_dims
+    small = {"in_bc": {"w": tp.gather_at_use(p["in_bc"]["w"], 1, 2 * H * N)},
+             "in_dt": {"w": tp.gather_at_use(p["in_dt"]["w"], 1, H)}}
+    if not split:
+        return dict(p, **small, in_xz={"w": tp.gather_at_use(p["in_xz"]["w"], 1, 2 * d_i)},
+                    out={"w": tp.gather_at_use(p["out"]["w"], 0, d_i)})
+    small = {name: {"w": tp.copy_to_group(leaf["w"])} for name, leaf in small.items()}
+    return dict(p, **small, a_log=tp.copy_to_group(p["a_log"]),
+                d_skip=tp.copy_to_group(p["d_skip"]))
+
+
 def _ssd_project(p: Tree, h: torch.Tensor, cfg: ModelConfig):
+    """The projections of h: v and z of the leaves' value columns (the
+    rank's slice where ``in_xz`` is its block), q, k and the decays of
+    every head."""
     B, S, _ = h.shape
-    d_i, H, N = _ssd_dims(cfg)
-    xv, z = torch.chunk(dense_apply(p["in_xz"], h), 2, dim=-1)  # (B, S, d_i) each
+    d_i, H, N = cfg.ssd_dims
+    xv, z = torch.chunk(dense_apply(p["in_xz"], h), 2, dim=-1)  # (B, S, H * P) each
     # (B, S, H, 2N) before the split: k and q interleave per head
     kk, qq = torch.chunk(dense_apply(p["in_bc"], h).reshape(B, S, H, 2 * N), 2, dim=-1)
     dt = softplus(dense_apply(p["in_dt"], h).to(torch.float32))  # (B, S, H) > 0
     a = -torch.exp(p["a_log"])  # (H,) < 0
     log_decay = a * dt  # (B, S, H) < 0
-    v = xv.reshape(B, S, H, d_i // H)
+    v = xv.reshape(B, S, H, -1)
     return qq, kk, v, log_decay, dt, z, xv
 
 
-def _ssd_output(p: Tree, y: torch.Tensor, xv: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The skip term and the gate on y (..., H, P), in y's dtype."""
+def _ssd_output(p: Tree, y: torch.Tensor, xv: torch.Tensor, z: torch.Tensor,
+                split: bool) -> torch.Tensor:
+    """The skip term and the gate on y (..., H, P), in y's dtype, then
+    ``out`` (row-parallel where split: the ranks' partial sums added)."""
     H, P = y.shape[-2:]
     y = y + xv.reshape(y.shape) * p["d_skip"][:, None].to(y.dtype)
     y = y.reshape(*y.shape[:-2], H * P) * torch.nn.functional.silu(z.to(torch.float32)).to(y.dtype)
-    return dense_apply(p["out"], y)
+    y = dense_apply(p["out"], y)
+    return tp.reduce_from_group(y) if split else y
 
 
-def _ssd_whole(p: Tree, cfg: ModelConfig) -> Tree:
-    """The SSD leaves whole: under a model group the sub-block computes
-    replicated, on its leaves gathered at use where the rule cut them."""
-    d_i, H, N = _ssd_dims(cfg)
-    cols = {"in_xz": 2 * d_i, "in_bc": 2 * H * N, "in_dt": H}
-    out = {name: {"w": tp.gather_at_use(p[name]["w"], 1, n)} for name, n in cols.items()}
-    out["out"] = {"w": tp.gather_at_use(p["out"]["w"], 0, d_i)}
-    return dict(p, **out)
-
-
-def _state_whole(state: torch.Tensor, full: int) -> torch.Tensor:
-    """A recurrent state whole along its last dim (the rank's block of it
-    gathered where the cache rule cut it)."""
-    return tp.gather_block(state, -1) if tp.is_block(state.shape[-1], full) else state
-
-
-def _state_store(leaf: torch.Tensor, value: torch.Tensor) -> None:
-    """Store the whole ``value`` into the rank's ``leaf`` (its block of the
-    last dim where the cache rule cut it)."""
-    leaf.copy_(tp.block_of(value, -1) if leaf.shape[-1] != value.shape[-1] else value)
+def _ssd_enter(p: Tree, h: torch.Tensor, cfg: ModelConfig):
+    """(split, the leaves as the rank computes with them, the projections
+    of h): a split sub-block takes h through ``copy_to_group``."""
+    split = _split(cfg, "ssd")
+    p = _ssd_weights(p, cfg, split)
+    return split, p, _ssd_project(p, tp.copy_to_group(h) if split else h, cfg)
 
 
 def ssd_apply_full(p: Tree, h: torch.Tensor, cache: Optional[Tree],
                    cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[Tree]]:
-    p = _ssd_whole(p, cfg)
-    qq, kk, v, log_decay, dt, z, xv = _ssd_project(p, h, cfg)
-    init = _state_whole(cache["state"], v.shape[-1]) if cache is not None else None
+    split, p, (qq, kk, v, log_decay, dt, z, xv) = _ssd_enter(p, h, cfg)
+    init = cache["state"] if cache is not None else None
     y, final = ssd_chunked(qq, kk, v, log_decay, dt, chunk=cfg.ssd_chunk, initial_state=init)
-    out = _ssd_output(p, y, xv, z)
+    out = _ssd_output(p, y, xv, z, split)
     if cache is None:
         return out, None
-    _state_store(cache["state"], final)
+    cache["state"].copy_(final)
     return out, {"state": cache["state"]}
 
 
 def ssd_apply_decode(p: Tree, h: torch.Tensor, cache: Tree,
                      cfg: ModelConfig) -> Tuple[torch.Tensor, Tree]:
-    p = _ssd_whole(p, cfg)
-    qq, kk, v, log_decay, dt, z, xv = _ssd_project(p, h, cfg)
-    y, new_state = ssd_decode_step(
-        _state_whole(cache["state"], v.shape[-1]), qq[:, 0], kk[:, 0], v[:, 0],
-        log_decay[:, 0], dt[:, 0])
-    out = _ssd_output(p, y[:, None], xv, z)
-    _state_store(cache["state"], new_state)
+    split, p, (qq, kk, v, log_decay, dt, z, xv) = _ssd_enter(p, h, cfg)
+    y, new_state = ssd_decode_step(cache["state"], qq[:, 0], kk[:, 0], v[:, 0],
+                                   log_decay[:, 0], dt[:, 0])
+    out = _ssd_output(p, y[:, None], xv, z, split)
+    cache["state"].copy_(new_state)
     return out, {"state": cache["state"]}
 
 
@@ -400,19 +419,26 @@ def block_apply(
         return x + s, new_cache, aux
 
     if kind == "slstm":
-        # replicated under a model group, on leaves gathered at use
+        # split: the rank's slice of d (its block of each gate's columns,
+        # of the state and of out's rows), out's partial sums added; else
+        # replicated, on leaves gathered at use
         d = cfg.d_model
-        gates = {"w": tp.gather_at_use(p["gates"]["w"], 1, 4 * d)}
+        split = _split(cfg, "slstm")
         h = rmsnorm_apply(p["ln1"], x, cfg.norm_eps)
+        if split:
+            gates, out, h = p["gates"], p["out"], tp.copy_to_group(h)
+        else:
+            gates = {"w": tp.gather_at_use(p["gates"]["w"], 1, 4 * d)}
+            out = {"w": tp.gather_at_use(p["out"]["w"], 0, d)}
         i_g, f_g, z_g, o_g = torch.chunk(dense_apply(gates, h), 4, dim=-1)
-        init = tuple(_state_whole(cache[n], d) for n in ("c", "n", "m")) if cache else None
+        init = (cache["c"], cache["n"], cache["m"]) if cache else None
         hs, carry = slstm_scan(i_g, f_g, z_g, o_g, initial=init)
         if cache is not None:
             for name, value in zip(("c", "n", "m"), carry):
-                _state_store(cache[name], value)
+                cache[name].copy_(value)
             new_cache = {"c": cache["c"], "n": cache["n"], "m": cache["m"]}
-        out = {"w": tp.gather_at_use(p["out"]["w"], 0, d)}
-        return x + dense_apply(out, hs), new_cache, aux
+        y = dense_apply(out, hs)
+        return x + (tp.reduce_from_group(y) if split else y), new_cache, aux
 
     raise ValueError(f"unknown block kind {kind!r}")
 

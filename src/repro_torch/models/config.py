@@ -116,6 +116,13 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim
 
     @property
+    def ssd_dims(self) -> Tuple[int, int, int]:
+        """The SSD sub-block's inner width, heads and state size (d_i, H,
+        N); each head's value columns are P = d_i // H."""
+        d_i = self.d_model * self.ssm_expand
+        return d_i, self.ssm_heads or max(1, d_i // 64), self.ssm_state
+
+    @property
     def layer_period(self) -> int:
         """Smallest repeating unit of the layer stack (for cost extraction)."""
         period = 1

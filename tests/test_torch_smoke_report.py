@@ -358,6 +358,12 @@ def tiny(arch):
     cfg = real_get(arch)
     if arch == "qwen2_5_3b":
         return dataclasses.replace(cfg, d_model=64, d_ff=256, vocab_size=1000)
+    if arch == "hymba_1_5b":  # 25/5 heads of 64 and 25 SSD heads as published; the
+        # window no longer than the prompt, as on the card (2048 of 2048)
+        return dataclasses.replace(cfg, d_model=100, d_ff=128, vocab_size=1000,
+                                   sliding_window=32)
+    if arch == "xlstm_1_3b":  # the published state (N 256) on d 64, a period of 2
+        return dataclasses.replace(cfg, d_model=64, vocab_size=1000, slstm_every=2)
     return dataclasses.replace(cfg, d_model=64, moe_d_ff=32, vocab_size=1000)
 
 cs.get_config = tiny
@@ -379,13 +385,15 @@ plain_sm90.__name__ = "flash_forward_sm90"
 fk.ROUTES["flash_forward_sm90"] = plain_sm90
 fk.KERNELS = (fk.flash_attention_bhsd, fk.flash_forward, plain_sm90, fk.flash_forward_sm90_d256)
 cs.SERVE_BATCH, cs.SERVE_PROMPT, cs.TP_F32_PROMPT, cs.TRAIN_SEQ = 2, 64, 32, 32
+cs.TP_HYMBA_LAYERS, cs.TP_XLSTM_LAYERS, cs.TP_F32_HYMBA_LAYERS = 2, 2, 1
 
 if __name__ == "__main__":
     import types
     from repro_torch.launch import mesh as hw
 
     out = cs.phase_tensor_parallel(torch.device("cpu"), "no card")
-    print("LAUNCHES", out["qwen"]["launches_per_rank"], out["moe"]["launches_per_rank"])
+    print("LAUNCHES", out["qwen"]["launches_per_rank"], out["moe"]["launches_per_rank"],
+          out["hymba"]["launches_per_rank"], out["xlstm"]["launches_per_rank"])
     grid = cs.phase_grid(torch.device("cpu"), "no card", out)
     print("GRID LAUNCHES", grid["qwen"]["launches_per_rank"], grid["moe"]["launches_per_rank"],
           grid["llama4"]["launches_per_rank"])
@@ -422,7 +430,9 @@ if __name__ == "__main__":
 
 def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
     """The whole phase, every gate, over two gloo ranks on the CPU (the
-    flash route a counting plain version, the CUDA calls no-ops), then
+    flash route a counting plain version, the CUDA calls no-ops; its part
+    (g): Hymba at 2 layers and an xLSTM period of 2, tiny, on their
+    slices, their gathers as reckoned), then
     phase 9f over a (data 2, model 2) grid of four (its part (e): Llama4's
     period, the ranks drawing in turn, the routing pinned, the zeroed data
     block caught; its part (f): one donated step of that period on (e)'s
@@ -445,14 +455,16 @@ def test_phase9_runs_on_cpu_ranks_at_tiny_widths(tmp_path):
                  "phase 9fe Llama4-Maverick-400B-A17B:", "phase 9f e:", "phase 9f flash_sm90 at",
                  "phase 10 grid:", "phase 10: card memory", "MISCOUNT REFUSED",
                  "GRID MISCOUNT REFUSED", "LLAMA4 STEP MISCOUNT REFUSED", "TOO FAST REFUSED",
-                 "phase 9f f:"):
+                 "phase 9f f:", "phase 9g Hymba-1.5B:", "phase 9g xLSTM-1.3B:"):
         assert part in out
     step = out.split("phase 9f f:", 1)[1].splitlines()[0]
     assert "(2 picks replayed a rank)" in step and "fault skip_data_sum on ln_f/scale" in step
     parts = json.loads(out.split("phase 9f parts s ", 1)[1].splitlines()[0])
     assert list(parts)[-3:] == ["e", "f", "flash timings"]
     assert "Llama4's donated step" in out.split("phase 10 grid:", 1)[1]
-    assert "LAUNCHES [4, 4] [2, 2]" in out and "DRYRUN memory" in out
+    assert "LAUNCHES [4, 4] [2, 2] [2, 2] [0, 0]" in out and "DRYRUN memory" in out
+    assert list(json.loads(out.split("phase 9 parts s ", 1)[1].splitlines()[0]))[-2:] == [
+        "9g", "flash timings"]
     assert "GRID LAUNCHES [4, 4, 4, 4] [2, 2, 2, 2] [2, 2, 2, 2]" in out
     assert "fault zero_data_block rel L2" in out.split("phase 9fe", 1)[1]
 
@@ -636,7 +648,9 @@ def _kernels_line(examples_launches: dict) -> dict:
     serve = {"launches": dict(zero, **{sm90: 36}), "flash": [_flash_entry(0.347)] * 3}
     moe = {"launches": dict(zero, **{sm90: 8}), "flash": [_flash_entry(1.295)]}
     ranks = {"qwen": {"launches_per_rank": [4, 4]}, "moe": {"launches_per_rank": [2, 2]},
-             "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66)}}
+             "hymba": {"launches_per_rank": [8, 8]}, "xlstm": {"launches_per_rank": [0, 0]},
+             "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66),
+                       "hymba": _flash_entry(0.41)}}
     grid = dict(ranks, llama4={"launches_per_rank": [2, 2]},
                 flash=dict(ranks["flash"], llama4=_flash_entry(0.23)))
     return json.loads(chip_smoke.kernels_line(run, run, run, run, serve, moe, run, run, run,
@@ -660,6 +674,8 @@ def test_kernels_line_has_the_four_shapes_and_their_launches():
     assert row["at_moe_shape"]["ms"] == 1.295
     assert row["at_grid_llama4_rank_shape"]["ms"] == 0.23
     assert row["launches_by_path"]["9f"] == 2 * (4 + 2 + 2)  # (b), (c) and (e) a rank
+    assert row["launches_by_path"]["9"] == 2 * (4 + 2 + 8)  # (b), (c) and 9g's Hymba a rank
+    assert row["at_tp_hymba_rank_shape"]["ms"] == 0.41
 
 
 def test_kernels_line_counts_the_examples_launches():
@@ -671,7 +687,7 @@ def test_kernels_line_counts_the_examples_launches():
                     ("quantize_blocks", 0), ("flash_attention_forward_sm90", 0)):
         assert rows[name]["launches_by_path"]["3e"] == n
     assert rows["exact_fold_into_tree"]["launches"] == 41
-    assert rows["flash_attention_forward_sm90"]["launches"] == 36 + 8 + 144 + 12 + 16
+    assert rows["flash_attention_forward_sm90"]["launches"] == 36 + 8 + 144 + 12 + 16 + 16
 
 
 def test_main_ends_with_the_card_and_result_lines(monkeypatch, capsys):
@@ -691,7 +707,9 @@ def test_main_ends_with_the_card_and_result_lines(monkeypatch, capsys):
            ("6h", "6x", "6s", "6g", "6f", "6v", "6k", "6j", "6l")}
     serve = {"launches": zero, "flash": [_flash_entry(0.347)] * 3}
     ranks = {"qwen": {"launches_per_rank": [4, 4]}, "moe": {"launches_per_rank": [2, 2]},
-             "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66)}}
+             "hymba": {"launches_per_rank": [8, 8]}, "xlstm": {"launches_per_rank": [0, 0]},
+             "flash": {"qwen": _flash_entry(0.18), "moe": _flash_entry(0.66),
+                       "hymba": _flash_entry(0.41)}}
     grid = dict(ranks, llama4={"launches_per_rank": [2, 2]},
                 flash=dict(ranks["flash"], llama4=_flash_entry(0.23)))
     smi = "NVIDIA H100 80GB HBM3, 700.00 W"
